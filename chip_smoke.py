@@ -6,19 +6,36 @@
 Phases, each of which fails the run if it fails:
   1. device: require CUDA; print the card's name and power limit; switch
      TF32 off for the comparisons.
-  2. build: compile the hand-written kernels from `maskbit_tpu_torch/csrc/`.
+  2. build: compile the hand-written kernels from `maskbit_tpu_torch/csrc/`,
+     one nvcc per source, all started together.
   3. kernels: the attention block kernel against its plain PyTorch version
      at the serving shapes (16, 257, 1024) and (2, 1025, 1024), 16 heads,
      with timings (CUDA events, median of 20 after warm-up) beside the plain
-     version and the port's bf16 einsum path; then the flagship generator's
-     logits (depth cut to 2) through the kernel against a float32
-     plain-PyTorch forward of the same weights.
-  4. slice: the port's HTTP server (`maskbit_tpu_torch.cli.serve.main`) on
-     `configs/generator/maskbit_generator_14bit.yaml` (depth 24, hidden 1024,
-     64 steps, CFG) at serve batch 8 with random weights; /healthz, a seeded
-     /generate twice (byte-identical), two concurrent unseeded requests
-     (micro-batched), one PNG; checks shapes, non-constant images and that
-     every attention layer of every step launched the kernel.
+     version and the port's bf16 einsum path; the dropout-attention forward
+     and backward kernels (rate 0.1) against their plain versions at the
+     training shapes (32, 257, 16, 64) and (2, 1025, 16, 64), the kernel's
+     keep mask (read out at zero logits) against the plain version's bit for
+     bit, and the dropout-free `fused_attention` at (16, 257, 16,
+     64), each timed beside its plain version and
+     `scaled_dot_product_attention`; then the flagship generator's logits
+     (depth cut to 2) through the kernel against a float32 plain-PyTorch
+     forward of the same weights.
+  4. serve slice: the port's HTTP server (`maskbit_tpu_torch.cli.serve.main`)
+     on `configs/generator/maskbit_generator_14bit.yaml` (depth 24, hidden
+     1024, 64 steps, CFG) at serve batch 8 with random weights; /healthz, a
+     seeded /generate twice (byte-identical), two concurrent unseeded
+     requests (micro-batched), one PNG; checks shapes, non-constant images
+     and that every attention layer of every step launched the kernel.
+  5. train check: one MLM train step of the flagship-width LFQBert cut to
+     depth 2 with the kernels in bf16 on the card, against the same step
+     with the plain versions in float32 on the CPU (same weights, tokens and
+     injected draws; hidden dropout off, attention dropout 0.1): the loss
+     and the global grad norm agree.
+  6. train slice: `maskbit_tpu_torch.cli.train_maskbit.main` on the same
+     config at full width and depth, per-device batch 32, 6 steps, random
+     tokenizer, synthetic data: finite losses, depth x steps launches of
+     each dropout-attention kernel, and the saved `.bin` weights load back
+     strictly; median step time, samples/s and peak memory.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -29,6 +46,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +66,18 @@ HEADS = 16
 # head outputs (kept from the TPU kernel) add far less after the output
 # projection. 3e-2 is about twice the output rounding.
 KERNEL_ATOL = 3e-2
+# The dropout-attention kernels return bf16; their plain versions run in
+# float32 on the same bf16 inputs with the same rounding points. Outputs and
+# gradients of magnitude below 2 round to bf16 within 2^-8 = 0.0039; the
+# online softmax rounds unnormalised weights (the TPU kernel normalised
+# ones, one more bf16 rounding, relative 2^-9) and the backward's
+# delta = rowsum(g * out) reads the bf16 output. 2e-2 (scaled by the largest
+# reference value where that exceeds 1) covers these with room.
+DROPOUT_ATOL = 2e-2
+RATE = 0.1
+TRAIN_BATCH, TRAIN_STEPS = 32, 6
+# H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -75,17 +105,40 @@ def phase_device(torch) -> dict:
 def phase_build() -> None:
     from maskbit_tpu_torch.nn import cuda_build
 
+    names = ["attention_block", "dropout_attention"]
+    errors = []
+
+    def build(name):
+        try:
+            cuda_build.load_library(name)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
     t0 = time.perf_counter()
-    cuda_build.load_library("attention_block")
-    info = cuda_build.build_log["attention_block"]
-    log(f"[build] attention_block: {time.perf_counter() - t0:.2f} s "
-        f"({'cached' if info['cached'] else 'nvcc'})")
+    threads = [threading.Thread(target=build, args=(name,)) for name in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
-        f.write(info["ptxas"])
-    for line in info["ptxas"].splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    for name in names:
+        info = cuda_build.build_log[name]
+        log(f"[build] {name}: {info['seconds']:.2f} s ({'cached' if info['cached'] else 'nvcc'}), "
+            f"all builds {time.perf_counter() - t0:.2f} s")
+        with open(os.path.join(OUT_DIR, f"ptxas_{name}.txt"), "w") as f:
+            f.write(info["ptxas"])
+        for line in info["ptxas"].splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations at the bf16 peak or
+    bytes at the memory rate, whichever is longer."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -159,10 +212,131 @@ def phase_kernels(torch) -> dict:
         if not finite or max_err > KERNEL_ATOL:
             raise AssertionError(f"attention_block disagrees at ({b}, {n}, {e}): "
                                  f"max_abs_err {max_err} > {KERNEL_ATOL} or non-finite")
+        flops = 2 * b * n * e * 3 * e + 2 * b * n * e * e + 4 * b * HEADS * n * n * (e // HEADS)
+        nbytes = 2 * (2 * b * n * e + 4 * e * e) + 4 * 6 * e  # x, out, weights bf16; f32 vectors
         rows.append(dict(shape=[b, n, e], max_abs_err=max_err, mean_abs_err=mean_err,
-                         ms=kernel_ms, plain_ms=plain_ms, einsum_ms=einsum_ms))
+                         ms=kernel_ms, plain_ms=plain_ms, einsum_ms=einsum_ms, **_bound(flops, nbytes)))
         worst = max(worst, max_err)
     return {"rows": rows, "max_abs_err": worst}
+
+
+def _qkv_packed(torch, b, n, h, seed):
+    """bf16 q, k, v as the QKV projection's views of one (b, n, 3, h, 64)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3, h, 64, generator=g, device="cuda").to(torch.bfloat16)
+    return qkv.unbind(2)
+
+
+def _sdpa(torch, q, k, v, dropout_p):
+    """torch's fused attention on the (b, h, n, d) views: the yardstick."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), dropout_p=dropout_p)
+
+
+def kernel_keep_mask(torch, da, seeds, b, n, h):
+    """The forward kernel's keep mask, read out exactly: at zero logits every
+    kept weight is positive and every dropped one 0, so with V one-hot over
+    the head dim for 64 keys at a time, out[b, i, h, d] > 0 iff key
+    (chunk + d) is kept for query i."""
+    z = torch.zeros(b, n, h, 64, device="cuda", dtype=torch.bfloat16)
+    seeds32 = da.seeds_as_int32(seeds, (b, h))
+    keep = torch.empty(b, h, n, n, device="cuda", dtype=torch.bool)
+    for c0 in range(0, n, 64):
+        m = min(64, n - c0)
+        v = torch.zeros_like(z)
+        v[:, c0:c0 + m, :, :m] = torch.eye(m, device="cuda", dtype=torch.bfloat16)[:, None, :]
+        out = da.launch_forward(z, z, v, seeds32, RATE)[0]
+        keep[..., c0:c0 + m] = (out[..., :m] > 0).permute(0, 2, 1, 3)
+    return keep
+
+
+def phase_dropout_kernels(torch) -> dict:
+    """The dropout-attention forward and backward kernels and the
+    dropout-free `fused_attention` against their plain versions."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    rows = {"dropout_attention_fwd": [], "dropout_attention_bwd": [], "fused_attention": []}
+    for b, n in ((TRAIN_BATCH, 257), (2, 1025)):
+        h = HEADS
+        q, k, v = _qkv_packed(torch, b, n, h, seed=b * n)
+        seeds = torch.randint(0, 2**32, (b, h), generator=torch.Generator(device="cuda").manual_seed(n),
+                              device="cuda", dtype=torch.int64)
+        seeds32 = da.seeds_as_int32(seeds, (b, h))
+        g = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(n + 1),
+                        device="cuda").to(torch.bfloat16)
+        out, lse = da.launch_forward(q, k, v, seeds32, RATE)
+        dq, dk, dv = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
+        torch.cuda.synchronize()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = da.dropout_attention_reference(qf, kf, vf, seeds, RATE)
+        rdq, rdk, rdv = da.dropout_attention_backward_reference(qf, kf, vf, g.float(), seeds, RATE)
+        fwd_err = (out.float() - ref).abs().max().item()
+        bwd_errs = [(x.float() - r).abs().max().item() for x, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
+        bwd_tol = DROPOUT_ATOL * max(1.0, max(r.abs().max().item() for r in (rdq, rdk, rdv)))
+        # the mask alone, bit for bit against the plain version's
+        mask_flips = int((kernel_keep_mask(torch, da, seeds, b, n, h)
+                          != da.hash_keep_mask(seeds, n, RATE)).sum().item())
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, dq, dk, dv))
+        del ref, rdq, rdk, rdv, qf, kf, vf
+
+        fwd_ms = _time_ms(torch, lambda: da.launch_forward(q, k, v, seeds32, RATE))
+        bwd_ms = _time_ms(torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32, RATE))
+        plain_fwd_ms = _time_ms(torch, lambda: da.dropout_attention_reference(q, k, v, seeds, RATE))
+        plain_bwd_ms = _time_ms(
+            torch, lambda: da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE))
+        lib_fwd_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, RATE))
+        ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = _sdpa(torch, ql, kl, vl, RATE)
+        lib_g = g.transpose(1, 2)
+        lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g,
+                                                                  retain_graph=True))
+        both_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            da.dropout_attention(ql, kl, vl, seeds, RATE), (ql, kl, vl), g))
+        lib_both_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            _sdpa(torch, ql, kl, vl, RATE), (ql, kl, vl), lib_g))
+        del lib_out, ql, kl, vl
+
+        elems = b * n * h * 64
+        fwd_bound = _bound(4 * b * h * n * n * 64, 2 * 4 * elems + 4 * b * h * n)
+        bwd_bound = _bound(10 * b * h * n * n * 64, 2 * 8 * elems + 4 * b * h * n)
+        log(f"[kernel] dropout_attention ({b}, {n}, {h}, 64) rate {RATE}: fwd max_abs_err "
+            f"{fwd_err:.6f}, dq/dk/dv {bwd_errs[0]:.6f}/{bwd_errs[1]:.6f}/{bwd_errs[2]:.6f} "
+            f"(atol {DROPOUT_ATOL}, bwd {bwd_tol:.4f}); kernel keep mask vs plain: "
+            f"{mask_flips} of {b * h * n * n} bits differ")
+        log(f"[kernel]   fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, sdpa {lib_fwd_ms:.4f}, "
+            f"bound {fwd_bound['bound_ms']:.4f} by {fwd_bound['bound_by']}); bwd {bwd_ms:.4f} ms "
+            f"(plain {plain_bwd_ms:.4f}, sdpa bwd {lib_bwd_ms:.4f}, bound "
+            f"{bwd_bound['bound_ms']:.4f} by {bwd_bound['bound_by']}); fwd + bwd {both_ms:.4f} ms "
+            f"(sdpa {lib_both_ms:.4f})")
+        if not finite or fwd_err > DROPOUT_ATOL or max(bwd_errs) > bwd_tol or mask_flips:
+            raise AssertionError(f"dropout_attention disagrees at ({b}, {n}, {h}, 64)")
+        rows["dropout_attention_fwd"].append(dict(
+            shape=[b, n, h, 64], max_abs_err=fwd_err, mask_flips=mask_flips, ms=fwd_ms,
+            plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, **fwd_bound))
+        rows["dropout_attention_bwd"].append(dict(
+            shape=[b, n, h, 64], max_abs_err=max(bwd_errs), ms=bwd_ms, plain_ms=plain_bwd_ms,
+            library_ms=lib_bwd_ms, fwd_bwd_ms=both_ms, library_fwd_bwd_ms=lib_both_ms,
+            **bwd_bound))
+        del q, k, v, g, out, lse, dq, dk, dv
+
+    b, n, h = 2 * SERVE_BATCH, 257, HEADS
+    q, k, v = _qkv_packed(torch, b, n, h, seed=5)
+    got = da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - da.fused_attention_reference(q.float(), k.float(), v.float())
+           ).abs().max().item()
+    ms = _time_ms(torch, lambda: da.fused_attention(q, k, v))
+    plain_ms = _time_ms(torch, lambda: da.fused_attention_reference(q, k, v))
+    lib_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, 0.0))
+    bound = _bound(4 * b * h * n * n * 64, 2 * 4 * b * n * h * 64)
+    log(f"[kernel] fused_attention ({b}, {n}, {h}, 64): max_abs_err {err:.6f} (atol "
+        f"{DROPOUT_ATOL}); {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
+        f"{bound['bound_ms']:.4f} by {bound['bound_by']})")
+    if not bool(torch.isfinite(got).all()) or err > DROPOUT_ATOL:
+        raise AssertionError(f"fused_attention disagrees: max_abs_err {err}")
+    rows["fused_attention"].append(dict(shape=[b, n, h, 64], max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, library_ms=lib_ms, **bound))
+    return rows
 
 
 def _flagship() -> dict:
@@ -305,6 +479,130 @@ def phase_slice(torch, device_info) -> dict:
     return {"launches": launches, "request_s": t2, "img_per_s": SERVE_BATCH / t2}
 
 
+def phase_train_check(torch) -> dict:
+    """One MLM train step of the flagship-width LFQBert (depth 2) with the
+    kernels in bf16 on the card against the same step with the plain
+    versions in float32 on the CPU."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.models.generator import LFQBert, init_generator_weights_
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    model = _flagship()
+    depth, b = 2, 8
+    # hidden dropout off (its masks come from each device's own generator);
+    # attention dropout 0.1 through the kernels, with injected seeds
+    mlm = dict(model["mlm_model"], depth=depth, dropout=0.0, attention_dropout=RATE)
+    vq = model["vq_model"]
+    rng = np.random.default_rng(0)
+    seq = (256 // 16) ** 2
+    tokens = rng.integers(0, vq["codebook_size"], size=(b, seq)).astype(np.int64)
+    labels = rng.integers(0, 1000, size=(b,)).astype(np.int64)
+    injected = {"mask_ratio_uniform": rng.random(b, dtype=np.float32),
+                "mask_token_uniform": rng.random((b, seq, mlm["codebook_splits"]), dtype=np.float32),
+                "label_drop_uniform": rng.random(b, dtype=np.float32),
+                "attention_seeds": [rng.integers(0, 2**32, size=(b, mlm["heads"]), dtype=np.int64)
+                                    for _ in range(depth)]}
+
+    cpu = build_module(lambda: LFQBert.from_config(mlm, vq), "cpu")
+    init_generator_weights_(cpu, torch.Generator().manual_seed(1))
+    card = build_module(lambda: LFQBert.from_config(mlm, vq, dtype=torch.bfloat16), "cuda")
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    results = {}
+    before = dict(da.launches)
+    for name, gen, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        opt = make_optimizer(gen.parameters(), lambda t: 1e-4, beta2=0.96, weight_decay=0.045)
+        train_step = make_generator_train_step_from_tokens(
+            gen, vq["codebook_size"], MLMLossConfig(), class_label_dropout=0.1,
+            ema_kwargs={"decay": 0.9999})
+        _, metrics = train_step(init_generator_train_state(gen, opt),
+                                torch.from_numpy(tokens).to(dev), torch.from_numpy(labels).to(dev),
+                                injected=injected)
+        results[name] = {k: float(metrics[k]) for k in ("mlm_loss", "grad_norm")}
+    launched = {k: da.launches[k] - before[k] for k in before}
+    rel = {k: abs(results["card"][k] - results["cpu"][k]) / abs(results["cpu"][k])
+           for k in ("mlm_loss", "grad_norm")}
+    log(f"[train-check] flagship width, depth {depth}, batch {b}: loss card(bf16 kernels) "
+        f"{results['card']['mlm_loss']:.6f} vs cpu(f32 plain) {results['cpu']['mlm_loss']:.6f} "
+        f"(rel {rel['mlm_loss']:.2e}, tol 1e-2); grad norm {results['card']['grad_norm']:.6f} vs "
+        f"{results['cpu']['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}, tol 5e-2); "
+        f"kernel launches {launched}")
+    # bf16 keeps 8 significant bits: a few roundings per layer keep the loss
+    # within ~1e-3 and the grad norm (a sum of squares over every parameter)
+    # within a few 1e-3 of the f32 step; the tolerances leave room.
+    if (launched["dropout_attention_fwd"] != depth or launched["dropout_attention_bwd"] != depth
+            or rel["mlm_loss"] > 1e-2 or rel["grad_norm"] > 5e-2):
+        raise AssertionError(f"train step disagrees: {results}, launches {launched}")
+    return {"results": results, "rel": rel}
+
+
+def phase_train_slice(torch, device_info) -> dict:
+    """The training CLI at full width and depth."""
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.cli.train_maskbit import main
+    from maskbit_tpu_torch.core.checkpoint import load_pretrained
+    from maskbit_tpu_torch.models.generator import LFQBert
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    model = _flagship()
+    depth = int(model["mlm_model"]["depth"])
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_train")  # git-ignored; weights are ~1 GB
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [f"config={CONFIG}", f"training.per_device_batch_size={TRAIN_BATCH}",
+            f"training.max_train_steps={TRAIN_STEPS}", "training.device=cuda",
+            "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+            f"experiment.output_dir={out_dir}"]
+    for key in da.launches:
+        da.launches[key] = 0
+    ab.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = main(argv)
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launched = dict(da.launches)
+    hist = result["history"]
+    losses = [h["mlm_loss"] for h in hist]
+    step_s = [h["perf/step_seconds"] for h in hist]
+    data_s = [h["perf/data_seconds"] for h in hist]
+    median_s = statistics.median(step_s[1:])
+    median_data_s = statistics.median(data_s[1:])
+    log(f"[train] {len(hist)} steps at batch {TRAIN_BATCH}, depth {depth}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+        f"{', '.join(f'{x:.4f}' for x in step_s)}")
+    log(f"[train] median step (steps 2..{len(hist)}) {median_s * 1e3:.1f} ms = "
+        f"{TRAIN_BATCH / median_s:.1f} samples/s, of which {median_data_s * 1e3:.1f} ms making "
+        f"the synthetic batch on the host; peak memory {peak_gib:.2f} GiB; wall "
+        f"{wall:.1f} s [{device_info['card']}]")
+    log(f"[train] launches {launched} (expected depth {depth} x steps {TRAIN_STEPS} = "
+        f"{depth * TRAIN_STEPS} of each dropout kernel); attention_block {ab.launches}")
+    if len(losses) != TRAIN_STEPS or not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    for key in ("dropout_attention_fwd", "dropout_attention_bwd"):
+        if launched[key] != depth * TRAIN_STEPS:
+            raise AssertionError(f"{key} launched {launched[key]} times, expected "
+                                 f"{depth * TRAIN_STEPS}")
+    mlm, vq = model["mlm_model"], model["vq_model"]
+    for name in (f"model-{TRAIN_STEPS}.bin", f"ema_model-{TRAIN_STEPS}.bin"):
+        gen = build_module(lambda: LFQBert.from_config(mlm, vq), "cpu")
+        gen.load_state_dict(load_pretrained(os.path.join(out_dir, name)), strict=True)
+        if not all(bool(torch.isfinite(p).all()) for p in gen.parameters()):
+            raise AssertionError(f"{name} holds non-finite weights")
+    log(f"[train] model-{TRAIN_STEPS}.bin and ema_model-{TRAIN_STEPS}.bin load strictly")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launched, "losses": losses, "step_seconds": step_s,
+            "data_seconds": data_s, "median_step_s": median_s, "median_data_s": median_data_s,
+            "samples_per_s": TRAIN_BATCH / median_s, "peak_gib": peak_gib}
+
+
 def main() -> int:
     import torch
 
@@ -314,22 +612,36 @@ def main() -> int:
     device_info = phase_device(torch)
     phase_build()
     kern = phase_kernels(torch)
+    drop = phase_dropout_kernels(torch)
     phase_generator(torch)
     sl = phase_slice(torch, device_info)
-    main_row = kern["rows"][0]
-    record = {"kernels": [{
-        "name": "fused_attention_block",
-        "route": "cuda",
-        "source": "maskbit_tpu_torch/csrc/attention_block.cu",
-        "replaces": "maskbit_tpu/nn/pallas_attention.py:532",
-        "launches": sl["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }]}
+    check = phase_train_check(torch)
+    tr = phase_train_slice(torch, device_info)
+
+    def row(name, source, replaces, launches, rows):
+        first = rows[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                "bound_by": first["bound_by"], "library_ms": first.get("library_ms")}
+
+    src = "maskbit_tpu_torch/csrc/dropout_attention.cu"
+    pa = "maskbit_tpu/nn/pallas_attention.py"
+    record = {"kernels": [
+        row("fused_attention_block", "maskbit_tpu_torch/csrc/attention_block.cu", f"{pa}:532",
+            sl["launches"], kern["rows"]),
+        row("dropout_attention_fwd", src, f"{pa}:232", tr["launches"]["dropout_attention_fwd"],
+            drop["dropout_attention_fwd"]),
+        row("dropout_attention_bwd", src, f"{pa}:274", tr["launches"]["dropout_attention_bwd"],
+            drop["dropout_attention_bwd"]),
+        # no main path runs the dropout-free attention: 0 launches there
+        row("fused_attention", src, f"{pa}:94", tr["launches"]["fused_attention"],
+            drop["fused_attention"]),
+    ]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
-        json.dump({"device": device_info, "kernel_rows": kern["rows"], "slice": sl}, f, indent=1)
+        json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
+                   "slice": sl, "train_check": check, "train": tr}, f, indent=1)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,14 +1,19 @@
-"""Shared plumbing for the port's generation entry points.
+"""Shared plumbing for the port's entry points.
 
-Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`
-and `load_generation_models`.
+Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
+`load_generation_models`, `synthetic_batches`, the synthetic branch of
+`build_dataloaders`, and `StepTimer`.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
+import time
+from typing import Callable, Iterator, List
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,8 +51,10 @@ def validate_generator_config(config) -> None:
             f"dataset resolution {res}")
 
 
-def compute_dtype(config) -> torch.dtype:
-    mp = config.select("training.mixed_precision", "bf16")
+def compute_dtype(config, default: str = "bf16") -> torch.dtype:
+    """`training.mixed_precision` as a dtype; the generation entry points
+    default to bf16, the trainer (as the JAX trainer) to float32."""
+    mp = config.select("training.mixed_precision", default)
     return torch.bfloat16 if mp in ("bf16", "bfloat16") else torch.float32
 
 
@@ -105,11 +112,7 @@ def load_generation_models(config, logger, device, cast_weights: bool = False):
                                       "experiment.generator_checkpoint", 1)):
         path = config.select(key, "")
         if path and os.path.exists(path):
-            state = load_pretrained(path, device)
-            if model is tokenizer:
-                model.load_decoder_state(state)
-            else:
-                model.load_state_dict(state, strict=True)
+            model.load_state_dict(load_pretrained(path, device), strict=True)
         else:
             logger.warning(f"{what} checkpoint missing — RANDOM weights (smoke mode)")
             random_init_(model, torch.Generator(device=device).manual_seed(seed + offset))
@@ -120,3 +123,76 @@ def load_generation_models(config, logger, device, cast_weights: bool = False):
     sampling_cfg = SamplingConfig.from_config(mlm_cfg, vq_cfg)._replace(
         patch_size=res // 2 ** (vq_cfg.get("num_resolutions", 5) - 1))
     return tokenizer, generator, sampling_cfg, res, dtype
+
+
+_BRACE_RE = re.compile(r"^(.*)\{(\d+)\.\.(\d+)\}(.*)$")
+
+
+def expand_shard_pattern(pattern: str) -> List[str]:
+    """'imagenet-train-{0000..0252}.tar' -> the shard list; a plain path or
+    a glob also works (as in `maskbit_tpu.data.tar_reader`)."""
+    m = _BRACE_RE.match(pattern)
+    if m:
+        prefix, lo, hi, suffix = m.groups()
+        return [f"{prefix}{i:0{len(lo)}d}{suffix}" for i in range(int(lo), int(hi) + 1)]
+    if any(ch in pattern for ch in "*?["):
+        import glob
+
+        return sorted(glob.glob(pattern))
+    return [pattern]
+
+
+def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterator[dict]:
+    """Random image/label batches (numpy, NHWC in [0, 1]); the same stream
+    as the JAX package's for the same seed."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "image": rng.uniform(size=(batch_size, resolution, resolution, 3)).astype(np.float32),
+            "class_id": rng.integers(0, 1000, size=(batch_size,)).astype(np.int32),
+        }
+
+
+def build_dataloaders(config, logger, global_batch_size: int) -> Callable[[], Iterator[dict]]:
+    """The train batches' iterator factory: synthetic batches when no train
+    shards exist. The tar-shard reader is not ported yet: when the named
+    shards exist this raises rather than train on synthetic data."""
+    train_shards = config.select("dataset.params.train_shards_path_or_url", "")
+    resolution = config.select("dataset.preprocessing.resolution", 256)
+    expanded = expand_shard_pattern(train_shards) if train_shards else []
+    if expanded and os.path.exists(expanded[0]):
+        raise NotImplementedError(
+            f"train shards {train_shards!r} exist, but the tar-shard reader is not ported to "
+            "PyTorch yet (ROADMAP.md, Queue 1: the tar-shard reader)")
+    logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
+                   "Point dataset.params.train_shards_path_or_url at real shards for training.")
+    return lambda: synthetic_batches(global_batch_size, resolution, seed=0)
+
+
+class AverageMeter:
+    def __init__(self):
+        self.val = self.sum = self.avg = 0.0
+        self.count = 0
+
+    def update(self, val: float):
+        self.val = val
+        self.sum += val
+        self.count += 1
+        self.avg = self.sum / self.count
+
+
+class StepTimer:
+    """samples/s bookkeeping: data and batch time meters (host clock; a
+    step's time is only the device's once something waits for it)."""
+
+    def __init__(self):
+        self.batch_time = AverageMeter()
+        self.data_time = AverageMeter()
+        self._end = time.time()
+
+    def data_tick(self):
+        self.data_time.update(time.time() - self._end)
+
+    def batch_tick(self):
+        self.batch_time.update(time.time() - self._end)
+        self._end = time.time()

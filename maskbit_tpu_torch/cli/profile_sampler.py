@@ -78,7 +78,7 @@ def profile_call(service, labels, seed: int = 1) -> tuple[list[str], object]:
 
 
 def main(argv=None) -> None:
-    from maskbit_tpu.core.config import config_from_cli  # yaml only, no JAX
+    from maskbit_tpu_torch.core.config import config_from_cli
     from maskbit_tpu_torch.cli.serve import GeneratorService
 
     config = config_from_cli(argv if argv is not None else sys.argv[1:])

@@ -287,7 +287,7 @@ def make_handler(service: GeneratorService):
 
 
 def main(argv=None, serve_forever: bool = True):
-    from maskbit_tpu.core.config import config_from_cli  # yaml only, no JAX
+    from maskbit_tpu_torch.core.config import config_from_cli
 
     config = config_from_cli(argv if argv is not None else sys.argv[1:])
     service = GeneratorService(config)

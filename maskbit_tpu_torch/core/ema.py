@@ -1,0 +1,60 @@
+"""Exponential moving average of a model's parameters.
+
+Counterpart of `maskbit_tpu/core/ema.py`: the same decay schedule
+((1+s)/(10+s) or the power-law warmup), `update_after_step` gating,
+`update_every` thinning and `min_decay` floor. The shadows are float32
+tensors kept beside the model (a name -> tensor dict, as the JAX package
+keeps a parameter tree) and updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+
+class EmaState:
+    def __init__(self, params: Dict[str, torch.Tensor], step: int = 0):
+        self.params = params  # name -> float32 shadow
+        self.step = step
+
+
+def init_ema(model: nn.Module) -> EmaState:
+    """float32 copies of the model's parameters (never aliases)."""
+    return EmaState({name: p.detach().float().clone() for name, p in model.named_parameters()})
+
+
+def ema_decay(optimization_step: int, decay: float = 0.9999, min_decay: float = 0.0,
+              update_after_step: int = 0, use_ema_warmup: bool = False,
+              inv_gamma: float = 1.0, power: float = 2.0 / 3.0) -> float:
+    """Decay factor at a given step; 0 at step <= 0 (the first update copies)."""
+    step = float(max(0, optimization_step - update_after_step - 1))
+    if step <= 0:
+        return 0.0
+    if use_ema_warmup:
+        value = 1.0 - (1.0 + step / inv_gamma) ** -power
+    else:
+        value = (1.0 + step) / (10.0 + step)
+    return max(min(value, decay), min_decay)
+
+
+@torch.no_grad()
+def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
+               min_decay: float = 0.0, update_after_step: int = 0,
+               use_ema_warmup: bool = False, inv_gamma: float = 1.0,
+               power: float = 2.0 / 3.0, update_every: int = 1) -> EmaState:
+    """One EMA step, in place: shadow <- shadow - (1 - d) * (shadow - param)."""
+    state.step += 1
+    if update_every > 1 and (state.step - 1) % update_every != 0:
+        return state
+    d = ema_decay(state.step, decay, min_decay, update_after_step, use_ema_warmup,
+                  inv_gamma, power)
+    names = list(state.params)
+    params = dict(model.named_parameters())
+    shadows = [state.params[n] for n in names]
+    diffs = torch._foreach_sub(shadows, [params[n].float() for n in names])
+    torch._foreach_mul_(diffs, 1.0 - d)
+    torch._foreach_sub_(shadows, diffs)
+    return state

@@ -1,4 +1,4 @@
-"""Stage-II masked-token generator `LFQBert`, inference only.
+"""Stage-II masked-token generator `LFQBert`, for inference and training.
 
 Counterpart of `maskbit_tpu/models/generator.py` (`_GeneratorBase` and
 `LFQBert`; `Bert` is not ported yet). Parameter names follow the original
@@ -12,6 +12,11 @@ repo's state dict (`input_proj`, `class_emb`, `pos_emb`, `first_layer.0`,
   seq_len + 1 positions; `class_emb` has nclass + 1 rows, the last being the
   drop label;
 * logits (b, n, m, ecs), sliced to seq_len.
+
+In training mode the forward takes the step's `DropoutRng` (hidden dropout
+at `dropout`, attention dropout at `attention_dropout`, through the
+dropout-attention kernels when `fused_attention_dropout` is set).
+`remat` (activation rematerialisation) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maskbit_tpu_torch.nn.transformer import TransformerEncoder, layer_norm_f32, linear
+from maskbit_tpu_torch.nn.transformer import (
+    DropoutRng,
+    TransformerEncoder,
+    dropout,
+    layer_norm_f32,
+    linear,
+)
 from maskbit_tpu_torch.ops import bitops
 
 
@@ -34,8 +45,13 @@ class LFQBert(nn.Module):
                  codebook_size: int = 1024, codebook_splits: int = 1, depth: int = 24,
                  heads: int = 8, mlp_dim: int = 3072, dropout: float = 0.1,
                  nclass: int = 1000, input_stride: int = 16, use_prenorm: bool = False,
-                 attention_impl: str = "einsum", dtype: torch.dtype = torch.float32):
+                 attention_impl: str = "einsum", attention_dropout: Optional[float] = None,
+                 fused_attention_dropout: bool = False, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "mlm_model.remat is not ported to PyTorch yet (ROADMAP.md, Queue 1: remat)")
         self.img_size, self.hidden_dim, self.nclass = img_size, hidden_dim, nclass
         self.codebook_size, self.codebook_splits = codebook_size, codebook_splits
         self.input_stride, self.use_prenorm, self.dtype = input_stride, use_prenorm, dtype
@@ -51,7 +67,8 @@ class LFQBert(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(1, self.seq_len + 1, hidden_dim))
         self.first_layer = nn.Sequential(nn.LayerNorm(hidden_dim, eps=1e-12), nn.Dropout(dropout))
         self.transformer = TransformerEncoder(hidden_dim, depth, heads, mlp_dim, dropout,
-                                              use_prenorm, attention_impl)
+                                              use_prenorm, attention_impl, attention_dropout,
+                                              fused_attention_dropout)
         if use_prenorm:
             self.norm_after_transformer = nn.LayerNorm(hidden_dim, eps=1e-12)
         self.last_layer = nn.Sequential(nn.Linear(hidden_dim, hidden_dim), nn.GELU(),
@@ -81,6 +98,9 @@ class LFQBert(nn.Module):
             input_stride=mlm_cfg.get("input_stride", 16),
             use_prenorm=mlm_cfg.get("use_prenorm", False),
             attention_impl=mlm_cfg.get("attention_impl", "einsum"),
+            attention_dropout=mlm_cfg.get("attention_dropout", None),
+            fused_attention_dropout=mlm_cfg.get("fused_attention_dropout", False),
+            remat=mlm_cfg.get("remat", False),
             dtype=dtype,
         )
 
@@ -92,7 +112,8 @@ class LFQBert(nn.Module):
         return bits.reshape(b, n, self.codebook_splits * self.effective_bits)
 
     def forward(self, img_tokens: torch.Tensor, class_labels: torch.Tensor,
-                drop_label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                drop_label_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         dt = self.dtype
         cls_token = class_labels.reshape(-1).long()
         if drop_label_mask is not None:
@@ -101,8 +122,9 @@ class LFQBert(nn.Module):
         projected = linear(self.input_proj, self.preprocess_tokens(img_tokens))
 
         x = torch.cat([projected, cls_emb], dim=1) + self.pos_emb.to(dt)
-        x = self.first_layer[1](layer_norm_f32(self.first_layer[0], x).to(dt))
-        x = self.transformer(x)
+        x = layer_norm_f32(self.first_layer[0], x).to(dt)
+        x = dropout(x, self.first_layer[1].p, self.training, rng)
+        x = self.transformer(x, rng)
         if self.use_prenorm:
             x = layer_norm_f32(self.norm_after_transformer, x).to(dt)
         dense, _, norm = self.last_layer
@@ -113,6 +135,37 @@ class LFQBert(nn.Module):
         b, n_plus_1 = logits.shape[:2]
         logits = logits.reshape(b, n_plus_1, self.codebook_splits, self.effective_codebook_size)
         return logits[:, : self.seq_len]
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """flax's truncated_normal(std): a standard normal truncated to [-2, 2]
+    (inverse-CDF sampling), scaled so that the result has std `std`."""
+    edge = math.erf(2.0 / math.sqrt(2.0))  # 2 * Phi(2) - 1
+    t.uniform_(-edge, edge, generator=generator)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std / _TRUNC_STD)
+
+
+@torch.no_grad()
+def init_generator_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisation (its flax initialisers, drawn from
+    `generator`): `in_proj_weight` xavier-uniform; every other matrix, the
+    embeddings and `pos_emb` truncated normal with std 0.02; biases 0;
+    LayerNorm scales 1."""
+    for name, p in model.named_parameters():
+        owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+        if isinstance(owner, nn.LayerNorm):
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("in_proj_weight"):
+            bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+            p.uniform_(-bound, bound, generator=generator)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            _trunc_normal_(p, 0.02, generator)
+    model.reset_buffers()
 
 
 def make_generator(model_cls: str, mlm_cfg, vq_cfg, dtype: torch.dtype = torch.float32):

@@ -1,25 +1,25 @@
-"""ConvVQModel, the decode half of the Stage-I tokenizer.
+"""ConvVQModel, the Stage-I tokenizer with the lookup-free quantizer.
 
-Counterpart of `maskbit_tpu/models/tokenizer.ConvVQModel` for generation:
-`from_config` and `decode_tokens` with the lookup-free quantizer. The
-encoder, VQ quantizer and training forward are not ported yet.
-`decode_tokens` keeps the JAX package's layouts: integer tokens (b, n) in,
-NHWC images (b, H, W, 3) out.
+Counterpart of `maskbit_tpu/models/tokenizer.ConvVQModel` for Stage-II
+training and generation: `from_config`, `encode` and `tokenize` (encoder ->
+LFQ sign quantize), and `decode_tokens` (LFQ unpack -> decoder). The
+Stage-I training forward (quantizer losses, straight-through estimator) and
+the VQ quantizer are not ported yet. The public methods keep the JAX
+package's layouts: NHWC images in [0, 1] and latents, integer tokens (b, h',
+w') or (b, n). State dicts hold `encoder.*`, `decoder.*` and the
+quantizer's buffers, and load strictly.
 """
 
 from __future__ import annotations
 
-import logging
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from maskbit_tpu_torch.nn.conv import ConvDecoder
+from maskbit_tpu_torch.nn.conv import ConvDecoder, ConvEncoder
 from maskbit_tpu_torch.quantizers.lfq import LookupFreeQuantizer
-
-_logger = logging.getLogger("maskbit_tpu_torch")
 
 
 class ConvVQModel(nn.Module):
@@ -27,13 +27,16 @@ class ConvVQModel(nn.Module):
                  channel_mult: Sequence[int] = (1, 1, 2, 2, 4), num_resolutions: int = 5,
                  num_res_blocks: int = 2, num_res_blocks_decoder: Optional[int] = None,
                  token_size: int = 12, codebook_size: int = 4096,
-                 quantizer_type: str = "lookup-free", legacy: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 quantizer_type: str = "lookup-free", sample_with_conv: bool = True,
+                 legacy: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if quantizer_type != "lookup-free":
             raise NotImplementedError(
                 f"quantizer_type {quantizer_type!r} is not ported to PyTorch yet")
-        self.dtype = dtype
+        self.dtype, self.codebook_size = dtype, codebook_size
+        self.encoder = ConvEncoder(num_channels, hidden_channels, tuple(channel_mult),
+                                   num_resolutions, num_res_blocks, token_size,
+                                   sample_with_conv)
         self.decoder = ConvDecoder(num_channels, hidden_channels, tuple(channel_mult),
                                    num_resolutions, num_res_blocks, token_size,
                                    num_res_blocks_decoder, legacy)
@@ -53,19 +56,20 @@ class ConvVQModel(nn.Module):
             token_size=cfg.get("token_size", 12),
             codebook_size=cfg.get("codebook_size", 4096),
             quantizer_type=cfg.get("quantizer_type", "lookup-free"),
+            sample_with_conv=cfg.get("sample_with_conv", True),
             legacy=legacy,
             dtype=dtype,
         )
 
-    def load_decoder_state(self, state: Mapping[str, torch.Tensor]) -> None:
-        """Load `decoder.*` and `quantize.*` strictly; skip the encoder's
-        keys of a full tokenizer checkpoint, naming them in one log line."""
-        skipped = sorted(k for k in state if k.startswith("encoder."))
-        if skipped:
-            _logger.info("tokenizer: skipping %d encoder keys (decoder-only port): %s",
-                         len(skipped), ", ".join(skipped))
-        self.load_state_dict({k: v for k, v in state.items()
-                              if not k.startswith("encoder.")}, strict=True)
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """NHWC image (b, H, W, C) -> (quantized NHWC latent, quantizer dict)."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        z = self.encoder(x).permute(0, 2, 3, 1)
+        return self.quantize(z)
+
+    def tokenize(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC image -> integer token grid (b, h', w'), int32."""
+        return self.encode(x)[1]["min_encoding_indices"]
 
     def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Integer tokens (b, n) -> decoded NHWC image (b, H, W, 3)."""

@@ -1,15 +1,19 @@
-"""VQGAN+ convolutional decoder, inference only.
+"""VQGAN+ convolutional encoder and decoder.
 
 Counterpart of `maskbit_tpu/nn/conv.py` (`ResidualBlock`, `ResidualStage`,
-`UpsamplingStage`, `ConvDecoder`). Tensors are NCHW inside, in channels-last
-memory for cuDNN; the tokenizer converts at its public boundary, which keeps
-the JAX package's NHWC. Kept from the original repo:
+`DownsamplingStage`, `UpsamplingStage`, `ConvEncoder`, `ConvDecoder`).
+Tensors are NCHW inside, in channels-last memory for cuDNN; the tokenizer
+converts at its public boundary, which keeps the JAX package's NHWC. Kept
+from the original repo and the JAX package:
   * GroupNorm(32, eps 1e-6) computed in float32;
   * the 1x1 `nin_shortcut` applied to the block's OUTPUT when in != out;
+  * XLA's SAME padding, which is asymmetric for the stride-2 3x3
+    downsampling conv: [pad // 2, pad - pad // 2], i.e. (0, 1) on an even
+    input (torch's `padding='same'` refuses stride 2, and a symmetric pad
+    of 1 shifts the sampling grid), so it is padded explicitly;
   * nearest-neighbour 2x upsampling;
   * `legacy` renames the decoder stages (`up.{i_level}` instead of
     `up.{position}`) and changes nothing else.
-The encoder side (`ConvEncoder`, `DownsamplingStage`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,9 +32,20 @@ def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`layer` applied in x's dtype (stride 1, SAME padding)."""
+    """`layer` applied in x's dtype, with its own stride and padding."""
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.conv2d(x, layer.weight.to(x.dtype), bias, padding=layer.padding)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, stride=layer.stride,
+                    padding=layer.padding)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """XLA's SAME padding of an NCHW tensor: out = ceil(size / stride), the
+    total pad split as [pad // 2, pad - pad // 2] on each spatial axis."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):  # F.pad lists the last axis first
+        total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
 
 
 def _conv3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
@@ -74,6 +89,20 @@ class ResidualStage(nn.Module):
         return x
 
 
+class DownsamplingStage(ResidualStage):
+    def __init__(self, in_channels: int, out_channels: int, num_res_blocks: int,
+                 sample_with_conv: bool = True):
+        super().__init__(in_channels, out_channels, num_res_blocks)
+        self.down_conv = (nn.Conv2d(out_channels, out_channels, 3, stride=2)
+                          if sample_with_conv else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = super().forward(x)
+        if self.down_conv is None:
+            return F.avg_pool2d(x, 2)
+        return conv(self.down_conv, same_pad(x, 3, 2))
+
+
 class UpsamplingStage(ResidualStage):
     def __init__(self, in_channels: int, out_channels: int, num_res_blocks: int):
         super().__init__(in_channels, out_channels, num_res_blocks)
@@ -82,6 +111,37 @@ class UpsamplingStage(ResidualStage):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(super().forward(x), scale_factor=2, mode="nearest")
         return conv(self.upsample_conv, x)
+
+
+class ConvEncoder(nn.Module):
+    """Downstack: (b, 3, H, W) -> (b, token_size, H / 2^(L-1), W / 2^(L-1)), NCHW."""
+
+    def __init__(self, num_channels: int = 3, hidden_channels: int = 128,
+                 channel_mult: Sequence[int] = (1, 1, 2, 2, 4), num_resolutions: int = 5,
+                 num_res_blocks: int = 2, token_size: int = 12, sample_with_conv: bool = True):
+        super().__init__()
+        self.conv_in = _conv3(num_channels, hidden_channels, bias=False)
+        in_mult = (1,) + tuple(channel_mult)
+        stages = []
+        for i_level in range(num_resolutions):
+            cin = hidden_channels * in_mult[i_level]
+            cout = hidden_channels * in_mult[i_level + 1]
+            if i_level < num_resolutions - 1:
+                stages.append(DownsamplingStage(cin, cout, num_res_blocks, sample_with_conv))
+            else:
+                stages.append(ResidualStage(cin, cout, num_res_blocks))
+        self.down = nn.ModuleList(stages)
+        cout = hidden_channels * in_mult[num_resolutions]
+        self.mid = ResidualStage(cout, cout, num_res_blocks)
+        self.norm_out = _gn(cout)
+        self.conv_out = nn.Conv2d(cout, token_size, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv(self.conv_in, x)
+        for stage in self.down:
+            x = stage(x)
+        x = self.mid(x)
+        return conv(self.conv_out, F.silu(group_norm_f32(self.norm_out, x)))
 
 
 class ConvDecoder(nn.Module):

@@ -23,7 +23,8 @@ BUILD_DIR = CSRC.parent.parent / "build" / "maskbit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}  # one per library: different ones build in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # name -> {"seconds", "cached", "ptxas"}
 
@@ -41,7 +42,9 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<name>.cu`. Raises on failure."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"

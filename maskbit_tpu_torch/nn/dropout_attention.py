@@ -1,0 +1,294 @@
+"""Training attention with in-kernel attention-probability dropout.
+
+Counterpart of `maskbit_tpu/nn/pallas_attention.py`'s `dropout_attention`
+(its custom-VJP forward and backward kernels) and `fused_attention`, in
+their signatures and layouts: q, k, v (b, n, h, d); seeds (b, h), one 32-bit
+seed per (batch, head); out (b, n, h, d).
+
+The keep mask is the TPU kernel's, bit for bit: keep iff
+murmur3_fmix(row * 0x9E3779B1 + col * 0x85EBCA77 + seed * 0xC2B2AE3D) >=
+min(floor(rate * 2^32), 2^32 - 1), uint32 arithmetic, row and col the
+query and key indices (`hash_keep_mask`, `hash_keep_mask_np`). Kept softmax
+weights are scaled by 1/(1 - rate), dropped ones are 0.
+
+* A CPU tensor takes the plain PyTorch versions (`*_reference`), which keep
+  the TPU kernels' rounding points: f32 softmax, the dropped weights rounded
+  to the input dtype before the value product, and in the backward the
+  score gradient rounded before dq and dk.
+* A CUDA tensor launches the hand-written kernels in
+  `csrc/dropout_attention.cu` or raises: bf16 q, k, v with the same strides
+  and a contiguous last dimension (the QKV projection's view qualifies),
+  head dim 64, 0 <= rate < 1.
+
+`launches` counts kernel launches on CUDA tensors, by kernel:
+"dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
+CUDA kernels) and "fused_attention".
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+HEAD_DIM = 64  # the kernels' head width
+launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
+
+_MASK32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """The keep threshold, computed on the host as the TPU kernel does."""
+    return min(int(rate * 2**32), 2**32 - 1)
+
+
+def _check_rate(rate: float) -> float:
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return rate
+
+
+# ------------------------------------------------------------------ mask ----
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 `a` in [0, 2^32), without int64 overflow."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def hash_keep_mask(seeds: torch.Tensor, n: int, rate: float) -> torch.Tensor:
+    """Keep mask (*seeds.shape, n, n), bool: [..., row, col] for the query
+    `row` and key `col` of each seed's (batch, head) slot."""
+    seeds = torch.as_tensor(seeds)
+    dev = seeds.device
+    s = seeds.to(torch.int64) & _MASK32
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    mix = (_mul32(idx, 0x9E3779B1)[:, None] + _mul32(idx, 0x85EBCA77)[None, :]
+           + _mul32(s, 0xC2B2AE3D)[..., None, None]) & _MASK32
+    mix = mix ^ (mix >> 16)
+    mix = _mul32(mix, 0x85EBCA6B)
+    mix = mix ^ (mix >> 13)
+    mix = _mul32(mix, 0xC2B2AE35)
+    mix = mix ^ (mix >> 16)
+    return mix >= keep_threshold(rate)
+
+
+def hash_keep_mask_np(n_pad: int, rate: float, seed: int) -> np.ndarray:
+    """Numpy copy of `maskbit_tpu.nn.pallas_attention.hash_keep_mask_np`:
+    the (n_pad, n_pad) keep mask of one seed."""
+    thr = np.uint32(keep_threshold(rate))
+    rows = np.arange(n_pad, dtype=np.uint32)[:, None]
+    cols = np.arange(n_pad, dtype=np.uint32)[None, :]
+    with np.errstate(over="ignore"):
+        mix = (rows * np.uint32(0x9E3779B1) + cols * np.uint32(0x85EBCA77)
+               + np.uint32(np.int64(seed) & _MASK32) * np.uint32(0xC2B2AE3D))
+        mix = mix ^ (mix >> np.uint32(16))
+        mix = mix * np.uint32(0x85EBCA6B)
+        mix = mix ^ (mix >> np.uint32(13))
+        mix = mix * np.uint32(0xC2B2AE35)
+        mix = mix ^ (mix >> np.uint32(16))
+    return mix >= thr
+
+
+# -------------------------------------------------------- plain versions ----
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or wider if it already is (float64 checks exactness)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _softmax_f32(q, k):
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * d**-0.5
+    return torch.softmax(logits, dim=-1)
+
+
+def _dropped(w, keep, rate):
+    return torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros((), dtype=w.dtype,
+                                                                     device=w.device))
+
+
+def dropout_attention_reference(q, k, v, seeds, rate: float) -> torch.Tensor:
+    """Plain forward: f32 softmax, hash mask, dropped weights rounded to
+    v's dtype, f32 value product, output in q's dtype."""
+    rate = _check_rate(rate)
+    w = _softmax_f32(q, k)
+    w = _dropped(w, hash_keep_mask(seeds.to(w.device), q.shape[1], rate), rate)
+    out = torch.einsum("bhqk,bkhd->bqhd", _wide(w.to(v.dtype)), _wide(v))
+    return out.to(q.dtype)
+
+
+def dropout_attention_backward_reference(q, k, v, g, seeds, rate: float):
+    """Plain backward, the TPU kernel's formula: recompute the softmax and
+    the mask; dv = dropped^T g; dw = keep (g v^T) / (1 - p);
+    dlog = P (dw - rowsum(dw P)) / sqrt(d), rounded to q's dtype;
+    dq = dlog k; dk = dlog^T q."""
+    rate = _check_rate(rate)
+    w = _softmax_f32(q, k)
+    keep = hash_keep_mask(seeds.to(w.device), q.shape[1], rate)
+    dropped = _wide(_dropped(w, keep, rate).to(v.dtype))
+    dv = torch.einsum("bhqk,bqhd->bkhd", dropped, _wide(g))
+    dw = _dropped(torch.einsum("bqhd,bkhd->bhqk", _wide(g), _wide(v)), keep, rate)
+    dlog = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dlog = _wide((dlog * q.shape[-1] ** -0.5).to(q.dtype))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlog, _wide(k))
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlog, _wide(q))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def fused_attention_reference(q, k, v) -> torch.Tensor:
+    """Plain dropout-free attention: f32 softmax, weights rounded to v's
+    dtype, f32 value product."""
+    w = _softmax_f32(q, k)
+    out = torch.einsum("bhqk,bkhd->bqhd", _wide(w.to(v.dtype)), _wide(v))
+    return out.to(q.dtype)
+
+
+# --------------------------------------------------------------- kernels ----
+
+def seeds_as_int32(seeds: torch.Tensor, shape) -> torch.Tensor:
+    """(b, h) seeds of any integer dtype -> contiguous int32 holding the
+    uint32 bits, as the kernels read them."""
+    if tuple(seeds.shape) != tuple(shape):
+        raise ValueError(f"seeds must have shape {tuple(shape)}, got {tuple(seeds.shape)}")
+    s = seeds.to(torch.int64) & _MASK32
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32).contiguous()
+
+
+def _check_qkv(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dim() != 4 or t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape (b, n, h, d), got {tuple(t.shape)}")
+        if t.stride() != q.stride():
+            raise ValueError("q, k and v must have the same strides")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the kernels need head dim {HEAD_DIM}, got {q.shape[-1]}")
+    sb, sn, sh, sd = q.stride()
+    if sd != 1 or sb % 8 or sn % 8 or sh % 8:
+        raise ValueError("q, k, v need a contiguous last dimension and strides that are "
+                         f"multiples of 8 elements, got {q.stride()}")
+
+
+def _lib():
+    from maskbit_tpu_torch.nn.cuda_build import load_library
+
+    lib = load_library("dropout_attention")
+    if lib.mb_dropout_attention_fwd.argtypes is None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.mb_dropout_attention_fwd.argtypes = (
+            [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 3
+            + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
+        lib.mb_dropout_attention_fwd.restype = i32
+        lib.mb_dropout_attention_bwd.argtypes = (
+            [ptr] * 3 + [i64] * 3 + [ptr] * 8 + [i32] * 3
+            + [ctypes.c_uint32, ctypes.c_float, ptr])
+        lib.mb_dropout_attention_bwd.restype = i32
+    return lib
+
+
+def launch_forward(q, k, v, seeds_i32, rate: float):
+    """The forward kernel on CUDA tensors; returns (out, lse). `seeds_i32`
+    from `seeds_as_int32`, or None for the dropout-free kernel (then rate
+    is ignored and lse is None)."""
+    _check_qkv(q, k, v)
+    b, n, h, _ = q.shape
+    dev = q.device
+    dropout = seeds_i32 is not None
+    if dropout and (seeds_i32.dtype != torch.int32 or seeds_i32.device != dev
+                    or tuple(seeds_i32.shape) != (b, h) or not seeds_i32.is_contiguous()):
+        raise ValueError(f"seeds_i32 must be contiguous int32 {(b, h)} on {dev}")
+    out = torch.empty((b, n, h, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((b * h, n), dtype=torch.float32, device=dev) if dropout else None
+    lib = _lib()
+    with torch.cuda.device(dev):  # the runtime launches on the current device
+        err = lib.mb_dropout_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+            seeds_i32.data_ptr() if dropout else None, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, n, h,
+            keep_threshold(rate), 1.0 / (1.0 - rate), int(dropout),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_attention forward launch failed: CUDA error {err}")
+    launches["dropout_attention_fwd" if dropout else "fused_attention"] += 1
+    return out, lse
+
+
+def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
+    """The backward kernels on CUDA tensors: (dq, dk, dv) from the
+    forward's inputs, `out` and `lse`, and the incoming gradient `g`."""
+    _check_qkv(q, k, v)
+    b, n, h, _ = q.shape
+    dev = q.device
+    g = g.contiguous()
+    if g.dtype != torch.bfloat16 or g.shape != out.shape:
+        raise TypeError(f"the incoming gradient must be bf16 of shape {tuple(out.shape)}")
+    dq, dk, dv = (torch.empty((b, n, h, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+                  for _ in range(3))
+    delta = torch.empty((b * h, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.mb_dropout_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, n, h, keep_threshold(rate),
+            1.0 / (1.0 - rate), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_attention backward launch failed: CUDA error {err}")
+    launches["dropout_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _DropoutAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seeds, rate):
+        ctx.rate = rate
+        if q.device.type == "cuda":
+            seeds_i32 = seeds_as_int32(seeds.to(q.device), (q.shape[0], q.shape[2]))
+            out, lse = launch_forward(q, k, v, seeds_i32, rate)
+            ctx.save_for_backward(q, k, v, out, lse, seeds_i32)
+            return out
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, seeds)
+            return dropout_attention_reference(q, k, v, seeds, rate)
+        raise ValueError(f"dropout_attention: no kernel for device {q.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.device.type == "cuda":
+            q, k, v, out, lse, seeds = ctx.saved_tensors
+            dq, dk, dv = launch_backward(q, k, v, out, lse, g, seeds, ctx.rate)
+        else:
+            q, k, v, seeds = ctx.saved_tensors
+            dq, dk, dv = dropout_attention_backward_reference(q, k, v, g, seeds, ctx.rate)
+        return dq, dk, dv, None, None
+
+
+def dropout_attention(q, k, v, seeds, rate: float) -> torch.Tensor:
+    """(b, n, h, d) attention with in-kernel attention-prob dropout,
+    differentiable in q, k, v. `seeds` (b, h): uint32 values in any integer
+    dtype (int32 holds their bits)."""
+    rate = _check_rate(rate)
+    b, _, h, _ = q.shape
+    if tuple(seeds.shape) != (b, h):
+        raise ValueError(f"seeds must be (batch, heads) = {(b, h)}, got {tuple(seeds.shape)}")
+    return _DropoutAttention.apply(q, k, v, seeds, rate)
+
+
+def fused_attention(q, k, v) -> torch.Tensor:
+    """(b, n, h, d) dropout-free attention, forward only (as the TPU
+    kernel): the dropout forward kernel with the mask compiled out."""
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v)
+    if q.device.type == "cuda":
+        return launch_forward(q, k, v, None, 0.0)[0]
+    raise ValueError(f"fused_attention: no kernel for device {q.device}")

@@ -1,27 +1,75 @@
-"""BERT-style bidirectional transformer blocks, inference only.
+"""BERT-style bidirectional transformer blocks.
 
 Counterpart of `maskbit_tpu/nn/transformer.py`. Parameter names follow the
 original repo's state dict (`layers.{i}.0.mha.in_proj_weight`,
 `layers.{i}.1.net.0.weight`, ...), so weights exported from the JAX package
 (`compat/torch_export.py`) and zoo checkpoints load strictly.
 
-Compute runs in `dtype` (weights are cast on use); softmax and LayerNorm
-(eps 1e-12) run in float32. Postnorm `BertAttention` with
-`attention_impl="fused"` goes through the hand-written attention block
-(`nn/attention_block.py`) at any sequence length whenever the module is in
-eval mode; prenorm and `attention_impl="einsum"` use plain torch ops.
-Dropout is a no-op in eval mode.
+Compute runs in x's dtype (weights are cast on use); softmax and LayerNorm
+(eps 1e-12) run in float32.
+  * Eval mode: postnorm `BertAttention` with `attention_impl="fused"` goes
+    through the hand-written attention block (`nn/attention_block.py`) at
+    any sequence length; prenorm and `attention_impl="einsum"` use plain
+    torch ops. Dropout is a no-op.
+  * Training mode: attention-probability dropout at `attention_dropout`
+    (None: `dropout`, torch-MHA parity). With `fused_dropout` and a rate
+    above 0 it goes through `nn/dropout_attention.dropout_attention` (the
+    hand-written forward and backward kernels on the card), with one uint32
+    seed per (batch, head); otherwise dropout applies to the softmax
+    weights. Every mask and seed comes from the step's `DropoutRng`, never
+    from torch's global generator; a training-mode forward with a rate
+    above 0 and no `DropoutRng` raises.
 """
 
 from __future__ import annotations
 
+from typing import Iterable, Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from maskbit_tpu_torch.nn.attention_block import fused_attention_block
+from maskbit_tpu_torch.nn.dropout_attention import dropout_attention
 
 LAYERNORM_EPS = 1e-12
+
+
+class DropoutRng:
+    """The randomness of one training step's dropouts: masks and attention
+    seeds drawn from `generator`, or, for tests, attention seed tables
+    injected in call order (one (b, h) table per attention layer call)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 attention_seeds: Optional[Iterable] = None):
+        if generator is None and attention_seeds is None:
+            raise ValueError("DropoutRng needs a torch.Generator or injected seeds")
+        self.generator = generator
+        self._seeds = None if attention_seeds is None else iter(attention_seeds)
+
+    def attention_seeds(self, b: int, h: int, device) -> torch.Tensor:
+        """(b, h) int64 seeds in [0, 2^32)."""
+        if self._seeds is not None:
+            return torch.as_tensor(np.asarray(next(self._seeds), np.int64), device=device)
+        return torch.randint(0, 2**32, (b, h), generator=self.generator, device=device,
+                             dtype=torch.int64)
+
+    def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """Keep with probability 1 - p, kept values scaled by 1 / (1 - p)."""
+        if self.generator is None:
+            raise ValueError("hidden dropout needs the step's torch.Generator")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - p
+        return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, p: float, training: bool, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """Dropout at rate p in training mode; a no-op otherwise or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("training-mode dropout needs the step's DropoutRng")
+    return rng.dropout(x, p)
 
 
 def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -39,37 +87,49 @@ class MultiHeadSelfAttention(nn.Module):
     """torch-MHA parameter layout: packed `in_proj_weight` (3E, E) and
     `in_proj_bias`, plus `out_proj`."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 attention_dropout: Optional[float] = None, fused_dropout: bool = False):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.fused_dropout = fused_dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
-        self.attn_drop = nn.Dropout(dropout)
+        self.attn_drop = nn.Dropout(dropout if attention_dropout is None else attention_dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, n, e = x.shape
-        d = e // self.num_heads
+        h = self.num_heads
+        d = e // h
+        p = self.attn_drop.p
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
-        q, k, v = qkv.view(b, n, 3, self.num_heads, d).unbind(2)
+        q, k, v = qkv.view(b, n, 3, h, d).unbind(2)
+        if self.training and p > 0.0 and self.fused_dropout:
+            if rng is None:
+                raise ValueError("training-mode dropout needs the step's DropoutRng")
+            out = dropout_attention(q, k, v, rng.attention_seeds(b, h, x.device), p)
+            return linear(self.out_proj, out.reshape(b, n, e))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
-        weights = self.attn_drop(torch.softmax(logits.float(), dim=-1).to(x.dtype))
+        weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        weights = dropout(weights, p, self.training, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, e)
         return linear(self.out_proj, out)
 
 
 class BertAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 use_prenorm: bool = False, attention_impl: str = "einsum"):
+                 use_prenorm: bool = False, attention_impl: str = "einsum",
+                 attention_dropout: Optional[float] = None, fused_dropout: bool = False):
         super().__init__()
         if attention_impl not in ("einsum", "fused"):
             raise ValueError(f"Unknown attention_impl {attention_impl!r}")
         self.use_prenorm, self.attention_impl = use_prenorm, attention_impl
-        self.mha = MultiHeadSelfAttention(embed_dim, num_heads, dropout)
+        self.mha = MultiHeadSelfAttention(embed_dim, num_heads, dropout, attention_dropout,
+                                          fused_dropout)
         self.norm = nn.LayerNorm(embed_dim, eps=LAYERNORM_EPS)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if self.attention_impl == "fused" and not self.use_prenorm and not self.training:
             mha, dt = self.mha, x.dtype
             return fused_attention_block(
@@ -83,10 +143,12 @@ class BertAttention(nn.Module):
                 num_heads=mha.num_heads,
                 eps=LAYERNORM_EPS,
             )
+        p = self.drop.p
         if self.use_prenorm:
             y = layer_norm_f32(self.norm, x).to(x.dtype)
-            return self.drop(self.mha(y)) + x
-        return layer_norm_f32(self.norm, self.drop(self.mha(x)) + x).to(x.dtype)
+            return dropout(self.mha(y, rng), p, self.training, rng) + x
+        attn = dropout(self.mha(x, rng), p, self.training, rng)
+        return layer_norm_f32(self.norm, attn + x).to(x.dtype)
 
 
 class BertFeedForward(nn.Module):
@@ -98,31 +160,33 @@ class BertFeedForward(nn.Module):
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
                                  nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
 
-    def _net(self, h: torch.Tensor) -> torch.Tensor:
+    def _net(self, h: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
         fc1, _, fc2, drop = self.net
         # exact-erf GELU; torch evaluates it in float32 for bf16 inputs
-        return drop(linear(fc2, F.gelu(linear(fc1, h))))
+        return dropout(linear(fc2, F.gelu(linear(fc1, h))), drop.p, self.training, rng)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if self.use_prenorm:
-            return self._net(layer_norm_f32(self.norm, x).to(x.dtype)) + x
-        return layer_norm_f32(self.norm, self._net(x) + x).to(x.dtype)
+            return self._net(layer_norm_f32(self.norm, x).to(x.dtype), rng) + x
+        return layer_norm_f32(self.norm, self._net(x, rng) + x).to(x.dtype)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
                  dropout: float = 0.0, use_prenorm: bool = False,
-                 attention_impl: str = "einsum"):
+                 attention_impl: str = "einsum", attention_dropout: Optional[float] = None,
+                 fused_dropout: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             nn.ModuleList([
-                BertAttention(dim, heads, dropout, use_prenorm, attention_impl),
+                BertAttention(dim, heads, dropout, use_prenorm, attention_impl,
+                              attention_dropout, fused_dropout),
                 BertFeedForward(dim, mlp_dim, dropout, use_prenorm),
             ])
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         for attn, ffn in self.layers:
-            x = ffn(attn(x))
+            x = ffn(attn(x, rng), rng)
         return x

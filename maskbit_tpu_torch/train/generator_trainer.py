@@ -1,0 +1,125 @@
+"""Stage-II (MaskBit generator) training step.
+
+Counterpart of `maskbit_tpu/train/generator_trainer.py`
+(`init_generator_train_state`, `make_generator_train_step` and its
+`_mlm_step_core`). One step, as one Python function:
+  * the frozen Stage-I tokenizer encodes the images inline (no grad);
+  * the tokens are split into factorized tokens (codebook_splits);
+  * the arccos schedule (or another) masks them;
+  * class labels are dropped for CFG training;
+  * the generator runs forward and backward (attention dropout through the
+    dropout-attention kernels when the config sets `fused_attention_dropout`);
+  * the MLM loss is label-smoothed cross entropy;
+  * the global grad norm is taken, then clip + AdamW (`train/optim.py`);
+  * the EMA is updated.
+The parameters, optimizer moments and EMA shadows are updated in place.
+The phases run inside `torch.profiler.record_function` ranges
+("train/tokenize", "train/forward", "train/backward", "train/optimizer",
+"train/ema") that `cli/profile_train.py` reads; outside a profiler they
+cost a few microseconds a step.
+Randomness comes from a `torch.Generator` passed to each step, or from
+`injected` draws: "mask_ratio_uniform" (b,), "mask_token_uniform" (b, n, m),
+"label_drop_uniform" (b,) and "attention_seeds", one (b, h) table per
+attention layer call in order (tests hand both frameworks the same draws).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from maskbit_tpu_torch.core.ema import EmaState, ema_update, init_ema
+from maskbit_tpu_torch.losses.mlm import MLMLossConfig, mlm_loss
+from maskbit_tpu_torch.nn.transformer import DropoutRng
+from maskbit_tpu_torch.ops.bitops import split_factorized_tokens
+from maskbit_tpu_torch.ops.masking import get_mask_tokens
+from maskbit_tpu_torch.train.optim import AdamW, global_norm
+
+
+class GeneratorTrainState:
+    """The model (its parameters), the optimizer and the EMA shadows."""
+
+    def __init__(self, model: nn.Module, opt: AdamW, ema: Optional[EmaState]):
+        self.step = 0
+        self.model, self.opt, self.ema = model, opt, ema
+
+
+def init_generator_train_state(model: nn.Module, opt: AdamW,
+                               use_ema: bool = True) -> GeneratorTrainState:
+    return GeneratorTrainState(model, opt, init_ema(model) if use_ema else None)
+
+
+def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_schedule: str,
+                   class_label_dropout: float, ema_kwargs: Mapping[str, Any]) -> Callable:
+    """The MLM update given raw (b, n) integer tokens."""
+    splits, mask_token = model.codebook_splits, model.mask_token
+
+    def update(state: GeneratorTrainState, tokens: torch.Tensor, labels: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               injected: Optional[Mapping[str, Any]] = None):
+        b, dev = tokens.shape[0], tokens.device
+        split_tokens = split_factorized_tokens(tokens, codebook_size, splits)
+        masked_tokens, masks = get_mask_tokens(split_tokens, mask_token, mode=mask_schedule,
+                                               generator=generator, injected=injected)
+        if injected is not None:
+            u = torch.as_tensor(injected["label_drop_uniform"], dtype=torch.float32, device=dev)
+        else:
+            u = torch.rand((b,), generator=generator, device=dev)
+        drop_label_mask = u < class_label_dropout
+        rng = DropoutRng(generator, None if injected is None else injected["attention_seeds"])
+
+        model = state.model.train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        with record_function("train/forward"):
+            logits = model(masked_tokens, labels, drop_label_mask, rng)
+            loss, loss_dict = mlm_loss(logits, split_tokens, masks, mlm_cfg)
+        with record_function("train/backward"):
+            grads = list(torch.autograd.grad(loss, params))
+        with record_function("train/optimizer"):
+            grad_norm = global_norm(grads)
+            state.opt.step(grads)
+        if state.ema is not None:
+            with record_function("train/ema"):
+                ema_update(state.ema, model, **ema_kwargs)
+        state.step += 1
+
+        metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["grad_norm"] = grad_norm
+        metrics["train/masked_fraction"] = masks.float().mean()
+        # non-scalar viz payloads (underscore keys; the CLI pops them)
+        metrics["_input_tokens"] = split_tokens
+        metrics["_predicted_tokens"] = logits.detach().argmax(-1)
+        return state, metrics
+
+    return update
+
+
+def make_generator_train_step(model, tokenizer, mlm_cfg: MLMLossConfig,
+                              mask_schedule: str = "arccos", class_label_dropout: float = 0.1,
+                              ema_kwargs: Optional[Mapping[str, Any]] = None) -> Callable:
+    """Build train_step(state, images, labels, generator=None, injected=None)
+    -> (state, metrics). Images NHWC in [0, 1]; the frozen tokenizer runs
+    under no_grad inside the step."""
+    update = _mlm_step_core(model, mlm_cfg, tokenizer.codebook_size, mask_schedule,
+                            class_label_dropout, dict(ema_kwargs or {}))
+
+    def train_step(state, images, labels, generator=None, injected=None):
+        with torch.no_grad(), record_function("train/tokenize"):
+            tokens = tokenizer.eval().tokenize(images).reshape(images.shape[0], -1)
+        return update(state, tokens, labels, generator, injected)
+
+    return train_step
+
+
+def make_generator_train_step_from_tokens(model, codebook_size: int, mlm_cfg: MLMLossConfig,
+                                          mask_schedule: str = "arccos",
+                                          class_label_dropout: float = 0.1,
+                                          ema_kwargs: Optional[Mapping[str, Any]] = None
+                                          ) -> Callable:
+    """Build train_step(state, tokens (b, n), labels, generator=None,
+    injected=None): the same update without the tokenizer."""
+    return _mlm_step_core(model, mlm_cfg, codebook_size, mask_schedule, class_label_dropout,
+                          dict(ema_kwargs or {}))

@@ -1,7 +1,9 @@
-"""Port parity: `.bin` checkpoints, config validation and the shared loader.
+"""Port parity: the config loader, `.bin` checkpoints, config validation
+and the shared loader.
 
-The port reads its YAML through the JAX package's `maskbit_tpu.core.config`
-(yaml only), so the configs themselves need no parity test.
+The port keeps its own copy of the JAX package's config loader
+(`maskbit_tpu_torch/core/config.py`); both give equal trees for every
+shipped config, with overrides, legacy aliases and interpolation.
 """
 
 import glob
@@ -16,11 +18,12 @@ import torch
 
 from maskbit_tpu.compat.torch_export import export_generator_state, save_torch_state_dict
 from maskbit_tpu.core.checkpoint import load_pretrained as jax_load_pretrained
-from maskbit_tpu.core.config import Config, load_config
+from maskbit_tpu.core.config import load_config as jax_load_config
 from maskbit_tpu.models.generator import LFQBert as JaxLFQBert
 from maskbit_tpu.sampling.sample import SamplingConfig as JaxSamplingConfig
 from maskbit_tpu_torch.cli.common import load_generation_models, validate_generator_config
 from maskbit_tpu_torch.core.checkpoint import load_pretrained
+from maskbit_tpu_torch.core.config import Config, config_from_cli, load_config
 from maskbit_tpu_torch.models.generator import LFQBert
 from maskbit_tpu_torch.sampling.sample import SamplingConfig
 from tests.test_cli_eval_demo import DATASET, TINY_MLM, TINY_VQ
@@ -28,6 +31,25 @@ from tests.test_cli_eval_demo import DATASET, TINY_MLM, TINY_VQ
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENERATOR_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "generator", "*.yaml")))
+ALL_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*", "*.yaml")))
+
+
+@pytest.mark.parametrize("path", ALL_CONFIGS, ids=lambda p: os.path.relpath(p, ROOT))
+def test_config_loader_matches_jax(path):
+    overrides = ["training.per_gpu_batch_size=3", "optimizer.params.learning_rate=2e-4",
+                 "serve.device=cuda", "model.mlm_model.depth=2"]
+    assert load_config(path, overrides).to_dict() == jax_load_config(path, overrides).to_dict()
+
+
+def test_config_interpolation_aliases_and_cli(tmp_path):
+    path = tmp_path / "c.yaml"
+    path.write_text("a: {lr: 1e-4, copy: '${a.lr}'}\ntraining: {per_gpu_batch_size: 4}\n")
+    cfg = config_from_cli([f"config={path}", "a.lr=3e-4", "b.c=[1, 2]"])
+    assert cfg.a.copy == 3e-4 and cfg.select("b.c") == [1, 2]
+    assert cfg.training.per_device_batch_size == 4 and "per_gpu_batch_size" not in cfg.training
+    assert cfg.select("x.y", 5) == 5 and isinstance(cfg.a, Config)
+    with pytest.raises(ValueError, match="config="):
+        config_from_cli(["a.b=1"])
 
 
 @pytest.mark.parametrize("path", GENERATOR_CONFIGS, ids=os.path.basename)
@@ -121,8 +143,7 @@ def test_load_generation_models_random_fallback(caplog):
 
 def test_load_generation_models_from_bin_checkpoints(tmp_path):
     """With `.bin` checkpoints present both models load strictly: the
-    generator's weights are the exported ones, the tokenizer skips the
-    encoder's keys."""
+    weights are the exported ones, the tokenizer's encoder included."""
     from maskbit_tpu.compat.torch_export import export_tokenizer_state
     from maskbit_tpu.models.tokenizer import ConvVQModel as JaxConvVQModel
 
@@ -146,3 +167,5 @@ def test_load_generation_models_from_bin_checkpoints(tmp_path):
     np.testing.assert_array_equal(gen.pos_emb.detach().numpy(), gen_state["pos_emb"])
     np.testing.assert_array_equal(tok.decoder.conv_out.weight.detach().numpy(),
                                   tok_state["decoder.conv_out.weight"])
+    np.testing.assert_array_equal(tok.encoder.conv_out.weight.detach().numpy(),
+                                  tok_state["encoder.conv_out.weight"])

@@ -63,3 +63,97 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
     with pytest.raises(ValueError, match="head dim"):
         ab.fused_attention_block(**inp, num_heads=8)
+
+
+def _qkv(b, n, h, seed, layout="separate"):
+    """bf16 q, k, v (b, n, h, 64); "packed" gives the QKV projection's view
+    of one (b, n, 3, h, 64) tensor, as the transformer passes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "packed":
+        qkv = torch.randn(b, n, 3, h, 64, generator=g, device="cuda").bfloat16()
+        return qkv.unbind(2)
+    return [torch.randn(b, n, h, 64, generator=g, device="cuda").bfloat16() for _ in range(3)]
+
+
+def _seeds(b, h, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 2**32, (b, h), generator=g, device="cuda", dtype=torch.int64)
+
+
+# The kernels return bf16; the plain versions run in float32 on the same bf16
+# inputs with the same rounding points. An output of magnitude below 2 rounds
+# to bf16 within 2^-8 = 0.0039; the online softmax rounds unnormalised
+# weights (one more bf16 rounding, relative 2^-9, of weights that sum to at
+# most 1/(1-p)) and the backward's delta = rowsum(g * out) reads the bf16
+# output. 2e-2 covers these with room; one flipped mask bit moves an output
+# by about |v| / n / (1-p) > 2e-2 only at small n, so the mask is checked
+# separately at zero logits.
+DROPOUT_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("b,n,h,layout", [(2, 257, 4, "packed"), (1, 33, 2, "separate"),
+                                          (1, 130, 3, "packed")])
+def test_dropout_attention_kernels_match_plain_versions(b, n, h, layout):
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    q, k, v = _qkv(b, n, h, seed=n, layout=layout)
+    seeds = _seeds(b, h, seed=n + 1)
+    rate = 0.1
+    before = dict(da.launches)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = da.dropout_attention(qg, kg, vg, seeds, rate)
+    gout = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                       device="cuda").bfloat16()
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert da.launches["dropout_attention_fwd"] == before["dropout_attention_fwd"] + 1
+    assert da.launches["dropout_attention_bwd"] == before["dropout_attention_bwd"] + 1
+    want = da.dropout_attention_reference(q.float(), k.float(), v.float(), seeds, rate)
+    assert (out.float() - want).abs().max().item() <= DROPOUT_ATOL
+    dq, dk, dv = da.dropout_attention_backward_reference(
+        q.float(), k.float(), v.float(), gout.float(), seeds, rate)
+    for got, ref in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref).abs().max().item() <= DROPOUT_ATOL * max(1.0, ref.abs().max().item())
+
+
+def test_dropout_attention_kernel_mask_is_the_hash_mask():
+    """The forward kernel's keep mask, read out at zero logits with one-hot
+    values (`chip_smoke.kernel_keep_mask`), equals the plain version's bit
+    for bit."""
+    _card()
+    import chip_smoke
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    b, n, h = 2, 200, 2
+    seeds = _seeds(b, h, seed=4)
+    got = chip_smoke.kernel_keep_mask(torch, da, seeds, b, n, h)
+    assert torch.equal(got, da.hash_keep_mask(seeds, n, chip_smoke.RATE))
+
+
+def test_fused_attention_kernel_matches_plain_version():
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    q, k, v = _qkv(2, 257, 4, seed=11, layout="packed")
+    before = da.launches["fused_attention"]
+    got = da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert da.launches["fused_attention"] == before + 1
+    want = da.fused_attention_reference(q.float(), k.float(), v.float())
+    assert (got.float() - want).abs().max().item() <= DROPOUT_ATOL
+
+
+def test_dropout_attention_kernel_rejects_bad_inputs():
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    q, k, v = _qkv(1, 17, 2, seed=0)
+    s = _seeds(1, 2, seed=1)
+    with pytest.raises(TypeError):
+        da.dropout_attention(q.float(), k.float(), v.float(), s, 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        da.dropout_attention(q[..., :32], k[..., :32], v[..., :32], s, 0.1)
+    with pytest.raises(ValueError, match="strides"):
+        da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)

@@ -89,3 +89,37 @@ def test_fused_route_only_in_eval_postnorm(monkeypatch):
         tmodel.train()
         tmodel(*args)
         assert len(calls) == TINY["depth"]
+
+
+def test_training_mode_dropout_draws_from_the_step_generator():
+    """In training mode every dropout mask comes from the step's DropoutRng:
+    the same generator seed gives the same logits, another seed other ones;
+    without a DropoutRng a rate above 0 raises; at rate 0 training mode
+    computes what eval mode computes."""
+    from maskbit_tpu_torch.nn.transformer import DropoutRng
+
+    kw = dict(TINY, img_size=64, attention_impl="einsum")
+    model = LFQBert(**dict(kw, dropout=0.1, attention_dropout=0.2,
+                           fused_attention_dropout=True))
+    ref = generator_from_flax(jax.tree.map(np.asarray, _pair(64, "einsum", False)[1]),
+                              LFQBert(**kw))
+    model.load_state_dict(ref.state_dict(), strict=True)
+    tokens, labels, drop = (torch.from_numpy(x) for x in _inputs(model, 2, seed=5))
+    model.train()
+
+    def run(seed):
+        with torch.no_grad():
+            return model(tokens, labels, drop, DropoutRng(torch.Generator().manual_seed(seed)))
+
+    torch.testing.assert_close(run(1), run(1), atol=0, rtol=0)
+    assert not torch.allclose(run(1), run(2))
+    with pytest.raises(ValueError, match="DropoutRng"):
+        model(tokens, labels, drop)
+    ref.train()
+    with torch.no_grad():
+        train_logits = ref(tokens, labels, drop)
+    ref.eval()
+    with torch.no_grad():
+        torch.testing.assert_close(train_logits, ref(tokens, labels, drop), atol=1e-5, rtol=0)
+    with pytest.raises(NotImplementedError, match="remat"):
+        LFQBert(**dict(kw, remat=True))

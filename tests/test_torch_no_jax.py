@@ -1,18 +1,29 @@
-"""The port never imports JAX or Flax, and of the JAX package only the two
-modules that import neither (`core.config`, yaml only, and
-`compat.torch_export`, numpy only): a fresh interpreter imports every module
-of `maskbit_tpu_torch`, serves a tiny model on CPU and then finds nothing
-else of them in `sys.modules`."""
+"""The port never imports JAX, its ecosystem or anything of the JAX package.
 
+* At run time: a fresh interpreter imports every module of
+  `maskbit_tpu_torch`, reads a tiny config through the port's own
+  `load_config`, serves a tiny model and takes one tiny train step on the
+  CPU, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`,
+  `orbax` or `maskbit_tpu` in `sys.modules`.
+* In the source: an AST scan of every `.py` under `maskbit_tpu_torch/` and
+  of `chip_smoke.py` finds no `import maskbit_tpu...` or
+  `from maskbit_tpu... import` other than of `maskbit_tpu_torch`, and no
+  import of JAX's packages.
+"""
+
+import ast
+import glob
 import os
 import subprocess
 import sys
 
+import pytest
 import yaml
 
 from tests.test_cli_eval_demo import DATASET, TINY_MLM, TINY_VQ
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maskbit_tpu")
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
@@ -21,27 +32,31 @@ torch.set_num_threads(2)
 import maskbit_tpu_torch
 for m in pkgutil.walk_packages(maskbit_tpu_torch.__path__, "maskbit_tpu_torch."):
     importlib.import_module(m.name)
-from maskbit_tpu.core.config import load_config
-from maskbit_tpu.compat import torch_export
+from maskbit_tpu_torch.core.config import load_config
 from maskbit_tpu_torch.cli.serve import GeneratorService
+from maskbit_tpu_torch.cli.train_maskbit import main as train
 service = GeneratorService(load_config(sys.argv[1]))
 images = service.generate([1, 2, 3], seed=4)
 assert images.shape == (3, 32, 32, 3), images.shape
-allowed = {"maskbit_tpu", "maskbit_tpu.core", "maskbit_tpu.core.config",
-           "maskbit_tpu.compat", "maskbit_tpu.compat.torch_export"}
-bad = sorted(m for m in sys.modules if m not in allowed
-             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "maskbit_tpu"))
+result = train([f"config={sys.argv[1]}"])
+assert result["steps"] == 1, result
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
-"""
+""" % (FORBIDDEN,)
 
 
 def test_port_imports_no_jax(tmp_path):
     cfg = {
-        "experiment": {"vqgan_checkpoint": "", "generator_checkpoint": ""},
-        "model": {"vq_model": TINY_VQ, "mlm_model": dict(TINY_MLM, attention_impl="fused")},
+        "experiment": {"vqgan_checkpoint": "", "generator_checkpoint": "", "log_every": 1,
+                       "output_dir": str(tmp_path / "train")},
+        "model": {"vq_model": TINY_VQ,
+                  "mlm_model": dict(TINY_MLM, attention_impl="fused", hidden_dim=64, heads=1,
+                                    attention_dropout=0.1, fused_attention_dropout=True)},
         "dataset": DATASET,
-        "training": {"mixed_precision": "no", "seed": 0},
+        "optimizer": {"params": {"learning_rate": 1e-4}},
+        "training": {"mixed_precision": "no", "seed": 0, "device": "cpu",
+                     "per_device_batch_size": 2, "max_train_steps": 1},
         "serve": {"batch_size": 2, "device": "cpu"},
     }
     path = tmp_path / "tiny.yaml"
@@ -51,3 +66,36 @@ def test_port_imports_no_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "FORBIDDEN []" in proc.stdout
+    assert (tmp_path / "train" / "model-1.bin").exists()
+
+
+def _forbidden_imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}" for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+SOURCES = sorted(glob.glob(os.path.join(ROOT, "maskbit_tpu_torch", "**", "*.py"),
+                           recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_sources_import_nothing_of_jax(path):
+    assert _forbidden_imports(path) == []
+
+
+def test_import_scan_catches_the_jax_package(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import maskbit_tpu_torch.nn\nfrom maskbit_tpu.core import config\n"
+                   "def f():\n    import jax.numpy as jnp\n")
+    assert [b.split(" ")[1] for b in _forbidden_imports(str(src))] == ["maskbit_tpu.core",
+                                                                        "jax.numpy"]

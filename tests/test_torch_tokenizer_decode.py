@@ -1,12 +1,10 @@
 """Port parity: LFQ unpack + ConvDecoder (`decode_tokens`) against JAX.
 
-The JAX tokenizer's parameters are exported and loaded into the port's
-decode-only model (decoder and quantizer strict, encoder keys skipped).
+The JAX tokenizer's parameters are exported and loaded strictly into the
+port's model (encoder, decoder and the quantizer's buffers).
 Float32 on both sides; atol 1e-4 covers the different convolution and
 GroupNorm summation orders.
 """
-
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -31,10 +29,11 @@ def _pair(cfg, legacy):
 
 
 @pytest.mark.parametrize("legacy", [False, True])
-def test_decode_tokens_matches_jax(legacy, caplog):
-    with caplog.at_level(logging.INFO, logger="maskbit_tpu_torch"):
-        jmodel, variables, tmodel = _pair(TINY_VQ, legacy)
-    assert any("skipping" in r.message and "encoder." in r.message for r in caplog.records)
+def test_decode_tokens_matches_jax(legacy):
+    jmodel, variables, tmodel = _pair(TINY_VQ, legacy)
+    np.testing.assert_array_equal(  # the encoder's weights load too
+        tmodel.encoder.conv_in.weight.detach().numpy(),
+        np.asarray(variables["params"]["encoder"]["conv_in"]["kernel"]).transpose(3, 2, 0, 1))
     rng = np.random.default_rng(int(legacy))
     tokens = rng.integers(0, TINY_VQ["codebook_size"], size=(2, 256)).astype(np.int32)
     want = jmodel.apply(variables, jnp.asarray(tokens), method="decode_tokens")

@@ -10,16 +10,18 @@ Phases, each of which fails the run if it fails:
      one nvcc per source, all started together.
   3. kernels: the attention block kernel against its plain PyTorch version
      at the serving shapes (16, 257, 1024) and (2, 1025, 1024), 16 heads,
-     with timings (CUDA events, median of 20 after warm-up) beside the plain
-     version and the port's bf16 einsum path; the dropout-attention forward
-     and backward kernels (rate 0.1) against their plain versions at the
-     training shapes (32, 257, 16, 64) and (2, 1025, 16, 64), the kernel's
-     keep mask (read out at zero logits) against the plain version's bit for
-     bit, and the dropout-free `fused_attention` at (16, 257, 16,
-     64), each timed beside its plain version and
+     timed beside the plain version and the port's bf16 einsum path; the
+     dropout-attention forward and backward kernels (rate 0.1) against their
+     plain versions at the training shapes (32, 257, 16, 64) and (8, 1025,
+     16, 64), the kernel's keep mask (read out at zero logits) against the
+     plain version's bit for bit, and the dropout-free `fused_attention` at
+     (16, 257, 16, 64), each timed beside its plain version and
      `scaled_dot_product_attention`; then the flagship generator's logits
      (depth cut to 2) through the kernel against a float32 plain-PyTorch
-     forward of the same weights.
+     forward of the same weights. Every time is taken twice: `ms`, the
+     device time per call (the kernels' device times under torch.profiler,
+     summed over 50 calls), and `call_ms`, one call's CUDA-event time
+     (median of 20), which includes the host work before its first kernel.
   4. serve slice: the port's HTTP server (`maskbit_tpu_torch.cli.serve.main`)
      on `configs/generator/maskbit_generator_14bit.yaml` (depth 24, hidden
      1024, 64 steps, CFG) at serve batch 8 with random weights; /healthz, a
@@ -76,6 +78,8 @@ KERNEL_ATOL = 3e-2
 DROPOUT_ATOL = 2e-2
 RATE = 0.1
 TRAIN_BATCH, TRAIN_STEPS = 32, 6
+# the 512 px config's per-device batch (maskbit_generator_14bit_512.yaml)
+LONG_BATCH = 8
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -142,6 +146,9 @@ def _bound(flops: float, nbytes: float) -> dict:
 
 
 def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """One call's time by CUDA events, median of `iters`: the start event
+    is recorded before the Python call, so it includes the host work that
+    runs before the first kernel reaches the stream (`call_ms`)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -153,6 +160,39 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device time per call (`ms`): `iters` calls under torch.profiler, the
+    sum of `self_device_time_total` over every CUDA kernel (and memset or
+    copy) that they launched, over `iters`. Host work between kernels is
+    not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def _times(torch, fn, plain=None, library=None) -> dict:
+    """`ms` (device) and `call_ms` (events) of fn; `plain_ms` and
+    `library_ms` (device) of the plain version and the library call."""
+    out = {"ms": _device_ms(torch, fn), "call_ms": _time_ms(torch, fn)}
+    if plain is not None:
+        out["plain_ms"] = _device_ms(torch, plain)
+    if library is not None:
+        out["library_ms"] = _device_ms(torch, library)
+    return out
 
 
 def _block_inputs(torch, b, n, e, seed):
@@ -200,22 +240,22 @@ def phase_kernels(torch) -> dict:
         err = (got.float() - ref).abs()
         max_err, mean_err = err.max().item(), err.mean().item()
         finite = bool(torch.isfinite(got).all())
-        kernel_ms = _time_ms(torch, lambda: ab.fused_attention_block(**inp, num_heads=HEADS))
-        plain_ms = _time_ms(torch, lambda: ab.fused_attention_block_reference(**inp, num_heads=HEADS))
+        t = _times(torch, lambda: ab.fused_attention_block(**inp, num_heads=HEADS),
+                   plain=lambda: ab.fused_attention_block_reference(**inp, num_heads=HEADS))
         blk = _einsum_block(torch, inp, e)
         with torch.inference_mode():
-            einsum_ms = _time_ms(torch, lambda: blk(inp["x"]))
+            einsum_ms = _device_ms(torch, lambda: blk(inp["x"]))
         log(f"[kernel] attention_block x=({b}, {n}, {e}) h={HEADS}: max_abs_err {max_err:.6f} "
             f"mean_abs_err {mean_err:.3e} (atol {KERNEL_ATOL}) max|ref| {ref.abs().max().item():.3f}; "
-            f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"einsum-path bf16 {einsum_ms:.4f} ms")
+            f"kernel {t['ms']:.4f} ms device ({t['call_ms']:.4f} ms per call by events), plain "
+            f"{t['plain_ms']:.4f} ms, einsum-path bf16 {einsum_ms:.4f} ms")
         if not finite or max_err > KERNEL_ATOL:
             raise AssertionError(f"attention_block disagrees at ({b}, {n}, {e}): "
                                  f"max_abs_err {max_err} > {KERNEL_ATOL} or non-finite")
         flops = 2 * b * n * e * 3 * e + 2 * b * n * e * e + 4 * b * HEADS * n * n * (e // HEADS)
         nbytes = 2 * (2 * b * n * e + 4 * e * e) + 4 * 6 * e  # x, out, weights bf16; f32 vectors
         rows.append(dict(shape=[b, n, e], max_abs_err=max_err, mean_abs_err=mean_err,
-                         ms=kernel_ms, plain_ms=plain_ms, einsum_ms=einsum_ms, **_bound(flops, nbytes)))
+                         einsum_ms=einsum_ms, **t, **_bound(flops, nbytes)))
         worst = max(worst, max_err)
     return {"rows": rows, "max_abs_err": worst}
 
@@ -256,7 +296,7 @@ def phase_dropout_kernels(torch) -> dict:
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     rows = {"dropout_attention_fwd": [], "dropout_attention_bwd": [], "fused_attention": []}
-    for b, n in ((TRAIN_BATCH, 257), (2, 1025)):
+    for b, n in ((TRAIN_BATCH, 257), (LONG_BATCH, 1025)):
         h = HEADS
         q, k, v = _qkv_packed(torch, b, n, h, seed=b * n)
         seeds = torch.randint(0, 2**32, (b, h), generator=torch.Generator(device="cuda").manual_seed(n),
@@ -279,21 +319,19 @@ def phase_dropout_kernels(torch) -> dict:
         finite = all(bool(torch.isfinite(x).all()) for x in (out, dq, dk, dv))
         del ref, rdq, rdk, rdv, qf, kf, vf
 
-        fwd_ms = _time_ms(torch, lambda: da.launch_forward(q, k, v, seeds32, RATE))
-        bwd_ms = _time_ms(torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32, RATE))
-        plain_fwd_ms = _time_ms(torch, lambda: da.dropout_attention_reference(q, k, v, seeds, RATE))
-        plain_bwd_ms = _time_ms(
-            torch, lambda: da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE))
-        lib_fwd_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, RATE))
+        fwd_t = _times(torch, lambda: da.launch_forward(q, k, v, seeds32, RATE),
+                       plain=lambda: da.dropout_attention_reference(q, k, v, seeds, RATE),
+                       library=lambda: _sdpa(torch, q, k, v, RATE))
         ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
         lib_out = _sdpa(torch, ql, kl, vl, RATE)
         lib_g = g.transpose(1, 2)
-        lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g,
-                                                                  retain_graph=True))
-        both_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            da.dropout_attention(ql, kl, vl, seeds, RATE), (ql, kl, vl), g))
-        lib_both_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            _sdpa(torch, ql, kl, vl, RATE), (ql, kl, vl), lib_g))
+        bwd_t = _times(
+            torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32, RATE),
+            plain=lambda: da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE),
+            library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g, retain_graph=True))
+        both_t = _times(torch, lambda: torch.autograd.grad(
+            da.dropout_attention(ql, kl, vl, seeds, RATE), (ql, kl, vl), g),
+            library=lambda: torch.autograd.grad(_sdpa(torch, ql, kl, vl, RATE), (ql, kl, vl), lib_g))
         del lib_out, ql, kl, vl
 
         elems = b * n * h * 64
@@ -303,19 +341,21 @@ def phase_dropout_kernels(torch) -> dict:
             f"{fwd_err:.6f}, dq/dk/dv {bwd_errs[0]:.6f}/{bwd_errs[1]:.6f}/{bwd_errs[2]:.6f} "
             f"(atol {DROPOUT_ATOL}, bwd {bwd_tol:.4f}); kernel keep mask vs plain: "
             f"{mask_flips} of {b * h * n * n} bits differ")
-        log(f"[kernel]   fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, sdpa {lib_fwd_ms:.4f}, "
-            f"bound {fwd_bound['bound_ms']:.4f} by {fwd_bound['bound_by']}); bwd {bwd_ms:.4f} ms "
-            f"(plain {plain_bwd_ms:.4f}, sdpa bwd {lib_bwd_ms:.4f}, bound "
-            f"{bwd_bound['bound_ms']:.4f} by {bwd_bound['bound_by']}); fwd + bwd {both_ms:.4f} ms "
-            f"(sdpa {lib_both_ms:.4f})")
+        log(f"[kernel]   device ms: fwd {fwd_t['ms']:.4f} (per call by events "
+            f"{fwd_t['call_ms']:.4f}; plain {fwd_t['plain_ms']:.4f}, sdpa {fwd_t['library_ms']:.4f}, "
+            f"bound {fwd_bound['bound_ms']:.4f} by {fwd_bound['bound_by']}); bwd {bwd_t['ms']:.4f} "
+            f"(per call {bwd_t['call_ms']:.4f}; plain {bwd_t['plain_ms']:.4f}, sdpa bwd "
+            f"{bwd_t['library_ms']:.4f}, bound {bwd_bound['bound_ms']:.4f} by "
+            f"{bwd_bound['bound_by']}); fwd + bwd through autograd {both_t['ms']:.4f} (per call "
+            f"{both_t['call_ms']:.4f}; sdpa {both_t['library_ms']:.4f})")
         if not finite or fwd_err > DROPOUT_ATOL or max(bwd_errs) > bwd_tol or mask_flips:
             raise AssertionError(f"dropout_attention disagrees at ({b}, {n}, {h}, 64)")
         rows["dropout_attention_fwd"].append(dict(
-            shape=[b, n, h, 64], max_abs_err=fwd_err, mask_flips=mask_flips, ms=fwd_ms,
-            plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, **fwd_bound))
+            shape=[b, n, h, 64], max_abs_err=fwd_err, mask_flips=mask_flips, **fwd_t,
+            **fwd_bound))
         rows["dropout_attention_bwd"].append(dict(
-            shape=[b, n, h, 64], max_abs_err=max(bwd_errs), ms=bwd_ms, plain_ms=plain_bwd_ms,
-            library_ms=lib_bwd_ms, fwd_bwd_ms=both_ms, library_fwd_bwd_ms=lib_both_ms,
+            shape=[b, n, h, 64], max_abs_err=max(bwd_errs), **bwd_t, fwd_bwd_ms=both_t["ms"],
+            fwd_bwd_call_ms=both_t["call_ms"], library_fwd_bwd_ms=both_t["library_ms"],
             **bwd_bound))
         del q, k, v, g, out, lse, dq, dk, dv
 
@@ -325,17 +365,17 @@ def phase_dropout_kernels(torch) -> dict:
     torch.cuda.synchronize()
     err = (got.float() - da.fused_attention_reference(q.float(), k.float(), v.float())
            ).abs().max().item()
-    ms = _time_ms(torch, lambda: da.fused_attention(q, k, v))
-    plain_ms = _time_ms(torch, lambda: da.fused_attention_reference(q, k, v))
-    lib_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, 0.0))
+    t = _times(torch, lambda: da.fused_attention(q, k, v),
+               plain=lambda: da.fused_attention_reference(q, k, v),
+               library=lambda: _sdpa(torch, q, k, v, 0.0))
     bound = _bound(4 * b * h * n * n * 64, 2 * 4 * b * n * h * 64)
     log(f"[kernel] fused_attention ({b}, {n}, {h}, 64): max_abs_err {err:.6f} (atol "
-        f"{DROPOUT_ATOL}); {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
-        f"{bound['bound_ms']:.4f} by {bound['bound_by']})")
+        f"{DROPOUT_ATOL}); device {t['ms']:.4f} ms (per call by events {t['call_ms']:.4f}; plain "
+        f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound {bound['bound_ms']:.4f} by "
+        f"{bound['bound_by']})")
     if not bool(torch.isfinite(got).all()) or err > DROPOUT_ATOL:
         raise AssertionError(f"fused_attention disagrees: max_abs_err {err}")
-    rows["fused_attention"].append(dict(shape=[b, n, h, 64], max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, library_ms=lib_ms, **bound))
+    rows["fused_attention"].append(dict(shape=[b, n, h, 64], max_abs_err=err, **t, **bound))
     return rows
 
 
@@ -603,27 +643,66 @@ def phase_train_slice(torch, device_info) -> dict:
             "samples_per_s": TRAIN_BATCH / median_s, "peak_gib": peak_gib}
 
 
-def main() -> int:
+PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train")
+
+
+def _args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of maskbit_tpu_torch on one CUDA card.")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated subset of %(default)s (device and build always run); "
+                        "the JSON lines are printed only when all run")
+    p.add_argument("--tree", default=ROOT,
+                   help="checkout whose maskbit_tpu_torch to drive (default: this one), e.g. "
+                        "a parent commit unpacked beside it, to compare two trees with one "
+                        "script")
+    args = p.parse_args(argv)
+    args.phases = [x for x in args.phases.split(",") if x]
+    unknown = set(args.phases) - set(PHASES)
+    if unknown:
+        p.error(f"unknown phases {sorted(unknown)}")
+    return args
+
+
+def main(argv=None) -> int:
     import torch
 
-    sys.path.insert(0, ROOT)
+    args = _args(sys.argv[1:] if argv is None else argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
     import maskbit_tpu_torch  # noqa: F401 — fails when run outside the checkout
 
+    if os.path.dirname(os.path.abspath(maskbit_tpu_torch.__file__)) != os.path.join(
+            tree, "maskbit_tpu_torch"):
+        raise RuntimeError(f"maskbit_tpu_torch did not load from {tree}")
+    log(f"[tree] {tree}")
     device_info = phase_device(torch)
     phase_build()
-    kern = phase_kernels(torch)
-    drop = phase_dropout_kernels(torch)
-    phase_generator(torch)
-    sl = phase_slice(torch, device_info)
-    check = phase_train_check(torch)
-    tr = phase_train_slice(torch, device_info)
+    run = set(args.phases)
+    kern = phase_kernels(torch) if "kernels" in run else None
+    drop = phase_dropout_kernels(torch) if "dropout" in run else None
+    if "generator" in run:
+        phase_generator(torch)
+    sl = phase_slice(torch, device_info) if "slice" in run else None
+    check = phase_train_check(torch) if "train_check" in run else None
+    tr = phase_train_slice(torch, device_info) if "train" in run else None
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if run != set(PHASES):
+        with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
+            json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
+                       "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr},
+                      f, indent=1)
+        log(f"[done] phases {args.phases} passed")
+        return 0
 
     def row(name, source, replaces, launches, rows):
         first = rows[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-                "bound_by": first["bound_by"], "library_ms": first.get("library_ms")}
+                "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": first.get("library_ms")}
 
     src = "maskbit_tpu_torch/csrc/dropout_attention.cu"
     pa = "maskbit_tpu/nn/pallas_attention.py"
@@ -638,7 +717,6 @@ def main() -> int:
         row("fused_attention", src, f"{pa}:94", tr["launches"]["fused_attention"],
             drop["fused_attention"]),
     ]}
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr}, f, indent=1)

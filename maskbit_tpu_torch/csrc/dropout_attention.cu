@@ -5,10 +5,10 @@
 // Replaces the TPU kernels of maskbit_tpu/nn/pallas_attention.py:
 //   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
 //     attn_fwd_kernel<true>;
-//   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_delta_kernel,
-//     attn_bwd_dkdv_kernel and attn_bwd_dq_kernel;
 //   * _attention_kernel (fused_attention), by attn_fwd_kernel<false>: the same
-//     forward with the mask compiled out.
+//     forward with the mask compiled out;
+//   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_prep_kernel,
+//     attn_bwd_kernel and attn_bwd_dq_kernel.
 //
 // The keep mask is the TPU kernel's, bit for bit: a pure function of the
 // unpadded query index (row), key index (col) and the (batch, head) slot's
@@ -18,42 +18,81 @@
 // host. The backward regenerates the same mask, so it never exists in memory.
 //
 // What bounds it on the H100. At the flagship training shape, q, k, v of
-// (32, 257, 16, 64) bf16 (16.8 MB each), the forward reads three tensors and
-// writes one (67 MB, 20 us at 3.35 TB/s) for 8.7 GFLOP of products (9 us at
-// 989 TFLOP/s); the backward reads q, k, v, out and the incoming gradient and
-// writes dq, dk, dv (135 MB, 40 us) for 21.6 GFLOP of the TPU kernel's
-// products. Both are bound by device memory, so the (n, n) probabilities,
-// the mask and the score gradients stay on chip: one pass over q, k and v
-// forward, flash-style.
-//   * Forward: one block per (batch*head, 64-query tile), 4 warps of 16
-//     queries; 64-key tiles of K and V streamed through shared memory; an
-//     online f32 softmax whose row sum runs over ALL keys before dropout; the
-//     mask and 1/(1-p) multiply the unnormalised weights, which are rounded
-//     to bf16 for the value product (the TPU kernel rounds the normalised
-//     ones: a relative difference of one bf16 rounding, 2^-9); the row
-//     log-sum-exp is saved, (batch*head, n) f32, for the backward.
-//   * Backward, three launches, no atomics (deterministic):
-//       delta = rowsum(g * out) in f32 (the identity rowsum(dw * P) = g . O
-//         holds with dropout; O is the forward's bf16 output, which costs one
-//         bf16 rounding of O against the TPU kernel's f32 row sum);
-//       dk, dv: one block per (batch*head, 64-key tile) looping over query
-//         tiles (Hopper blocks carry no state between them, so the sums over
-//         queries stay inside one block);
-//       dq: one block per (batch*head, 64-query tile) looping over key tiles.
-//     Both recompute P from q, k and the log-sum-exp and regenerate the mask.
+// (32, 257, 16, 64) bf16 (16.8 MB each), the forward moves 67 MB (20 us at
+// 3.35 TB/s) for 8.7 GFLOP of products (9 us at 989 TFLOP/s); the backward
+// moves 135 MB (40 us) for 21.6 GFLOP (22 us). At (8, 1025, 16, 64) the
+// products lead: 34.4 and 86 GFLOP (35 and 87 us). Both stay far from these
+// bounds for a reason the bounds do not count: per (query, key) pair the
+// kernels also do about 20 f32 and integer operations on the CUDA cores
+// (exp2, the murmur3 hash, the dropout select, the score gradient), which at
+// n = 257 take as long as the bytes; and 64-row tiles pad 257 to 320. So the
+// design keeps the tensor cores and the copies off the critical path of
+// those operations:
+//   * Operands arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle) into a
+//     ring of shared-memory stages guarded by mbarriers. A producer warp
+//     keeps the loads in flight; one consumer warpgroup (128 threads) runs
+//     the products as wgmma m64n64k16 (bf16 in, f32 accumulate). The score
+//     tile stays in registers and is the next product's A operand. Two or
+//     three blocks share an SM, so one block's softmax overlaps another's
+//     products and loads.
+//   * q, k, v are read through one rank-4 tensor map each over the QKV
+//     projection's (b, n, 3, h, 64) view (dims d, n, h, b with the caller's
+//     strides); rows past n arrive as zeros, and the kernels mask scores and
+//     weights of rows and columns past n.
+//   * Forward: one block per (batch*head, 64-query tile), 160 threads, 42 KB
+//     of shared memory, three blocks an SM; K and V tiles of 64 keys stream
+//     through 2 stages. Online softmax in f32 with exp2f and log2(e) folded
+//     into the scale; the row sum runs over ALL keys before dropout; the mask
+//     and 1/(1-p) multiply the unnormalised weights, which are rounded to
+//     bf16 for the value product (the TPU kernel rounds the normalised ones:
+//     a relative difference of one bf16 rounding, 2^-9); the row
+//     log-sum-exp is saved, (batch*head, n) f32, for the backward. ptxas:
+//     128 registers with the mask, 107 without, no spills.
+//   * Backward, three launches. attn_bwd_prep_kernel: per query row
+//     delta = rowsum(g * out) (the identity rowsum(dw * P) = g . O holds with
+//     dropout; O is the forward's bf16 output, one bf16 rounding against the
+//     TPU kernel's f32 row sum) and lse * log2(e), into a padded f32 pair per
+//     row; it also zeroes the dq tickets. attn_bwd_kernel: one block per
+//     (batch*head, 64-key tile), 256 threads, 90 KB of shared memory, two
+//     blocks an SM; K and V resident, looping over the query tiles (Q, the
+//     incoming gradient and the row pairs through 2 stages). Each product
+//     once, 10 * b*h*n^2*d operations as the TPU kernel:
+//       S^T = K Q^T, dP^T = V G^T (A and B from shared memory),
+//       P^T = exp2(S^T * scale * log2e - lse * log2e),
+//       dV += bf16(keep * P^T / (1-p)) G   (A from registers),
+//       dS^T = P^T (keep * dP^T / (1-p) - delta) * scale,
+//       dK += bf16(dS^T) Q                 (A from registers),
+//       dQ_part = bf16(dS) K               (dS^T through shared memory, read
+//                                           transposed).
+//     The producer warpgroup (a loader warp, a dQ warp, two idle) gives its
+//     registers to the consumers with setmaxnreg (32 and 224), so dK, dV, S^T,
+//     dP^T and the dQ part stay in registers: ptxas, 128 registers at launch,
+//     no spills, no serialised wgmma (at a flat 168 it spilled 116 bytes and
+//     serialised them, 12-18% slower).
+//     dQ sums the parts of every key tile of the head, deterministically: the
+//     consumers write each f32 part to shared memory (two buffers, 128-byte
+//     swizzled, so without bank conflicts), and the dQ warp adds it to an f32
+//     sum in device memory with two TMA tensor reduces
+//     (cp.reduce.async.bulk.tensor .add; the first part is a tensor store),
+//     in a fixed order kept by a ticket per (batch*head, query tile): a part
+//     is added only after the one before it in the order has landed.
+//     attn_bwd_dq_kernel then writes the sum as bf16 dq. Key tile kt visits
+//     query tiles kt, kt+1, ... (mod the tile count), and tile qt is summed
+//     in the order kt = qt, qt-1, ..., so the blocks of one head seldom wait
+//     on each other; a block may then wait for one launched after it, which
+//     needs all blocks of a head on the card at once, so beyond 64 tiles the
+//     wrapper takes the order kt = 0, 1, ..., where a block waits only for
+//     blocks launched before it.
 //     The TPU kernel's rounding points are kept: the dropped weights are
 //     rounded to bf16 before dv, the score gradient before dq and dk.
-// Products are bf16 mma.sync.m16n8k16 with f32 accumulation; the accumulator
-// layout of one product is the A-operand layout of the next, so logits,
-// weights and score gradients never leave registers. Operands read
-// transposed (V, and Q, K, the gradient in the backward) come through
-// ldmatrix.trans from row-major tiles.
 //
 // Layouts: q, k, v are (b, n, h, 64) bf16 read through strides (batch, row,
-// head; the last dimension contiguous), so the QKV projection's (b, n, 3, h,
-// 64) view needs no transposes. out, the incoming gradient, dq, dk and dv are
-// contiguous (b, n, h, 64) bf16.
+// head; the last dimension contiguous, every stride a multiple of 16 bytes).
+// out, the incoming gradient, dq, dk and dv are contiguous (b, n, h, 64)
+// bf16. The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; the driver call is looked up)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,17 +102,148 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;        // head dim (checked by the wrapper)
-constexpr int TILE = 64;      // queries or keys per tile
-constexpr int LD = HD + 8;    // padded bf16 row (144 bytes): conflict-free fragment reads
-constexpr int THREADS = 128;  // 4 warps of 16 rows
+constexpr int HD = 64;                      // head dim (checked by the wrapper)
+constexpr int TILE = 64;                    // queries or keys per tile: wgmma's M
+constexpr int TILE_BYTES = TILE * HD * 2;   // one bf16 tile, 8 KB, 64 rows of 128 B
+constexpr int CONSUMERS = 128;              // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-struct Strides {
-  long long b, n, h;  // in elements; the head dim is contiguous
-};
+// ------------------------------------------------------ PTX wrappers ----
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One (64 rows x 64 d) bf16 tile of a rank-4 (d, n, h, b) tensor map.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching accumulators across an asynchronous wgmma.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The consumer warpgroup's own barrier (the producer warp does not take part).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// Shared-memory matrix descriptors for 128-byte-swizzled tiles of 64-element
+// (128-byte) rows, as TMA writes them: 8-row groups 1024 bytes apart. K-major
+// (the reduction dimension contiguous; the next 16-element slab is +32 bytes,
+// +2 in the address field): leading offset unused. MN-major (the output
+// dimension contiguous; the next 16-row slab is +2048 bytes, +128): the 8-row
+// groups along K are 1024 bytes apart, and the one 64-wide block along M or N
+// makes the other offset unused; both are set to 1024.
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
+  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
+  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+#define MB_ACC32                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MB_ACC32_OPS(d)                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D(64 x 64, f32) (+)= A(64 x 16) B(16 x 64), both from shared memory.
+// TA / TB: 0 K-major, 1 MN-major. scale_d 0 overwrites D.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
+      ", %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : MB_ACC32_OPS(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D(64 x 64, f32) += A(64 x 16, bf16 fragments in registers) B(16 x 64) from
+// shared memory; TB as above. The A fragment of warp w holds rows 16w..16w+15
+// in mma.m16n8k16's A layout, which is the accumulator layout of the
+// product before it, packed to bf16 pairs.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : MB_ACC32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -81,100 +251,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate. Fragment
-// layout (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane % 4:
-//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]
-//   a[2] = A[g][2t+8..+9]   a[3] = A[g+8][2t+8..+9]
-//   b0 = B[2t..2t+1][g]     b1 = B[2t+8..+9][g]
-//   d[0..1] = D[g][2t..2t+1]   d[2..3] = D[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give
-// the row addresses of matrix i, and each thread receives rows 2 * (lane % 4)
-// and + 1 of column lane / 4, i.e. the b0 / b1 fragment of a B operand stored
-// row-major as [k][n].
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// acc[j] += A(16 x 64 from the row-major accumulators s, as bf16) @ X where X
-// is a row-major (64 x 64) tile in shared memory: the k dimension runs over
-// X's rows, the output columns over X's columns.
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[HD / 8][4],
-                                                 const float (&s)[TILE / 8][4],
-                                                 const bf16* xs, int lane) {
+// Accumulator element i of a m64n64 product held by this thread (warp w,
+// lane l, g = l / 4, c = l % 4) is D[16w + g + 8 * ((i >> 1) & 1)][8 * (i >> 2)
+// + 2c + (i & 1)]. The A fragment for k slab kk takes columns 16kk..16kk+15.
+__device__ __forceinline__ void acc_to_afrag(uint32_t (&a)[4][4], const float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    const bf16* rows = xs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-#pragma unroll
-    for (int j = 0; j < HD / 8; j += 2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, rows + j * 8);
-      mma_16816(acc[j], pa, r[0], r[1]);
-      mma_16816(acc[j + 1], pa, r[2], r[3]);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
   }
 }
 
-// s[j] = A(16 rows x 64, fragments a) @ X^T where X is a row-major (64 x 64)
-// tile in shared memory: output column c is X's row c.
-__device__ __forceinline__ void mma_frag_by_tile_t(float (&s)[TILE / 8][4],
-                                                   const uint32_t (&a)[HD / 16][4],
-                                                   const bf16* xs, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < TILE / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    const bf16* xr = xs + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) mma_16816(s[j], a[kk], ld32(xr + kk * 16), ld32(xr + kk * 16 + 8));
-  }
-}
-
-// A fragments of the warp's 16 rows of a row-major (64 x 64) tile.
-__device__ __forceinline__ void load_frag(uint32_t (&a)[HD / 16][4], const bf16* xs, int warp,
-                                          int g, int t) {
-  const bf16* xw = xs + warp * 16 * LD;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    a[kk][0] = ld32(xw + g * LD + kk * 16 + 2 * t);
-    a[kk][1] = ld32(xw + (g + 8) * LD + kk * 16 + 2 * t);
-    a[kk][2] = ld32(xw + g * LD + kk * 16 + 2 * t + 8);
-    a[kk][3] = ld32(xw + (g + 8) * LD + kk * 16 + 2 * t + 8);
-  }
-}
-
-// rows r0 .. r0 + 63 of one (batch, head) slice into a padded row-major
-// tile; rows past n are zero-filled. `row_stride` in elements.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int r0, int n) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = threadIdx.x; c < TILE * (HD / 8); c += THREADS) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const uint4 v = r0 + r < n
-        ? *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + cc)
-        : zero;
-    *reinterpret_cast<uint4*>(dst + r * LD + cc) = v;
-  }
-}
-
-// The TPU kernel's keep hash, without the seed term (`seed_mix` is
-// seed * 0xC2B2AE3D, computed once per block).
-__device__ __forceinline__ uint32_t keep_hash(uint32_t row, uint32_t col, uint32_t seed_mix) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + seed_mix;
+// The murmur3 finaliser of the TPU kernel's keep hash; the callers form its
+// argument row * 0x9E3779B1 + col * 0x85EBCA77 + seed * 0xC2B2AE3D from
+// per-row and per-column terms computed once.
+__device__ __forceinline__ uint32_t fmix(uint32_t x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
@@ -183,303 +276,534 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t row, uint32_t col, uint32
   return x;
 }
 
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
 // ------------------------------------------------------------- forward ----
 
+// Shared memory: Q | K[0] V[0] | K[1] V[1] | barriers.
+constexpr int FWD_SMEM = TILE_BYTES * (1 + 2 * STAGES) + 64 + 1024;
+
 template <bool DROPOUT>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, Strides st, const int* __restrict__ seeds,
-                bf16* __restrict__ out, float* __restrict__ lse, int n, int H, float scale,
+__global__ void __launch_bounds__(THREADS, 3)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const int* __restrict__ seeds,
+                bf16* __restrict__ out, float* __restrict__ lse, int n, int H, float scale_log2,
                 uint32_t threshold, float keep_scale) {
-  __shared__ __align__(128) bf16 qs[TILE * LD];
-  __shared__ __align__(128) bf16 ks[TILE * LD];
-  __shared__ __align__(128) bf16 vs[TILE * LD];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + TILE_BYTES * (1 + 2 * STAGES));
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  auto ks = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (1 + 2 * s)); };
+  auto vs = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (2 + 2 * s)); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * TILE;
+  const int ntiles = (n + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // producer warp: one lane issues every copy
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, TILE_BYTES);
+      tma_load_tile(qs, &tq, q_full, q0, h, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_tile(ks(s), &tk, &full[s], t * TILE, h, b);
+        tma_load_tile(vs(s), &tv, &full[s], t * TILE, h, b);
+      }
+    }
+    return;
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const long long off = b * st.b + h * st.h;
-  const int q0 = blockIdx.x * TILE;
+  const int c = lane & 3;
   const uint32_t row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
   const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
-
-  load_tile(qs, q + off, st.n, q0, n);
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-  load_frag(qa, qs, warp, g, t);
+  const uint32_t rmix[2] = {row0 * 0x9E3779B1u, (row0 + 8) * 0x9E3779B1u};
 
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
-  float o[HD / 8][4];
+  float o[32];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
 
-  for (int kv0 = 0; kv0 < n; kv0 += TILE) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(ks, k + off, st.n, kv0, n);
-    load_tile(vs, v + off, st.n, kv0, n);
-    __syncthreads();
+  mbar_wait(q_full, 0);
+  const uint64_t dq_desc = desc_kmajor(qs);
 
-    float s[TILE / 8][4];
-    mma_frag_by_tile_t(s, qa, ks, g, t);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const int kv0 = t * TILE;
+    mbar_wait(&full[s], (t / STAGES) & 1);
 
-    // online softmax over all keys; the four lanes of a group share a row
+    float sc[32];
+    fence_regs(o);
+    wgmma_fence();
+    const uint64_t dk_desc = desc_kmajor(ks(s));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sc, dq_desc + 2 * kk, dk_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax over all keys in log2 units; the 4 lanes of a group share a row
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = kv0 + j * 8 + 2 * t + (e & 1) < n;
-        s[j][e] = valid ? s[j][e] * scale : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const bool valid = kv0 + 8 * (i >> 2) + 2 * c + (i & 1) < n;
+      sc[i] = valid ? sc[i] * scale_log2 : -INFINITY;
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+    }
     float alpha[2], tsum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m_run[i], tmax[i]);  // finite: key kv0 is valid
-      alpha[i] = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float m_new = fmaxf(m_run[r], tmax[r]);  // finite: key kv0 is valid
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m_run[e >> 1]);
-        tsum[e >> 1] += p;  // the row sum runs before dropout
-        if (DROPOUT) {
-          const uint32_t col = kv0 + j * 8 + 2 * t + (e & 1);
-          s[j][e] = keep_hash(row0 + 8 * (e >> 1), col, seed_mix) >= threshold ? p * keep_scale
-                                                                                 : 0.0f;
-        } else {
-          s[j][e] = p;
-        }
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = exp2f(sc[i] - m_run[r]);  // 0 past n
+      tsum[r] += p;  // the row sum runs before dropout
+      if (DROPOUT) {
+        const uint32_t col = kv0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        sc[i] = fmix(rmix[r] + col * 0x85EBCA77u + seed_mix) >= threshold ? p * keep_scale : 0.0f;
+      } else {
+        sc[i] = p;
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 1);
-      tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 2);
-      l_run[i] = l_run[i] * alpha[i] + tsum[i];
     }
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
+    for (int r = 0; r < 2; ++r) {
+      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 1);
+      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + tsum[r];
     }
-    mma_rows_by_tile(o, s, vs, lane);  // O += bf16(weights) V
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[4][4];
+    acc_to_afrag(pa, sc);
+    fence_regs(o);
+    wgmma_fence();
+    const uint64_t dv_desc = desc_mnmajor(vs(s));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pa[kk], dv_desc + 128 * kk);  // O += bf16(w) V
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row < n) {
-      const float inv = 1.0f / l_run[i];
-      bf16* dst = out + (((long long)b * n + row) * H + h) * HD + 2 * t;
+      const float inv = 1.0f / l_run[r];
+      bf16* dst = out + (((long long)b * n + row) * H + h) * HD + 2 * c;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-            __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-      if (lse != nullptr && t == 0) lse[(long long)bh * n + row] = m_run[i] + logf(l_run[i]);
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (lse != nullptr && c == 0)
+        lse[(long long)bh * n + row] = (m_run[r] + log2f(l_run[r])) * LN2;
     }
   }
 }
 
 // ------------------------------------------------------------ backward ----
 
-// delta[bh, row] = sum_d g[b, row, h, d] * out[b, row, h, d], f32; one warp
-// per (b, row, h) row of 64 values.
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad,
-                      float* __restrict__ delta, int n, int H, long long rows) {
-  const long long r = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+// Per (b, row, h), row over the padded length n_pad: stats[bh, row] =
+// (lse * log2e, rowsum(g * out)) in f32, (0, 0) past n; one warp per row.
+// The grid's first `num_tickets` threads also zero the dq tickets.
+__global__ void __launch_bounds__(128)
+attn_bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad,
+                     const float* __restrict__ lse, float2* __restrict__ stats,
+                     int* __restrict__ tickets, int n, int n_pad, int H, long long rows,
+                     int num_tickets) {
+  const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gt < num_tickets) tickets[gt] = 0;
+  const long long r = gt >> 5;
   if (r >= rows) return;
   const int lane = threadIdx.x & 31;
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + r * HD + 2 * lane));
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(grad + r * HD + 2 * lane));
-  float s = a.x * c.x + a.y * c.y;
+  const int h = static_cast<int>(r % H);
+  const long long bn = r / H;  // b * n_pad + row
+  const long long b = bn / n_pad;
+  const int row = static_cast<int>(bn % n_pad);
+  const long long bh = b * H + h;
+  if (row >= n) {
+    if (lane == 0) stats[bh * n_pad + row] = make_float2(0.0f, 0.0f);
+    return;
+  }
+  const long long e = ((b * n + row) * H + h) * HD + 2 * lane;
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + e));
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(grad + e));
+  float s = a.x * d.x + a.y * d.y;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    const int h = static_cast<int>(r % H);
-    const long long bn = r / H;  // b * n + row
-    const long long b = bn / n, row = bn % n;
-    delta[(b * H + h) * n + row] = s;
-  }
+  if (lane == 0) stats[bh * n_pad + row] = make_float2(lse[bh * n + row] * LOG2E, s);
 }
 
-// dk, dv for one (batch*head, 64-key tile); each warp owns 16 keys and loops
-// over all query tiles. Products are taken transposed (keys as rows):
-//   S^T = K Q^T, dP^T = V G^T, P^T = exp(S^T * scale - lse[query]),
-//   dV += bf16(keep * P^T / (1-p)) G,
-//   dS^T = P^T (keep * dP^T / (1-p) - delta[query]) * scale, dK += bf16(dS^T) Q.
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, Strides st, const bf16* __restrict__ grad,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ seeds, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int n, int H, float scale, uint32_t threshold,
-                     float keep_scale) {
-  __shared__ __align__(128) bf16 qs[TILE * LD];
-  __shared__ __align__(128) bf16 gs[TILE * LD];
-  __shared__ float lse_s[TILE];
-  __shared__ float delta_s[TILE];
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// The (32 d x 64 rows) f32 box at (d0, row, batch*head) of the dq sum's
+// tensor map = or += the 128-byte-swizzled box at src (shared memory), by the
+// TMA unit, in the calling thread's bulk group. Rows past n are not written.
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map, const void* src, int d0,
+                                              int row, int bh, bool add) {
+  if (add)
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
+        "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(d0), "r"(row), "r"(bh)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(d0), "r"(row), "r"(bh)
+        : "memory");
+}
+
+// Consumers and a producer warpgroup: a loader warp, a dQ warp, two idle. The
+// producers give up registers (setmaxnreg) so that the consumers hold dK, dV,
+// S^T, dP^T and the dQ part without spilling or serialising their wgmmas.
+constexpr int BWD_THREADS = CONSUMERS + 128;
+constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 224;  // (32 + 224) * 128 = 65536 / 2 blocks
+// One f32 dQ part in shared memory: two boxes of (64 rows x 32 d), 128 bytes
+// a row, 128-byte swizzled as TMA reads them. A warp's stores of its
+// accumulator fragment then take two wavefronts; row-major rows 256 bytes
+// apart would put its 8 rows on the same banks and take eight.
+constexpr int DQ_HALF = TILE * 32 * 4;  // 8 KB
+constexpr int DQ_BYTES = 2 * DQ_HALF;
+
+// Byte offset of dQ part element (row, d) in that layout.
+__device__ __forceinline__ int dq_part_offset(int row, int d) {
+  return (d >> 5) * DQ_HALF + row * 128 + ((((d & 31) >> 2) ^ (row & 7)) << 4) + (d & 3) * 4;
+}
+
+// Shared memory: K | V | dS^T | Q[2] | G[2] | dQ part[2] | stats[2] | barriers.
+constexpr int BWD_Q = 3 * TILE_BYTES;
+constexpr int BWD_G = BWD_Q + STAGES * TILE_BYTES;
+constexpr int BWD_DQ = BWD_G + STAGES * TILE_BYTES;
+constexpr int BWD_STATS = BWD_DQ + 2 * DQ_BYTES;
+constexpr int BWD_BARS = BWD_STATS + STAGES * TILE * 8;
+constexpr int BWD_SMEM = BWD_BARS + 128 + 1024;
+
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+attn_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap tdq, const float2* __restrict__ stats,
+                const int* __restrict__ seeds, int* __restrict__ tickets, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int n, int H, int n_pad, int rotate, float scale,
+                float scale_log2, uint32_t threshold, float keep_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = reinterpret_cast<bf16*>(smem + TILE_BYTES);
+  uint8_t* dss = smem + 2 * TILE_BYTES;  // dS^T, [key][query] bf16, 128-byte swizzle
+  auto qs = [&](int s) { return smem + BWD_Q + s * TILE_BYTES; };
+  auto gs = [&](int s) { return smem + BWD_G + s * TILE_BYTES; };
+  auto dqs = [&](int s) { return smem + BWD_DQ + s * DQ_BYTES; };
+  auto st = [&](int s) { return reinterpret_cast<const float2*>(smem + BWD_STATS + s * TILE * 8); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BWD_BARS);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  uint64_t* dq_full = bars + 1 + 2 * STAGES;
+  uint64_t* dq_empty = bars + 3 + 2 * STAGES;
+
+  const int kt = blockIdx.x;
+  const int ntiles = gridDim.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const long long off = b * st.b + h * st.h;
-  const bf16* gb = grad + ((long long)b * n * H + h) * HD;  // contiguous (b, n, h, d)
-  const long long g_row = (long long)H * HD;
-  const int k0 = blockIdx.x * TILE;
-  const uint32_t key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+  const int k0 = kt * TILE;
 
-  // the block's K and V tiles, once, into A fragments
-  load_tile(qs, k + off, st.n, k0, n);
-  load_tile(gs, v + off, st.n, k0, n);
-  __syncthreads();
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_frag(ka, qs, warp, g, t);
-  load_frag(va, gs, warp, g, t);
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
-
-  for (int q0 = 0; q0 < n; q0 += TILE) {
-    __syncthreads();  // every warp is done with the previous tiles (and the fragments above)
-    load_tile(qs, q + off, st.n, q0, n);
-    load_tile(gs, gb, g_row, q0, n);
-    for (int i = threadIdx.x; i < TILE; i += THREADS) {
-      const bool valid = q0 + i < n;
-      lse_s[i] = valid ? lse[(long long)bh * n + q0 + i] : 0.0f;
-      delta_s[i] = valid ? delta[(long long)bh * n + q0 + i] : 0.0f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    __syncthreads();
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&dq_full[s], CONSUMERS);
+      mbar_init(&dq_empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[TILE / 8][4], dp[TILE / 8][4];
-    mma_frag_by_tile_t(s, ka, qs, g, t);   // S^T
-    mma_frag_by_tile_t(dp, va, gs, g, t);  // dP^T
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
-        const bool valid = q0 + qi < n;
-        const float p = valid ? expf(s[j][e] * scale - lse_s[qi]) : 0.0f;
-        const bool keep =
-            keep_hash(q0 + qi, key0 + 8 * (e >> 1), seed_mix) >= threshold;
-        const float dw = keep ? dp[j][e] * keep_scale : 0.0f;
-        s[j][e] = keep ? p * keep_scale : 0.0f;           // dropped weights, for dV
-        dp[j][e] = p * (dw - delta_s[qi]) * scale;        // score gradient, for dK
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x == CONSUMERS) {  // loader: K and V once, then Q, G and the row stats
+      mbar_expect_tx(kv_full, 2 * TILE_BYTES);
+      tma_load_tile(ks, &tk, kv_full, k0, h, b);
+      tma_load_tile(vs, &tv, kv_full, k0, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        const int q0 = (rotate ? (kt + i) % ntiles : i) * TILE;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * TILE_BYTES + TILE * 8);
+        tma_load_tile(qs(s), &tq, &full[s], q0, h, b);
+        tma_load_tile(gs(s), &tg, &full[s], q0, h, b);
+        bulk_load(smem + BWD_STATS + s * TILE * 8, stats + (long long)bh * n_pad + q0, TILE * 8,
+                  &full[s]);
       }
-    mma_rows_by_tile(dv_acc, s, gs, lane);
-    mma_rows_by_tile(dk_acc, dp, qs, lane);
+    }
+    if (threadIdx.x == CONSUMERS + 32) {
+      // dQ warp: adds each dQ part to the f32 sum in device memory, in the
+      // tile's fixed order (the first part is stored), one key tile at a time
+      for (int i = 0; i < ntiles; ++i) {
+        const int qt = rotate ? (kt + i) % ntiles : i;
+        const int order = rotate ? i : kt;
+        int* ticket = tickets + (long long)bh * ntiles + qt;
+        mbar_wait(&dq_full[i & 1], (i >> 1) & 1);
+        if (order > 0)
+          while (ld_acquire(ticket) != order) {
+          }
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        tma_store_box(&tdq, dqs(i & 1), 0, qt * TILE, bh, order > 0);
+        tma_store_box(&tdq, dqs(i & 1) + DQ_HALF, 32, qt * TILE, bh, order > 0);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        st_release(ticket, order + 1);
+        mbar_arrive(&dq_empty[i & 1]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys (accumulator rows): key0, key0 + 8
+  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+  const uint32_t kmix[2] = {key0 * 0x85EBCA77u + seed_mix, (key0 + 8) * 0x85EBCA77u + seed_mix};
+  const bool kvalid[2] = {key0 < n, key0 + 8 < n};
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  mbar_wait(kv_full, 0);
+  const uint64_t k_kmaj = desc_kmajor(ks), v_kmaj = desc_kmajor(vs), k_mn = desc_mnmajor(ks);
+  const uint64_t ds_mn = desc_mnmajor(dss);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (rotate ? (kt + i) % ntiles : i) * TILE;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V G^T: keys as rows, queries as columns
+    float sc[32], dp[32];
+    wgmma_fence();
+    const uint64_t q_kmaj = desc_kmajor(qs(s)), g_kmaj = desc_kmajor(gs(s));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sc, k_kmaj + 2 * kk, q_kmaj + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(dp, v_kmaj + 2 * kk, g_kmaj + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const float2* stq = st(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 8 * j + 2 * c + e;  // query within the tile
+        const float2 lse_delta = stq[qi];
+        const uint32_t query = q0 + qi;
+        const bool qvalid = query < static_cast<uint32_t>(n);
+        const uint32_t qmix = query * 0x9E3779B1u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = 4 * j + 2 * r + e;
+          const float p = qvalid && kvalid[r] ? exp2f(fmaf(sc[idx], scale_log2, -lse_delta.x)) : 0.0f;
+          const bool keep = fmix(qmix + kmix[r]) >= threshold;
+          const float dw = keep ? dp[idx] * keep_scale : 0.0f;
+          sc[idx] = keep ? p * keep_scale : 0.0f;             // dropped weights, for dV
+          dp[idx] = p * (dw - lse_delta.y) * scale;            // score gradient, for dK and dQ
+        }
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_afrag(pa, sc);
+    acc_to_afrag(dsa, dp);
+
+    // dS^T into shared memory, [key][query], the swizzle TMA would give, for dQ
+    consumer_sync();  // every warp is done with the previous tile's dQ product
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        *reinterpret_cast<uint32_t*>(dss + row * 128 + ((j ^ (row & 7)) << 4) + 4 * c) =
+            (r == 0 ? dsa[j >> 1][(j & 1) * 2] : dsa[j >> 1][(j & 1) * 2 + 1]);
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumer_sync();
+
+    float dqp[32];
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    wgmma_fence();
+    const uint64_t q_mn = desc_mnmajor(qs(s)), g_mn = desc_mnmajor(gs(s));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dv_acc, pa[kk], g_mn + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dk_acc, dsa[kk], q_mn + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<1, 1>(dqp, ds_mn + 128 * kk, k_mn + 128 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(dqp);
+    mbar_arrive(&empty[s]);  // Q, G and the stats of stage s are no longer read
+
+    // this tile's dQ part, f32, for the dQ warp
+    mbar_wait(&dq_empty[i & 1], ((i >> 1) & 1) ^ 1);
+    uint8_t* part = dqs(i & 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(part + dq_part_offset(warp * 16 + g + 8 * r, 8 * j + 2 * c)) =
+            make_float2(dqp[4 * j + 2 * r], dqp[4 * j + 2 * r + 1]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&dq_full[i & 1]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
     if (key < n) {
-      const long long o = (((long long)b * n + key) * H + h) * HD + 2 * t;
+      const long long o = (((long long)b * n + key) * H + h) * HD + 2 * c;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + o + j * 8) =
-            __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + o + j * 8) =
-            __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
       }
     }
   }
 }
 
-// dq for one (batch*head, 64-query tile); each warp owns 16 queries and loops
-// over all key tiles: S = Q K^T, dP = G V^T, P = exp(S * scale - lse),
-// dS = P (keep * dP / (1-p) - delta) * scale, dQ += bf16(dS) K.
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, Strides st, const bf16* __restrict__ grad,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   const int* __restrict__ seeds, bf16* __restrict__ dq, int n, int H,
-                   float scale, uint32_t threshold, float keep_scale) {
-  __shared__ __align__(128) bf16 ks[TILE * LD];
-  __shared__ __align__(128) bf16 vs[TILE * LD];
+// dq[b, row, h, :] = bf16(dq_acc[b*H + h, row, :]); 8 values a thread.
+__global__ void __launch_bounds__(256)
+attn_bwd_dq_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int n, int H,
+                   long long chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const long long e = i * 8;  // element of dq, (b, n, h, 64) order
+  const int d = static_cast<int>(e % HD);
+  const long long rh = e / HD;  // (b * n + row) * H + h
+  const int h = static_cast<int>(rh % H);
+  const long long bn = rh / H;
+  const long long b = bn / n, row = bn % n;
+  const float* src = dq_acc + ((b * H + h) * n + row) * HD + d;
+  const float4 x = __ldcs(reinterpret_cast<const float4*>(src));
+  const float4 y = __ldcs(reinterpret_cast<const float4*>(src + 4));
+  uint4 out;
+  out.x = pack_bf16(x.x, x.y);
+  out.y = pack_bf16(x.z, x.w);
+  out.z = pack_bf16(y.x, y.y);
+  out.w = pack_bf16(y.z, y.w);
+  *reinterpret_cast<uint4*>(dq + e) = out;
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const long long off = b * st.b + h * st.h;
-  const bf16* gb = grad + ((long long)b * n * H + h) * HD;
-  const int q0 = blockIdx.x * TILE;
-  const uint32_t row0 = q0 + warp * 16 + g;
-  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+// ------------------------------------------------------------- host side ----
 
-  // the block's Q and gradient tiles, once, into A fragments
-  load_tile(ks, q + off, st.n, q0, n);
-  load_tile(vs, gb, (long long)H * HD, q0, n);
-  __syncthreads();
-  uint32_t qa[HD / 16][4], ga[HD / 16][4];
-  load_frag(qa, ks, warp, g, t);
-  load_frag(ga, vs, warp, g, t);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool valid = row0 + 8 * i < static_cast<uint32_t>(n);
-    lse_r[i] = valid ? lse[(long long)bh * n + row0 + 8 * i] : 0.0f;
-    delta_r[i] = valid ? delta[(long long)bh * n + row0 + 8 * i] : 0.0f;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
 
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.0f;
+// The tensor-map encoder is a driver call and needs the device's context
+// current on the calling thread, which the runtime makes current only when
+// it first needs it (autograd runs the backward on a thread of its own).
+bool current_context() {
+  int dev;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+}
 
-  for (int kv0 = 0; kv0 < n; kv0 += TILE) {
-    __syncthreads();
-    load_tile(ks, k + off, st.n, kv0, n);
-    load_tile(vs, v + off, st.n, kv0, n);
-    __syncthreads();
+// A (b, n, h, 64) bf16 tensor with element strides (sb, sn, sh) as a rank-4
+// (d, n, h, b) map of (64 x 64) boxes, 128-byte swizzled; rows past n read 0.
+bool tile_map(CUtensorMap* map, const void* base, int B, int n, int H, long long sb, long long sn,
+              long long sh) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {HD, TILE, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
 
-    float s[TILE / 8][4], dp[TILE / 8][4];
-    mma_frag_by_tile_t(s, qa, ks, g, t);   // S
-    mma_frag_by_tile_t(dp, ga, vs, g, t);  // dP
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t col = kv0 + j * 8 + 2 * t + (e & 1);
-        const float p = col < static_cast<uint32_t>(n) ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.0f;
-        const bool keep = keep_hash(row0 + 8 * (e >> 1), col, seed_mix) >= threshold;
-        const float dw = keep ? dp[j][e] * keep_scale : 0.0f;
-        s[j][e] = p * (dw - delta_r[e >> 1]) * scale;
-      }
-    mma_rows_by_tile(dq_acc, s, ks, lane);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row < n) {
-      bf16* dst = dq + (((long long)b * n + row) * H + h) * HD + 2 * t;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-            __floats2bfloat162_rn(dq_acc[j][2 * i], dq_acc[j][2 * i + 1]);
-    }
-  }
+// The backward's f32 dq sum, (BH, n, 64) contiguous, as a rank-3 (d, n, BH)
+// map of (32 x 64) boxes, 128-byte swizzled; rows past n are not written.
+bool dq_sum_map(CUtensorMap* map, void* base, int BH, int n) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {HD * 4, static_cast<cuuint64_t>(n) * HD * 4};
+  const cuuint32_t box[3] = {32, TILE, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -488,63 +812,78 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // (sb, sn, sh); out: contiguous (B, n, H, 64) bf16; lse: (B*H, n) f32 or
 // null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored when
 // dropout == 0, which compiles the mask out. Returns the launch error
-// (cudaSuccess == 0).
+// (cudaSuccess == 0), or cudaErrorInvalidValue if a tensor map is refused.
 extern "C" int mb_dropout_attention_fwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* seeds, void* out, void* lse, int B, int n,
                                         int H, unsigned int threshold, float keep_scale,
                                         int dropout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st{sb, sn, sh};
+  CUtensorMap tq, tk, tv;
+  if (!current_context() || !tile_map(&tq, q, B, n, H, sb, sn, sh) ||
+      !tile_map(&tk, k, B, n, H, sb, sn, sh) || !tile_map(&tv, v, B, n, H, sb, sn, sh))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + TILE - 1) / TILE, B * H);
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
   if (dropout) {
-    attn_fwd_kernel<true><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), st,
-        static_cast<const int*>(seeds), static_cast<bf16*>(out), static_cast<float*>(lse), n, H,
-        scale, threshold, keep_scale);
+    cudaFuncSetAttribute(attn_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         FWD_SMEM);
+    attn_fwd_kernel<true><<<grid, THREADS, FWD_SMEM, s>>>(
+        tq, tk, tv, static_cast<const int*>(seeds), static_cast<bf16*>(out),
+        static_cast<float*>(lse), n, H, scale_log2, threshold, keep_scale);
   } else {
-    attn_fwd_kernel<false><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), st,
-        nullptr, static_cast<bf16*>(out), static_cast<float*>(lse), n, H, scale, 0u, 1.0f);
+    cudaFuncSetAttribute(attn_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         FWD_SMEM);
+    attn_fwd_kernel<false><<<grid, THREADS, FWD_SMEM, s>>>(
+        tq, tk, tv, nullptr, static_cast<bf16*>(out), static_cast<float*>(lse), n, H, scale_log2,
+        0u, 1.0f);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Backward on `stream`: dq, dk, dv (contiguous (B, n, H, 64) bf16) from q,
 // k, v (strided as in the forward), the forward's out and lse, the incoming
-// gradient grad (contiguous bf16) and the seeds. delta: (B*H, n) f32
-// scratch. Returns the first launch error (cudaSuccess == 0).
+// gradient grad (contiguous bf16) and the seeds. Scratch: stats, (B*H,
+// n_pad) float2 with n_pad = 64 * ceil(n / 64); dq_acc, (B*H, n, 64) f32;
+// tickets, (B*H, n_pad / 64) int32. Three launches: the row stats, the
+// main kernel, dq_acc to bf16 dq. Returns the first launch error
+// (cudaSuccess == 0), or cudaErrorInvalidValue if a tensor map is refused.
 extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* out, const void* grad, const void* lse,
                                         const void* seeds, void* dq, void* dk, void* dv,
-                                        void* delta, int B, int n, int H,
-                                        unsigned int threshold, float keep_scale, void* stream) {
+                                        void* stats, void* dq_acc, void* tickets, int B, int n,
+                                        int H, int rotate, unsigned int threshold,
+                                        float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st{sb, sn, sh};
+  const int ntiles = (n + TILE - 1) / TILE;
+  const int n_pad = ntiles * TILE;
+  CUtensorMap tq, tk, tv, tg, tdq;
+  const long long gn = static_cast<long long>(H) * HD;
+  if (!current_context() || !tile_map(&tq, q, B, n, H, sb, sn, sh) ||
+      !tile_map(&tk, k, B, n, H, sb, sn, sh) || !tile_map(&tv, v, B, n, H, sb, sn, sh) ||
+      !tile_map(&tg, grad, B, n, H, gn * n, gn, HD) || !dq_sum_map(&tdq, dq_acc, B * H, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  const long long rows = static_cast<long long>(B) * n_pad * H;
+  const int num_tickets = B * H * ntiles;
+  attn_bwd_prep_kernel<<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(grad),
+      static_cast<const float*>(lse), static_cast<float2*>(stats), static_cast<int*>(tickets), n,
+      n_pad, H, rows, num_tickets);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  const long long rows = static_cast<long long>(B) * n * H;
-  cudaError_t err;
-
-  attn_bwd_delta_kernel<<<static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32)),
-                          THREADS, 0, s>>>(static_cast<const bf16*>(out),
-                                           static_cast<const bf16*>(grad),
-                                           static_cast<float*>(delta), n, H, rows);
+  cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  attn_bwd_kernel<<<dim3(ntiles, B * H), BWD_THREADS, BWD_SMEM, s>>>(
+      tq, tk, tv, tg, tdq, static_cast<const float2*>(stats), static_cast<const int*>(seeds),
+      static_cast<int*>(tickets), static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, H, n_pad,
+      rotate, scale, scale * LOG2E, threshold, keep_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 grid((n + TILE - 1) / TILE, B * H);
-  attn_bwd_dkdv_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), st,
-      static_cast<const bf16*>(grad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seeds), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n, H, scale, threshold, keep_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  attn_bwd_dq_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), st,
-      static_cast<const bf16*>(grad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seeds), static_cast<bf16*>(dq), n,
-      H, scale, threshold, keep_scale);
+  const long long chunks = static_cast<long long>(B) * n * H * (HD / 8);
+  attn_bwd_dq_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), n, H, chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,14 @@ import numpy as np
 import torch
 
 HEAD_DIM = 64  # the kernels' head width
+TILE = 64  # queries or keys per kernel tile
+# The backward sums dq over a head's key tiles in a fixed order. Up to this
+# many tiles (n <= 4096) each key tile starts at its own query tile, so the
+# blocks of a head seldom wait for each other, but a block may wait for one
+# launched after it: all of a head's blocks must fit on the card at once.
+# Longer sequences sum in key-tile order, where a block waits only for
+# blocks launched before it.
+ROTATE_MAX_TILES = 64
 launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
 
 _MASK32 = 0xFFFFFFFF
@@ -179,20 +187,24 @@ def _check_qkv(q, k, v):
                          f"multiples of 8 elements, got {q.stride()}")
 
 
+def bind(lib):
+    """Declare the C interface of a built `csrc/dropout_attention.cu`."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.mb_dropout_attention_fwd.argtypes = (
+        [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 3 + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
+    lib.mb_dropout_attention_fwd.restype = i32
+    lib.mb_dropout_attention_bwd.argtypes = (
+        [ptr] * 3 + [i64] * 3 + [ptr] * 10 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, ptr])
+    lib.mb_dropout_attention_bwd.restype = i32
+    return lib
+
+
 def _lib():
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     lib = load_library("dropout_attention")
     if lib.mb_dropout_attention_fwd.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mb_dropout_attention_fwd.argtypes = (
-            [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 3
-            + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
-        lib.mb_dropout_attention_fwd.restype = i32
-        lib.mb_dropout_attention_bwd.argtypes = (
-            [ptr] * 3 + [i64] * 3 + [ptr] * 8 + [i32] * 3
-            + [ctypes.c_uint32, ctypes.c_float, ptr])
-        lib.mb_dropout_attention_bwd.restype = i32
+        bind(lib)
     return lib
 
 
@@ -227,24 +239,37 @@ def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
     """The backward kernels on CUDA tensors: (dq, dk, dv) from the
     forward's inputs, `out` and `lse`, and the incoming gradient `g`."""
     _check_qkv(q, k, v)
-    b, n, h, _ = q.shape
-    dev = q.device
     g = g.contiguous()
     if g.dtype != torch.bfloat16 or g.shape != out.shape:
         raise TypeError(f"the incoming gradient must be bf16 of shape {tuple(out.shape)}")
+    grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
+    launches["dropout_attention_bwd"] += 1
+    return grads
+
+
+def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
+    """`launch_backward`'s launch through `lib` (a `bind`-declared build of
+    the source), on checked inputs with a contiguous `g`; not counted."""
+    b, n, h, _ = q.shape
+    dev = q.device
     dq, dk, dv = (torch.empty((b, n, h, HEAD_DIM), dtype=torch.bfloat16, device=dev)
                   for _ in range(3))
-    delta = torch.empty((b * h, n), dtype=torch.float32, device=dev)
-    lib = _lib()
+    tiles = -(-n // TILE)
+    # scratch: per query row (lse * log2 e, delta), padded to whole tiles; the
+    # f32 sum of dq over key tiles (b*h*n*64*4 bytes, 33.7 MB at (32, 257,
+    # 16, 64)); one ticket per (batch*head, query tile)
+    stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((b * h, n, HEAD_DIM), dtype=torch.float32, device=dev)
+    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mb_dropout_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, n, h, keep_threshold(rate),
-            1.0 / (1.0 - rate), torch.cuda.current_stream(dev).cuda_stream)
+            dv.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(), tickets.data_ptr(), b, n, h,
+            int(tiles <= ROTATE_MAX_TILES), keep_threshold(rate), 1.0 / (1.0 - rate),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention backward launch failed: CUDA error {err}")
-    launches["dropout_attention_bwd"] += 1
     return dq, dk, dv
 
 

@@ -118,7 +118,100 @@ def test_dropout_attention_kernels_match_plain_versions(b, n, h, layout):
         assert (got.float() - ref).abs().max().item() <= DROPOUT_ATOL * max(1.0, ref.abs().max().item())
 
 
-def test_dropout_attention_kernel_mask_is_the_hash_mask():
+def _launch_both(da, q, k, v, seeds, rate, gout):
+    """The forward and backward kernels directly: out, (dq, dk, dv)."""
+    seeds32 = da.seeds_as_int32(seeds, (q.shape[0], q.shape[2]))
+    out, lse = da.launch_forward(q, k, v, seeds32, rate)
+    return out, da.launch_backward(q, k, v, out, lse, gout, seeds32, rate)
+
+
+def _check_against_plain(da, q, k, v, seeds, rate, out, grads, gout):
+    # At n = 1 the output is v / (1 - rate) itself, up to about 5: its bf16
+    # rounding (half an ulp, 2^-8 relative) and the kernel's bf16 rounding of
+    # the weight (2^-8 relative) add 2^-7 |out| to the absolute tolerance.
+    want = da.dropout_attention_reference(q.float(), k.float(), v.float(), seeds, rate)
+    assert torch.isfinite(out).all()
+    assert ((out.float() - want).abs() <= DROPOUT_ATOL + 2**-7 * want.abs()).all()
+    refs = da.dropout_attention_backward_reference(
+        q.float(), k.float(), v.float(), gout.float(), seeds, rate)
+    # The kernels' delta = rowsum(g * out) reads the forward's bf16 output,
+    # whose weights were rounded to bf16: dw - delta carries up to about
+    # 2^-7 |g . v| / (1 - rate) per row, which reaches dq and dk through
+    # d^-0.5 |k| and d^-0.5 |q|. It dominates where one key takes the whole
+    # weight (n = 1, where dq and dk are 0).
+    gv = (gout.float() * v.float()).sum(-1).abs().max().item() / (1.0 - rate)
+    slack = [2**-7 * gv * 64**-0.5 * t.float().abs().max().item() for t in (k, q)] + [0.0]
+    for got, ref, extra in zip(grads, refs, slack):
+        assert torch.isfinite(got).all()
+        tol = DROPOUT_ATOL * max(1.0, ref.abs().max().item()) + extra
+        assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("layout", ["packed", "separate"])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 257, 1025])
+def test_dropout_attention_kernels_at_ragged_lengths(n, rate, layout):
+    """Every tile edge: one row, a partial first tile, whole tiles, one row
+    past a tile, and the training lengths 257 and 1025."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    b, h = 2, 3
+    q, k, v = _qkv(b, n, h, seed=n, layout=layout)
+    seeds = _seeds(b, h, seed=n + 2)
+    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(n + 3),
+                       device="cuda").bfloat16()
+    out, grads = _launch_both(da, q, k, v, seeds, rate, gout)
+    torch.cuda.synchronize()
+    _check_against_plain(da, q, k, v, seeds, rate, out, grads, gout)
+
+
+@pytest.mark.parametrize("n", [65, 257, 1025])
+def test_dropout_attention_backward_is_deterministic(n):
+    """Two calls on the same inputs give bit-identical dq, dk and dv: dq's
+    sum over key tiles runs in a fixed order."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    b, h = 8, 16
+    q, k, v = _qkv(b, n, h, seed=n, layout="packed")
+    seeds = _seeds(b, h, seed=1)
+    seeds32 = da.seeds_as_int32(seeds, (b, h))
+    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(2),
+                       device="cuda").bfloat16()
+    out, lse = da.launch_forward(q, k, v, seeds32, 0.1)
+    first = da.launch_backward(q, k, v, out, lse, gout, seeds32, 0.1)
+    for _ in range(3):
+        again = da.launch_backward(q, k, v, out, lse, gout, seeds32, 0.1)
+        torch.cuda.synchronize()
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [17, 257, 1025])
+def test_dropout_attention_backward_in_key_tile_order(n, monkeypatch):
+    """The backward's second design, which sums dq in key-tile order (the
+    wrapper takes it past ROTATE_MAX_TILES tiles), against the plain
+    version, and deterministic too."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    monkeypatch.setattr(da, "ROTATE_MAX_TILES", 0)
+    b, h, rate = 2, 4, 0.1
+    q, k, v = _qkv(b, n, h, seed=n + 5, layout="packed")
+    seeds = _seeds(b, h, seed=3)
+    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(4),
+                       device="cuda").bfloat16()
+    out, grads = _launch_both(da, q, k, v, seeds, rate, gout)
+    _, again = _launch_both(da, q, k, v, seeds, rate, gout)
+    torch.cuda.synchronize()
+    _check_against_plain(da, q, k, v, seeds, rate, out, grads, gout)
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,n,h", [(2, 200, 2), (2, 65, 3), (1, 257, 4)])
+def test_dropout_attention_kernel_mask_is_the_hash_mask(b, n, h):
     """The forward kernel's keep mask, read out at zero logits with one-hot
     values (`chip_smoke.kernel_keep_mask`), equals the plain version's bit
     for bit."""
@@ -126,17 +219,17 @@ def test_dropout_attention_kernel_mask_is_the_hash_mask():
     import chip_smoke
     from maskbit_tpu_torch.nn import dropout_attention as da
 
-    b, n, h = 2, 200, 2
     seeds = _seeds(b, h, seed=4)
     got = chip_smoke.kernel_keep_mask(torch, da, seeds, b, n, h)
     assert torch.equal(got, da.hash_keep_mask(seeds, n, chip_smoke.RATE))
 
 
-def test_fused_attention_kernel_matches_plain_version():
+@pytest.mark.parametrize("n", [17, 257])
+def test_fused_attention_kernel_matches_plain_version(n):
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
-    q, k, v = _qkv(2, 257, 4, seed=11, layout="packed")
+    q, k, v = _qkv(2, n, 4, seed=11, layout="packed")
     before = da.launches["fused_attention"]
     got = da.fused_attention(q, k, v)
     torch.cuda.synchronize()

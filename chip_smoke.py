@@ -8,9 +8,14 @@ Phases, each of which fails the run if it fails:
      TF32 off for the comparisons.
   2. build: compile the hand-written kernels from `maskbit_tpu_torch/csrc/`,
      one nvcc per source, all started together.
-  3. kernels: the attention block kernel against its plain PyTorch version
-     at the serving shapes (16, 257, 1024) and (2, 1025, 1024), 16 heads,
-     timed beside the plain version and the port's bf16 einsum path; the
+  3. kernels: the attention block's chain of kernels against its plain
+     PyTorch version at the serving shapes (16, 257, 1024) and (2, 1025,
+     1024), 16 heads, bf16 vectors as the serving generator stores them,
+     timed kernel by kernel beside the plain version, the port's bf16 einsum
+     path and the library chain (cuBLAS QKV projection,
+     `scaled_dot_product_attention`, cuBLAS out-projection plus the
+     residual, `F.layer_norm`), and every block-row alternative of the
+     wrapper's plan side by side; the
      dropout-attention forward and backward kernels (rate 0.1) against their
      plain versions at the training shapes (32, 257, 16, 64) and (8, 1025,
      16, 64), the kernel's keep mask (read out at zero logits) against the
@@ -27,7 +32,8 @@ Phases, each of which fails the run if it fails:
      1024, 64 steps, CFG) at serve batch 8 with random weights; /healthz, a
      seeded /generate twice (byte-identical), two concurrent unseeded
      requests (micro-batched), one PNG; checks shapes, non-constant images
-     and that every attention layer of every step launched the kernel.
+     and that every attention layer of every step launched the block (and
+     with it the `fused_attention` forward kernel).
   5. train check: one MLM train step of the flagship-width LFQBert cut to
      depth 2 with the kernels in bf16 on the card, against the same step
      with the plain versions in float32 on the CPU (same weights, tokens and
@@ -134,7 +140,7 @@ def phase_build() -> None:
         with open(os.path.join(OUT_DIR, f"ptxas_{name}.txt"), "w") as f:
             f.write(info["ptxas"])
         for line in info["ptxas"].splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
                 log(f"[build] ptxas: {line.strip()}")
 
 
@@ -162,11 +168,26 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
-    """Device time per call (`ms`): `iters` calls under torch.profiler, the
-    sum of `self_device_time_total` over every CUDA kernel (and memset or
-    copy) that they launched, over `iters`. Host work between kernels is
-    not counted."""
+def _host_ms(torch, fn, iters: int = 100, warmup: int = 3) -> float:
+    """The host's time to enqueue one call, median of `iters` (the card is
+    synchronised before each, so the queue never fills): the wrapper's
+    checks, allocations and launches, without the device's time."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _device_breakdown(torch, fn, iters: int = 50, warmup: int = 3) -> dict:
+    """Device time per call of each CUDA kernel (and memset or copy) that
+    `iters` calls of fn launched under torch.profiler: its summed
+    `self_device_time_total` over `iters`, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -177,11 +198,23 @@ def _device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA)
-    if total_us <= 0:
+    times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA}
+    if sum(times.values()) <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    return times
+
+
+def _device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device time per call (`ms`): the sum of `_device_breakdown`. Host
+    work between kernels is not counted."""
+    return sum(_device_breakdown(torch, fn, iters, warmup).values())
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    parameters: `proj_kernel<128, 0>`."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
 
 
 def _times(torch, fn, plain=None, library=None) -> dict:
@@ -195,7 +228,7 @@ def _times(torch, fn, plain=None, library=None) -> dict:
     return out
 
 
-def _block_inputs(torch, b, n, e, seed):
+def _block_inputs(torch, b, n, e, seed, vectors):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, bf16 = "cuda", torch.bfloat16
 
@@ -205,8 +238,29 @@ def _block_inputs(torch, b, n, e, seed):
     x = torch.nn.functional.layer_norm(rnd(b, n, e), (e,)).to(bf16)
     w_qkv = rnd(3 * e, e, std=0.02).to(bf16)  # torch (out, in) layout
     w_o = rnd(e, e, std=0.02).to(bf16)
-    return dict(x=x, wqkv=w_qkv.t(), bqkv=rnd(3 * e, std=0.02), wo=w_o.t(), bo=rnd(e, std=0.02),
-                ln_scale=1.0 + rnd(e, std=0.02), ln_bias=rnd(e, std=0.02))
+    return dict(x=x, wqkv=w_qkv.t(), bqkv=rnd(3 * e, std=0.02).to(vectors), wo=w_o.t(),
+                bo=rnd(e, std=0.02).to(vectors), ln_scale=(1.0 + rnd(e, std=0.02)).to(vectors),
+                ln_bias=rnd(e, std=0.02).to(vectors))
+
+
+def _library_chain(torch, inp, heads):
+    """The block as a chain of library calls on the same bf16 weights:
+    cuBLAS QKV projection, `scaled_dot_product_attention`, cuBLAS
+    out-projection plus the residual, `F.layer_norm` (the yardstick: no one
+    PyTorch call computes the block)."""
+    F = torch.nn.functional
+    x = inp["x"]
+    b, n, e = x.shape
+    w_qkv, w_o = inp["wqkv"].t(), inp["wo"].t()
+    bqkv, bo, g, beta = (inp[k].to(torch.bfloat16) for k in ("bqkv", "bo", "ln_scale", "ln_bias"))
+
+    def run():
+        q, k, v = F.linear(x, w_qkv, bqkv).view(b, n, 3, heads, e // heads).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, e)
+        return F.layer_norm(F.linear(a, w_o, bo) + x, (e,), g, beta, 1e-12)
+
+    return run
 
 
 def _einsum_block(torch, inp, e):
@@ -229,10 +283,13 @@ def _einsum_block(torch, inp, e):
 def phase_kernels(torch) -> dict:
     from maskbit_tpu_torch.nn import attention_block as ab
 
+    # the serving generator stores its vectors in bf16; a parent tree's
+    # wrapper (--tree) takes f32 ones only
+    vectors = torch.bfloat16 if hasattr(ab, "VECTOR_DTYPES") else torch.float32
     rows, worst = [], 0.0
     for b, n in ((2 * SERVE_BATCH, 257), (2, 1025)):
         e = 1024
-        inp = _block_inputs(torch, b, n, e, seed=b * n)
+        inp = _block_inputs(torch, b, n, e, seed=b * n, vectors=vectors)
         got = ab.fused_attention_block(**inp, num_heads=HEADS)
         torch.cuda.synchronize()
         ref = ab.fused_attention_block_reference(
@@ -240,22 +297,44 @@ def phase_kernels(torch) -> dict:
         err = (got.float() - ref).abs()
         max_err, mean_err = err.max().item(), err.mean().item()
         finite = bool(torch.isfinite(got).all())
-        t = _times(torch, lambda: ab.fused_attention_block(**inp, num_heads=HEADS),
-                   plain=lambda: ab.fused_attention_block_reference(**inp, num_heads=HEADS))
+        block = lambda: ab.fused_attention_block(**inp, num_heads=HEADS)  # noqa: E731
+        chain = {_kernel_name(k): v for k, v in _device_breakdown(torch, block).items()}
+        t = {"ms": sum(chain.values()), "call_ms": _time_ms(torch, block),
+             "host_ms": _host_ms(torch, block),
+             "plain_ms": _device_ms(torch, lambda: ab.fused_attention_block_reference(
+                 **inp, num_heads=HEADS))}
+        library = _library_chain(torch, inp, HEADS)
+        lib_err = (library().float() - ref).abs().max().item()
+        library_chain_ms = _device_ms(torch, library)
         blk = _einsum_block(torch, inp, e)
         with torch.inference_mode():
             einsum_ms = _device_ms(torch, lambda: blk(inp["x"]))
-        log(f"[kernel] attention_block x=({b}, {n}, {e}) h={HEADS}: max_abs_err {max_err:.6f} "
-            f"mean_abs_err {mean_err:.3e} (atol {KERNEL_ATOL}) max|ref| {ref.abs().max().item():.3f}; "
-            f"kernel {t['ms']:.4f} ms device ({t['call_ms']:.4f} ms per call by events), plain "
-            f"{t['plain_ms']:.4f} ms, einsum-path bf16 {einsum_ms:.4f} ms")
+        log(f"[kernel] attention_block x=({b}, {n}, {e}) h={HEADS}, {vectors} vectors: max_abs_err "
+            f"{max_err:.6f} mean_abs_err {mean_err:.3e} (atol {KERNEL_ATOL}) max|ref| "
+            f"{ref.abs().max().item():.3f}; kernels {t['ms']:.4f} ms device ({t['call_ms']:.4f} ms "
+            f"per call by events, call - device {t['call_ms'] - t['ms']:.4f}; host enqueue "
+            f"{t['host_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms, einsum-path bf16 {einsum_ms:.4f} ms, library chain "
+            f"{library_chain_ms:.4f} ms (its max_abs_err {lib_err:.6f})")
+        log("[kernel]   chain, device ms per call: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in chain.items()))
+        variants = {}
+        if hasattr(ab, "plan"):  # every block-row choice of the two projections, side by side
+            for tiles in ((128, 128), (64, 64), (128, 64), (64, 128)):
+                variants[str(tiles)] = _device_ms(torch, lambda: ab._launch(
+                    **inp, num_heads=HEADS, eps=1e-12, tiles=tiles))
+            planned = ab.plan(b * n, e, torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"[kernel]   plan {planned}; (QKV rows, out rows) -> device ms: " + "; ".join(
+                f"{k} {v:.4f}" for k, v in variants.items()))
         if not finite or max_err > KERNEL_ATOL:
             raise AssertionError(f"attention_block disagrees at ({b}, {n}, {e}): "
                                  f"max_abs_err {max_err} > {KERNEL_ATOL} or non-finite")
         flops = 2 * b * n * e * 3 * e + 2 * b * n * e * e + 4 * b * HEADS * n * n * (e // HEADS)
-        nbytes = 2 * (2 * b * n * e + 4 * e * e) + 4 * 6 * e  # x, out, weights bf16; f32 vectors
+        # x, out and the weights bf16, the vectors in their dtype
+        nbytes = 2 * (2 * b * n * e + 4 * e * e) + inp["bo"].element_size() * 6 * e
         rows.append(dict(shape=[b, n, e], max_abs_err=max_err, mean_abs_err=mean_err,
-                         einsum_ms=einsum_ms, **t, **_bound(flops, nbytes)))
+                         einsum_ms=einsum_ms, library_chain_ms=library_chain_ms, chain=chain,
+                         variants=variants, **t, **_bound(flops, nbytes)))
         worst = max(worst, max_err)
     return {"rows": rows, "max_abs_err": worst}
 
@@ -447,12 +526,15 @@ def _check_images(imgs, n):
 def phase_slice(torch, device_info) -> dict:
     from maskbit_tpu_torch.cli.serve import main
     from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
 
     mlm = _flagship()["mlm_model"]
     depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
     argv = [f"config={CONFIG}", f"serve.batch_size={SERVE_BATCH}", "serve.port=0",
             "serve.device=cuda", "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
     ab.launches = 0
+    for key in da.launches:
+        da.launches[key] = 0
     t0 = time.perf_counter()
     server, service = main(argv, serve_forever=False)
     startup = time.perf_counter() - t0
@@ -503,6 +585,7 @@ def phase_slice(torch, device_info) -> dict:
         service.close()
     torch.cuda.synchronize()
     launches = ab.launches
+    fused_launches = da.launches["fused_attention"]  # the block's attention forward
     expected = depth * steps * service.device_calls
     log(f"[slice] startup (random init + warm-up call) {startup:.2f} s; device calls "
         f"{service.device_calls}; concurrent unseeded requests took {batched_calls} call(s)")
@@ -511,12 +594,14 @@ def phase_slice(torch, device_info) -> dict:
         f"one call = {SERVE_BATCH} images in {t2:.3f} s = {SERVE_BATCH / t2:.3f} img/s "
         f"at serve batch {SERVE_BATCH} [{device_info['card']}]")
     log(f"[slice] attention_block launches {launches} == depth {depth} x steps {steps} x "
-        f"device calls {service.device_calls} = {expected}")
+        f"device calls {service.device_calls} = {expected}; fused_attention launches "
+        f"{fused_launches}")
     if batched_calls > 2:
         raise AssertionError(f"no micro-batching: {batched_calls} calls for 2 requests")
     if launches != expected:
         raise AssertionError(f"attention_block launched {launches} times, expected {expected}")
-    return {"launches": launches, "request_s": t2, "img_per_s": SERVE_BATCH / t2}
+    return {"launches": launches, "fused_attention_launches": fused_launches, "request_s": t2,
+            "img_per_s": SERVE_BATCH / t2}
 
 
 def phase_train_check(torch) -> dict:
@@ -696,27 +781,34 @@ def main(argv=None) -> int:
         log(f"[done] phases {args.phases} passed")
         return 0
 
-    def row(name, source, replaces, launches, rows):
+    def row(name, source, replaces, launches, rows, **extra):
         first = rows[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-                "library_ms": first.get("library_ms")}
+                "library_ms": first.get("library_ms"), **extra}
 
     src = "maskbit_tpu_torch/csrc/dropout_attention.cu"
     pa = "maskbit_tpu/nn/pallas_attention.py"
     record = {"kernels": [
+        # no one PyTorch call computes the block: library_ms stays null, and
+        # library_chain_ms is the chain of library calls
         row("fused_attention_block", "maskbit_tpu_torch/csrc/attention_block.cu", f"{pa}:532",
-            sl["launches"], kern["rows"]),
-        row("dropout_attention_fwd", src, f"{pa}:232", tr["launches"]["dropout_attention_fwd"],
+            sl["launches"], kern["rows"], library_chain_ms=kern["rows"][0]["library_chain_ms"]),
+        row("dropout_attention_fwd", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:232",
+            tr["launches"]["dropout_attention_fwd"],
             drop["dropout_attention_fwd"]),
         row("dropout_attention_bwd", src, f"{pa}:274", tr["launches"]["dropout_attention_bwd"],
             drop["dropout_attention_bwd"]),
-        # no main path runs the dropout-free attention: 0 launches there
-        row("fused_attention", src, f"{pa}:94", tr["launches"]["fused_attention"],
-            drop["fused_attention"]),
+        # the attention block runs the dropout-free forward on every layer
+        # of every step: its launches in the serve slice
+        row("fused_attention", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:94",
+            sl["fused_attention_launches"], drop["fused_attention"]),
     ]}
+    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr}, f, indent=1)

@@ -40,8 +40,7 @@ TIME_SHAPES = ((32, 257, 16), (8, 1025, 16))
 def build(sources):
     out_dir = cuda_build.BUILD_DIR.parent / "compare_backward"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = [subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                               str(out_dir / f"lib{i}.so"), src],
+    procs = [subprocess.Popen(cuda_build.nvcc_command(src, out_dir / f"lib{i}.so"),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for i, src in enumerate(sources)]
     libs = []

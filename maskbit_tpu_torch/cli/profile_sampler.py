@@ -21,8 +21,8 @@ import torch
 
 # kernel-name fragment -> layer, first match wins
 _LAYERS = (
-    ("gemm_bias_kernel", "attention block: projections (hand GEMM)"),
-    ("attention_kernel", "attention block: attention (hand)"),
+    ("proj_kernel", "attention block: projections (hand wgmma)"),
+    ("attn_fwd_kernel", "attention block: attention (hand wgmma)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),
     ("xmma", "decoder convolutions (cuDNN)"),

@@ -4,389 +4,260 @@
 // Replaces the TPU kernel maskbit_tpu/nn/pallas_attention.py::_attention_block_kernel
 // (reached through fused_attention_block -> _fused_attention_block_local).
 // It keeps that kernel's rounding points: qkv is rounded to bf16 after the f32
-// bias add; the softmax runs in f32 and its weights are rounded to bf16 before
-// the value product; the concatenated head outputs are rounded to bf16 before
-// the output projection; the output projection stays f32 through the bias,
-// the residual add and the LayerNorm (eps from the caller), and only the
-// normalised row is rounded to bf16.
+// bias add; the softmax runs in f32 (its unnormalised weights are rounded to
+// bf16 for the value product, where the TPU kernel rounds the normalised
+// ones: one bf16 rounding, relative 2^-9); the concatenated head outputs are
+// rounded to bf16 before the output projection; the output projection stays
+// f32 through the bias, the residual add and the LayerNorm (eps from the
+// caller), and only the normalised row is rounded to bf16. The bias and
+// LayerNorm vectors may be f32 or bf16 each; bf16 ones are widened exactly.
 //
-// What bounds it on the H100. At serving shapes (x is (b*n, E) with
-// b*n ~ 4k-12k rows, E = 1024) the two projections carry 4*E^2 multiply-adds
-// per token: they are matmul-bound and belong on the tensor cores. The
-// attention itself is small (n = 257, d = 64: about a tenth of the block's
-// FLOPs) and is bound by bandwidth and latency, not by arithmetic. The TPU
-// kernel kept the whole (n, 3E) f32 qkv and the (group, n, n) f32 logits in
-// VMEM; neither fits the 227 KB of shared memory an SM offers, so this is a
-// chain of four kernels instead of one:
-//   1. gemm_bias_kernel: qkv = bf16(x @ Wqkv^T + bqkv), bf16 tensor-core
-//      products (ldmatrix + mma.sync.m16n8k16) with f32 accumulation,
-//      128x256x32 block tiles (8 warps of 64x64), a three-stage cp.async
-//      ring, the epilogue straight from the accumulator registers.
-//   2. attention_kernel: one block per (batch, head, 64-query tile). It streams
-//      64-key tiles of K and V with an online (running max and sum) f32
-//      softmax, so that any n works (257 and 1025 included); bf16
-//      mma.sync.m16n8k16 products keep logits, weights and the output in
-//      registers. Ragged keys are masked by bounds, not by padding: rows past
-//      n are zero-filled and their logits are -inf.
-//   3. gemm_bias_kernel again: y = x + (attn @ Wo^T + bo), written as an f32
-//      scratch (b*n, E) so the projection is never rounded before the norm.
-//   4. layernorm_kernel: one block per row, f32 in, bf16 out.
-// The qkv and attention scratch tensors round-trip through device memory
-// (about 8 bytes per token per channel); at these sizes that is a few
-// percent of the projections' time. Fusing them away (wgmma, TMA, a
-// persistent kernel) is later work.
+// What bounds it on the H100. At the serving shape, x of (16 * 257, 1024)
+// bf16, the two projections are 34.5 GFLOP and the attention 4.3 GFLOP,
+// about 0.039 ms at the bf16 tensor-core peak, against 16 MB of inputs and
+// output (5 us at 3.35 TB/s): the block is bound by the tensor cores, and
+// the projections are nine tenths of its operations. The TPU kernel kept the
+// whole (n, 3E) f32 qkv and the (group, n, n) logits in VMEM; neither fits
+// 227 KB of shared memory, so this is a chain of four kernels:
+//   1. proj_kernel<BM, EPI_BIAS>: qkv = bf16(x Wqkv^T + bqkv).
+//   2. attn_fwd_kernel<false> (attention_fwd.cuh, shared with the training
+//      kernels): softmax(q k^T / 8) v per (batch * head, 64-query tile), over
+//      the qkv buffer's strided (b, n, 3, h, 64) view, into a contiguous
+//      (b, n, h, 64) = (b * n, E) bf16 buffer.
+//   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
+//   4. layernorm_kernel: out = bf16(LN(y)), one block a row, two passes.
+// A LayerNorm in the out-projection's epilogue, with a cluster of E / 256
+// blocks exchanging row sums through distributed shared memory, kept y out
+// of device memory but was slower at both serving shapes (0.165 against
+// 0.122 ms at (16, 257, 1024), 0.106 against 0.094 ms at (2, 1025, 1024),
+// H100 SXM): the card runs 30 such clusters of 4 at once, so the 33 of the
+// serving shape take two waves, and the exchange waits on the slowest block.
+// Clusters of 2 blocks along N sharing A by TMA multicast (a third less
+// traffic from L2) were slower too: 0.087 against 0.048 ms for the serving
+// QKV projection.
+// The projections (proj_kernel): C = A B^T with A (M, K) and B (N, K) both
+// K-major, as x, the attention output and PyTorch's (out, in) weights are.
+// A block computes a (BM x 256) tile of C; the operands arrive by TMA
+// (128-byte swizzle, 64-wide k slabs) through a 4-stage mbarrier ring filled by
+// one producer thread; two consumer warpgroups multiply with wgmma m64n256k16
+// (BM = 128: 64 rows each) or m64n128k16 (BM = 64: 128 columns each), one
+// wgmma group kept in flight. setmaxnreg gives the producer warpgroup's
+// registers to the consumers (40 and 232), which hold 128 or 64 f32
+// accumulators a thread. The QKV epilogue stages each warpgroup's bf16 tile
+// in the ring's shared memory, 128-byte swizzled (a warp's stores hit 32
+// banks), and one thread writes it with TMA stores, which clip rows and
+// columns past the matrix; the out-projection's writes f32 pairs (a warp
+// fills whole 32-byte sectors). The wrapper picks BM by M: 128-row tiles at
+// the serving shape (396 QKV tiles, 3 waves of 132 SMs), 64-row ones where
+// 128 would leave the card half empty (the 512 px batch, M = 2050).
 //
 // Weights are in the PyTorch nn.Linear layout, (out_features, in_features)
-// row-major, i.e. the transpose of the JAX kernels; the wrapper passes
-// in_proj_weight and out_proj.weight as they are stored.
+// row-major; the wrapper passes in_proj_weight and out_proj.weight as they
+// are stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "attention_fwd.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- GEMM ----
+constexpr int PJ_BN = 256;            // output columns per block
+constexpr int PJ_BK = 64;             // k per stage: one 128-byte swizzled row
+constexpr int PJ_STAGES = 4;
+constexpr int PJ_CONSUMERS = 256;     // two consumer warpgroups
+constexpr int PJ_THREADS = 128 + PJ_CONSUMERS;  // and a producer warpgroup
+constexpr int PJ_PRODUCER_REGS = 40, PJ_CONSUMER_REGS = 232;  // (40 + 2 * 232) * 128 <= 65536
+constexpr int BOX_BYTES = 64 * 128;   // one (64 rows x 64 bf16) swizzled box
 
-constexpr int GM_BM = 128;
-constexpr int GM_BN = 256;
-constexpr int GM_BK = 32;
-constexpr int GM_LD = GM_BK + 8;  // padded row, 80 bytes: 16-byte chunks, no bank conflicts
-constexpr int GM_STAGES = 3;      // cp.async ring depth
-constexpr int GM_THREADS = 256;   // 8 warps: 2 along M x 4 along N, 64x64 each
-constexpr int GM_TM = GM_BM / 2 / 16;  // m16 tiles per warp (warp tile 64 x 64)
-constexpr int GM_TN = GM_BN / 4 / 8;   // n8 tiles per warp
-constexpr int GM_STAGE = (GM_BM + GM_BN) * GM_LD;
-constexpr int GM_SMEM_BYTES = GM_STAGES * GM_STAGE * 2;  // 92,160: dynamic shared memory
+enum { EPI_BIAS = 0, EPI_RESID = 1 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_size = valid ? 16 : 0;  // 0: zero-fill the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_size));
-}
+template <int BM>
+struct ProjTile {
+  static constexpr int WG_N = BM == 128 ? 256 : 128;  // columns a consumer warpgroup holds
+  static constexpr int ACC = WG_N / 2;                // f32 accumulators a thread
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + PJ_BN * 128;
+  static constexpr int BARS = PJ_STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BARS + 128 + 1024;
+};
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+#define MB_F8(d, i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MB_F64(d, i)                                                                       \
+  MB_F8(d, i), MB_F8(d, i + 8), MB_F8(d, i + 16), MB_F8(d, i + 24), MB_F8(d, i + 32),       \
+      MB_F8(d, i + 40), MB_F8(d, i + 48), MB_F8(d, i + 56)
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i, and each thread receives row lane / 4, columns
-// 2 * (lane % 4) .. + 1 of every matrix (the mma fragment layout below).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate. Fragment
-// layout (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane % 4:
-//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]
-//   a[2] = A[g][2t+8..+9]   a[3] = A[g+8][2t+8..+9]
-//   b[0] = B[2t..2t+1][g]   b[1] = B[2t+8..+9][g]
-//   d[0..1] = D[g][2t..2t+1]   d[2..3] = D[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+// D(64 x 256, f32) (+)= A(64 x 16) B(16 x 256), both K-major in shared memory;
+// scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_wide(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MB_F64(d, 0), MB_F64(d, 64)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D(64 x 128, f32) (+)= A(64 x 16) B(16 x 128), the same.
+__device__ __forceinline__ void wgmma_wide(float (&d)[64], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MB_F64(d, 0)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ float ld_vec(const void* p, bool is_bf16, int i) {
+  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
 }
 
-// C[M, N] = A[M, K] @ W[N, K]^T + bias[N] (f32 accumulate), then either
-//   out_bf16[m, n] = bf16(C)                         (resid == nullptr), or
-//   out_f32[m, n]  = C + float(resid[m, n])          (resid != nullptr).
-// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned rows and bias.
-__global__ void __launch_bounds__(GM_THREADS, 1)
-gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, const bf16* __restrict__ resid,
-                 bf16* __restrict__ out_bf16, float* __restrict__ out_f32,
-                 int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char gm_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(gm_smem);
+// C[M, N] = A[M, K] B[N, K]^T, f32 accumulation, then by EPI:
+//   EPI_BIAS:  c = bf16(C + bias)      through tc (bf16)
+//   EPI_RESID: y = C + bias + resid    (f32, row stride N)
+// `bias` is bf16 where vec_bf16 is set, else f32. resid (M, N) bf16.
+// Requires K % 64 == 0 and N % 8 == 0.
+template <int BM, int EPI>
+__global__ void __launch_bounds__(PJ_THREADS, 1)
+proj_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+            const __grid_constant__ CUtensorMap tc, const void* __restrict__ bias,
+            const bf16* __restrict__ resid, float* __restrict__ y, int vec_bf16, int M, int N,
+            int K) {
+  using T = ProjTile<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BARS);
+  uint64_t* empty = full + PJ_STAGES;
+  auto a_stage = [&](int s) { return smem + s * T::STAGE_BYTES; };
+  auto b_stage = [&](int s) { return smem + s * T::STAGE_BYTES + T::A_BYTES; };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * GM_BM;
-  const int n0 = blockIdx.x * GM_BN;
-  const int wm = (warp >> 2) * (GM_TM * 16);
-  const int wn = (warp & 3) * (GM_TN * 8);
-  const int ktiles = (K + GM_BK - 1) / GM_BK;
+  const int n0 = blockIdx.x * PJ_BN;
+  const int m0 = blockIdx.y * BM;
+  const int ktiles = K / PJ_BK;
 
-  // one k-tile of A (BM x BK) and W (BN x BK) into a ring slot; rows past
-  // M or N and columns past K are zero-filled
-  auto load_tile = [&](int kt) {
-    if (kt < ktiles) {
-      bf16* as = smem + (kt % GM_STAGES) * GM_STAGE;
-      bf16* bs = as + GM_BM * GM_LD;
-      const int k0 = kt * GM_BK;
-      for (int c = tid; c < GM_BM * (GM_BK / 8); c += GM_THREADS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const int gr = m0 + r, gk = k0 + kc;
-        const bool ok = gr < M && gk < K;
-        cp_async16(as + r * GM_LD + kc, ok ? A + (size_t)gr * K + gk : A, ok);
-      }
-      for (int c = tid; c < GM_BN * (GM_BK / 8); c += GM_THREADS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const int gn = n0 + r, gk = k0 + kc;
-        const bool ok = gn < N && gk < K;
-        cp_async16(bs + r * GM_LD + kc, ok ? W + (size_t)gn * K + gk : W, ok);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PJ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PJ_CONSUMERS);
     }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-
-  float acc[GM_TM][GM_TN][4];
-#pragma unroll
-  for (int i = 0; i < GM_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < GM_TN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < GM_STAGES - 1; ++s) load_tile(s);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<GM_STAGES - 2>();  // tile kt has landed (for this thread)
-    __syncthreads();                 // ... for every thread; slot kt-1 is free
-    load_tile(kt + GM_STAGES - 1);
-    const bf16* as = smem + (kt % GM_STAGES) * GM_STAGE;
-    const bf16* bs = as + GM_BM * GM_LD;
-#pragma unroll
-    for (int kk = 0; kk < GM_BK; kk += 16) {
-      // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of each m16 tile
-      uint32_t af[GM_TM][4];
-#pragma unroll
-      for (int i = 0; i < GM_TM; ++i)
-        ldmatrix_x4(af[i], as + (wm + i * 16 + (lane & 15)) * GM_LD + kk + (lane >> 4) * 8);
-      // W rows are B's columns: matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
-      // (n 8-15, k 0-7), (n 8-15, k 8-15) give two n8 tiles' b0, b1
-      uint32_t bfr[GM_TN][2];
-#pragma unroll
-      for (int j = 0; j < GM_TN; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bs + (wn + j * 8 + (lane & 7) + (lane >> 4) * 8) * GM_LD + kk +
-                           ((lane >> 3) & 1) * 8);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < GM_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GM_TN; ++j) mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue from registers: rows g and g + 8 of each m16 tile, columns
-  // 2t and 2t + 1 of each n8 tile (N % 8 == 0, so a pair is in or out).
-#pragma unroll
-  for (int j = 0; j < GM_TN; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
-    if (col >= N) continue;
-    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
-#pragma unroll
-    for (int i = 0; i < GM_TM; ++i) {
-#pragma unroll
-      for (int hrow = 0; hrow < 2; ++hrow) {
-        const int row = m0 + wm + i * 16 + g + 8 * hrow;
-        if (row >= M) continue;
-        const float v0 = acc[i][j][2 * hrow] + bb.x;
-        const float v1 = acc[i][j][2 * hrow + 1] + bb.y;
-        const size_t o = (size_t)row * N + col;
-        if (resid != nullptr) {
-          const float2 rr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + o));
-          *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0 + rr.x, v1 + rr.y);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------- attention ----
-
-constexpr int AT_D = 64;        // head dim (checked by the wrapper)
-constexpr int AT_BQ = 64;       // queries per block, 16 per warp
-constexpr int AT_BKV = 64;      // keys per streamed tile
-constexpr int AT_LD = AT_D + 8; // padded bf16 row (144 bytes): conflict-free fragment reads
-constexpr int AT_THREADS = 128;
-
-// qkv: (B, n, 3E) bf16 with q | k | v column blocks, head h at columns h*64.
-// out: (B, n, E) bf16, head h at columns h*64.
-// Each warp owns 16 queries; logits, softmax weights and the output
-// accumulator stay in registers (the mma accumulator layout doubles as the
-// next product's A-operand layout), so only Q, K and V pass through shared
-// memory. V is stored transposed so its B fragments are 32-bit reads.
-__global__ void __launch_bounds__(AT_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                 int n, int E, int H, float scale) {
-  __shared__ __align__(128) bf16 qs[AT_BQ * AT_LD];
-  __shared__ __align__(128) bf16 ks[AT_BKV * AT_LD];
-  __shared__ __align__(128) bf16 vt[AT_D * AT_LD];  // vt[d][key]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * AT_BQ;
-  const size_t row_stride = (size_t)3 * E;
-  const bf16* base = qkv + (size_t)b * n * row_stride;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // Q tile, row-major; rows past n are zero-filled
-  for (int c = tid; c < AT_BQ * (AT_D / 8); c += AT_THREADS) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const uint4 v = q0 + r < n
-        ? *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * row_stride + h * AT_D + cc)
-        : zero;
-    *reinterpret_cast<uint4*>(qs + r * AT_LD + cc) = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const bf16* qw = qs + warp * 16 * AT_LD;
-  uint32_t qa[AT_D / 16][4];
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PJ_PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % PJ_STAGES;
+        mbar_wait(&empty[s], ((kt / PJ_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);  // rows past M or N arrive as zeros
+        tma_load_2d(a_stage(s), &ta, &full[s], kt * PJ_BK, m0);
+        tma_load_2d(b_stage(s), &tb, &full[s], kt * PJ_BK, n0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PJ_CONSUMER_REGS) : "memory");
+
+  const int cw = (threadIdx.x >> 7) - 1;  // consumer warpgroup, 0 or 1
+  const int wtid = threadIdx.x & 127;
+  const int warp = wtid >> 5;
+  const int lane = wtid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row_off = BM == 128 ? 64 * cw : 0;  // the warpgroup's rows and columns in the tile
+  const int col_off = BM == 128 ? 0 : 128 * cw;
+
+  // the first product overwrites acc: no other instruction defines it
+  // while products are in flight, which would serialise them
+  float acc[T::ACC];
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % PJ_STAGES;
+    mbar_wait(&full[s], (kt / PJ_STAGES) & 1);
+    const uint64_t da = desc_kmajor(a_stage(s) + row_off * 128);
+    const uint64_t db = desc_kmajor(b_stage(s) + col_off * 128);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < AT_D / 16; ++kk) {
-    qa[kk][0] = ld32(qw + g * AT_LD + kk * 16 + 2 * t);
-    qa[kk][1] = ld32(qw + (g + 8) * AT_LD + kk * 16 + 2 * t);
-    qa[kk][2] = ld32(qw + g * AT_LD + kk * 16 + 2 * t + 8);
-    qa[kk][3] = ld32(qw + (g + 8) * AT_LD + kk * 16 + 2 * t + 8);
+    for (int kk = 0; kk < PJ_BK / 16; ++kk) wgmma_wide(acc, da + 2 * kk, db + 2 * kk, kt | kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k tile's products are done: release its stage
+    fence_regs(acc);
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % PJ_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Accumulator element i = 4j + 2r + e of this thread is row 16 warp + g + 8r,
+  // column 8j + 2c + e of the warpgroup's (64 x WG_N) part of the tile.
+  const bool bias16 = vec_bf16 != 0;
+  const int col0 = n0 + col_off + 2 * c;  // + 8j
+  int rows[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rows[r] = m0 + row_off + 16 * warp + g + 8 * r;
+
+  if (EPI == EPI_RESID) {
+#pragma unroll
+    for (int j = 0; j < T::WG_N / 8; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= N) continue;
+      const float b0 = ld_vec(bias, bias16, col), b1 = ld_vec(bias, bias16, col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] >= M) continue;
+        const size_t o = (size_t)rows[r] * N + col;
+        const float2 rr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + o));
+        *reinterpret_cast<float2*>(y + o) =
+            make_float2((acc[4 * j + 2 * r] + b0) + rr.x, (acc[4 * j + 2 * r + 1] + b1) + rr.y);
+      }
+    }
+    return;
   }
 
-  // running max and sum for rows g and g + 8, and the 16 x 64 output
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  float o[AT_D / 8][4];
+  // both warpgroups are done with the ring: its memory stages the bf16 tile
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PJ_CONSUMERS) : "memory");
+  uint8_t* ctile = smem + cw * (64 * T::WG_N * 2);  // this warpgroup's part
 #pragma unroll
-  for (int j = 0; j < AT_D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-
-  for (int kv0 = 0; kv0 < n; kv0 += AT_BKV) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    // K row-major (key, d); V transposed (d, key); keys past n zero-filled.
-    // Consecutive threads take consecutive K chunks of a row, and
-    // consecutive keys of V, so that the transposed stores do not collide.
-    for (int c = tid; c < AT_BKV * (AT_D / 8); c += AT_THREADS) {
-      const int r = c >> 3, cc = (c & 7) * 8;
-      const uint4 v = kv0 + r < n
-          ? *reinterpret_cast<const uint4*>(base + (size_t)(kv0 + r) * row_stride + E + h * AT_D + cc)
-          : zero;
-      *reinterpret_cast<uint4*>(ks + r * AT_LD + cc) = v;
-    }
-    for (int c = tid; c < AT_BKV * (AT_D / 8); c += AT_THREADS) {
-      const int r = c & (AT_BKV - 1), cc = (c / AT_BKV) * 8;
-      uint4 v = kv0 + r < n
-          ? *reinterpret_cast<const uint4*>(base + (size_t)(kv0 + r) * row_stride + 2 * E + h * AT_D + cc)
-          : zero;
-      const bf16* e8 = reinterpret_cast<const bf16*>(&v);
+  for (int j = 0; j < T::WG_N / 8; ++j) {
+    const int col = col0 + 8 * j;
+    const float b0 = col < N ? ld_vec(bias, bias16, col) : 0.0f;
+    const float b1 = col < N ? ld_vec(bias, bias16, col + 1) : 0.0f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(cc + e) * AT_LD + r] = e8[e];
-    }
-    __syncthreads();
-
-    // logits S = Q K^T: 8 n-tiles of 8 keys; B[d][key] = K[key][d]
-    float sfr[AT_BKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < AT_BKV / 8; ++j) {
-      sfr[j][0] = sfr[j][1] = sfr[j][2] = sfr[j][3] = 0.0f;
-      const bf16* kr = ks + (j * 8 + g) * AT_LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < AT_D / 16; ++kk)
-        mma_16816(sfr[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-
-    // online softmax; the four lanes of a group share rows g and g + 8
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < AT_BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = kv0 + j * 8 + 2 * t + (e & 1) < n;
-        sfr[j][e] = valid ? sfr[j][e] * scale : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], sfr[j][e]);
-      }
-    }
-    float alpha[2], tsum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m_run[i], tmax[i]);  // finite: key kv0 is valid
-      alpha[i] = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < AT_BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sfr[j][e] = expf(sfr[j][e] - m_run[e >> 1]);
-        tsum[e >> 1] += sfr[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 1);
-      tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 2);
-      l_run[i] = l_run[i] * alpha[i] + tsum[i];
-    }
-
-    // O = alpha * O + P V, with the bf16-rounded weights as the A operand
-#pragma unroll
-    for (int j = 0; j < AT_D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < AT_BKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sfr[2 * kk][0], sfr[2 * kk][1]),
-                              pack_bf16(sfr[2 * kk][2], sfr[2 * kk][3]),
-                              pack_bf16(sfr[2 * kk + 1][0], sfr[2 * kk + 1][1]),
-                              pack_bf16(sfr[2 * kk + 1][2], sfr[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < AT_D / 8; ++j) {
-        const bf16* vr = vt + (j * 8 + g) * AT_LD + kk * 16 + 2 * t;
-        mma_16816(o[j], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(ctile + swizzled_offset(16 * warp + g + 8 * r, 8 * j + 2 * c,
+                                                           BOX_BYTES)) =
+          pack_bf16(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1);
   }
-
-  const float inv[2] = {1.0f / l_run[0], 1.0f / l_run[1]};
+  // to device memory: WG_N / 64 boxes of (64 x 64)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+  if (wtid == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q = q0 + warp * 16 + g + 8 * i;
-    if (q < n) {
-      bf16* dst = out + ((size_t)b * n + q) * E + h * AT_D + 2 * t;
-#pragma unroll
-      for (int j = 0; j < AT_D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-            __floats2bfloat162_rn(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
-    }
+    for (int box = 0; box < T::WG_N / 64; ++box)
+      tma_store_2d(&tc, ctile + box * BOX_BYTES, n0 + col_off + 64 * box, m0 + row_off);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -408,13 +279,16 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// out[row] = bf16((y - mean) * rsqrt(var + eps) * gamma + beta), f32 math.
-// Requires E % 4 == 0, E <= 4096 and 16-byte aligned rows.
+// out[row] = bf16((y - mean) * rsqrt(var + eps) * gamma + beta), f32 math;
+// gamma, beta bf16 where bits 0, 1 of vec_bf16 are set. Requires E % 4 == 0,
+// E <= 4096 and 16-byte aligned rows.
 __global__ void __launch_bounds__(LN_THREADS)
-layernorm_kernel(const float* __restrict__ y, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, bf16* __restrict__ out, int E, float eps) {
+layernorm_kernel(const float* __restrict__ y, const void* __restrict__ gamma,
+                 const void* __restrict__ beta, bf16* __restrict__ out, int E, float eps,
+                 int vec_bf16) {
   __shared__ float red[LN_THREADS / 32];
   const float* yr = y + (size_t)blockIdx.x * E;
+  const bool gamma16 = vec_bf16 & 1, beta16 = vec_bf16 & 2;
   float4 v[LN_VEC];
   float s = 0.0f;
 #pragma unroll
@@ -439,57 +313,81 @@ layernorm_kernel(const float* __restrict__ y, const float* __restrict__ gamma,
   for (int k = 0; k < LN_VEC; ++k) {
     const int i = (threadIdx.x + k * LN_THREADS) * 4;
     if (i < E) {
-      const float4 g = *reinterpret_cast<const float4*>(gamma + i);
-      const float4 bb = *reinterpret_cast<const float4*>(beta + i);
-      *reinterpret_cast<__nv_bfloat162*>(orow + i) = __floats2bfloat162_rn(
-          (v[k].x - mean) * rstd * g.x + bb.x, (v[k].y - mean) * rstd * g.y + bb.y);
-      *reinterpret_cast<__nv_bfloat162*>(orow + i + 2) = __floats2bfloat162_rn(
-          (v[k].z - mean) * rstd * g.z + bb.z, (v[k].w - mean) * rstd * g.w + bb.w);
+      const float vals[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = (vals[e] - mean) * rstd * ld_vec(gamma, gamma16, i + e) + ld_vec(beta, beta16, i + e);
+      *reinterpret_cast<__nv_bfloat162*>(orow + i) = __floats2bfloat162_rn(o[0], o[1]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + i + 2) = __floats2bfloat162_rn(o[2], o[3]);
     }
   }
+}
+
+// ------------------------------------------------------------- host side ----
+
+// One projection on `s`: C = A (M, K) B (N, K)^T with the epilogue EPI.
+template <int BM, int EPI>
+cudaError_t launch_proj(const void* a, const void* b, void* c_out, const void* bias,
+                        const void* resid, float* y, int vec_bf16, int M, int N, int K,
+                        cudaStream_t s) {
+  static unsigned long long smem_set;
+  CUtensorMap ta, tb, tc;
+  if (!matrix_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, PJ_BK, BM) ||
+      !matrix_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, N, K, PJ_BK, PJ_BN))
+    return cudaErrorInvalidValue;
+  if (EPI == EPI_RESID)
+    memset(&tc, 0, sizeof(tc));  // not read
+  else if (!matrix_map(&tc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c_out, M, N, 64, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = ensure_smem(proj_kernel<BM, EPI>, ProjTile<BM>::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + PJ_BN - 1) / PJ_BN, (M + BM - 1) / BM);
+  proj_kernel<BM, EPI><<<grid, PJ_THREADS, ProjTile<BM>::SMEM, s>>>(
+      ta, tb, tc, bias, static_cast<const bf16*>(resid), y, vec_bf16, M, N, K);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_proj_bm(int bm, const void* a, const void* b, void* c_out, const void* bias,
+                           const void* resid, float* y, int vec_bf16, int M, int N, int K,
+                           cudaStream_t s) {
+  if (bm == 128) return launch_proj<128, EPI>(a, b, c_out, bias, resid, y, vec_bf16, M, N, K, s);
+  if (bm == 64) return launch_proj<64, EPI>(a, b, c_out, bias, resid, y, vec_bf16, M, N, K, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Runs the chain on `stream`. x, out: (B*n, E) bf16; w_qkv: (3E, E) bf16;
-// w_o: (E, E) bf16; b_qkv (3E), b_o, ln_g, ln_b (E) f32. Scratch, allocated
-// by the caller: qkv (B*n, 3E) bf16, attn (B*n, E) bf16, y (B*n, E) f32.
-// Returns the first launch error (cudaSuccess == 0 when all four launched).
+// w_o: (E, E) bf16; b_qkv (3E), b_o, ln_g, ln_b (E) f32, or bf16 where bits
+// 0, 1, 2, 3 of vec_bf16 are set. Scratch, allocated by the caller: qkv
+// (B*n, 3E) bf16, attn (B*n, E) bf16, y (B*n, E) f32. bm_qkv, bm_out (64
+// or 128): the projections' block rows. E = 64 H <= 4096. Returns the first
+// launch error (cudaSuccess == 0), or cudaErrorInvalidValue if an argument
+// or a tensor map is refused.
 extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* b_qkv,
                                   const void* w_o, const void* b_o, const void* ln_g,
-                                  const void* ln_b, void* qkv, void* attn, void* y, void* out,
-                                  int B, int n, int E, int H, float eps, void* stream) {
+                                  const void* ln_b, int vec_bf16, void* qkv, void* attn, void* y,
+                                  void* out, int B, int n, int E, int H, float eps, int bm_qkv,
+                                  int bm_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * n;
-  cudaError_t err;
-  // Dynamic shared memory above 48 KB needs an opt-in, which holds per
-  // device: set it on every call, for whichever device is current.
-  err = cudaFuncSetAttribute(gemm_bias_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             GM_SMEM_BYTES);
+  if (E != H * HD || E > 4096 || !current_context()) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_proj_bm<EPI_BIAS>(bm_qkv, x, w_qkv, qkv, b_qkv, nullptr, nullptr,
+                                             vec_bf16 & 1, M, 3 * E, E, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  dim3 g_qkv((3 * E + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
-  gemm_bias_kernel<<<g_qkv, GM_THREADS, GM_SMEM_BYTES, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w_qkv),
-      static_cast<const float*>(b_qkv), nullptr, static_cast<bf16*>(qkv), nullptr, M, 3 * E, E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, 64)
+  const int aerr = attention_forward(q, q + E, q + 2 * E, row * n, row, HD, nullptr, attn,
+                                     nullptr, B, n, H, 0u, 1.0f, false, s);
+  if (aerr != 0) return aerr;
 
-  dim3 g_att((n + AT_BQ - 1) / AT_BQ, B * H);
-  attention_kernel<<<g_att, AT_THREADS, 0, s>>>(static_cast<const bf16*>(qkv),
-                                                static_cast<bf16*>(attn), n, E, H,
-                                                1.0f / sqrtf(static_cast<float>(AT_D)));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  dim3 g_out((E + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
-  gemm_bias_kernel<<<g_out, GM_THREADS, GM_SMEM_BYTES, s>>>(
-      static_cast<const bf16*>(attn), static_cast<const bf16*>(w_o),
-      static_cast<const float*>(b_o), static_cast<const bf16*>(x), nullptr,
-      static_cast<float*>(y), M, E, E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  layernorm_kernel<<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y),
-                                            static_cast<const float*>(ln_g),
-                                            static_cast<const float*>(ln_b),
-                                            static_cast<bf16*>(out), E, eps);
+  err = launch_proj_bm<EPI_RESID>(bm_out, attn, w_o, nullptr, b_o, x, static_cast<float*>(y),
+                                  (vec_bf16 >> 1) & 1, M, E, E, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layernorm_kernel<<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y), ln_g, ln_b,
+                                            static_cast<bf16*>(out), E, eps, vec_bf16 >> 2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,9 @@
 //     forward with the mask compiled out;
 //   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_prep_kernel,
 //     attn_bwd_kernel and attn_bwd_dq_kernel.
+// The forward template lives in attention_fwd.cuh, which the serving
+// attention block (attention_block.cu) includes too; the PTX wrappers and
+// the tensor-map encoder in sm90.cuh.
 //
 // The keep mask is the TPU kernel's, bit for bit: a pure function of the
 // unpadded query index (row), key index (col) and the (batch, head) slot's
@@ -92,343 +95,9 @@
 // bf16. The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only; the driver call is looked up)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "attention_fwd.cuh"
 
 namespace {
-
-constexpr int HD = 64;                      // head dim (checked by the wrapper)
-constexpr int TILE = 64;                    // queries or keys per tile: wgmma's M
-constexpr int TILE_BYTES = TILE * HD * 2;   // one bf16 tile, 8 KB, 64 rows of 128 B
-constexpr int CONSUMERS = 128;              // one warpgroup
-constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
-constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// ------------------------------------------------------ PTX wrappers ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One (64 rows x 64 d) bf16 tile of a rank-4 (d, n, h, b) tensor map.
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned, a multiple of 16).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from touching accumulators across an asynchronous wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The consumer warpgroup's own barrier (the producer warp does not take part).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-
-// Shared-memory matrix descriptors for 128-byte-swizzled tiles of 64-element
-// (128-byte) rows, as TMA writes them: 8-row groups 1024 bytes apart. K-major
-// (the reduction dimension contiguous; the next 16-element slab is +32 bytes,
-// +2 in the address field): leading offset unused. MN-major (the output
-// dimension contiguous; the next 16-row slab is +2048 bytes, +128): the 8-row
-// groups along K are 1024 bytes apart, and the one 64-wide block along M or N
-// makes the other offset unused; both are set to 1024.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
-  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
-  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-#define MB_ACC32                                                                                 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define MB_ACC32_OPS(d)                                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// D(64 x 64, f32) (+)= A(64 x 16) B(16 x 64), both from shared memory.
-// TA / TB: 0 K-major, 1 MN-major. scale_d 0 overwrites D.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
-      ", %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : MB_ACC32_OPS(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// D(64 x 64, f32) += A(64 x 16, bf16 fragments in registers) B(16 x 64) from
-// shared memory; TB as above. The A fragment of warp w holds rows 16w..16w+15
-// in mma.m16n8k16's A layout, which is the accumulator layout of the
-// product before it, packed to bf16 pairs.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : MB_ACC32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Accumulator element i of a m64n64 product held by this thread (warp w,
-// lane l, g = l / 4, c = l % 4) is D[16w + g + 8 * ((i >> 1) & 1)][8 * (i >> 2)
-// + 2c + (i & 1)]. The A fragment for k slab kk takes columns 16kk..16kk+15.
-__device__ __forceinline__ void acc_to_afrag(uint32_t (&a)[4][4], const float (&d)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-  }
-}
-
-// The murmur3 finaliser of the TPU kernel's keep hash; the callers form its
-// argument row * 0x9E3779B1 + col * 0x85EBCA77 + seed * 0xC2B2AE3D from
-// per-row and per-column terms computed once.
-__device__ __forceinline__ uint32_t fmix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-// ------------------------------------------------------------- forward ----
-
-// Shared memory: Q | K[0] V[0] | K[1] V[1] | barriers.
-constexpr int FWD_SMEM = TILE_BYTES * (1 + 2 * STAGES) + 64 + 1024;
-
-template <bool DROPOUT>
-__global__ void __launch_bounds__(THREADS, 3)
-attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, const int* __restrict__ seeds,
-                bf16* __restrict__ out, float* __restrict__ lse, int n, int H, float scale_log2,
-                uint32_t threshold, float keep_scale) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align_1024(smem_raw);
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + TILE_BYTES * (1 + 2 * STAGES));
-  uint64_t* q_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + STAGES;
-  auto ks = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (1 + 2 * s)); };
-  auto vs = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (2 + 2 * s)); };
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * TILE;
-  const int ntiles = (n + TILE - 1) / TILE;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS) {  // producer warp: one lane issues every copy
-    if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, TILE_BYTES);
-      tma_load_tile(qs, &tq, q_full, q0, h, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % STAGES;
-        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_tile(ks(s), &tk, &full[s], t * TILE, h, b);
-        tma_load_tile(vs(s), &tv, &full[s], t * TILE, h, b);
-      }
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-  const uint32_t row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
-  const uint32_t rmix[2] = {row0 * 0x9E3779B1u, (row0 + 8) * 0x9E3779B1u};
-
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  float o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
-
-  mbar_wait(q_full, 0);
-  const uint64_t dq_desc = desc_kmajor(qs);
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % STAGES;
-    const int kv0 = t * TILE;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-
-    float sc[32];
-    fence_regs(o);
-    wgmma_fence();
-    const uint64_t dk_desc = desc_kmajor(ks(s));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sc, dq_desc + 2 * kk, dk_desc + 2 * kk, kk);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sc);
-
-    // online softmax over all keys in log2 units; the 4 lanes of a group share a row
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool valid = kv0 + 8 * (i >> 2) + 2 * c + (i & 1) < n;
-      sc[i] = valid ? sc[i] * scale_log2 : -INFINITY;
-      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
-    }
-    float alpha[2], tsum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m_run[r], tmax[r]);  // finite: key kv0 is valid
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = exp2f(sc[i] - m_run[r]);  // 0 past n
-      tsum[r] += p;  // the row sum runs before dropout
-      if (DROPOUT) {
-        const uint32_t col = kv0 + 8 * (i >> 2) + 2 * c + (i & 1);
-        sc[i] = fmix(rmix[r] + col * 0x85EBCA77u + seed_mix) >= threshold ? p * keep_scale : 0.0f;
-      } else {
-        sc[i] = p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 1);
-      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + tsum[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-    uint32_t pa[4][4];
-    acc_to_afrag(pa, sc);
-    fence_regs(o);
-    wgmma_fence();
-    const uint64_t dv_desc = desc_mnmajor(vs(s));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pa[kk], dv_desc + 128 * kk);  // O += bf16(w) V
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
-    mbar_arrive(&empty[s]);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < n) {
-      const float inv = 1.0f / l_run[r];
-      bf16* dst = out + (((long long)b * n + row) * H + h) * HD + 2 * c;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-      if (lse != nullptr && c == 0)
-        lse[(long long)bh * n + row] = (m_run[r] + log2f(l_run[r])) * LN2;
-    }
-  }
-}
 
 // ------------------------------------------------------------ backward ----
 
@@ -745,100 +414,31 @@ attn_bwd_dq_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int 
   *reinterpret_cast<uint4*>(dq + e) = out;
 }
 
-// ------------------------------------------------------------- host side ----
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor-map encoder is a driver call and needs the device's context
-// current on the calling thread, which the runtime makes current only when
-// it first needs it (autograd runs the backward on a thread of its own).
-bool current_context() {
-  int dev;
-  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
-}
-
-// A (b, n, h, 64) bf16 tensor with element strides (sb, sn, sh) as a rank-4
-// (d, n, h, b) map of (64 x 64) boxes, 128-byte swizzled; rows past n read 0.
-bool tile_map(CUtensorMap* map, const void* base, int B, int n, int H, long long sb, long long sn,
-              long long sh) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {HD, TILE, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 // The backward's f32 dq sum, (BH, n, 64) contiguous, as a rank-3 (d, n, BH)
 // map of (32 x 64) boxes, 128-byte swizzled; rows past n are not written.
 bool dq_sum_map(CUtensorMap* map, void* base, int BH, int n) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {HD * 4, static_cast<cuuint64_t>(n) * HD * 4};
   const cuuint32_t box[3] = {32, TILE, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
-// Forward on `stream`. q, k, v: (B, n, H, 64) bf16 with element strides
-// (sb, sn, sh); out: contiguous (B, n, H, 64) bf16; lse: (B*H, n) f32 or
-// null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored when
-// dropout == 0, which compiles the mask out. Returns the launch error
-// (cudaSuccess == 0), or cudaErrorInvalidValue if a tensor map is refused.
+// Forward on `stream` (attention_fwd.cuh's attention_forward). q, k, v:
+// (B, n, H, 64) bf16 with element strides (sb, sn, sh); out: contiguous
+// (B, n, H, 64) bf16; lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the
+// uint32 seeds' bits), ignored when dropout == 0, which compiles the mask
+// out. Returns the launch error (cudaSuccess == 0), or
+// cudaErrorInvalidValue if a tensor map is refused.
 extern "C" int mb_dropout_attention_fwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* seeds, void* out, void* lse, int B, int n,
                                         int H, unsigned int threshold, float keep_scale,
                                         int dropout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap tq, tk, tv;
-  if (!current_context() || !tile_map(&tq, q, B, n, H, sb, sn, sh) ||
-      !tile_map(&tk, k, B, n, H, sb, sn, sh) || !tile_map(&tv, v, B, n, H, sb, sn, sh))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + TILE - 1) / TILE, B * H);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
-  if (dropout) {
-    cudaFuncSetAttribute(attn_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         FWD_SMEM);
-    attn_fwd_kernel<true><<<grid, THREADS, FWD_SMEM, s>>>(
-        tq, tk, tv, static_cast<const int*>(seeds), static_cast<bf16*>(out),
-        static_cast<float*>(lse), n, H, scale_log2, threshold, keep_scale);
-  } else {
-    cudaFuncSetAttribute(attn_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         FWD_SMEM);
-    attn_fwd_kernel<false><<<grid, THREADS, FWD_SMEM, s>>>(
-        tq, tk, tv, nullptr, static_cast<bf16*>(out), static_cast<float*>(lse), n, H, scale_log2,
-        0u, 1.0f);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return attention_forward(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, threshold, keep_scale,
+                           dropout != 0, static_cast<cudaStream_t>(stream));
 }
 
 // Backward on `stream`: dq, dk, dv (contiguous (B, n, H, 64) bf16) from q,
@@ -875,7 +475,9 @@ extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  static unsigned long long smem_set;
+  if ((err = ensure_smem(attn_bwd_kernel, BWD_SMEM, smem_set)) != cudaSuccess)
+    return static_cast<int>(err);
   attn_bwd_kernel<<<dim3(ntiles, B * H), BWD_THREADS, BWD_SMEM, s>>>(
       tq, tk, tv, tg, tdq, static_cast<const float2*>(stats), static_cast<const int*>(seeds),
       static_cast<int*>(tickets), static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, H, n_pad,

@@ -7,13 +7,18 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
 * A CPU tensor goes to `fused_attention_block_reference`, the plain PyTorch
   version with the kernel's rounding points.
 * A CUDA tensor launches the hand-written chain in
-  `csrc/attention_block.cu` or raises: bf16 x, wqkv and wo; f32 biases and
-  LayerNorm parameters; head dim 64; E a multiple of 8 and at most 4096.
-  The weights must be the transposed views of contiguous PyTorch weights
-  (`in_proj_weight.t()`, `out_proj.weight.t()`), which is how
-  `BertAttention` passes them: the kernel reads the (out, in) layout.
+  `csrc/attention_block.cu` or raises: bf16 x, wqkv and wo; the biases and
+  LayerNorm parameters each f32 or bf16 (the kernels widen bf16 exactly);
+  head dim 64; E at most 4096. The weights must be the transposed views of
+  contiguous PyTorch weights (`in_proj_weight.t()`, `out_proj.weight.t()`),
+  which is how `BertAttention` passes them: the kernels read the (out, in)
+  layout.
 
-`launches` counts the chain's launches (one per call on a CUDA tensor).
+The chain is the QKV projection, the attention forward of
+`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, whose
+count in `dropout_attention.launches["fused_attention"]` it adds to), the
+out-projection with the residual (f32) and the LayerNorm. `launches`
+counts the chain's launches (one per call on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -22,9 +27,14 @@ import ctypes
 
 import torch
 
+from maskbit_tpu_torch.nn import dropout_attention
+
 launches = 0
 
 HEAD_DIM = 64  # the attention kernel's head width
+MAX_E = 4096
+BLOCK_N = 256  # output columns of a projection block
+VECTOR_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fused_attention_block_reference(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
@@ -46,54 +56,105 @@ def fused_attention_block_reference(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
     return ((y - mu) * torch.rsqrt(var + eps) * ln_scale.to(f32) + ln_bias.to(f32)).to(x.dtype)
 
 
-def _check(name, t, dtype, shape, device):
+def plan(m: int, e: int, sms: int) -> tuple[int, int]:
+    """(rows of a QKV block, rows of an out-projection block) for x of
+    (m, e) on a card of `sms` SMs: 128 or 64, whichever takes the less
+    time in waves x a block's time, with a block of 64 rows taking 3/4 of
+    one of 128 (E = 1024 on an H100: 12.1 and 16.1 us a wave). 128 at the
+    serving shape (m = 4112) and for the 512 px batch's QKV projection
+    (m = 2050); 64 for its out-projection, where 128-row blocks would
+    leave the card half empty."""
+    def rows(cols: int) -> int:
+        col_tiles = -(-cols // BLOCK_N)
+        return min((128, 64), key=lambda bm: -(-(-(-m // bm) * col_tiles) // sms) * (bm + 128))
+
+    return rows(3 * e), rows(e)
+
+
+def _check(name, t, dtypes, shape, device):
+    """Raises unless t is on `device`, of one of `dtypes` (one or two), of
+    `shape`, contiguous and 16-byte aligned. Runs on every call, so the
+    common case takes one cheap test (dtypes compared by identity)."""
+    dt = t.dtype
+    if (t.device == device and (dt is dtypes[0] or dt is dtypes[-1]) and t.shape == shape
+            and t.is_contiguous() and not t.data_ptr() % 16):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if dt not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {dt}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps):
+_sms: dict[int, int] = {}  # SMs by device index
+_plans: dict[tuple, tuple] = {}  # plan by (m, e, SMs)
+
+
+def _lib():
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
+    fn = load_library("attention_block").mb_attention_block
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 4 + [ctypes.c_float] + [i32] * 2 + [
+            ptr]
+        fn.restype = i32
+    return fn
+
+
+def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None):
+    """The chain on CUDA tensors. `tiles`: `plan`'s (rows of a QKV block,
+    rows of an out-projection block) to use instead of the plan for this
+    shape, for measuring the alternatives side by side."""
     b, n, e = x.shape
-    if e % num_heads or e // num_heads != HEAD_DIM:
+    if e != num_heads * HEAD_DIM:
         raise ValueError(f"the kernel needs head dim {HEAD_DIM}, got {e}/{num_heads}")
-    if e % 8 or e > 4096:
-        raise ValueError(f"the kernel needs E % 8 == 0 and E <= 4096, got {e}")
+    if e > MAX_E:
+        raise ValueError(f"the kernel needs E <= {MAX_E}, got {e}")
     dev = x.device
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = (torch.bfloat16,)
     w_qkv, w_o = wqkv.t(), wo.t()  # the (out, in) layout the kernel reads
     _check("x", x, bf16, (b, n, e), dev)
     _check("wqkv.t()", w_qkv, bf16, (3 * e, e), dev)
     _check("wo.t()", w_o, bf16, (e, e), dev)
-    _check("bqkv", bqkv, f32, (3 * e,), dev)
-    for name, t in (("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
-        _check(name, t, f32, (e,), dev)
+    vec_bf16 = 0
+    for bit, (name, t, size) in enumerate((("bqkv", bqkv, 3 * e), ("bo", bo, e),
+                                           ("ln_scale", ln_scale, e), ("ln_bias", ln_bias, e))):
+        _check(name, t, VECTOR_DTYPES, (size,), dev)
+        if t.dtype is torch.bfloat16:
+            vec_bf16 |= 1 << bit
 
-    lib = load_library("attention_block")
-    fn = lib.mb_attention_block
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    qkv = torch.empty((b * n, 3 * e), dtype=bf16, device=dev)
-    attn = torch.empty((b * n, e), dtype=bf16, device=dev)
-    y = torch.empty((b * n, e), dtype=f32, device=dev)
+    fn = _lib()
+    m = b * n
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    if tiles is None:
+        key = (m, e, _sms[idx])
+        tiles = _plans.get(key)
+        if tiles is None:
+            tiles = _plans[key] = plan(*key)
+    bm_qkv, bm_out = tiles
+    # one scratch allocation: qkv (m, 3E) and the attention output (m, E),
+    # bf16, then y (m, E) f32
+    scratch = torch.empty((m * e * 12,), dtype=torch.uint8, device=dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):  # the runtime launches on the current device
-        err = fn(x.data_ptr(), w_qkv.data_ptr(), bqkv.data_ptr(), w_o.data_ptr(),
-                 bo.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), qkv.data_ptr(),
-                 attn.data_ptr(), y.data_ptr(), out.data_ptr(), b, n, e, num_heads,
-                 float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    qkv = scratch.data_ptr()
+    args = (x.data_ptr(), w_qkv.data_ptr(), bqkv.data_ptr(), w_o.data_ptr(), bo.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), vec_bf16, qkv, qkv + m * e * 6,
+            qkv + m * e * 8, out.data_ptr(), b, n, e, num_heads, float(eps), bm_qkv, bm_out)
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):  # the runtime launches on the current device
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_block launch failed: CUDA error {err}")
     global launches
     launches += 1
+    dropout_attention.launches["fused_attention"] += 1
     return out
 
 

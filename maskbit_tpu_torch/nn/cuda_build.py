@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled at first use with `nvcc` into a shared
 library with a plain C interface and loaded with `ctypes`. The library is
-named after a hash of its source, so an edited source rebuilds and an
-unchanged one loads from the build directory, `build/maskbit_tpu_torch/`
-under the checkout (git-ignored).
+named after a hash of its source and of every header under `csrc/` that it
+includes (`#include "..."`, followed through headers), so an edited source
+or header rebuilds and an unchanged one loads from the build directory,
+`build/maskbit_tpu_torch/` under the checkout (git-ignored).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,6 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "maskbit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _locks_guard = threading.Lock()
 _locks: dict[str, threading.Lock] = {}  # one per library: different ones build in parallel
@@ -40,6 +44,33 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest(src: Path, include_dir: Path = CSRC) -> str:
+    """Hash of `src` and of the files it includes from its own directory or
+    `include_dir` (quoted includes, followed through the included files);
+    system headers (`<...>`) are not followed."""
+    h = hashlib.sha256()
+    seen: set[Path] = set()
+    todo = [Path(src).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + data + b"\0")
+        for inc in _INCLUDE.findall(data.decode(errors="replace")):
+            for base in (path.parent, Path(include_dir)):
+                if (base / inc).is_file():
+                    todo.append((base / inc).resolve())
+                    break
+    return h.hexdigest()[:16]
+
+
+def nvcc_command(src, out) -> list[str]:
+    """nvcc building `src` into the shared library `out`, headers from csrc/."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<name>.cu`. Raises on failure."""
     with _locks_guard:
@@ -48,7 +79,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        digest = source_digest(src)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
         t0 = time.perf_counter()
@@ -56,8 +87,7 @@ def load_library(name: str) -> ctypes.CDLL:
         cached = lib_path.exists()
         if not cached:
             tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.run(nvcc_command(src, tmp), capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {src.name} ({proc.returncode}):\n"

@@ -131,15 +131,19 @@ class BertAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if self.attention_impl == "fused" and not self.use_prenorm and not self.training:
+            # the vectors go as they are stored (f32 or bf16; the kernels widen
+            # bf16), and weights already in x's dtype are not copied: with
+            # the serving generator's bf16 weights a call launches only the
+            # block's kernels
             mha, dt = self.mha, x.dtype
             return fused_attention_block(
                 x.contiguous(),
                 mha.in_proj_weight.to(dt).t(),
-                mha.in_proj_bias.float(),
+                mha.in_proj_bias,
                 mha.out_proj.weight.to(dt).t(),
-                mha.out_proj.bias.float(),
-                self.norm.weight.float(),
-                self.norm.bias.float(),
+                mha.out_proj.bias,
+                self.norm.weight,
+                self.norm.bias,
                 num_heads=mha.num_heads,
                 eps=LAYERNORM_EPS,
             )

@@ -57,3 +57,52 @@ def test_wrapper_rejects_other_devices():
            _inputs(np.random.default_rng(2), 1, 8, 64).items()}
     with pytest.raises(ValueError, match="no kernel"):
         ab.fused_attention_block(**inp, num_heads=4)
+
+
+def test_plain_version_takes_bf16_vectors_as_their_f32_widening():
+    """The biases and LayerNorm vectors may come in bf16, as the serving
+    generator stores them: the plain version gives bit for bit what it
+    gives on their f32 widening, and both match the JAX block."""
+    rng = np.random.default_rng(3)
+    inp = {k: torch.from_numpy(v) for k, v in _inputs(rng, 2, 33, 64).items()}
+    vec = ("bqkv", "bo", "ln_scale", "ln_bias")
+    narrow = {k: (v.to(torch.bfloat16) if k in vec else v) for k, v in inp.items()}
+    wide = {k: (v.float() if k in vec else v) for k, v in narrow.items()}
+    got = ab.fused_attention_block(**narrow, num_heads=4)
+    torch.testing.assert_close(got, ab.fused_attention_block(**wide, num_heads=4), atol=0, rtol=0)
+    want = jax_block(**{k: jnp.asarray(v.numpy()) for k, v in wide.items()}, num_heads=4,
+                     interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("m,e,want", [
+    (4112, 1024, (128, 128)),  # serving: 396 QKV blocks = 3 waves of 132
+    (2050, 1024, (128, 64)),   # 512 px: 68 out-projection blocks of 128 rows: half the card
+    (1, 512, (64, 64)),
+    (8224, 2048, (128, 128)),
+    (514, 3072, (128, 64)),
+])
+def test_plan_picks_block_rows_by_shape(m, e, want):
+    assert ab.plan(m, e, sms=132) == want
+
+
+def test_bert_attention_passes_parameters_as_stored(monkeypatch):
+    """The serving layer hands the block its parameters without a cast or
+    a copy (so a call on the card launches only the block's kernels)."""
+    from maskbit_tpu_torch.nn import transformer
+
+    seen = {}
+
+    def spy(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps):
+        seen.update(wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo, ln_scale=ln_scale, ln_bias=ln_bias)
+        return x
+
+    monkeypatch.setattr(transformer, "fused_attention_block", spy)
+    layer = transformer.BertAttention(64, 4, attention_impl="fused").to(torch.bfloat16).eval()
+    with torch.no_grad():
+        layer(torch.zeros(1, 5, 64, dtype=torch.bfloat16))
+    mha = layer.mha
+    assert seen["bqkv"] is mha.in_proj_bias and seen["bo"] is mha.out_proj.bias
+    assert seen["ln_scale"] is layer.norm.weight and seen["ln_bias"] is layer.norm.bias
+    assert seen["wqkv"].data_ptr() == mha.in_proj_weight.data_ptr()
+    assert seen["wo"].data_ptr() == mha.out_proj.weight.data_ptr()

@@ -22,7 +22,7 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _block_inputs(b, n, e, seed):
+def _block_inputs(b, n, e, seed, vectors=torch.float32):
     rng = np.random.default_rng(seed)
 
     def t(*shape, std=1.0):
@@ -30,13 +30,21 @@ def _block_inputs(b, n, e, seed):
 
     x = torch.nn.functional.layer_norm(t(b, n, e), (e,)).bfloat16()
     # the kernel reads the torch (out, in) layout: pass transposed views
-    return dict(x=x, wqkv=t(3 * e, e, std=0.02).bfloat16().t(), bqkv=t(3 * e, std=0.02),
-                wo=t(e, e, std=0.02).bfloat16().t(), bo=t(e, std=0.02),
-                ln_scale=1.0 + t(e, std=0.02), ln_bias=t(e, std=0.02))
+    return dict(x=x, wqkv=t(3 * e, e, std=0.02).bfloat16().t(),
+                bqkv=t(3 * e, std=0.02).to(vectors), wo=t(e, e, std=0.02).bfloat16().t(),
+                bo=t(e, std=0.02).to(vectors), ln_scale=(1.0 + t(e, std=0.02)).to(vectors),
+                ln_bias=t(e, std=0.02).to(vectors))
 
 
+# Every tile edge of the chain: rows M = b * n of 1, 127, 128, 129, 2050 (the
+# 512 px batch, 64-row blocks) and 4112 (serving, 128-row blocks); sequence
+# lengths 1, 63, 64, 65, 257 and 1025 (the attention's 64-row tiles); E of
+# 512 and 1024, 576 (the last 256-column block of each projection partly
+# past the matrix) and 3072.
 @pytest.mark.parametrize("b,n,e", [(2, 257, 1024), (1, 17, 1024), (2, 1025, 1024),
-                                   (3, 100, 512)])
+                                   (3, 100, 512), (1, 1, 1024), (1, 127, 512), (2, 64, 1024),
+                                   (1, 129, 1024), (2, 63, 512), (2, 65, 576), (16, 257, 1024),
+                                   (1, 1025, 512), (3, 65, 3072), (1, 257, 576)])
 def test_attention_block_kernel_matches_plain_version(b, n, e):
     """bf16 kernel vs the plain version in float32 on the same bf16 inputs:
     within 3e-2, about twice the half-ulp rounding of a bf16 LayerNorm
@@ -54,6 +62,69 @@ def test_attention_block_kernel_matches_plain_version(b, n, e):
     assert (got.float() - want).abs().max().item() <= 3e-2
 
 
+@pytest.mark.parametrize("b,n,e", [(16, 257, 1024), (2, 1025, 1024), (1, 129, 576)])
+def test_attention_block_kernel_takes_bf16_vectors_and_repeats_bit_for_bit(b, n, e):
+    """bf16 biases and LayerNorm vectors (as the serving generator stores
+    them) give what their f32 widening gives, bit for bit, and so does a
+    second call; one launch is counted per call."""
+    _card()
+    inp = _block_inputs(b, n, e, seed=3, vectors=torch.bfloat16)
+    wide = {k: (v.float() if v.dim() == 1 else v) for k, v in inp.items()}
+    before = ab.launches
+    got = ab.fused_attention_block(**inp, num_heads=e // 64)
+    again = ab.fused_attention_block(**inp, num_heads=e // 64)
+    widened = ab.fused_attention_block(**wide, num_heads=e // 64)
+    torch.cuda.synchronize()
+    assert ab.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, widened)
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
+                                              num_heads=e // 64)
+    assert (got.float() - want).abs().max().item() <= 3e-2
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (64, 64), (128, 64), (64, 128)])
+def test_attention_block_kernel_every_tile_plan(tiles):
+    """Each block-row choice of both projections at E = 1024, whichever the
+    plan picks for this shape, against the plain version."""
+    _card()
+    inp = _block_inputs(2, 257, 1024, seed=5)
+    got = ab._launch(**inp, num_heads=16, eps=1e-12, tiles=tiles)
+    torch.cuda.synchronize()
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
+                                              num_heads=16)
+    assert (got.float() - want).abs().max().item() <= 3e-2
+
+
+def test_attention_block_runs_only_the_ports_kernels():
+    """A profile of one block call, and of one serving-mode BertAttention
+    call on bf16 weights, shows only kernels built from
+    maskbit_tpu_torch/csrc/: no library GEMM, attention or cast."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskbit_tpu_torch.nn.transformer import BertAttention
+
+    _card()
+    inp = _block_inputs(16, 257, 1024, seed=1, vectors=torch.bfloat16)
+    layer = BertAttention(1024, 16, attention_impl="fused").cuda().to(torch.bfloat16).eval()
+    ab.fused_attention_block(**inp, num_heads=16)
+    with torch.inference_mode():
+        layer(inp["x"])
+    torch.cuda.synchronize()
+    own = ("proj_kernel", "attn_fwd_kernel", "layernorm_kernel")
+    for call in (lambda: ab.fused_attention_block(**inp, num_heads=16),
+                 lambda: layer(inp["x"])):
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+        assert names, "the profiler saw no kernel"
+        for name in names:
+            assert any(k in name for k in own), name
+            assert not any(k in name.lower() for k in ("gemm", "nvjet", "cutlass", "flash", "cudnn"))
+
+
 def test_attention_block_kernel_rejects_bad_inputs():
     _card()
     inp = _block_inputs(1, 17, 1024, seed=0)
@@ -63,6 +134,27 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
     with pytest.raises(ValueError, match="head dim"):
         ab.fused_attention_block(**inp, num_heads=8)
+    # the vectors: f32 or bf16, on x's device, of their length, contiguous
+    with pytest.raises(TypeError, match="bqkv"):
+        ab.fused_attention_block(**dict(inp, bqkv=inp["bqkv"].half()), num_heads=16)
+    with pytest.raises(TypeError, match="ln_bias"):
+        ab.fused_attention_block(**dict(inp, ln_bias=inp["ln_bias"].double()), num_heads=16)
+    with pytest.raises(ValueError, match="is on"):
+        ab.fused_attention_block(**dict(inp, bo=inp["bo"].cpu()), num_heads=16)
+    with pytest.raises(ValueError, match="shape"):
+        ab.fused_attention_block(**dict(inp, ln_scale=inp["ln_scale"][:512]), num_heads=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ab.fused_attention_block(**dict(inp, bo=torch.stack([inp["bo"]] * 2, 1)[:, 0]),
+                                 num_heads=16)
+    with pytest.raises(ValueError, match="E <= 4096"):
+        e = 4160
+        big = dict(x=torch.zeros(1, 1, e, device="cuda", dtype=torch.bfloat16),
+                   wqkv=torch.zeros(3 * e, e, device="cuda", dtype=torch.bfloat16).t(),
+                   bqkv=torch.zeros(3 * e, device="cuda"),
+                   wo=torch.zeros(e, e, device="cuda", dtype=torch.bfloat16).t(),
+                   bo=torch.zeros(e, device="cuda"), ln_scale=torch.ones(e, device="cuda"),
+                   ln_bias=torch.zeros(e, device="cuda"))
+        ab.fused_attention_block(**big, num_heads=e // 64)
 
 
 def _qkv(b, n, h, seed, layout="separate"):

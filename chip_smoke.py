@@ -44,6 +44,24 @@ Phases, each of which fails the run if it fails:
      tokenizer, synthetic data: finite losses, depth x steps launches of
      each dropout-attention kernel, and the saved `.bin` weights load back
      strictly; median step time, samples/s and peak memory.
+  7. train from data, same config, full width and depth, batch 32:
+     a. `cli.pretokenize.tokenize_to_shards` on 256 synthetic 256 px images
+        (numpy, no PIL) into token shards; tokens per second;
+     b. `train_maskbit.main` from those shards, 6 steps, `save_every=3`,
+        `generate_every=3`: finite losses, the dropout kernels on every
+        layer of every step, and each generation (the sampler with the EMA
+        weights) through the attention block on every layer of every
+        sampling step; median step and samples/s beside phase 6's; the
+        saves' times;
+     c. resume: `main` again with `max_train_steps` raised to 8 logs
+        `resumed from step 6`, the restored parameters, moments, EMA and
+        counts equal bit for bit a host copy taken before the step-6 save,
+        and the two further steps have finite losses; the restore's time;
+     d. remat: the 512 px config (batch 8, random tokens of its shape), one
+        step from one generator seed with `remat` off and one with it on:
+        loss, per-parameter gradient norms and updated parameters equal bit
+        for bit, the recompute's second dropout-forward launch per layer;
+        peak memory and device time of a step for both.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -65,6 +83,7 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 CONFIG = os.path.join(ROOT, "configs", "generator", "maskbit_generator_14bit.yaml")
+CONFIG_512 = os.path.join(ROOT, "configs", "generator", "maskbit_generator_14bit_512.yaml")
 SERVE_BATCH = 8
 HEADS = 16
 # The kernel returns bf16; its plain version runs in float32 on the same
@@ -84,6 +103,8 @@ KERNEL_ATOL = 3e-2
 DROPOUT_ATOL = 2e-2
 RATE = 0.1
 TRAIN_BATCH, TRAIN_STEPS = 32, 6
+PRETOKENIZE_IMAGES = 256
+SAVE_EVERY, RESUME_STEPS = 3, 8
 # the 512 px config's per-device batch (maskbit_generator_14bit_512.yaml)
 LONG_BATCH = 8
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
@@ -728,7 +749,282 @@ def phase_train_slice(torch, device_info) -> dict:
             "samples_per_s": TRAIN_BATCH / median_s, "peak_gib": peak_gib}
 
 
-PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train")
+def _state_copy(state) -> dict:
+    """Every tensor and count of a train state, copied to the host."""
+    from maskbit_tpu_torch.core.checkpoint import host_copy
+
+    return host_copy(state.state_dict())
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if hasattr(tree, "dtype") else []
+
+
+def _differences(a, b, path="") -> list:
+    """Where two host copies of a train state differ (bit for bit)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys differ"]
+        return [d for k in a for d in _differences(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths differ"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _differences(x, y, f"{path}/{i}")]
+    if hasattr(a, "dtype"):
+        same = a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+        return [] if same else [path]
+    return [] if a == b else [f"{path}: {a} != {b}"]
+
+
+def phase_train_data(torch, device_info, image_train, device="cuda") -> dict:
+    """Pretokenize, train from token shards with saves and in-training
+    generation, resume, and remat at 512 px (phase 7). `image_train` is
+    phase 6's result, for the comparison. device="cpu" rehearses the phase
+    with tiny configs put in place of CONFIG and CONFIG_512 (launches and
+    memory are then neither counted nor checked)."""
+    import logging
+
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import train_maskbit
+    from maskbit_tpu_torch.cli.common import build_tokenizer, compute_dtype
+    from maskbit_tpu_torch.cli.pretokenize import tokenize_to_shards
+    from maskbit_tpu_torch.core.checkpoint import CheckpointManager
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.data.token_shards import TokenShardWriter
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    work = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored; checkpoints are ~5 GB
+    shutil.rmtree(work, ignore_errors=True)
+    config = load_config(CONFIG)
+    mlm = config.model.mlm_model
+    depth, sampling_steps = int(mlm["depth"]), int(mlm["num_steps"])
+    res = int(config.select("dataset.preprocessing.resolution"))
+    seq = (res // int(mlm.get("input_stride", 16))) ** 2
+
+    # a. pretokenize synthetic images on the card
+    tokenizer = build_tokenizer(config, train_maskbit._logger(), torch.device(device),
+                                compute_dtype(config, default="no"))
+    rng = np.random.default_rng(0)
+
+    def images(n):
+        for _ in range(n // TRAIN_BATCH):
+            yield {"image": rng.uniform(size=(TRAIN_BATCH, res, res, 3)).astype(np.float32),
+                   "class_id": rng.integers(0, 1000, TRAIN_BATCH).astype(np.int32)}
+
+    tokenize_to_shards(tokenizer, images(TRAIN_BATCH),  # warm-up (cuDNN plans), thrown away
+                       TokenShardWriter(os.path.join(work, "warmup-%04d.npz")), device)
+    pattern = os.path.join(work, "tokens", "train-%04d.npz")
+    t0 = time.perf_counter()
+    n_images = tokenize_to_shards(tokenizer, images(PRETOKENIZE_IMAGES),
+                                  TokenShardWriter(pattern, maxcount=128), device)
+    pretok_s = time.perf_counter() - t0
+    del tokenizer
+    tokens_per_s = n_images * seq / pretok_s
+    log(f"[train-data] pretokenize {n_images} synthetic {res} px images at batch {TRAIN_BATCH} "
+        f"in {pretok_s:.3f} s = {n_images / pretok_s:.1f} images/s = {tokens_per_s:.0f} tokens/s "
+        f"(host batch, copy, tokenize, fetch, .npz write) [{device_info['card']}]")
+
+    # b. train from the token shards, saving and generating every 3 steps
+    out_dir = os.path.join(work, "train")
+    argv = [f"config={CONFIG}", f"training.per_device_batch_size={TRAIN_BATCH}",
+            f"training.max_train_steps={TRAIN_STEPS}", f"training.device={device}",
+            "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+            f"experiment.save_every={SAVE_EVERY}", f"experiment.generate_every={SAVE_EVERY}",
+            f"experiment.output_dir={out_dir}",
+            f"dataset.params.token_shards_path_or_url={os.path.join(work, 'tokens', 'train-*.npz')}"]
+    copies = {}
+    real_save, real_restore = CheckpointManager.save, CheckpointManager.restore_latest
+
+    def save(self, step, state, *args, **kwargs):  # a host copy taken before the save
+        if step == TRAIN_STEPS:
+            copies["saved"] = _state_copy(state)
+        return real_save(self, step, state, *args, **kwargs)
+
+    def restore_latest(self, state):  # and one of what the restore gave back
+        restored = real_restore(self, state)
+        if restored is not None:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            copies["restored"] = _state_copy(state)
+        return restored
+
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    train_logger = train_maskbit._logger()
+    train_logger.addHandler(handler)
+    CheckpointManager.save, CheckpointManager.restore_latest = save, restore_latest
+    try:
+        for key in da.launches:
+            da.launches[key] = 0
+        ab.launches = 0
+        t0 = time.perf_counter()
+        first = train_maskbit.main(argv)
+        first_wall = time.perf_counter() - t0
+        launched = dict(da.launches, attention_block=ab.launches)
+
+        for key in da.launches:
+            da.launches[key] = 0
+        ab.launches = 0
+        t0 = time.perf_counter()
+        second = train_maskbit.main(argv + [f"training.max_train_steps={RESUME_STEPS}"])
+        second_wall = time.perf_counter() - t0
+        resume_launched = dict(da.launches, attention_block=ab.launches)
+    finally:
+        CheckpointManager.save, CheckpointManager.restore_latest = real_save, real_restore
+        train_logger.removeHandler(handler)
+
+    hist = first["history"]
+    losses = [h["mlm_loss"] for h in hist]
+    step_s = [h["perf/step_seconds"] for h in hist]
+    data_s = [h["perf/data_seconds"] for h in hist]
+    median_s = statistics.median(step_s[1:])
+    n_gen = TRAIN_STEPS // SAVE_EVERY
+    want = {"dropout_attention_fwd": depth * TRAIN_STEPS, "dropout_attention_bwd": depth * TRAIN_STEPS,
+            "attention_block": depth * sampling_steps * n_gen,
+            "fused_attention": depth * sampling_steps * n_gen}
+    saves = [t for t in first["checkpoint_timings"] if "step" in t]
+    images_dir = os.path.join(out_dir, "images")
+    grids = sorted(os.listdir(images_dir)) if os.path.isdir(images_dir) else []
+    log(f"[train-data] from token shards: {len(hist)} steps at batch {TRAIN_BATCH}, depth {depth}: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+        f"{', '.join(f'{x:.4f}' for x in step_s)}; data seconds "
+        f"{', '.join(f'{x:.4f}' for x in data_s)}")
+    image_note = (f"; image input (phase 6, same call) {image_train['median_step_s'] * 1e3:.1f} ms = "
+                  f"{image_train['samples_per_s']:.1f} samples/s" if image_train else "")
+    log(f"[train-data] median step (steps 2..{len(hist)}) {median_s * 1e3:.1f} ms = "
+        f"{TRAIN_BATCH / median_s:.1f} samples/s from tokens{image_note}; run wall "
+        f"{first_wall:.1f} s [{device_info['card']}]")
+    state_gb = sum(t.numel() * t.element_size() for t in _tensors(copies["saved"])) / 1e9
+    log(f"[train-data] saves (train state {state_gb:.2f} GB: parameters, two moments, EMA): " + "; ".join(
+        f"step {t['step']}: host copy {t['host_copy_s']:.3f} s, write (background) "
+        f"{t['write_s']:.3f} s" for t in saves) + "; save calls in the loop (host copy + two "
+        ".bin files) " + ", ".join(f"{x:.3f} s" for x in first["save_seconds"]))
+    log(f"[train-data] launches {launched}, expected {want} "
+        f"({n_gen} generations of {sampling_steps} sampling steps); grids {grids}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    if device == "cuda" and {k: launched[k] for k in want} != want:  # kernels run on the card only
+        raise AssertionError(f"launches {launched} != {want}")
+    want_grids = [f"train_{kind}-{s:09d}.png" for kind in ("decoded", "generated")
+                  for s in range(SAVE_EVERY, TRAIN_STEPS + 1, SAVE_EVERY)]
+    if grids != want_grids:
+        raise AssertionError(f"generated grids {grids} != {want_grids}")
+
+    # c. the resumed run
+    restore_s = [t["restore_s"] for t in second["checkpoint_timings"] if "restore_s" in t]
+    mismatched = _differences(copies["saved"], copies["restored"])
+    resumed_losses = [h["mlm_loss"] for h in second["history"]]
+    log(f"[train-data] resume: {[m for m in messages if m.startswith('resumed')]}; restore "
+        f"{restore_s[0]:.3f} s (torch.load mmap + copy to the card); restored state vs the host "
+        f"copy taken before the step-{TRAIN_STEPS} save: {len(mismatched)} tensors or counts "
+        f"differ; steps {[h['step'] for h in second['history']]} losses "
+        f"{', '.join(f'{x:.4f}' for x in resumed_losses)}; launches {resume_launched}; run wall "
+        f"{second_wall:.1f} s")
+    if f"resumed from step {TRAIN_STEPS}" not in messages or second["resumed_from"] != TRAIN_STEPS:
+        raise AssertionError(f"the second run did not resume from step {TRAIN_STEPS}")
+    if mismatched:
+        raise AssertionError(f"restored state differs from the saved one at {mismatched[:5]}")
+    if ([h["step"] for h in second["history"]] != list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1))
+            or not all(np.isfinite(resumed_losses))):
+        raise AssertionError(f"resumed steps wrong or non-finite: {second['history']}")
+    del copies
+    shutil.rmtree(work, ignore_errors=True)
+
+    remat = phase_remat(torch, device_info, device)
+    return {"pretokenize": {"images": n_images, "seconds": pretok_s, "tokens_per_s": tokens_per_s},
+            "launches": launched, "resume_launches": resume_launched, "losses": losses,
+            "step_seconds": step_s, "data_seconds": data_s, "median_step_s": median_s,
+            "samples_per_s": TRAIN_BATCH / median_s, "saves": saves,
+            "save_seconds": first["save_seconds"], "restore_s": restore_s[0],
+            "resumed_losses": resumed_losses, "remat": remat}
+
+
+def phase_remat(torch, device_info, device="cuda") -> dict:
+    """One step of the 512 px config at its batch 8 with remat off and on,
+    from the same weights, tokens and generator seed."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli.common import build_module, compute_dtype
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.models.generator import LFQBert, init_generator_weights_
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    config = load_config(CONFIG_512)
+    vq = config.model.vq_model
+    dtype = compute_dtype(config, default="no")
+    batch = int(config.select("training.per_device_batch_size"))
+    on_card = device == "cuda"
+    runs = {}
+    for remat in (False, True):
+        mlm = dict(config.model.mlm_model.to_dict(), remat=remat)
+        model = build_module(lambda: LFQBert.from_config(mlm, vq, dtype=dtype), device)
+        init_generator_weights_(model, torch.Generator(device=device).manual_seed(1))
+        opt = make_optimizer(model.parameters(), lambda t: 1e-4, beta2=0.96, weight_decay=0.045)
+        state = init_generator_train_state(model, opt)
+        step = make_generator_train_step_from_tokens(
+            model, vq["codebook_size"], MLMLossConfig.from_config(config.select("losses.mlm", {})),
+            ema_kwargs={"decay": 0.9999}, log_param_grad_norms=True)
+        g = torch.Generator(device=device).manual_seed(2)
+        tokens = torch.randint(0, vq["codebook_size"], (batch, model.seq_len), generator=g,
+                               device=device)
+        labels = torch.randint(0, 1000, (batch,), generator=g, device=device)
+        gen = torch.Generator(device=device).manual_seed(3)
+        before = dict(da.launches)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            static = torch.cuda.memory_allocated()
+        state, metrics = step(state, tokens, labels, gen)
+        metrics = {k: v.float().cpu() for k, v in metrics.items() if not k.startswith("_")}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        launched = {k: da.launches[k] - before[k] for k in before}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        step_ms = _device_ms(torch, lambda: step(state, tokens, labels, gen), iters=3,
+                             warmup=1) if on_card else 0.0
+        runs[remat] = dict(metrics=metrics, params=params, launched=launched,
+                           peak_gib=peak / 2**30, static_gib=static / 2**30 if on_card else 0.0,
+                           step_ms=step_ms)
+        del model, opt, state, step
+        if on_card:
+            torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    loss_diff = abs(off["metrics"]["mlm_loss"].item() - on["metrics"]["mlm_loss"].item())
+    metric_diffs = [k for k in off["metrics"] if not torch.equal(off["metrics"][k], on["metrics"][k])]
+    param_diffs = [n for n in off["params"] if not torch.equal(off["params"][n], on["params"][n])]
+    depth = int(config.model.mlm_model["depth"])
+    for name, r in (("off", off), ("on", on)):
+        log(f"[remat] {name}: 512 px, batch {batch}, depth {depth}: peak memory {r['peak_gib']:.2f} "
+            f"GiB (parameters, moments, EMA and the rest before the step {r['static_gib']:.2f} GiB; "
+            f"the step's own {r['peak_gib'] - r['static_gib']:.2f} GiB); step device time "
+            f"{r['step_ms']:.1f} ms; dropout launches {r['launched']} [{device_info['card']}]")
+    log(f"[remat] loss {off['metrics']['mlm_loss'].item():.6f} vs {on['metrics']['mlm_loss'].item():.6f} "
+        f"(|diff| {loss_diff:.3e}); metrics that differ {len(metric_diffs)} of "
+        f"{len(off['metrics'])} (loss, grad norms per parameter); updated parameters that differ "
+        f"{len(param_diffs)} of {len(off['params'])} (bit for bit expected)")
+    if metric_diffs or param_diffs:
+        raise AssertionError(f"remat changes the step: {metric_diffs[:5]} {param_diffs[:5]}")
+    if device == "cuda" and (off["launched"]["dropout_attention_fwd"] != depth
+            or on["launched"]["dropout_attention_fwd"] != 2 * depth
+            or on["launched"]["dropout_attention_bwd"] != depth):
+        raise AssertionError(f"remat launches {off['launched']} / {on['launched']}")
+    return {name: {k: r[k] for k in ("peak_gib", "static_gib", "step_ms", "launched")}
+            for name, r in (("off", off), ("on", on))}
+
+
+PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data")
 
 
 def _args(argv):
@@ -772,19 +1068,24 @@ def main(argv=None) -> int:
     sl = phase_slice(torch, device_info) if "slice" in run else None
     check = phase_train_check(torch) if "train_check" in run else None
     tr = phase_train_slice(torch, device_info) if "train" in run else None
+    data = phase_train_data(torch, device_info, tr) if "train_data" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
-                       "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr},
-                      f, indent=1)
+                       "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
+                       "train_data": data}, f, indent=1)
         log(f"[done] phases {args.phases} passed")
         return 0
 
     def row(name, source, replaces, launches, rows, **extra):
         first = rows[0]
+        # phase 7 drives all four kernels again: its counts, read after its first run
+        data_launches = data["launches"]["attention_block" if name == "fused_attention_block"
+                                          else name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "launches": launches, "launches_train_data": data_launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                 "library_ms": first.get("library_ms"), **extra}
@@ -806,12 +1107,14 @@ def main(argv=None) -> int:
         row("fused_attention", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:94",
             sl["fused_attention_launches"], drop["fused_attention"]),
     ]}
-    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    idle = [k["name"] for k in record["kernels"]
+            if k["launches"] <= 0 or k["launches_train_data"] <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
-                   "slice": sl, "train_check": check, "train": tr}, f, indent=1)
+                   "slice": sl, "train_check": check, "train": tr, "train_data": data}, f,
+                  indent=1)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

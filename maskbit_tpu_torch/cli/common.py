@@ -1,26 +1,50 @@
 """Shared plumbing for the port's entry points.
 
 Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
-`load_generation_models`, `synthetic_batches`, the synthetic branch of
-`build_dataloaders`, and `StepTimer`.
+`load_generation_models`, `synthetic_batches`, `build_dataloaders`,
+`reset_optimizer_counts`, `GracefulShutdown` (one process) and `StepTimer`.
+`expand_shard_pattern` lives in `data/tar_reader.py` and is re-exported here.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
-import re
+import signal
+import sys
 import time
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 from torch import nn
 
 from maskbit_tpu_torch.core.checkpoint import load_pretrained
+from maskbit_tpu_torch.data.tar_reader import SimpleImagenet, expand_shard_pattern
 from maskbit_tpu_torch.models.generator import make_generator
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
 from maskbit_tpu_torch.sampling.sample import SamplingConfig
+
+
+def stdout_logger(name: str) -> logging.Logger:
+    """The entry points' logger: INFO and up, to stdout."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    return logger
+
+
+def resolve_device(config, key: str) -> torch.device:
+    """The device the config names at `key` (default "cuda"); CUDA named and
+    absent is an error."""
+    device = torch.device(config.select(key, "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{key} is cuda but no CUDA device is available")
+    return device
 
 
 def validate_generator_config(config) -> None:
@@ -87,6 +111,23 @@ def build_module(ctor, device) -> nn.Module:
     return module.to_empty(device=device).eval()
 
 
+def build_tokenizer(config, logger, device, dtype) -> ConvVQModel:
+    """The frozen Stage-I tokenizer from `experiment.vqgan_checkpoint` (a
+    `.bin`; without one, seeded random weights and a warning), weights
+    stored in the compute dtype."""
+    tokenizer = build_module(lambda: ConvVQModel.from_config(config.model.vq_model, dtype=dtype),
+                             device)
+    path = config.select("experiment.vqgan_checkpoint", "")
+    if path and os.path.exists(path):
+        tokenizer.load_state_dict(load_pretrained(path, device), strict=True)
+        logger.info(f"loaded frozen tokenizer from {path}")
+    else:
+        logger.warning(f"vqgan_checkpoint {path!r} not found — initializing a RANDOM frozen "
+                       "tokenizer (smoke-test mode only).")
+        random_init_(tokenizer, torch.Generator(device=device).manual_seed(0))
+    return tokenizer.to(dtype).requires_grad_(False)
+
+
 def load_generation_models(config, logger, device, cast_weights: bool = False):
     """Checkpoint-or-random loading for the generation entry points: returns
     (tokenizer, generator, sampling_cfg, res, dtype), both models in eval
@@ -125,23 +166,6 @@ def load_generation_models(config, logger, device, cast_weights: bool = False):
     return tokenizer, generator, sampling_cfg, res, dtype
 
 
-_BRACE_RE = re.compile(r"^(.*)\{(\d+)\.\.(\d+)\}(.*)$")
-
-
-def expand_shard_pattern(pattern: str) -> List[str]:
-    """'imagenet-train-{0000..0252}.tar' -> the shard list; a plain path or
-    a glob also works (as in `maskbit_tpu.data.tar_reader`)."""
-    m = _BRACE_RE.match(pattern)
-    if m:
-        prefix, lo, hi, suffix = m.groups()
-        return [f"{prefix}{i:0{len(lo)}d}{suffix}" for i in range(int(lo), int(hi) + 1)]
-    if any(ch in pattern for ch in "*?["):
-        import glob
-
-        return sorted(glob.glob(pattern))
-    return [pattern]
-
-
 def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterator[dict]:
     """Random image/label batches (numpy, NHWC in [0, 1]); the same stream
     as the JAX package's for the same seed."""
@@ -154,19 +178,71 @@ def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterat
 
 
 def build_dataloaders(config, logger, global_batch_size: int) -> Callable[[], Iterator[dict]]:
-    """The train batches' iterator factory: synthetic batches when no train
-    shards exist. The tar-shard reader is not ported yet: when the named
-    shards exist this raises rather than train on synthetic data."""
-    train_shards = config.select("dataset.params.train_shards_path_or_url", "")
-    resolution = config.select("dataset.preprocessing.resolution", 256)
+    """The train batches' iterator factory: `SimpleImagenet` over the train
+    shards when the first of them exists, synthetic batches otherwise."""
+    params = config.dataset.params
+    prep = config.dataset.preprocessing
+    resolution = prep.get("resolution", 256)
+    train_shards = params.get("train_shards_path_or_url", "")
     expanded = expand_shard_pattern(train_shards) if train_shards else []
-    if expanded and os.path.exists(expanded[0]):
-        raise NotImplementedError(
-            f"train shards {train_shards!r} exist, but the tar-shard reader is not ported to "
-            "PyTorch yet (ROADMAP.md, Queue 1: the tar-shard reader)")
-    logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
-                   "Point dataset.params.train_shards_path_or_url at real shards for training.")
-    return lambda: synthetic_batches(global_batch_size, resolution, seed=0)
+    if not (expanded and os.path.exists(expanded[0])):
+        logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
+                       "Point dataset.params.train_shards_path_or_url at real shards for training.")
+        return lambda: synthetic_batches(global_batch_size, resolution, seed=0)
+    logger.info(f"training from tar shards {train_shards!r} ({len(expanded)} shards)")
+    data = SimpleImagenet(
+        train_shards_path_or_url=train_shards,
+        eval_shards_path_or_url=params.get("eval_shards_path_or_url", train_shards),
+        num_train_examples=config.select("experiment.max_train_examples", 1_281_167),
+        per_device_batch_size=config.select("training.per_device_batch_size", 16),
+        global_batch_size=global_batch_size,
+        num_workers_per_device=params.get("num_workers_per_device", 8),
+        resolution=resolution,
+        shuffle_buffer_size=params.get("shuffle_buffer_size", 1000),
+        min_scale=prep.get("min_scale", 0.8),
+        use_aspect_ratio_aug=prep.get("use_aspect_ratio_aug", True),
+        use_random_crop=prep.get("use_random_crop", True),
+        interpolation=prep.get("interpolation", "bilinear"),
+        seed=int(config.select("training.seed", 42)))
+    return lambda: iter(data.train_dataloader)
+
+
+def reset_optimizer_counts(opt):
+    """Zero the optimizer's `count` and `mini_step` and keep its moments:
+    the original repo's `resume_lr_scheduler: false` (the LR schedule and
+    Adam's bias correction restart; optax's zeroing of `count`,
+    `gradient_step` and `mini_step` in the JAX package)."""
+    opt.count = opt.mini_step = 0
+    return opt
+
+
+class GracefulShutdown:
+    """Preemption-safe training on one process: SIGTERM sets a flag; the
+    train loop finishes the step in flight, sees `should_stop()`, writes a
+    final checkpoint and exits, so resume-latest continues from that step.
+    `close()` puts the previous handler back."""
+
+    def __init__(self, logger=None):
+        self.requested = False
+        self._logger = logger
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._handle)
+        except ValueError:  # not in the main thread: stay inert
+            self._prev = None
+
+    def _handle(self, signum, frame):
+        self.requested = True
+        if self._logger is not None:
+            self._logger.warning("SIGTERM received — finishing the in-flight step, then "
+                                 "writing a final checkpoint and exiting")
+
+    def should_stop(self) -> bool:
+        return self.requested
+
+    def close(self) -> None:
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._prev = None
 
 
 class AverageMeter:
@@ -195,4 +271,9 @@ class StepTimer:
 
     def batch_tick(self):
         self.batch_time.update(time.time() - self._end)
+        self._end = time.time()
+
+    def restart(self):
+        """Start the next step's clock now: work between steps (generation,
+        a save) is no step's time."""
         self._end = time.time()

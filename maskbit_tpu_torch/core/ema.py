@@ -4,12 +4,14 @@ Counterpart of `maskbit_tpu/core/ema.py`: the same decay schedule
 ((1+s)/(10+s) or the power-law warmup), `update_after_step` gating,
 `update_every` thinning and `min_decay` floor. The shadows are float32
 tensors kept beside the model (a name -> tensor dict, as the JAX package
-keeps a parameter tree) and updated in place.
+keeps a parameter tree) and updated in place. `swapped_in` lends them to
+the model (in-training generation samples with the EMA weights).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 from torch import nn
@@ -58,3 +60,22 @@ def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
     torch._foreach_mul_(diffs, 1.0 - d)
     torch._foreach_sub_(shadows, diffs)
     return state
+
+
+@contextlib.contextmanager
+def swapped_in(state: EmaState, model: nn.Module) -> Iterator[nn.Module]:
+    """Inside the block the model's parameters hold the EMA shadows and
+    `state.params` the trained weights: the tensors are exchanged, not
+    copied, and exchanged back on exit."""
+    params = dict(model.named_parameters())
+
+    def swap():
+        for name, shadow in state.params.items():
+            state.params[name] = params[name].data
+            params[name].data = shadow
+
+    swap()
+    try:
+        yield model
+    finally:
+        swap()

@@ -15,8 +15,9 @@ repo's state dict (`input_proj`, `class_emb`, `pos_emb`, `first_layer.0`,
 
 In training mode the forward takes the step's `DropoutRng` (hidden dropout
 at `dropout`, attention dropout at `attention_dropout`, through the
-dropout-attention kernels when `fused_attention_dropout` is set).
-`remat` (activation rematerialisation) is not ported yet.
+dropout-attention kernels when `fused_attention_dropout` is set). With
+`remat` each transformer layer's activations are computed again in the
+backward pass (`nn/transformer.py`), from the same draws.
 """
 
 from __future__ import annotations
@@ -49,9 +50,6 @@ class LFQBert(nn.Module):
                  fused_attention_dropout: bool = False, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "mlm_model.remat is not ported to PyTorch yet (ROADMAP.md, Queue 1: remat)")
         self.img_size, self.hidden_dim, self.nclass = img_size, hidden_dim, nclass
         self.codebook_size, self.codebook_splits = codebook_size, codebook_splits
         self.input_stride, self.use_prenorm, self.dtype = input_stride, use_prenorm, dtype
@@ -68,7 +66,7 @@ class LFQBert(nn.Module):
         self.first_layer = nn.Sequential(nn.LayerNorm(hidden_dim, eps=1e-12), nn.Dropout(dropout))
         self.transformer = TransformerEncoder(hidden_dim, depth, heads, mlp_dim, dropout,
                                               use_prenorm, attention_impl, attention_dropout,
-                                              fused_attention_dropout)
+                                              fused_attention_dropout, remat)
         if use_prenorm:
             self.norm_after_transformer = nn.LayerNorm(hidden_dim, eps=1e-12)
         self.last_layer = nn.Sequential(nn.Linear(hidden_dim, hidden_dim), nn.GELU(),

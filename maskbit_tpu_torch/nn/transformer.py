@@ -19,16 +19,27 @@ Compute runs in x's dtype (weights are cast on use); softmax and LayerNorm
     weights. Every mask and seed comes from the step's `DropoutRng`, never
     from torch's global generator; a training-mode forward with a rate
     above 0 and no `DropoutRng` raises.
+  * `remat` (training mode, gradients on): each `BertAttention` and
+    `BertFeedForward` layer runs under `torch.utils.checkpoint`
+    (non-reentrant) and is computed again in the backward pass. The
+    checkpoint's own RNG stashing covers only torch's default generators,
+    not the step's explicit one, so the encoder notes the `DropoutRng`'s
+    position before each layer and the recompute draws again from there:
+    the same masks and seeds, so remat on and off give the same loss and
+    gradients. The recompute launches the dropout-attention forward kernel
+    a second time.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import contextlib
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from maskbit_tpu_torch.nn.attention_block import fused_attention_block
 from maskbit_tpu_torch.nn.dropout_attention import dropout_attention
@@ -46,14 +57,39 @@ class DropoutRng:
         if generator is None and attention_seeds is None:
             raise ValueError("DropoutRng needs a torch.Generator or injected seeds")
         self.generator = generator
-        self._seeds = None if attention_seeds is None else iter(attention_seeds)
+        self._seeds = None if attention_seeds is None else list(attention_seeds)
+        self._next_seed = 0
 
     def attention_seeds(self, b: int, h: int, device) -> torch.Tensor:
         """(b, h) int64 seeds in [0, 2^32)."""
         if self._seeds is not None:
-            return torch.as_tensor(np.asarray(next(self._seeds), np.int64), device=device)
+            table = self._seeds[self._next_seed]
+            self._next_seed += 1
+            return torch.as_tensor(np.asarray(table, np.int64), device=device)
         return torch.randint(0, 2**32, (b, h), generator=self.generator, device=device,
                              dtype=torch.int64)
+
+    def position(self) -> Tuple[Optional[torch.Tensor], int]:
+        """Where the draws stand: the generator's state and the next
+        injected table."""
+        return (None if self.generator is None else self.generator.get_state(),
+                self._next_seed)
+
+    def _seek(self, position: Tuple[Optional[torch.Tensor], int]) -> None:
+        state, self._next_seed = position
+        if state is not None:
+            self.generator.set_state(state)
+
+    @contextlib.contextmanager
+    def replay(self, position: Tuple[Optional[torch.Tensor], int]) -> Iterator[None]:
+        """Inside the block the draws start again from `position`; on exit
+        they go on from where they stood before it."""
+        now = self.position()
+        self._seek(position)
+        try:
+            yield
+        finally:
+            self._seek(now)
 
     def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
         """Keep with probability 1 - p, kept values scaled by 1 / (1 - p)."""
@@ -175,12 +211,30 @@ class BertFeedForward(nn.Module):
         return layer_norm_f32(self.norm, self._net(x, rng) + x).to(x.dtype)
 
 
+def _recomputed(layer: nn.Module, x: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """`layer(x, rng)` with its activations computed again in the backward
+    pass, from the same draws."""
+    start = None if rng is None else rng.position()
+    calls = 0
+
+    def run(h):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or rng is None:
+            return layer(h, rng)
+        with rng.replay(start):
+            return layer(h, rng)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
                  dropout: float = 0.0, use_prenorm: bool = False,
                  attention_impl: str = "einsum", attention_dropout: Optional[float] = None,
-                 fused_dropout: bool = False):
+                 fused_dropout: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             nn.ModuleList([
                 BertAttention(dim, heads, dropout, use_prenorm, attention_impl,
@@ -191,6 +245,10 @@ class TransformerEncoder(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            for attn, ffn in self.layers:
+                x = _recomputed(ffn, _recomputed(attn, x, rng), rng)
+            return x
         for attn, ffn in self.layers:
             x = ffn(attn(x, rng), rng)
         return x

@@ -21,6 +21,9 @@ Randomness comes from a `torch.Generator` passed to each step, or from
 `injected` draws: "mask_ratio_uniform" (b,), "mask_token_uniform" (b, n, m),
 "label_drop_uniform" (b,) and "attention_seeds", one (b, h) table per
 attention layer call in order (tests hand both frameworks the same draws).
+With `log_param_grad_norms` the metrics also hold each parameter's gradient
+norm as "grad_norm/<parameter name>" (the JAX package names them by its
+Flax paths).
 """
 
 from __future__ import annotations
@@ -46,14 +49,48 @@ class GeneratorTrainState:
         self.step = 0
         self.model, self.opt, self.ema = model, opt, ema
 
+    def state_dict(self) -> dict:
+        """The live tensors and counts of the state: step, parameters by
+        name, the optimizer's `state_dict`, the EMA shadows and step."""
+        return {"step": self.step,
+                "params": {n: p.detach() for n, p in self.model.named_parameters()},
+                "opt": self.opt.state_dict(),
+                "ema": None if self.ema is None else {"params": dict(self.ema.params),
+                                                      "step": self.ema.step}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Copy a `state_dict` into this state's tensors, in place."""
+        params = dict(self.model.named_parameters())
+        if set(state["params"]) != set(params):
+            raise KeyError(f"saved parameters differ: {sorted(set(state['params']) ^ set(params))[:5]}")
+        if (state["ema"] is None) != (self.ema is None):
+            raise ValueError("the saved state and this one differ in having an EMA")
+        for name, p in params.items():
+            p.copy_(state["params"][name])
+        self.opt.load_state_dict(state["opt"])
+        if self.ema is not None:
+            for name, shadow in self.ema.params.items():
+                shadow.copy_(state["ema"]["params"][name])
+            self.ema.step = int(state["ema"]["step"])
+        self.step = int(state["step"])
+
 
 def init_generator_train_state(model: nn.Module, opt: AdamW,
                                use_ema: bool = True) -> GeneratorTrainState:
     return GeneratorTrainState(model, opt, init_ema(model) if use_ema else None)
 
 
+def per_param_grad_norms(names, grads) -> Dict[str, torch.Tensor]:
+    """{"grad_norm/<name>": float32 L2 norm} for the original repo's
+    periodic per-parameter dump."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return {f"grad_norm/{name}": n for name, n in zip(names, norms)}
+
+
 def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_schedule: str,
-                   class_label_dropout: float, ema_kwargs: Mapping[str, Any]) -> Callable:
+                   class_label_dropout: float, ema_kwargs: Mapping[str, Any],
+                   log_param_grad_norms: bool) -> Callable:
     """The MLM update given raw (b, n) integer tokens."""
     splits, mask_token = model.codebook_splits, model.mask_token
 
@@ -72,7 +109,8 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
         rng = DropoutRng(generator, None if injected is None else injected["attention_seeds"])
 
         model = state.model.train()
-        params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        params = [p for _, p in named]
         with record_function("train/forward"):
             logits = model(masked_tokens, labels, drop_label_mask, rng)
             loss, loss_dict = mlm_loss(logits, split_tokens, masks, mlm_cfg)
@@ -89,6 +127,8 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
         metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = grad_norm
         metrics["train/masked_fraction"] = masks.float().mean()
+        if log_param_grad_norms:
+            metrics.update(per_param_grad_norms([n for n, _ in named], grads))
         # non-scalar viz payloads (underscore keys; the CLI pops them)
         metrics["_input_tokens"] = split_tokens
         metrics["_predicted_tokens"] = logits.detach().argmax(-1)
@@ -99,12 +139,13 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
 
 def make_generator_train_step(model, tokenizer, mlm_cfg: MLMLossConfig,
                               mask_schedule: str = "arccos", class_label_dropout: float = 0.1,
-                              ema_kwargs: Optional[Mapping[str, Any]] = None) -> Callable:
+                              ema_kwargs: Optional[Mapping[str, Any]] = None,
+                              log_param_grad_norms: bool = False) -> Callable:
     """Build train_step(state, images, labels, generator=None, injected=None)
     -> (state, metrics). Images NHWC in [0, 1]; the frozen tokenizer runs
     under no_grad inside the step."""
     update = _mlm_step_core(model, mlm_cfg, tokenizer.codebook_size, mask_schedule,
-                            class_label_dropout, dict(ema_kwargs or {}))
+                            class_label_dropout, dict(ema_kwargs or {}), log_param_grad_norms)
 
     def train_step(state, images, labels, generator=None, injected=None):
         with torch.no_grad(), record_function("train/tokenize"):
@@ -117,9 +158,9 @@ def make_generator_train_step(model, tokenizer, mlm_cfg: MLMLossConfig,
 def make_generator_train_step_from_tokens(model, codebook_size: int, mlm_cfg: MLMLossConfig,
                                           mask_schedule: str = "arccos",
                                           class_label_dropout: float = 0.1,
-                                          ema_kwargs: Optional[Mapping[str, Any]] = None
-                                          ) -> Callable:
+                                          ema_kwargs: Optional[Mapping[str, Any]] = None,
+                                          log_param_grad_norms: bool = False) -> Callable:
     """Build train_step(state, tokens (b, n), labels, generator=None,
     injected=None): the same update without the tokenizer."""
     return _mlm_step_core(model, mlm_cfg, codebook_size, mask_schedule, class_label_dropout,
-                          dict(ema_kwargs or {}))
+                          dict(ema_kwargs or {}), log_param_grad_norms)

@@ -14,7 +14,9 @@ accumulating). Where optax and `torch.optim` differ, this follows optax:
     apply to the mean every k-th micro-step; the others leave the
     parameters unchanged.
 Parameters and moments are float32; the update runs in place with
-`torch._foreach_*` ops.
+`torch._foreach_*` ops. `state_dict` / `load_state_dict` carry the moments,
+the accumulator and both counts (resume); `reset` is a fresh optimizer's
+state (optax's `tx.init`).
 """
 
 from __future__ import annotations
@@ -90,6 +92,34 @@ class AdamW:
             for a in self.acc:
                 a.zero_()
         return True
+
+    def state_dict(self) -> dict:
+        """The live moment tensors (in parameter order) and counts."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "acc": None if self.acc is None else list(self.acc),
+                "count": self.count, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` into this optimizer's tensors, in place."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("gradient accumulation differs from the saved optimizer's")
+        for key in ("mu", "nu", "acc"):
+            if state[key] is None:
+                continue
+            mine = getattr(self, key)
+            if len(state[key]) != len(mine):
+                raise ValueError(f"{key}: {len(state[key])} saved tensors for {len(mine)}")
+            for dst, src in zip(mine, state[key]):
+                dst.copy_(src)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Zero the moments, the accumulator and both counts."""
+        for a in self.mu + self.nu + (self.acc or []):
+            a.zero_()
+        self.count = self.mini_step = 0
 
 
 def make_optimizer(params, learning_rate_schedule, beta1: float = 0.9, beta2: float = 0.999,

@@ -342,3 +342,91 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
         da.dropout_attention(q[..., :32], k[..., :32], v[..., :32], s, 0.1)
     with pytest.raises(ValueError, match="strides"):
         da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)
+
+
+def _train_state_on_card(remat, seed=0):
+    """A bf16 LFQBert (depth 2, hidden 128, 2 heads of 64, seq 257) with
+    hidden dropout 0.1 and attention dropout 0.1 through the kernels."""
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.models.generator import LFQBert, init_generator_weights_
+    from maskbit_tpu_torch.train.generator_trainer import init_generator_train_state
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    model = build_module(lambda: LFQBert(
+        img_size=256, hidden_dim=128, codebook_size=2**14, codebook_splits=2, depth=2, heads=2,
+        mlp_dim=256, dropout=0.1, attention_dropout=0.1, fused_attention_dropout=True,
+        remat=remat, dtype=torch.bfloat16), "cuda")
+    init_generator_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
+    opt = make_optimizer(model.parameters(), lambda t: 1e-3, beta2=0.96)
+    return init_generator_train_state(model, opt)
+
+
+def _steps_on_card(state, n, seed=3):
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.train.generator_trainer import make_generator_train_step_from_tokens
+
+    step = make_generator_train_step_from_tokens(state.model, 2**14, MLMLossConfig(),
+                                                 log_param_grad_norms=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    metrics = []
+    for _ in range(n):
+        tokens = torch.randint(0, 2**14, (4, 256), generator=g, device="cuda")
+        labels = torch.randint(0, 1000, (4,), generator=g, device="cuda")
+        state, m = step(state, tokens, labels, gen)
+        metrics.append({k: v.clone() for k, v in m.items() if not k.startswith("_")})
+    torch.cuda.synchronize()
+    return metrics, gen.get_state()
+
+
+def test_remat_on_the_card_matches_remat_off_with_the_dropout_kernels():
+    """Remat on and off, one generator seed, two steps: the same losses and
+    per-parameter gradient norms and the same parameters, bit for bit (the
+    kernels and cuBLAS are deterministic for fixed shapes); the recompute
+    launches the dropout forward kernel once more per layer and step."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    results = {}
+    for remat in (False, True):
+        state = _train_state_on_card(remat)
+        before = dict(da.launches)
+        metrics, gen_state = _steps_on_card(state, 2)
+        launched = {k: da.launches[k] - before[k] for k in before}
+        params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        results[remat] = (metrics, gen_state, launched, params)
+    (m0, g0, l0, p0), (m1, g1, l1, p1) = results[False], results[True]
+    assert l0["dropout_attention_fwd"] == 2 * 2 and l0["dropout_attention_bwd"] == 2 * 2
+    assert l1["dropout_attention_fwd"] == 2 * 2 * 2 and l1["dropout_attention_bwd"] == 2 * 2
+    assert torch.equal(g0, g1)
+    for a, b in zip(m0, m1):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for n in p0:
+        assert torch.equal(p0[n], p1[n]), n
+
+
+def test_checkpoint_round_trip_of_a_card_train_state(tmp_path):
+    """A train state on the card, saved and restored into a fresh one, equal
+    bit for bit and still on the card; the next steps agree bit for bit."""
+    from maskbit_tpu_torch.core.checkpoint import CheckpointManager
+
+    _card()
+    saved = _train_state_on_card(False)
+    _steps_on_card(saved, 2)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    mgr.save(2, saved)
+    mgr.close()
+    fresh = _train_state_on_card(False, seed=1)
+    _, step = CheckpointManager(str(tmp_path)).restore_latest(fresh)
+    assert step == 2 and fresh.step == 2 and fresh.opt.count == 2 and fresh.ema.step == 2
+    a, b = saved.state_dict(), fresh.state_dict()
+    pairs = list(zip(a["params"].values(), b["params"].values()))
+    pairs += list(zip(a["opt"]["mu"] + a["opt"]["nu"], b["opt"]["mu"] + b["opt"]["nu"]))
+    pairs += list(zip(a["ema"]["params"].values(), b["ema"]["params"].values()))
+    for x, y in pairs:
+        assert y.is_cuda and torch.equal(x, y)
+    m_saved, _ = _steps_on_card(saved, 1, seed=9)
+    m_fresh, _ = _steps_on_card(fresh, 1, seed=9)
+    assert torch.equal(m_saved[0]["mlm_loss"], m_fresh[0]["mlm_loss"])

@@ -121,5 +121,11 @@ def test_training_mode_dropout_draws_from_the_step_generator():
     ref.eval()
     with torch.no_grad():
         torch.testing.assert_close(train_logits, ref(tokens, labels, drop), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="remat"):
-        LFQBert(**dict(kw, remat=True))
+    # remat recomputes the layers from the same draws: with gradients on (the
+    # layers checkpointed) the same seed gives the same logits
+    remat = LFQBert(**dict(kw, dropout=0.1, attention_dropout=0.2,
+                           fused_attention_dropout=True, remat=True))
+    remat.load_state_dict(model.state_dict(), strict=True)
+    got = remat.train()(tokens, labels, drop, DropoutRng(torch.Generator().manual_seed(1)))
+    assert got.requires_grad
+    torch.testing.assert_close(got.detach(), run(1), atol=0, rtol=0)

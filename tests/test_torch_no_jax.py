@@ -2,9 +2,11 @@
 
 * At run time: a fresh interpreter imports every module of
   `maskbit_tpu_torch`, reads a tiny config through the port's own
-  `load_config`, serves a tiny model and takes one tiny train step on the
-  CPU, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`,
-  `orbax` or `maskbit_tpu` in `sys.modules`.
+  `load_config`, serves a tiny model, takes one tiny train step on the
+  CPU, writes image shards and pretokenizes them, resumes the train run
+  from its checkpoint for one step from those token shards, and then finds
+  no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
+  in `sys.modules`.
 * In the source: an AST scan of every `.py` under `maskbit_tpu_torch/` and
   of `chip_smoke.py` finds no `import maskbit_tpu...` or
   `from maskbit_tpu... import` other than of `maskbit_tpu_torch`, and no
@@ -40,6 +42,24 @@ images = service.generate([1, 2, 3], seed=4)
 assert images.shape == (3, 32, 32, 3), images.shape
 result = train([f"config={sys.argv[1]}"])
 assert result["steps"] == 1, result
+import io, os
+import numpy as np
+from PIL import Image
+from maskbit_tpu_torch.cli.pretokenize import main as pretokenize
+from maskbit_tpu_torch.data.shard_writer import ShardWriter
+work = os.path.dirname(sys.argv[1])
+writer = ShardWriter(os.path.join(work, "img-%%04d.tar"))
+for i in range(4):
+    buf = io.BytesIO()
+    Image.fromarray(np.full((40, 40, 3), 60 * i, np.uint8)).save(buf, "JPEG")
+    writer.write(str(i), buf.getvalue(), i)
+writer.close()
+tokens = os.path.join(work, "tok-%%04d.npz")
+assert pretokenize([f"config={sys.argv[1]}", f"pretokenize.shards={work}/img-0000.tar",
+                    f"pretokenize.output={tokens}", "pretokenize.device=cpu"]) == 4
+result = train([f"config={sys.argv[1]}", "training.max_train_steps=2",
+                f"dataset.params.token_shards_path_or_url={work}/tok-0000.npz"])
+assert result["resumed_from"] == 1 and result["steps"] == 2, result
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
@@ -61,12 +81,14 @@ def test_port_imports_no_jax(tmp_path):
     }
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, WORKSPACE=str(tmp_path / "ws"))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(path)], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "FORBIDDEN []" in proc.stdout
     assert (tmp_path / "train" / "model-1.bin").exists()
+    assert (tmp_path / "train" / "model-2.bin").exists()
+    assert (tmp_path / "tok-0000.npz").exists()
 
 
 def _forbidden_imports(path):

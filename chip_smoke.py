@@ -10,7 +10,8 @@ Phases, each of which fails the run if it fails:
      one nvcc per source, all started together.
   3. kernels: the attention block's chain of kernels against its plain
      PyTorch version at the serving shapes (16, 257, 1024) and (2, 1025,
-     1024), 16 heads, bf16 vectors as the serving generator stores them,
+     1024) and the eval shape (200, 257, 1024), 16 heads, bf16 vectors as
+     the serving generator stores them,
      timed kernel by kernel beside the plain version, the port's bf16 einsum
      path and the library chain (cuBLAS QKV projection,
      `scaled_dot_product_attention`, cuBLAS out-projection plus the
@@ -62,6 +63,27 @@ Phases, each of which fails the run if it fails:
         loss, per-parameter gradient norms and updated parameters equal bit
         for bit, the recompute's second dropout-forward launch per layer;
         peak memory and device time of a step for both.
+  8. eval, the flagship (depth 24, hidden 1024, 64 steps, guidance 7.1
+     cosine, bf16) and the 14-bit and VQ 12-bit tokenizers, random weights:
+     a. random pt-fid-layout Inception weights from a seed, saved as a
+        `.pth` under build/chip_smoke_data/ and named by
+        MASKBIT_INCEPTION_WEIGHTS; `resize_bilinear_tf1` on the card bit for
+        bit against its numpy replica at 256 -> 299; the card's float32
+        Inception features of 8 images against the CPU's (and, for
+        information, the gap with TF32 allowed);
+     b. 512 synthetic 256 px images written as tar shards
+        (`data/shard_writer`), then `cli.make_stats.main` over them;
+     c. `cli.eval_maskbit.main` at eval.total_samples=1000,
+        eval.batch_size=100 (a CFG batch of 200 x 257 rows through the
+        attention block on every layer of every step) against those stats:
+        1000 samples scored, finite FID and IS, and depth x steps x 10
+        batches launches of the block; img/s and per batch the sampler, the
+        Inception and the host float64 times;
+     d. `cli.eval_tokenizer.main` on maskbit_tokenizer_14bit.yaml (LFQ) and
+        vqgan_plus_12bit.yaml (VQ) over the shards, 4 batches: every metric
+        finite.
+     The attention block is also held at the eval shape (200, 257, 1024)
+     in phase 3.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -107,6 +129,10 @@ PRETOKENIZE_IMAGES = 256
 SAVE_EVERY, RESUME_STEPS = 3, 8
 # the 512 px config's per-device batch (maskbit_generator_14bit_512.yaml)
 LONG_BATCH = 8
+# eval_maskbit's default batch; 1000 samples = 10 batches
+EVAL_BATCH, EVAL_SAMPLES, STATS_IMAGES, EVAL_TOKENIZER_BATCHES = 100, 1000, 512, 4
+TOKENIZER_CONFIGS = tuple(os.path.join(ROOT, "configs", "tokenizer", name)
+                          for name in ("maskbit_tokenizer_14bit.yaml", "vqgan_plus_12bit.yaml"))
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -308,7 +334,7 @@ def phase_kernels(torch) -> dict:
     # wrapper (--tree) takes f32 ones only
     vectors = torch.bfloat16 if hasattr(ab, "VECTOR_DTYPES") else torch.float32
     rows, worst = [], 0.0
-    for b, n in ((2 * SERVE_BATCH, 257), (2, 1025)):
+    for b, n in ((2 * SERVE_BATCH, 257), (2, 1025), (2 * EVAL_BATCH, 257)):
         e = 1024
         inp = _block_inputs(torch, b, n, e, seed=b * n, vectors=vectors)
         got = ab.fused_attention_block(**inp, num_heads=HEADS)
@@ -340,6 +366,7 @@ def phase_kernels(torch) -> dict:
         log("[kernel]   chain, device ms per call: " + "; ".join(
             f"{k} {v:.4f}" for k, v in chain.items()))
         variants = {}
+        planned = None
         if hasattr(ab, "plan"):  # every block-row choice of the two projections, side by side
             for tiles in ((128, 128), (64, 64), (128, 64), (64, 128)):
                 variants[str(tiles)] = _device_ms(torch, lambda: ab._launch(
@@ -355,7 +382,8 @@ def phase_kernels(torch) -> dict:
         nbytes = 2 * (2 * b * n * e + 4 * e * e) + inp["bo"].element_size() * 6 * e
         rows.append(dict(shape=[b, n, e], max_abs_err=max_err, mean_abs_err=mean_err,
                          einsum_ms=einsum_ms, library_chain_ms=library_chain_ms, chain=chain,
-                         variants=variants, **t, **_bound(flops, nbytes)))
+                         variants=variants, plan=planned, **t, **_bound(flops, nbytes)))
+        del inp, got, ref, err, blk
         worst = max(worst, max_err)
     return {"rows": rows, "max_abs_err": worst}
 
@@ -1024,7 +1052,185 @@ def phase_remat(torch, device_info, device="cuda") -> dict:
             for name, r in (("off", off), ("on", on))}
 
 
-PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data")
+def _tf1_resize_numpy(x, out_h, out_w):
+    """Numpy replica of the TF1 legacy bilinear resize (NHWC float32):
+    src = dst * (in/out), floor and floor + 1 clamped, a + (b - a) * t,
+    the width axis first."""
+    import numpy as np
+
+    def grid(in_size, out_size):
+        scale = np.float32(in_size / out_size)
+        src = np.arange(out_size, dtype=np.float32) * scale
+        lo = np.minimum(np.floor(src), in_size - 1).astype(np.int64)
+        hi = np.minimum(lo + 1, in_size - 1)
+        return lo, hi, (src - lo.astype(np.float32)).astype(np.float32)
+
+    lo_x, hi_x, t_x = grid(x.shape[2], out_w)
+    lo_y, hi_y, t_y = grid(x.shape[1], out_h)
+    left, right = x[:, :, lo_x], x[:, :, hi_x]
+    x = left + (right - left) * t_x[None, None, :, None]
+    top, bottom = x[:, lo_y], x[:, hi_y]
+    return top + (bottom - top) * t_y[None, :, None, None]
+
+
+def _write_image_shards(pattern: str, n: int, res: int) -> None:
+    """n synthetic res x res JPEGs (smooth random colour fields, seeded) as
+    tar shards of 128 through the port's `ShardWriter`."""
+    import numpy as np
+    from PIL import Image
+
+    from maskbit_tpu_torch.data.shard_writer import ShardWriter
+
+    rng = np.random.default_rng(0)
+    writer = ShardWriter(pattern, maxcount=128)
+    for i in range(n):
+        low = rng.uniform(0, 255, (8, 8, 3)).astype(np.uint8)
+        img = Image.fromarray(low).resize((res, res), Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90)
+        writer.write(f"{i:06d}", buf.getvalue(), i % 1000)
+    writer.close()
+
+
+def phase_eval(torch, device_info, device="cuda") -> dict:
+    """Evaluation on the card (phase 8): Inception, make_stats,
+    eval_maskbit at batch 100 through the attention block, eval_tokenizer
+    for an LFQ and a VQ tokenizer. device="cpu" rehearses the phase with
+    tiny configs put in place of CONFIG and TOKENIZER_CONFIGS (launches are
+    then not checked, and the TF32 comparison is skipped)."""
+    import contextlib
+
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import eval_maskbit, eval_tokenizer, make_stats
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.eval import inception as inc
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    work = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = os.path.join(work, "pt_inception.pth")
+    torch.save(inc.random_inception_state(0), weights)
+    env = {"MASKBIT_INCEPTION_WEIGHTS": weights, "MASKBIT_ADM_PB": ""}
+    saved_env = {k: os.environ.get(k) for k in (*env, "MASKBIT_EVAL_MAX_BATCHES")}
+    os.environ.update(env)
+    try:
+        # a. the resize bit for bit, the features on the card against the CPU's
+        rng = np.random.default_rng(0)
+        x = rng.uniform(0, 255, (8, 256, 256, 3)).astype(np.float32)
+        resized = inc.resize_bilinear_tf1(torch.from_numpy(x).to(device), 299, 299).cpu().numpy()
+        resize_flips = int((resized != _tf1_resize_numpy(x, 299, 299)).sum())
+        images = torch.from_numpy(rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8))
+        state = inc.load_inception_params(weights)
+        card_fn, cpu_fn = (inc.inception_from_state(state, d) for d in (device, "cpu"))
+        with torch.inference_mode():
+            cpu = cpu_fn(images)["2048"]
+            card = card_fn(images.to(device))["2048"].cpu()
+            tf32 = card
+            if device == "cuda":  # for information: the same call with TF32 allowed
+                real_full_f32 = inc.full_f32
+                inc.full_f32 = contextlib.nullcontext
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+                try:
+                    tf32 = card_fn(images.cuda())["2048"].cpu()
+                finally:
+                    inc.full_f32 = real_full_f32
+                    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        scale = cpu.abs().max().item()
+        gap, tf32_gap = ((t - cpu).abs().max().item() / scale for t in (card, tf32))
+        log(f"[eval] resize_bilinear_tf1 256->299 on the card vs numpy: {resize_flips} of "
+            f"{resized.size} values differ; Inception '2048' of 8 images, card f32 vs cpu f32: "
+            f"max |diff| / max|cpu| {gap:.3e} (max|cpu| {scale:.4f}); with TF32 allowed "
+            f"{tf32_gap:.3e}")
+        if resize_flips or not torch.isfinite(card).all() or gap > 1e-3:
+            raise AssertionError(f"Inception on the card: resize flips {resize_flips}, "
+                                 f"feature gap {gap}")
+        del card_fn, cpu_fn
+
+        # b. stats of 512 synthetic images
+        res = int(load_config(CONFIG).select("dataset.preprocessing.resolution"))
+        pattern = os.path.join(work, "shards", "img-%04d.tar")
+        os.makedirs(os.path.dirname(pattern))
+        _write_image_shards(pattern, STATS_IMAGES, res)
+        shards = os.path.join(work, "shards", f"img-{{0000..{(STATS_IMAGES - 1) // 128:04d}}}.tar")
+        stats = os.path.join(work, "stats.npz")
+        t0 = time.perf_counter()
+        n_stats = make_stats.main(["--shards", shards, "--output", stats, "--resolution", str(res),
+                                   "--batch_size", "128", "--device", device])
+        stats_s = time.perf_counter() - t0
+        log(f"[eval] make_stats: {n_stats} images in {stats_s:.2f} s (tar read, JPEG decode, "
+            f"Inception f32, float64 moments)")
+
+        # c. eval_maskbit at batch 100
+        mlm = _flagship()["mlm_model"]
+        depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+        argv = [f"config={CONFIG}", f"eval.total_samples={EVAL_SAMPLES}",
+                f"eval.batch_size={EVAL_BATCH}", f"eval.stats_path={stats}",
+                f"eval.device={device}",
+                "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
+                f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"]
+        for key in da.launches:
+            da.launches[key] = 0
+        ab.launches = 0
+        t0 = time.perf_counter()
+        gen = eval_maskbit.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {"attention_block": ab.launches,
+                    "fused_attention": da.launches["fused_attention"]}
+        batches = -(-EVAL_SAMPLES // EVAL_BATCH)
+        want = depth * steps * batches
+        per = {k: [b[k] * 1e3 for b in gen["batch_seconds"]]
+               for k in ("sampler", "inception", "moments")}
+        sampling_s = sum(per["sampler"]) / 1e3
+        results = gen["results"]
+        log(f"[eval] eval_maskbit: {gen['count']} samples in {batches} batches of {EVAL_BATCH} "
+            f"(CFG batch {2 * EVAL_BATCH} x 257), FID {results.get('FID')}, IS "
+            f"{results.get('InceptionScore')}; wall {wall:.1f} s = "
+            f"{EVAL_SAMPLES / wall:.3f} img/s, "
+            f"sampling alone {EVAL_SAMPLES / sampling_s:.3f} img/s [{device_info['card']}]")
+        for k, v in per.items():
+            log(f"[eval]   per batch {k} ms: " + ", ".join(f"{x:.1f}" for x in v))
+        log(f"[eval]   launches {launches}, expected depth {depth} x steps {steps} x batches "
+            f"{batches} = {want} of each")
+        if gen["count"] != EVAL_SAMPLES or (device == "cuda" and any(
+                v != want for v in launches.values())):
+            raise AssertionError(f"eval_maskbit scored {gen['count']}, launches {launches}")
+        if set(results) != {"FID", "InceptionScore"} or not all(
+                np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"eval_maskbit results {results}")
+
+        # d. eval_tokenizer, LFQ and VQ
+        os.environ["MASKBIT_EVAL_MAX_BATCHES"] = str(EVAL_TOKENIZER_BATCHES)
+        tokenizers = {}
+        for path in TOKENIZER_CONFIGS:
+            name = os.path.basename(path)
+            t0 = time.perf_counter()
+            metrics = eval_tokenizer.main([
+                f"config={path}", f"eval.device={device}",
+                "experiment.vqgan_checkpoint=", f"dataset.params.train_shards_path_or_url={shards}",
+                f"dataset.params.eval_shards_path_or_url={shards}",
+                f"experiment.output_dir={os.path.join(work, 'eval_tokenizer', name)}"])
+            tokenizers[name] = dict(metrics, seconds=time.perf_counter() - t0)
+            log(f"[eval] eval_tokenizer {name}: {metrics} in {tokenizers[name]['seconds']:.1f} s")
+            if len(metrics) != 8 or not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"eval_tokenizer {name}: {metrics}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    return {"resize_flips": resize_flips, "inception_gap": gap, "inception_tf32_gap": tf32_gap,
+            "stats_images": n_stats, "stats_s": stats_s, "launches": launches,
+            "count": gen["count"], "results": results, "wall_s": wall,
+            "img_per_s": EVAL_SAMPLES / wall, "batch_ms": per, "tokenizers": tokenizers}
+
+
+PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
+          "eval")
 
 
 def _args(argv):
@@ -1069,12 +1275,13 @@ def main(argv=None) -> int:
     check = phase_train_check(torch) if "train_check" in run else None
     tr = phase_train_slice(torch, device_info) if "train" in run else None
     data = phase_train_data(torch, device_info, tr) if "train_data" in run else None
+    ev = phase_eval(torch, device_info) if "eval" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
-                       "train_data": data}, f, indent=1)
+                       "train_data": data, "eval": ev}, f, indent=1)
         log(f"[done] phases {args.phases} passed")
         return 0
 
@@ -1092,11 +1299,15 @@ def main(argv=None) -> int:
 
     src = "maskbit_tpu_torch/csrc/dropout_attention.cu"
     pa = "maskbit_tpu/nn/pallas_attention.py"
+    eval_row = kern["rows"][-1]  # the block at the eval shape (200, 257, 1024)
     record = {"kernels": [
         # no one PyTorch call computes the block: library_ms stays null, and
         # library_chain_ms is the chain of library calls
         row("fused_attention_block", "maskbit_tpu_torch/csrc/attention_block.cu", f"{pa}:532",
-            sl["launches"], kern["rows"], library_chain_ms=kern["rows"][0]["library_chain_ms"]),
+            sl["launches"], kern["rows"], library_chain_ms=kern["rows"][0]["library_chain_ms"],
+            launches_eval=ev["launches"]["attention_block"],
+            eval_shape={k: eval_row[k] for k in ("shape", "ms", "library_chain_ms", "plain_ms",
+                                                 "bound_ms", "max_abs_err", "plan")}),
         row("dropout_attention_fwd", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:232",
             tr["launches"]["dropout_attention_fwd"],
             drop["dropout_attention_fwd"]),
@@ -1105,16 +1316,18 @@ def main(argv=None) -> int:
         # the attention block runs the dropout-free forward on every layer
         # of every step: its launches in the serve slice
         row("fused_attention", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:94",
-            sl["fused_attention_launches"], drop["fused_attention"]),
+            sl["fused_attention_launches"], drop["fused_attention"],
+            launches_eval=ev["launches"]["fused_attention"]),
     ]}
     idle = [k["name"] for k in record["kernels"]
-            if k["launches"] <= 0 or k["launches_train_data"] <= 0]
+            if k["launches"] <= 0 or k["launches_train_data"] <= 0
+            or k.get("launches_eval", 1) <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
-                   "slice": sl, "train_check": check, "train": tr, "train_data": data}, f,
-                  indent=1)
+                   "slice": sl, "train_check": check, "train": tr, "train_data": data,
+                   "eval": ev}, f, indent=1)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@ reference; this package imports `torch` and never `jax`.
 Ported so far: class-conditional generation and its HTTP server (LFQBert,
 the masked CFG sampler, the LFQ unpack and the conv decoder), with the
 postnorm attention block as a hand-written CUDA kernel chain
-(`csrc/attention_block.cu`).
+(`csrc/attention_block.cu`); Stage-II training with the dropout-attention
+kernels; evaluation (`eval/`: Inception, the ADM protocol, the streaming
+evaluators; `cli/eval_maskbit`, `cli/eval_tokenizer`, `cli/make_stats`,
+`cli/demo`).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Shared plumbing for the port's entry points.
 
 Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
-`load_generation_models`, `synthetic_batches`, `build_dataloaders`,
-`reset_optimizer_counts`, `GracefulShutdown` (one process) and `StepTimer`.
+`load_generation_models`, `setup_experiment` (one process),
+`synthetic_batches`, `build_dataloaders`, `reset_optimizer_counts`,
+`GracefulShutdown` (one process) and `StepTimer`.
 `expand_shard_pattern` lives in `data/tar_reader.py` and is re-exported here.
 """
 
@@ -14,7 +15,7 @@ import os
 import signal
 import sys
 import time
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -177,9 +178,27 @@ def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterat
         }
 
 
-def build_dataloaders(config, logger, global_batch_size: int) -> Callable[[], Iterator[dict]]:
-    """The train batches' iterator factory: `SimpleImagenet` over the train
-    shards when the first of them exists, synthetic batches otherwise."""
+def setup_experiment(config, subdir: str = "") -> dict:
+    """The evaluation entry points' output directory and logger: {"output_dir",
+    "logger", "seed"}. The directory is `experiment.output_dir` when set,
+    else `$WORKSPACE/<experiment.name>` (WORKSPACE defaults to
+    ./workspace), then `subdir`; the config is saved there as config.yaml."""
+    base = config.select("experiment.output_dir", "") or os.path.join(
+        os.environ.get("WORKSPACE", "./workspace"), config.select("experiment.name", "run"))
+    output_dir = os.path.join(base, subdir) if subdir else base
+    os.makedirs(output_dir, exist_ok=True)
+    config.save_yaml(os.path.join(output_dir, "config.yaml"))
+    return {"output_dir": output_dir, "logger": stdout_logger("maskbit_tpu_torch.eval"),
+            "seed": int(config.select("training.seed", 42))}
+
+
+def build_dataloaders(config, logger, global_batch_size: int
+                      ) -> Tuple[Callable[[], Iterator[dict]], Callable[[], Iterator[dict]], bool]:
+    """(train iterator factory, eval iterator factory, synthetic?):
+    `SimpleImagenet` over the train and eval shards when the first train
+    shard exists; otherwise endless synthetic train batches and, for eval,
+    two copies of the first synthetic batch of seed 1, as in the JAX
+    package."""
     params = config.dataset.params
     prep = config.dataset.preprocessing
     resolution = prep.get("resolution", 256)
@@ -188,7 +207,9 @@ def build_dataloaders(config, logger, global_batch_size: int) -> Callable[[], It
     if not (expanded and os.path.exists(expanded[0])):
         logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
                        "Point dataset.params.train_shards_path_or_url at real shards for training.")
-        return lambda: synthetic_batches(global_batch_size, resolution, seed=0)
+        make_eval = lambda: iter(  # noqa: E731
+            [next(synthetic_batches(global_batch_size, resolution, seed=1)) for _ in range(2)])
+        return lambda: synthetic_batches(global_batch_size, resolution, seed=0), make_eval, True
     logger.info(f"training from tar shards {train_shards!r} ({len(expanded)} shards)")
     data = SimpleImagenet(
         train_shards_path_or_url=train_shards,
@@ -204,7 +225,7 @@ def build_dataloaders(config, logger, global_batch_size: int) -> Callable[[], It
         use_random_crop=prep.get("use_random_crop", True),
         interpolation=prep.get("interpolation", "bilinear"),
         seed=int(config.select("training.seed", 42)))
-    return lambda: iter(data.train_dataloader)
+    return (lambda: iter(data.train_dataloader)), (lambda: data.eval_dataloader), False
 
 
 def reset_optimizer_counts(opt):

@@ -31,14 +31,20 @@ stops the run after the step in flight, with a final checkpoint.
 Every `experiment.generate_every` steps the sampler runs with the EMA weights
 on the batch's first `training.num_generated_images` labels and logs the
 grid ("train/generated"), and the step's true and predicted tokens are
-decoded side by side ("train/decoded"). In-training generation eval (IS/FID,
-`experiment.eval_every`) is not ported yet: the run says so once and logs no
-eval metric.
+decoded side by side ("train/decoded"). Every `experiment.eval_every` steps
+`eval.num_generation_samples` (default 2000) EMA samples of random labels,
+in batches of `eval.generation_batch_size` (default 50), are scored by
+`GeneratorEvaluator`: the Inception Score, and FID against
+`eval.stats_path` when it exists, logged as "eval/InceptionScore" and
+"eval/FID". Without Inception weights (`MASKBIT_INCEPTION_WEIGHTS`,
+`MASKBIT_ADM_PB`) the eval is skipped with a log line.
 
 Randomness, as in the JAX CLI: the step stream is a generator seeded with
 `training.seed + 1`, also after a restore (a resumed run does not continue
 the stream where the saved run left it); each generation takes its sampler's
-seed from that stream. `training.device` (default "cuda") names the device;
+seed from that stream. Each eval draws from a generator of its own, seeded
+from `training.seed` and the step, and leaves the step stream as it was.
+`training.device` (default "cuda") names the device;
 CUDA requested and absent is an error.
 """
 
@@ -69,6 +75,8 @@ from maskbit_tpu_torch.core.checkpoint import CheckpointManager, save_pretrained
 from maskbit_tpu_torch.core.config import config_from_cli
 from maskbit_tpu_torch.core.ema import swapped_in
 from maskbit_tpu_torch.data.token_shards import TokenShardDataset
+from maskbit_tpu_torch.eval.fid import load_stats_npz
+from maskbit_tpu_torch.eval.streaming import GeneratorEvaluator
 from maskbit_tpu_torch.losses.mlm import MLMLossConfig
 from maskbit_tpu_torch.models.generator import init_generator_weights_, make_generator
 from maskbit_tpu_torch.ops.bitops import combine_factorized_tokens
@@ -157,7 +165,7 @@ def build_train_iter(config, logger, token_shards: str, batch_size: int):
                                     seed=int(config.select("training.seed", 42)))
         train_iter = dataset.batches(batch_size)
     else:
-        train_iter = build_dataloaders(config, logger, batch_size)()
+        train_iter = build_dataloaders(config, logger, batch_size)[0]()
     if config.select("training.overfit_batch", False):
         n = config.select("training.overfit_batch_num", 1)
         train_iter = itertools.cycle([next(train_iter) for _ in range(n)])
@@ -207,6 +215,33 @@ def generate(run: dict, sampler, labels, seed: int) -> np.ndarray:
     return images.clamp(0, 1).float().cpu().numpy()
 
 
+def eval_generation(run: dict, config, sampler, seed: int, logger):
+    """In-training generation eval: IS (and FID against `eval.stats_path`)
+    over EMA samples of random labels; the evaluator, or None (with a log
+    line) without Inception weights."""
+    from maskbit_tpu_torch.cli.eval_tokenizer import make_inception_fn
+
+    num_samples = int(config.select("eval.num_generation_samples", 2000))
+    batch_size = int(config.select("eval.generation_batch_size", 50))
+    device = run["device"]
+    inception_fn = make_inception_fn(device)
+    if inception_fn is None:
+        logger.info("in-training generation eval skipped (no inception weights); "
+                    "run cli.eval_maskbit for the full 50k ADM gFID")
+        return None
+    real_mu = real_sigma = None
+    stats_path = config.select("eval.stats_path", "")
+    if stats_path and os.path.exists(stats_path):
+        real_mu, real_sigma = load_stats_npz(stats_path)
+    evaluator = GeneratorEvaluator(inception_fn, real_mu, real_sigma)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    for _ in range(num_samples // batch_size):
+        labels = torch.randint(0, 1000, (batch_size,), generator=rng, device=device)
+        batch_seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
+        evaluator.update(torch.from_numpy(generate(run, sampler, labels, batch_seed)))
+    return evaluator
+
+
 def decoded_pair(run: dict, viz: dict, codebook_size: int, splits: int, n: int) -> np.ndarray:
     """The tokenizer's decode of the step's true tokens beside that of the
     generator's argmax predictions, as one uint8 grid."""
@@ -251,10 +286,8 @@ def main(argv=None) -> dict:
     save_every = int(config.select("experiment.save_every", 100_000))
     generate_every = int(config.select("experiment.generate_every", 10_000))
     log_grad_norm_every = int(config.select("experiment.log_grad_norm_every", 0))
+    eval_every = int(config.select("experiment.eval_every", 100_000))
     num_gen = int(config.select("training.num_generated_images", 4))
-    if int(config.select("experiment.eval_every", 100_000)) <= max_steps:
-        logger.info("in-training generation eval (IS/FID) is not ported yet (ROADMAP.md, "
-                    "slice 4): experiment.eval_every logs nothing")
 
     ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"), max_to_keep=3)
     resumed_from = restore(config, logger, ckpt, state)
@@ -287,14 +320,16 @@ def main(argv=None) -> dict:
                 scalars = {k: float(v) for k, v in metrics.items()
                            if not k.startswith("grad_norm/")}
                 timer.batch_tick()  # after the sync above: the step's device time
-                scalars["perf/samples_per_sec"] = batch_size / max(timer.batch_time.avg, 1e-9)
+                # one device: the JAX CLI's per-device rate is the rate
+                scalars["perf/samples_per_sec_per_device"] = batch_size / max(
+                    timer.batch_time.avg, 1e-9)
                 scalars["perf/step_seconds"] = timer.batch_time.val  # data included
                 scalars["perf/data_seconds"] = timer.data_time.val
                 history.append(dict(scalars, step=step))
                 tracker.log(scalars, step)
                 logger.info(f"step {step}: mlm={scalars['mlm_loss']:.4f} "
                             f"masked_acc={scalars['masked_correct_tokens']:.4f} "
-                            f"{scalars['perf/samples_per_sec']:.1f} samples/s")
+                            f"{scalars['perf/samples_per_sec_per_device']:.1f} samples/s/dev")
             else:
                 timer.batch_tick()
             if step % generate_every == 0:
@@ -310,6 +345,14 @@ def main(argv=None) -> dict:
             if step % save_every == 0:
                 save_seconds.append(save_checkpoint(ckpt, run, step, logger))
                 last_saved = step
+                timer.restart()
+            if step % eval_every == 0:
+                seed = int(config.select("training.seed", 42)) + 0x5EED + step
+                evaluator = eval_generation(run, config, sampler, seed, logger)
+                results = evaluator.result() if evaluator is not None else {}
+                if results:
+                    tracker.log({f"eval/{k}": v for k, v in results.items()}, step)
+                    logger.info(f"eval @ {step}: {results}")
                 timer.restart()
         if state.step != last_saved:
             save_seconds.append(save_checkpoint(ckpt, run, state.step, logger))

@@ -6,8 +6,10 @@ nested mappings of numpy arrays, become state dicts in the original repo's
 layout, with the deterministic registered buffers rebuilt (LFQ
 `quantize.bits_to_indices` / `quantize.codebook`, LFQBert
 `bits_to_indices`). Every tokenizer parameter is exported, the encoder's
-included. Renames and transposes: HWIO -> OIHW, packed qkv ->
-`in_proj_weight`, norm `scale` -> `weight`.
+included (a VQ tokenizer's codebook as `quantize.embedding.weight`). Renames
+and transposes: HWIO -> OIHW, packed qkv -> `in_proj_weight`, norm `scale`
+-> `weight`. `export_inception_state` turns the JAX Inception tree into the
+pt-fid / torchvision layout of `eval/inception.InceptionV3`.
 """
 
 from __future__ import annotations
@@ -200,4 +202,32 @@ def export_generator_state(
                 f"(bits={bits}, prediction out={out_features})")
         state["bits_to_indices"] = (
             2 ** np.arange(effective_bits, dtype=np.int64)).astype(np.int32)
+    return state
+
+
+_BN_LEAF = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+            "bn_var": "running_var"}
+
+
+def export_inception_state(variables: Any) -> Dict[str, np.ndarray]:
+    """Flax InceptionV3 params (`maskbit_tpu/eval/inception.py`) -> the
+    pt-fid / torchvision `inception_v3` state dict: `X.conv.weight` (OIHW),
+    `X.bn.{weight,bias,running_mean,running_var,num_batches_tracked}`,
+    `fc.weight` = fc_kernel.T and a zero `fc.bias` (the Flax tree has none:
+    'logits_unbiased' does not use it)."""
+    params = variables.get("params", variables)
+    state: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(params).items():
+        if path == ("fc_kernel",):
+            state["fc.weight"] = value.T
+            state["fc.bias"] = np.zeros(value.shape[1], value.dtype)
+            continue
+        base = ".".join(path[:-1])
+        if path[-2:] == ("conv", "kernel"):
+            state[f"{base}.weight"] = value.transpose(3, 2, 0, 1)
+        elif path[-1] in _BN_LEAF:
+            state[f"{base}.bn.{_BN_LEAF[path[-1]]}"] = value
+            state[f"{base}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+        else:
+            raise ValueError(f"Unrecognized inception param {'/'.join(path)!r}")
     return state

@@ -1,13 +1,15 @@
-"""ConvVQModel, the Stage-I tokenizer with the lookup-free quantizer.
+"""ConvVQModel, the Stage-I tokenizer: encoder -> quantizer -> decoder.
 
-Counterpart of `maskbit_tpu/models/tokenizer.ConvVQModel` for Stage-II
-training and generation: `from_config`, `encode` and `tokenize` (encoder ->
-LFQ sign quantize), and `decode_tokens` (LFQ unpack -> decoder). The
-Stage-I training forward (quantizer losses, straight-through estimator) and
-the VQ quantizer are not ported yet. The public methods keep the JAX
-package's layouts: NHWC images in [0, 1] and latents, integer tokens (b, h',
-w') or (b, n). State dicts hold `encoder.*`, `decoder.*` and the
-quantizer's buffers, and load strictly.
+Counterpart of `maskbit_tpu/models/tokenizer.ConvVQModel` for generation and
+evaluation: `from_config`, `encode` and `tokenize` (encoder -> quantize),
+`decode`, `decode_tokens` (codes -> decoder) and the inference forward
+(reconstruction and the quantizer's dict with `z_quantized`). The quantizer
+is chosen as `_make_quantizer` does in JAX: `lookup-free` (LFQ, no
+parameters) or `lookup` (VQ, `quantize.embedding.weight`). The
+`finetune_decoder` mode waits for Stage-I training. The public methods keep
+the JAX package's layouts: NHWC images in [0, 1] and latents, integer
+tokens (b, h', w') or (b, n). State dicts hold `encoder.*`, `decoder.*` and
+the quantizer's parameters or buffers, and load strictly.
 """
 
 from __future__ import annotations
@@ -20,6 +22,18 @@ from torch import nn
 
 from maskbit_tpu_torch.nn.conv import ConvDecoder, ConvEncoder
 from maskbit_tpu_torch.quantizers.lfq import LookupFreeQuantizer
+from maskbit_tpu_torch.quantizers.vq import SimpleVectorizer
+
+
+def _make_quantizer(quantizer_type: str, token_size: int, codebook_size: int,
+                    **vq_kwargs) -> nn.Module:
+    if quantizer_type == "lookup":
+        return SimpleVectorizer(codebook_size, token_size, **vq_kwargs)
+    if quantizer_type == "lookup-free":
+        return LookupFreeQuantizer(token_size)
+    if quantizer_type == "vae":
+        raise NotImplementedError("VAE bottleneck is not supported (matches reference).")
+    raise ValueError(f"Unknown vector quantizer class {quantizer_type!r}")
 
 
 class ConvVQModel(nn.Module):
@@ -27,12 +41,12 @@ class ConvVQModel(nn.Module):
                  channel_mult: Sequence[int] = (1, 1, 2, 2, 4), num_resolutions: int = 5,
                  num_res_blocks: int = 2, num_res_blocks_decoder: Optional[int] = None,
                  token_size: int = 12, codebook_size: int = 4096,
-                 quantizer_type: str = "lookup-free", sample_with_conv: bool = True,
-                 legacy: bool = False, dtype: torch.dtype = torch.float32):
+                 quantizer_type: str = "lookup-free", commitment_cost: float = 0.25,
+                 entropy_loss_weight: float = 0.0, entropy_loss_temperature: float = 0.01,
+                 entropy_gamma: float = 1.0, use_l2_normalisation: bool = False,
+                 sample_with_conv: bool = True, legacy: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if quantizer_type != "lookup-free":
-            raise NotImplementedError(
-                f"quantizer_type {quantizer_type!r} is not ported to PyTorch yet")
         self.dtype, self.codebook_size = dtype, codebook_size
         self.encoder = ConvEncoder(num_channels, hidden_channels, tuple(channel_mult),
                                    num_resolutions, num_res_blocks, token_size,
@@ -40,7 +54,11 @@ class ConvVQModel(nn.Module):
         self.decoder = ConvDecoder(num_channels, hidden_channels, tuple(channel_mult),
                                    num_resolutions, num_res_blocks, token_size,
                                    num_res_blocks_decoder, legacy)
-        self.quantize = LookupFreeQuantizer(token_size)
+        self.quantize = _make_quantizer(
+            quantizer_type, token_size, codebook_size, commitment_cost=commitment_cost,
+            entropy_loss_weight=entropy_loss_weight,
+            entropy_loss_temperature=entropy_loss_temperature, entropy_gamma=entropy_gamma,
+            use_l2_normalisation=use_l2_normalisation)
 
     @classmethod
     def from_config(cls, cfg, legacy: bool = False,
@@ -56,6 +74,11 @@ class ConvVQModel(nn.Module):
             token_size=cfg.get("token_size", 12),
             codebook_size=cfg.get("codebook_size", 4096),
             quantizer_type=cfg.get("quantizer_type", "lookup-free"),
+            commitment_cost=cfg.get("commitment_cost", 0.25),
+            entropy_loss_weight=cfg.get("entropy_loss_weight", 0.0),
+            entropy_loss_temperature=cfg.get("entropy_loss_temperature", 0.01),
+            entropy_gamma=cfg.get("entropy_gamma", 1.0),
+            use_l2_normalisation=cfg.get("use_l2_normalisation", False),
             sample_with_conv=cfg.get("sample_with_conv", True),
             legacy=legacy,
             dtype=dtype,
@@ -71,10 +94,20 @@ class ConvVQModel(nn.Module):
         """NHWC image -> integer token grid (b, h', w'), int32."""
         return self.encode(x)[1]["min_encoding_indices"]
 
+    def decode(self, z_quantized: torch.Tensor) -> torch.Tensor:
+        """NHWC latents (b, h', w', K) -> decoded NHWC image (b, H, W, 3), in
+        the compute dtype."""
+        z = z_quantized.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        return self.decoder(z).permute(0, 2, 3, 1)
+
     def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Integer tokens (b, n) -> decoded NHWC image (b, H, W, 3)."""
         b, n = tokens.shape
         ss = math.isqrt(n)
-        z = self.quantize.get_codebook_entry(tokens).reshape(b, ss, ss, -1)
-        z = z.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-        return self.decoder(z).permute(0, 2, 3, 1)
+        return self.decode(self.quantize.get_codebook_entry(tokens).reshape(b, ss, ss, -1))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """NHWC image -> (reconstruction, the quantizer's dict with the
+        latent as `z_quantized`)."""
+        z_quantized, result = self.encode(x)
+        return self.decode(z_quantized), dict(result, z_quantized=z_quantized)

@@ -1,8 +1,9 @@
 """Visualisation helpers for training logs.
 
-Counterpart of the Stage-II half of `maskbit_tpu/utils/viz.py` (the original
-repo's utils/viz_utils.py): generated-sample grids and tokenizer
-reconstruction | generator prediction pairs. Inputs are NHWC floats in
+Counterpart of `maskbit_tpu/utils/viz.py` (the original repo's
+utils/viz_utils.py): original | reconstruction | difference strips,
+generated-sample grids and tokenizer reconstruction | generator prediction
+pairs. Inputs are NHWC floats in
 [0, 1]; each function returns (PIL images, uint8 grid array). PIL is
 imported only to build the returned images.
 """
@@ -22,6 +23,16 @@ def _pil(arrays) -> list:
     from PIL import Image
 
     return [Image.fromarray(a) for a in arrays]
+
+
+def make_viz_from_samples(original: np.ndarray, reconstructed: np.ndarray
+                          ) -> Tuple[List, np.ndarray]:
+    """Per-sample [original | reconstruction | difference] strips."""
+    original, reconstructed = np.asarray(original), np.asarray(reconstructed)
+    diff = 0.5 + (original - reconstructed) * 0.5
+    strips = [np.concatenate([_to_uint8(o), _to_uint8(r), _to_uint8(d)], axis=1)
+              for o, r, d in zip(original, reconstructed, diff)]
+    return _pil(strips), np.concatenate(strips, axis=0)
 
 
 def make_viz_reconstructed_stage_two(reconstructed: np.ndarray, predicted: np.ndarray

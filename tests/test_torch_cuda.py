@@ -37,14 +37,16 @@ def _block_inputs(b, n, e, seed, vectors=torch.float32):
 
 
 # Every tile edge of the chain: rows M = b * n of 1, 127, 128, 129, 2050 (the
-# 512 px batch, 64-row blocks) and 4112 (serving, 128-row blocks); sequence
+# 512 px batch, 64-row blocks), 4112 (serving, 128-row blocks) and 51,400
+# (eval_maskbit's CFG batch of 200); sequence
 # lengths 1, 63, 64, 65, 257 and 1025 (the attention's 64-row tiles); E of
 # 512 and 1024, 576 (the last 256-column block of each projection partly
 # past the matrix) and 3072.
 @pytest.mark.parametrize("b,n,e", [(2, 257, 1024), (1, 17, 1024), (2, 1025, 1024),
                                    (3, 100, 512), (1, 1, 1024), (1, 127, 512), (2, 64, 1024),
                                    (1, 129, 1024), (2, 63, 512), (2, 65, 576), (16, 257, 1024),
-                                   (1, 1025, 512), (3, 65, 3072), (1, 257, 576)])
+                                   (1, 1025, 512), (3, 65, 3072), (1, 257, 576),
+                                   (200, 257, 1024)])
 def test_attention_block_kernel_matches_plain_version(b, n, e):
     """bf16 kernel vs the plain version in float32 on the same bf16 inputs:
     within 3e-2, about twice the half-ulp rounding of a bf16 LayerNorm
@@ -430,3 +432,63 @@ def test_checkpoint_round_trip_of_a_card_train_state(tmp_path):
     m_saved, _ = _steps_on_card(saved, 1, seed=9)
     m_fresh, _ = _steps_on_card(fresh, 1, seed=9)
     assert torch.equal(m_saved[0]["mlm_loss"], m_fresh[0]["mlm_loss"])
+
+
+def test_resize_bilinear_tf1_on_the_card_is_bit_exact():
+    """The TF1 resize on the card equals its run on the CPU bit for bit
+    (three separate eager ops, no FMA), 256 -> 299 and a downsample."""
+    _card()
+    from maskbit_tpu_torch.eval.inception import resize_bilinear_tf1
+
+    for in_hw in ((256, 256), (512, 384)):
+        x = torch.from_numpy(np.random.default_rng(in_hw[1]).uniform(
+            0, 255, (4, *in_hw, 3)).astype(np.float32))
+        assert torch.equal(resize_bilinear_tf1(x.cuda(), 299, 299).cpu(),
+                           resize_bilinear_tf1(x, 299, 299))
+
+
+def test_inception_on_the_card_holds_tf32_off():
+    """float32 Inception features on the card against the CPU's, with the
+    global TF32 flags on: the module holds TF32 off in its own forward (a
+    TF32 convolution stack drifts by about 1e-3 relative) and gives the
+    caller's flags back."""
+    _card()
+    from maskbit_tpu_torch.eval.inception import inception_from_state, random_inception_state
+
+    state = random_inception_state(5)
+    images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 256, 256, 3),
+                                                                dtype=np.uint8))
+    card, cpu = inception_from_state(state, "cuda"), inception_from_state(state, "cpu")
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            got = card(images.cuda())
+            want = cpu(images)
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    for key in ("2048", "logits_unbiased"):
+        scale = want[key].abs().max().item()
+        assert (got[key].cpu() - want[key]).abs().max().item() <= 1e-4 * scale, key
+
+
+def test_vq_indices_on_the_card_equal_the_cpus():
+    """The nearest-code search in full float32 (TF32 off) on the card picks
+    the CPU's codes, at the 12-bit VQ tokenizer's codebook (4096 x 12)."""
+    _card()
+    from maskbit_tpu_torch.quantizers.vq import SimpleVectorizer
+
+    q = SimpleVectorizer(4096, 12).eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        q.embedding.weight.normal_(generator=gen)
+    z = torch.randn(8, 16, 16, 12, generator=gen)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = q.cuda()(z.cuda())[1]["min_encoding_indices"].cpu()
+            want = q.cpu()(z)[1]["min_encoding_indices"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)

@@ -4,8 +4,10 @@
   `maskbit_tpu_torch`, reads a tiny config through the port's own
   `load_config`, serves a tiny model, takes one tiny train step on the
   CPU, writes image shards and pretokenizes them, resumes the train run
-  from its checkpoint for one step from those token shards, and then finds
-  no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
+  from its checkpoint for one step from those token shards, evaluates the
+  tokenizer and the generator (`cli.eval_tokenizer`, `cli.eval_maskbit`
+  with random Inception weights) and computes `cli.make_stats` over the
+  image shard, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
   in `sys.modules`.
 * In the source: an AST scan of every `.py` under `maskbit_tpu_torch/` and
   of `chip_smoke.py` finds no `import maskbit_tpu...` or
@@ -60,6 +62,16 @@ assert pretokenize([f"config={sys.argv[1]}", f"pretokenize.shards={work}/img-000
 result = train([f"config={sys.argv[1]}", "training.max_train_steps=2",
                 f"dataset.params.token_shards_path_or_url={work}/tok-0000.npz"])
 assert result["resumed_from"] == 1 and result["steps"] == 2, result
+from maskbit_tpu_torch.cli import eval_maskbit, eval_tokenizer, make_stats
+from maskbit_tpu_torch.eval.inception import random_inception_state
+os.environ["MASKBIT_EVAL_MAX_BATCHES"] = "1"
+assert "SSIM" in eval_tokenizer.main([f"config={sys.argv[1]}"])
+torch.save(random_inception_state(0), os.path.join(work, "inception.pth"))
+os.environ["MASKBIT_INCEPTION_WEIGHTS"] = os.path.join(work, "inception.pth")
+gen = eval_maskbit.main([f"config={sys.argv[1]}", "eval.total_samples=3", "eval.batch_size=2"])
+assert gen["count"] == 3 and "InceptionScore" in gen["results"], gen
+assert make_stats.main(["--shards", f"{work}/img-0000.tar", "--output", f"{work}/stats.npz",
+                        "--resolution", "32", "--device", "cpu"]) == 4
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
@@ -78,6 +90,7 @@ def test_port_imports_no_jax(tmp_path):
         "training": {"mixed_precision": "no", "seed": 0, "device": "cpu",
                      "per_device_batch_size": 2, "max_train_steps": 1},
         "serve": {"batch_size": 2, "device": "cpu"},
+        "eval": {"device": "cpu"},
     }
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(cfg))

@@ -84,6 +84,33 @@ Phases, each of which fails the run if it fails:
         finite.
      The attention block is also held at the eval shape (200, 257, 1024)
      in phase 3.
+  9. tokenizer train (Stage I), which launches none of the four kernels:
+     a. TF32 allowed: the streamed LFQ entropy at the 14-bit flagship's
+        shape (4096 rows, 16,384 codes) on the card, both global TF32 flags
+        on, against the CPU (terms rel 1e-4, gradient 1e-3 of its max); one
+        float32 Stage-I step of a 64 px tokenizer with the discriminator
+        and adaptive weight live, TF32 allowed for matrix products (cuDNN's
+        convolutions in float32), against the same step on the CPU (every
+        loss and metric rel 1e-3); each also without the entropy's own
+        full-f32 scope, for information;
+     b. with PyTorch's default TF32 flags (cuDNN's on: the float32
+        ResNet-50; matrix products' off), as a user's run:
+        `cli.train_tokenizer.main` on maskbit_tokenizer_14bit.yaml (hidden
+        128, 14-bit LFQ, VQGAN+ discriminator, ResNet-50 perceptual loss
+        from random torchvision-layout weights named by
+        MASKBIT_RESNET50_WEIGHTS, bf16, batch 16, 256 px, synthetic data),
+        6 steps with the discriminator from step 3, `save_every=3`,
+        `generate_every=3`, `eval_every=6` over 2 batches: finite losses,
+        a non-zero perceptual loss on every step, the gate where it was
+        set; median step before and after the gate, samples/s, peak memory,
+        the saves' time in the loop; then a resume to step 8 (the restored
+        state equal bit for bit to a host copy taken before the step-6
+        save; the restore's time), and `cli.eval_tokenizer` on
+        ema_model-8.bin with LPIPS (the shipped lin heads, random VGG16);
+     c. one step's device time by kernel category (torch.profiler), and the
+        ResNet-50 loss and the entropy timed alone;
+     d. maskbit_tokenizer_18bit.yaml (262,144 codes): one step's time and
+        peak memory, the entropy's forward and backward alone.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -133,6 +160,9 @@ LONG_BATCH = 8
 EVAL_BATCH, EVAL_SAMPLES, STATS_IMAGES, EVAL_TOKENIZER_BATCHES = 100, 1000, 512, 4
 TOKENIZER_CONFIGS = tuple(os.path.join(ROOT, "configs", "tokenizer", name)
                           for name in ("maskbit_tokenizer_14bit.yaml", "vqgan_plus_12bit.yaml"))
+TOKENIZER_18 = os.path.join(ROOT, "configs", "tokenizer", "maskbit_tokenizer_18bit.yaml")
+# phase 9: Stage-I steps, the discriminator's gate, saves, eval batches, the resume
+TOK_STEPS, TOK_GATE, TOK_SAVE, TOK_EVAL_BATCHES, TOK_RESUME = 6, 3, 3, 2, 8
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -1229,8 +1259,432 @@ def phase_eval(torch, device_info, device="cuda") -> dict:
             "img_per_s": EVAL_SAMPLES / wall, "batch_ms": per, "tokenizers": tokenizers}
 
 
+def _entropy_check(torch, device) -> dict:
+    """The streamed LFQ entropy at the 14-bit flagship's shape (batch 16,
+    16x16 latents, 4096 codes a chunk) on the card with the global TF32
+    flags on, against the CPU: terms and gradient. For information, the
+    same with the entropy's own `full_f32` scope taken away."""
+    import contextlib
+
+    import numpy as np
+
+    from maskbit_tpu_torch.ops import entropy
+
+    z = (np.random.default_rng(0).normal(size=(16, 16, 16, 14)) * 0.05).astype(np.float32)
+
+    def run(dev):
+        zt = torch.from_numpy(z).to(dev).requires_grad_()
+        terms = entropy.lfq_entropy_terms(zt, 14, 0.01, 1.0, 4096)
+        (terms[0] - terms[1]).backward()
+        return [float(t.detach()) for t in terms], zt.grad.cpu()
+
+    want, want_grad = run("cpu")
+    got, got_grad = run(device)
+    real_full_f32 = entropy.full_f32
+    entropy.full_f32 = contextlib.nullcontext  # for information: TF32 products
+    try:
+        tf32, tf32_grad = run(device)
+    finally:
+        entropy.full_f32 = real_full_f32
+    scale = want_grad.abs().max().item()
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    grad_gap = (got_grad - want_grad).abs().max().item() / scale
+    tf32_rel = max(abs(g - w) / abs(w) for g, w in zip(tf32, want))
+    tf32_grad_gap = (tf32_grad - want_grad).abs().max().item() / scale
+    log(f"[tokenizer-train] entropy at (16, 16, 16, 14), T 0.01, global TF32 on: card vs cpu "
+        f"terms rel {rel:.2e} (tol 1e-4), gradient {grad_gap:.2e} of its max (tol 1e-3); "
+        f"without the entropy's own full-f32 scope: terms rel {tf32_rel:.2e}, gradient "
+        f"{tf32_grad_gap:.2e}")
+    if rel > 1e-4 or grad_gap > 1e-3:
+        raise AssertionError(f"entropy on the card: terms {got} vs {want}, gradient gap {grad_gap}")
+    return {"rel": rel, "grad_gap": grad_gap, "tf32_rel": tf32_rel, "tf32_grad_gap": tf32_grad_gap}
+
+
+TINY_STAGE1 = {
+    "vq_model": {"quantizer_type": "lookup-free", "codebook_size": 1024, "token_size": 10,
+                 "entropy_loss_weight": 0.02, "entropy_loss_temperature": 0.01,
+                 "hidden_channels": 64, "channel_mult": [1, 2], "num_resolutions": 2,
+                 "num_res_blocks": 1},
+    "discriminator": {"name": "VQGAN+Discriminator", "num_stages": 1, "hidden_channels": 64,
+                      "blur_resample": True, "blur_kernel_size": 4},
+    "losses": {"perceptual_loss": "none", "perceptual_weight": 0.0, "reconstruction_weight": 4.0,
+               "discriminator_start": 0, "discriminator_weight": 0.02,
+               "discriminator_gradient_penalty": "adopt_weight",
+               "lecam_regularization_weight": 0.001, "entropy_annealing_steps": 2000,
+               "entropy_annealing_factor": 2.0},
+}
+
+
+def _tiny_step_check(torch, device) -> dict:
+    """One float32 Stage-I step (64 px, the discriminator and adaptive weight
+    live, the 10-bit entropy at T 0.01) on the card with TF32 allowed for
+    matrix products (the flag that reaches the entropy's affinities; cuDNN's
+    convolutions stay in float32, so that the comparison is tight), against
+    the same step on the CPU from the same weights; for information, the
+    card's step again with the entropy's own full-f32 scope taken away."""
+    import contextlib
+
+    import numpy as np
+
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.losses.vqgan import VQGANLossConfig
+    from maskbit_tpu_torch.models.tokenizer import ConvVQModel, init_tokenizer_weights_
+    from maskbit_tpu_torch.nn.discriminator import create_discriminator, init_discriminator_weights_
+    from maskbit_tpu_torch.ops import entropy
+    from maskbit_tpu_torch.train.optim import make_optimizer
+    from maskbit_tpu_torch.train.tokenizer_trainer import (
+        init_tokenizer_train_state,
+        make_tokenizer_train_step,
+    )
+
+    cfg = TINY_STAGE1
+    images = torch.from_numpy(
+        np.random.default_rng(1).uniform(size=(4, 64, 64, 3)).astype(np.float32))
+    weights = {}
+
+    def run(dev):
+        model = build_module(lambda: ConvVQModel.from_config(cfg["vq_model"]), dev)
+        disc = build_module(lambda: create_discriminator(cfg["discriminator"]), dev)
+        if not weights:
+            init_tokenizer_weights_(model, torch.Generator().manual_seed(0))
+            init_discriminator_weights_(disc, torch.Generator().manual_seed(1))
+            weights.update(model={k: v.clone() for k, v in model.state_dict().items()},
+                           disc={k: v.clone() for k, v in disc.state_dict().items()})
+        model.load_state_dict(weights["model"], strict=True)
+        disc.load_state_dict(weights["disc"], strict=True)
+        state = init_tokenizer_train_state(model, disc,
+                                           make_optimizer(model.parameters(), lambda t: 1e-4),
+                                           make_optimizer(disc.parameters(), lambda t: 1e-4))
+        step = make_tokenizer_train_step(model, disc, VQGANLossConfig.from_config(cfg["losses"]),
+                                         ema_kwargs={"decay": 0.999})
+        return {k: float(v) for k, v in step(state, images.to(dev))[1].items()}
+
+    keys = ("total_loss", "reconstruction_loss", "quantizer_loss", "commitment_loss",
+            "entropy_loss", "per_sample_entropy", "gan_loss", "d_weight", "discriminator_loss",
+            "grad_norm")
+
+    def rel(got, want):
+        return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-6) for k in keys}
+
+    cpu = run("cpu")
+    card = run(device)
+    real_full_f32 = entropy.full_f32
+    entropy.full_f32 = contextlib.nullcontext  # for information: TF32 affinities
+    try:
+        tf32 = rel(run(device), cpu)
+    finally:
+        entropy.full_f32 = real_full_f32
+    gaps = rel(card, cpu)
+    log("[tokenizer-train] one float32 step (64 px, 10-bit LFQ, T 0.01, D live), TF32 allowed "
+        "for matrix products, card vs cpu: " + ", ".join(
+            f"{k} {card[k]:.6f} vs {cpu[k]:.6f}" for k in keys)
+        + f"; max rel {max(gaps.values()):.2e} (tol 1e-3); without the entropy's full-f32 "
+        f"scope: " + ", ".join(f"{k} {v:.1e}" for k, v in tf32.items() if v > 1e-4))
+    if max(gaps.values()) > 1e-3:
+        raise AssertionError(f"the Stage-I step on the card disagrees: {gaps}")
+    return {"card": card, "cpu": cpu, "rel": gaps, "rel_without_full_f32": tf32}
+
+
+def _random_resnet50(torch, path: str) -> None:
+    """Seeded random torchvision-layout resnet50 weights (flax's default
+    initialisation) saved as a `.pth`."""
+    from maskbit_tpu_torch.losses.perceptual import ResNet50
+    from maskbit_tpu_torch.nn.conv import init_flax_defaults_
+
+    model = ResNet50()
+    init_flax_defaults_(model, torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), path)
+
+
+_STEP_CATEGORIES = (
+    ("multi_tensor_apply", "optimizer, EMA, grad norm (foreach)"),
+    ("nchwToNhwc", "layout transposes (cuDNN)"), ("nhwcToNchw", "layout transposes (cuDNN)"),
+    ("conv_depthwise2d", "the blur (depthwise convolution)"),
+    ("conv2d_grouped_direct", "the blur (depthwise convolution)"),
+    ("bn_fw", "norms"), ("group_norm", "norms"), ("GroupNorm", "norms"),
+    ("batch_norm", "norms"), ("welford", "norms"), ("layer_norm", "norms"),
+    ("RowwiseMoments", "norms"), ("ComputeInternalGradients", "norms"),
+    ("xmma", "convolutions (cuDNN)"), ("implicit", "convolutions (cuDNN)"),
+    ("grad2d", "convolutions (cuDNN)"), ("dgrad", "convolutions (cuDNN)"),
+    ("wgrad", "convolutions (cuDNN)"), ("conv", "convolutions (cuDNN)"),
+    ("cudnn", "convolutions (cuDNN)"),
+    ("gemm", "GEMM"), ("nvjet", "GEMM"),
+    ("upsample", "upsample, pooling"), ("pool", "upsample, pooling"),
+)
+
+
+def _step_category(name: str) -> str:
+    for key, category in _STEP_CATEGORIES:
+        if key in name:
+            return category
+    return "elementwise, reductions, casts, copies"
+
+
+def _stage1_breakdown(torch, run, images) -> dict:
+    """Device time of one Stage-I step (discriminator live) by kernel
+    category under torch.profiler, and of its parts timed alone: the
+    ResNet-50 perceptual loss (forward, and backward to its input), the
+    streamed entropy (forward and backward), the optimizers' and EMA's
+    foreach passes."""
+    from collections import defaultdict
+
+    from maskbit_tpu_torch.ops.entropy import lfq_entropy_terms
+
+    state, step = run["state"], run["train_step"]
+    by_cat = defaultdict(float)
+    events = _device_breakdown(torch, lambda: step(state, images), iters=1, warmup=2)
+    # the trainer's record_function ranges come back as device events too:
+    # the phases' device spans, kept apart from the kernels
+    phases = {k: v for k, v in events.items() if k.startswith("tokenizer/")}
+    breakdown = {k: v for k, v in events.items() if k not in phases}
+    for name, ms in breakdown.items():
+        by_cat[_step_category(name)] += ms
+    top = sorted(breakdown.items(), key=lambda kv: -kv[1])[:25]
+    with open(os.path.join(OUT_DIR, "tokenizer_step_kernels.txt"), "w") as f:
+        f.writelines(f"{ms:10.3f} ms  {_step_category(name):40s} {name}\n"
+                     for name, ms in sorted(breakdown.items(), key=lambda kv: -kv[1]))
+    parts = {}
+    perceptual = run["perceptual"]
+    if perceptual is not None:
+        recon = images.flip(0).requires_grad_()
+        parts["ResNet-50 perceptual, forward + backward to the input"] = _device_ms(
+            torch, lambda: torch.autograd.grad(perceptual(images, recon), recon), iters=3)
+    vq = run["model"].quantize
+    z = torch.randn(images.shape[0], images.shape[1] // 16, images.shape[2] // 16,
+                    vq.token_bits, device=images.device).mul_(0.05).requires_grad_()
+    parts[f"entropy at {2 ** vq.token_bits} codes, forward + backward"] = _device_ms(
+        torch, lambda: torch.autograd.grad(sum(lfq_entropy_terms(
+            z, vq.token_bits, vq.entropy_loss_temperature, 1.0, vq.entropy_chunk_size)), z),
+        iters=3)
+    event_ms = _time_ms(torch, lambda: step(state, images), iters=3, warmup=0)
+    return {"step_ms": sum(by_cat.values()), "event_ms": event_ms, "by_category": dict(by_cat),
+            "phase_spans": phases, "parts": parts,
+            "top_kernels": [(_kernel_name(k)[:120], ms) for k, ms in top]}
+
+
+def phase_tokenizer_train(torch, device_info) -> dict:
+    """Stage-I training on the card (phase 9): the entropy and one tiny
+    step against the CPU with TF32 on; `cli/train_tokenizer.main` on the
+    14-bit flagship at batch 16, 256 px, bf16 across the discriminator's
+    gate with saves, reconstructions, an eval and a resume; the saved EMA
+    weights through `cli/eval_tokenizer` with LPIPS; one step's device time
+    by category; one step of the 18-bit config."""
+    import logging
+
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import eval_tokenizer, train_tokenizer
+    from maskbit_tpu_torch.core.checkpoint import CheckpointManager
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.losses.lpips import random_vgg16_state
+
+    config, device = TOKENIZER_CONFIGS[0], "cuda"
+    work = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    # a. TF32 on: the entropy holds it off itself
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["entropy_check"] = _entropy_check(torch, device)
+        torch.backends.cudnn.allow_tf32 = False
+        out["step_check"] = _tiny_step_check(torch, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    resnet, vgg = os.path.join(work, "resnet50.pth"), os.path.join(work, "vgg16.pth")
+    _random_resnet50(torch, resnet)
+    torch.save(random_vgg16_state(0), vgg)
+    env = {"MASKBIT_RESNET50_WEIGHTS": resnet, "MASKBIT_VGG16_WEIGHTS": vgg,
+           "MASKBIT_INCEPTION_WEIGHTS": "", "MASKBIT_ADM_PB": "",
+           "MASKBIT_EVAL_MAX_BATCHES": str(TOK_EVAL_BATCHES)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out_dir = os.path.join(work, "tok_train")
+    argv = [f"config={config}", f"training.device={device}",
+            f"training.max_train_steps={TOK_STEPS}", f"losses.discriminator_start={TOK_GATE}",
+            f"experiment.save_every={TOK_SAVE}", f"experiment.generate_every={TOK_SAVE}",
+            f"experiment.eval_every={TOK_STEPS}", f"eval.max_eval_batches={TOK_EVAL_BATCHES}",
+            "experiment.log_every=1", "experiment.logger=jsonl",
+            f"experiment.output_dir={out_dir}"]
+    copies = {}
+    real_save, real_restore = CheckpointManager.save, CheckpointManager.restore_latest
+
+    def save(self, step, state, *args, **kwargs):  # a host copy taken before the save
+        if step == TOK_STEPS:
+            copies["saved"] = _state_copy(state)
+        return real_save(self, step, state, *args, **kwargs)
+
+    def restore_latest(self, state):  # and one of what the restore gave back
+        restored = real_restore(self, state)
+        if restored is not None:
+            torch.cuda.synchronize()
+            copies["restored"] = _state_copy(state)
+        return restored
+
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    train_logger = train_tokenizer._logger()
+    train_logger.addHandler(handler)
+    CheckpointManager.save, CheckpointManager.restore_latest = save, restore_latest
+    torch.backends.cudnn.allow_tf32 = True  # b-d: PyTorch's defaults, as a user's run
+    try:
+        # b. the CLI across the gate, then a resume
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_tokenizer.main(argv)
+        first_wall = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        second = train_tokenizer.main(argv + [f"training.max_train_steps={TOK_RESUME}"])
+        second_wall = time.perf_counter() - t0
+        # the saved EMA weights through eval_tokenizer, with LPIPS
+        t0 = time.perf_counter()
+        ema_path = os.path.join(out_dir, f"ema_model-{TOK_RESUME}.bin")
+        scores = eval_tokenizer.main([f"config={config}", f"eval.device={device}",
+                                      f"experiment.vqgan_checkpoint={ema_path}",
+                                      f"experiment.output_dir={os.path.join(work, 'tok_eval')}"])
+        eval_s = time.perf_counter() - t0
+
+        # one step's device time by category, and the 18-bit step
+        cfg = load_config(config)
+        cfg.update_dotted("training.device", device)
+        cfg.update_dotted("losses.discriminator_start", 0)
+        cfg.update_dotted("experiment.output_dir", os.path.join(work, "profile"))
+        batch = int(cfg.select("training.per_device_batch_size"))
+        res = int(cfg.select("dataset.preprocessing.resolution"))
+        images = torch.from_numpy(np.random.default_rng(2).uniform(
+            size=(batch, res, res, 3)).astype(np.float32)).to(device)
+        run = train_tokenizer.build_training(cfg, train_logger)
+        breakdown = _stage1_breakdown(torch, run, images)
+        del run
+        out["step_18bit"] = _step_18bit(torch, images, train_logger, work)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        CheckpointManager.save, CheckpointManager.restore_latest = real_save, real_restore
+        train_logger.removeHandler(handler)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    hist = first["history"]
+    step_s = [h["perf/step_seconds"] for h in hist]
+    before = statistics.median(step_s[1:TOK_GATE])
+    after = statistics.median(step_s[TOK_GATE + 1:])
+    perceptual = [h["perceptual_loss"] for h in hist]
+    log(f"[tokenizer-train] {os.path.basename(config)}: {len(hist)} steps at batch {batch}, "
+        f"discriminator from step {TOK_GATE}: total losses "
+        f"{', '.join(f'{h["total_loss"]:.4f}' for h in hist)}; perceptual "
+        f"{', '.join(f'{x:.3e}' for x in perceptual)}; discriminator "
+        f"{', '.join(f'{h["discriminator_loss"]:.4f}' for h in hist)}; step seconds "
+        f"{', '.join(f'{x:.4f}' for x in step_s)}")
+    log(f"[tokenizer-train] median step before the gate (steps 2..{TOK_GATE}) "
+        f"{before * 1e3:.1f} ms = {batch / before:.1f} samples/s; after it (steps "
+        f"{TOK_GATE + 2}..{TOK_STEPS}) {after * 1e3:.1f} ms = {batch / after:.1f} samples/s; "
+        f"peak memory {peak_gib:.2f} GiB; run wall {first_wall:.1f} s [{device_info['card']}]")
+    saves = [t for t in first["checkpoint_timings"] if "step" in t]
+    restore_s = [t["restore_s"] for t in second["checkpoint_timings"] if "restore_s" in t]
+    mismatched = _differences(copies["saved"], copies["restored"])
+    log(f"[tokenizer-train] saves held the loop " + ", ".join(
+        f"{x:.3f} s" for x in first["save_seconds"]) + " (host copy " + ", ".join(
+        f"{t['host_copy_s']:.3f}" for t in saves) + " s, then the two .bin files); restore "
+        f"{restore_s[0]:.3f} s; restored state vs the host copy before the step-{TOK_STEPS} "
+        f"save: {len(mismatched)} tensors or counts differ; resumed steps "
+        f"{[h['step'] for h in second['history']]}; run wall {second_wall:.1f} s")
+    log(f"[tokenizer-train] eval in the run at step {TOK_STEPS}: {first['evals']}; "
+        f"eval_tokenizer on ema_model-{TOK_RESUME}.bin ({TOK_EVAL_BATCHES} batches, LPIPS "
+        f"with the shipped lin heads and random VGG16): {scores} in {eval_s:.1f} s")
+    log(f"[tokenizer-train] one step (discriminator live), device time "
+        f"{breakdown['step_ms']:.2f} ms (CUDA events around a step, median of 3: "
+        f"{breakdown['event_ms']:.2f} ms): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(breakdown["by_category"].items(),
+                                               key=lambda kv: -kv[1]))
+        + "; the trainer's ranges (device spans of the kernels launched in them): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in breakdown["phase_spans"].items())
+        + "; alone: " + ", ".join(f"{k} {v:.2f} ms" for k, v in breakdown["parts"].items()))
+    if len(hist) != TOK_STEPS or not all(np.isfinite([h["total_loss"] for h in hist])):
+        raise AssertionError(f"missing or non-finite losses: {hist}")
+    if not first["perceptual"] or any(x == 0.0 for x in perceptual):
+        raise AssertionError(f"the perceptual loss is off or 0: {perceptual}")
+    if any(h["discriminator_loss"] != 0.0 for h in hist[:TOK_GATE]) or any(
+            h["discriminator_loss"] == 0.0 for h in hist[TOK_GATE:]):
+        raise AssertionError("the discriminator's gate is not where it was set")
+    if f"resumed from step {TOK_STEPS}" not in messages or second["resumed_from"] != TOK_STEPS:
+        raise AssertionError(f"the second run did not resume from step {TOK_STEPS}")
+    if mismatched:
+        raise AssertionError(f"restored state differs from the saved one at {mismatched[:5]}")
+    if [h["step"] for h in second["history"]] != list(range(TOK_STEPS + 1, TOK_RESUME + 1)):
+        raise AssertionError(f"resumed steps wrong: {second['history']}")
+    if not first["evals"] or "LPIPS" not in scores or not all(
+            np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"evals: {first['evals']}, eval_tokenizer {scores}")
+    want_grids = [f"train_reconstructions-{s:09d}.png"
+                  for s in range(TOK_SAVE, TOK_STEPS + 1, TOK_SAVE)]
+    grids = sorted(os.listdir(os.path.join(out_dir, "images")))
+    if grids[:len(want_grids)] != want_grids:
+        raise AssertionError(f"reconstruction grids {grids} != {want_grids}")
+    shutil.rmtree(work, ignore_errors=True)
+    out.update({"losses": [h["total_loss"] for h in hist], "perceptual": perceptual,
+                "step_seconds": step_s, "median_before_s": before, "median_after_s": after,
+                "samples_per_s_before": batch / before, "samples_per_s_after": batch / after,
+                "peak_gib": peak_gib, "save_seconds": first["save_seconds"], "saves": saves,
+                "restore_s": restore_s[0], "eval_in_run": first["evals"], "eval_tokenizer": scores,
+                "breakdown": breakdown, "wall_s": first_wall})
+    return out
+
+
+def _step_18bit(torch, images, logger, work) -> dict:
+    """Two steps of the 18-bit config (262,144 codes; the discriminator
+    live) on the same images: the second's time, the peak memory of a step,
+    and the entropy's forward and backward alone."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import train_tokenizer
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.ops.entropy import lfq_entropy_terms
+
+    cfg = load_config(TOKENIZER_18)
+    cfg.update_dotted("training.device", "cuda")
+    cfg.update_dotted("losses.discriminator_start", 0)
+    cfg.update_dotted("experiment.output_dir", os.path.join(work, "step18"))
+    run = train_tokenizer.build_training(cfg, logger)
+    state, step = run["state"], run["train_step"]
+    _, metrics = step(state, images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = step(state, images)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    vq = run["model"].quantize
+    z = torch.randn(images.shape[0], images.shape[1] // 16, images.shape[2] // 16,
+                    vq.token_bits, device="cuda").mul_(0.05).requires_grad_()
+    entropy_fn = lambda: torch.autograd.grad(sum(lfq_entropy_terms(  # noqa: E731
+        z, vq.token_bits, vq.entropy_loss_temperature, 1.0, vq.entropy_chunk_size)), z)
+    entropy_ms = _device_ms(torch, entropy_fn, iters=3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    entropy_fn()
+    torch.cuda.synchronize()
+    entropy_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"[tokenizer-train] {os.path.basename(TOKENIZER_18)} ({2 ** vq.token_bits} codes, "
+        f"{z.shape[0] * z.shape[1] * z.shape[2]} rows, chunks of {vq.entropy_chunk_size}): "
+        f"a step {step_s * 1e3:.1f} ms, peak memory {peak_gib:.2f} GiB; the entropy's forward "
+        f"and backward alone {entropy_ms:.2f} ms, its own peak {entropy_peak_mib:.1f} MiB; "
+        f"total loss {float(metrics['total_loss']):.4f}, entropy loss "
+        f"{float(metrics['entropy_loss']):.5f}")
+    if not np.isfinite(float(metrics["total_loss"])):
+        raise AssertionError(f"18-bit step: {metrics}")
+    return {"step_s": step_s, "peak_gib": peak_gib, "entropy_ms": entropy_ms,
+            "entropy_peak_mib": entropy_peak_mib, "total_loss": float(metrics["total_loss"])}
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval")
+          "eval", "tokenizer_train")
 
 
 def _args(argv):
@@ -1276,12 +1730,13 @@ def main(argv=None) -> int:
     tr = phase_train_slice(torch, device_info) if "train" in run else None
     data = phase_train_data(torch, device_info, tr) if "train_data" in run else None
     ev = phase_eval(torch, device_info) if "eval" in run else None
+    tok = phase_tokenizer_train(torch, device_info) if "tokenizer_train" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
-                       "train_data": data, "eval": ev}, f, indent=1)
+                       "train_data": data, "eval": ev, "tokenizer_train": tok}, f, indent=1)
         log(f"[done] phases {args.phases} passed")
         return 0
 
@@ -1327,7 +1782,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
-                   "eval": ev}, f, indent=1)
+                   "eval": ev, "tokenizer_train": tok}, f, indent=1)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

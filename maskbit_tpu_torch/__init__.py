@@ -11,7 +11,9 @@ postnorm attention block as a hand-written CUDA kernel chain
 (`csrc/attention_block.cu`); Stage-II training with the dropout-attention
 kernels; evaluation (`eval/`: Inception, the ADM protocol, the streaming
 evaluators; `cli/eval_maskbit`, `cli/eval_tokenizer`, `cli/make_stats`,
-`cli/demo`).
+`cli/demo`); Stage-I tokenizer training (`train/tokenizer_trainer`,
+`cli/train_tokenizer`: the LFQ and VQ training losses, the PatchGAN
+discriminators, the GAN, perceptual and LPIPS losses).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Shared plumbing for the port's entry points.
 
 Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
-`load_generation_models`, `setup_experiment` (one process),
-`synthetic_batches`, `build_dataloaders`, `reset_optimizer_counts`,
-`GracefulShutdown` (one process) and `StepTimer`.
+`resolve_compute_dtype` (here `compute_dtype`), `load_generation_models`,
+`setup_experiment` (one process), `synthetic_batches`, `build_dataloaders`,
+`build_perceptual`, `reset_optimizer_counts`, `GracefulShutdown` (one
+process) and `StepTimer`.
 `expand_shard_pattern` lives in `data/tar_reader.py` and is re-exported here.
 """
 
@@ -15,7 +16,7 @@ import os
 import signal
 import sys
 import time
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,6 +227,45 @@ def build_dataloaders(config, logger, global_batch_size: int
         interpolation=prep.get("interpolation", "bilinear"),
         seed=int(config.select("training.seed", 42)))
     return (lambda: iter(data.train_dataloader)), (lambda: data.eval_dataloader), False
+
+
+def build_perceptual(config, logger, device) -> Optional[nn.Module]:
+    """The configured perceptual loss as a frozen module on `device`, or None.
+
+    Pretrained weights come from the JAX package's environment variables:
+      MASKBIT_RESNET50_WEIGHTS  torchvision resnet50 state dict (.pth)
+      MASKBIT_CONVNEXT_WEIGHTS  torchvision convnext_small state dict (.pth)
+      MASKBIT_LPIPS_WEIGHTS     LPIPS lin heads (default: the shipped .msgpack)
+      MASKBIT_VGG16_WEIGHTS     torchvision vgg16 state dict (.pth)
+    Without them the loss is off, with the JAX package's warning (None);
+    `losses.perceptual_loss: none` or a zero `losses.perceptual_weight`
+    turn it off silently."""
+    name = config.select("losses.perceptual_loss", "none")
+    if name == "none" or config.select("losses.perceptual_weight", 0.0) == 0.0:
+        return None
+    if name in ("resnet50", "convnext_s"):
+        from maskbit_tpu_torch.losses.perceptual import PerceptualLoss
+
+        env = "MASKBIT_RESNET50_WEIGHTS" if name == "resnet50" else "MASKBIT_CONVNEXT_WEIGHTS"
+        path = os.environ.get(env, "")
+        if not os.path.exists(path):
+            logger.warning(f"Perceptual backbone {name!r} weights unavailable "
+                           f"({env}={path!r}); disabling perceptual loss.")
+            return None
+        module = PerceptualLoss(name, config.select("losses.perceptual_loss_on_logits", True))
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        module.model.load_state_dict(state.get("state_dict", state), strict=True)
+        return module.to(device).eval()
+    if name == "lpips":
+        from maskbit_tpu_torch.losses.lpips import load_lpips, lpips_weights
+
+        lin_path, vgg_path, missing = lpips_weights()
+        if missing:
+            logger.warning(f"LPIPS weights unavailable ({', '.join(missing)}); "
+                           "disabling perceptual loss.")
+            return None
+        return load_lpips(lin_path, vgg_path, device)
+    raise ValueError(f"Perception loss {name} is not supported.")
 
 
 def reset_optimizer_counts(opt):

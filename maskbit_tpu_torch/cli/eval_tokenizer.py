@@ -18,10 +18,11 @@ output directory (`cli.common.setup_experiment`). `eval.device` (default
 
 Inception weights (`make_inception_fn`): `MASKBIT_ADM_PB`, the ADM suite's
 `classify_image_graph_def.pb`, takes precedence over
-`MASKBIT_INCEPTION_WEIGHTS`, a pt-fid `.pth`. Not ported yet: the `taming`
-tokenizer (ROADMAP.md, Queue 1 item 3f) and LPIPS with its `.msgpack` lin
-heads (items 3a and 3c): naming `MASKBIT_VGG16_WEIGHTS` is refused rather
-than evaluated without LPIPS.
+`MASKBIT_INCEPTION_WEIGHTS`, a pt-fid `.pth`. LPIPS (`make_lpips_fn`) is
+scored when `MASKBIT_VGG16_WEIGHTS` names torchvision's VGG16 state dict;
+its lin heads come from `MASKBIT_LPIPS_WEIGHTS`, by default the port's
+shipped copy of the JAX package's `.msgpack`. Not ported yet: the `taming`
+tokenizer (ROADMAP.md, Queue 1 item 3f).
 """
 
 from __future__ import annotations
@@ -87,14 +88,21 @@ def make_inception_fn(device="cuda") -> Optional[Callable]:
     return fn
 
 
-def make_lpips_fn() -> None:
-    """LPIPS is not ported yet: None, as the JAX package gives without the
-    VGG16 weights; naming them raises instead of silently skipping LPIPS."""
-    if os.environ.get("MASKBIT_VGG16_WEIGHTS", ""):
-        raise NotImplementedError(
-            "MASKBIT_VGG16_WEIGHTS is set, but LPIPS and its .msgpack lin heads are not "
-            "ported to maskbit_tpu_torch yet (ROADMAP.md, Queue 1 items 3a and 3c)")
-    return None
+def make_lpips_fn(device="cuda") -> Optional[Callable]:
+    """`fn(real, fake) -> per-image LPIPS (b, 1, 1, 1)` on `device` when both
+    weight files are found (`losses.lpips.lpips_weights`), else None."""
+    from maskbit_tpu_torch.losses.lpips import load_lpips, lpips_weights
+
+    lin_path, vgg_path, missing = lpips_weights()
+    if missing:
+        return None
+    model = load_lpips(lin_path, vgg_path, device)
+
+    @torch.inference_mode()
+    def fn(real, fake):
+        return model(real.to(device), fake.to(device))
+
+    return fn
 
 
 def main(argv=None) -> dict:
@@ -118,8 +126,9 @@ def main(argv=None) -> dict:
     inception_fn = make_inception_fn(device)
     if inception_fn is None:
         logger.warning("MASKBIT_INCEPTION_WEIGHTS not set — rFID / InceptionScore disabled")
-    lpips_fn = make_lpips_fn()
-    logger.warning("LPIPS is not ported to maskbit_tpu_torch yet — LPIPS disabled")
+    lpips_fn = make_lpips_fn(device)
+    if lpips_fn is None:
+        logger.warning("MASKBIT_LPIPS_WEIGHTS / MASKBIT_VGG16_WEIGHTS not set — LPIPS disabled")
     evaluator = TokenizerEvaluator(
         inception_fn=inception_fn,
         lpips_fn=lpips_fn,

@@ -9,7 +9,10 @@ layout, with the deterministic registered buffers rebuilt (LFQ
 included (a VQ tokenizer's codebook as `quantize.embedding.weight`). Renames
 and transposes: HWIO -> OIHW, packed qkv -> `in_proj_weight`, norm `scale`
 -> `weight`. `export_inception_state` turns the JAX Inception tree into the
-pt-fid / torchvision layout of `eval/inception.InceptionV3`.
+pt-fid / torchvision layout of `eval/inception.InceptionV3`; the Stage-I
+exporters turn the discriminators' trees into the original repo's layout
+and the perceptual backbones' (ResNet-50, ConvNeXt-S, LPIPS's VGG16) into
+torchvision's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import re
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+from maskbit_tpu_torch.nn.blur import BLUR_KERNEL_MAP, blur_kernel
 
 
 def _flatten(tree: Any, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -230,4 +235,129 @@ def export_inception_state(variables: Any) -> Dict[str, np.ndarray]:
             state[f"{base}.bn.num_batches_tracked"] = np.zeros((), np.int64)
         else:
             raise ValueError(f"Unrecognized inception param {'/'.join(path)!r}")
+    return state
+
+
+def _oihw(kernel: np.ndarray) -> np.ndarray:
+    return kernel.transpose(3, 2, 0, 1)
+
+
+def _conv_entries(node: Any, base: str) -> Dict[str, np.ndarray]:
+    """A flax Conv/Dense node -> `{base}.weight` (OIHW or (out, in)) and
+    `{base}.bias` where it has one."""
+    kernel = np.asarray(node["kernel"])
+    out = {f"{base}.weight": _oihw(kernel) if kernel.ndim == 4 else kernel.T}
+    if "bias" in node:
+        out[f"{base}.bias"] = np.asarray(node["bias"])
+    return out
+
+
+def _norm_entries(node: Any, base: str) -> Dict[str, np.ndarray]:
+    return {f"{base}.weight": np.asarray(node["scale"]), f"{base}.bias": np.asarray(node["bias"])}
+
+
+def export_discriminator_state(variables: Any, blur_kernel_size: Optional[int] = None
+                               ) -> Dict[str, np.ndarray]:
+    """Flax `NLayerDiscriminatorv2` or `OriginalNLayerDiscriminator` params
+    -> the original repo's state dict (inverse of the JAX package's
+    `convert_discriminator_state` and `convert_original_discriminator_state`).
+    The v2 blur's buffers `blocks.{i}.1.kernel` are rebuilt when
+    `blur_kernel_size` is given; the Pix2Pix BatchNorm's running statistics
+    (never read in training) are rebuilt as zeros and ones."""
+    params = variables.get("params", variables)
+    state: Dict[str, np.ndarray] = {}
+    if "block_in_conv" in params:
+        stages = sorted(int(k.split("_")[1]) for k in params if k.endswith("_conv")
+                        and k.startswith("block_") and k != "block_in_conv")
+        state.update(_conv_entries(params["block_in_conv"], "block_in.0"))
+        for i in stages:
+            state.update(_conv_entries(params[f"block_{i}_conv"], f"blocks.{i}.0"))
+            if blur_kernel_size is not None:
+                state[f"blocks.{i}.1.kernel"] = blur_kernel(BLUR_KERNEL_MAP[blur_kernel_size])
+            state.update(_norm_entries(params[f"block_{i}_norm"], f"blocks.{i}.2"))
+        state.update(_conv_entries(params["to_logits_conv1"], "to_logits.0"))
+        state.update(_conv_entries(params["to_logits_conv2"], "to_logits.2"))
+        return state
+    num_stages = max(int(k.split("_")[1]) for k in params if k.startswith("bn_"))
+    state.update(_conv_entries(params["conv_0"], "main.0"))
+    idx = 2
+    for n in range(1, num_stages + 1):
+        state.update(_conv_entries(params[f"conv_{n}"], f"main.{idx}"))
+        bn = params[f"bn_{n}"]
+        state.update(_norm_entries(bn, f"main.{idx + 1}"))
+        width = np.asarray(bn["scale"]).shape[0]
+        state[f"main.{idx + 1}.running_mean"] = np.zeros(width, np.float32)
+        state[f"main.{idx + 1}.running_var"] = np.ones(width, np.float32)
+        state[f"main.{idx + 1}.num_batches_tracked"] = np.zeros((), np.int64)
+        idx += 3
+    state.update(_conv_entries(params["conv_out"], f"main.{idx}"))
+    return state
+
+
+def _bn_entries(node: Any, base: str) -> Dict[str, np.ndarray]:
+    """A flax `FrozenBatchNorm` node -> torchvision BatchNorm2d entries."""
+    out = _norm_entries(node, base)
+    out[f"{base}.running_mean"] = np.asarray(node["mean"])
+    out[f"{base}.running_var"] = np.asarray(node["var"])
+    out[f"{base}.num_batches_tracked"] = np.zeros((), np.int64)
+    return out
+
+
+def export_resnet50_state(variables: Any) -> Dict[str, np.ndarray]:
+    """The JAX package's perceptual ResNet-50 params (`model/...`) ->
+    torchvision's `resnet50` state dict (inverse of its
+    `convert_resnet50_state`)."""
+    params = variables.get("params", variables)
+    params = params.get("model", params)
+    state = _conv_entries(params["conv1"], "conv1")
+    state.update(_bn_entries(params["bn1"], "bn1"))
+    for stage, num_blocks in enumerate((3, 4, 6, 3)):
+        for block in range(num_blocks):
+            node, base = params[f"layer{stage + 1}_{block}"], f"layer{stage + 1}.{block}"
+            for i in (1, 2, 3):
+                state.update(_conv_entries(node[f"conv{i}"], f"{base}.conv{i}"))
+                state.update(_bn_entries(node[f"bn{i}"], f"{base}.bn{i}"))
+            if "downsample_conv" in node:
+                state.update(_conv_entries(node["downsample_conv"], f"{base}.downsample.0"))
+                state.update(_bn_entries(node["downsample_bn"], f"{base}.downsample.1"))
+    state.update(_conv_entries(params["fc"], "fc"))
+    return state
+
+
+def export_convnext_small_state(variables: Any) -> Dict[str, np.ndarray]:
+    """The JAX package's ConvNeXt-S params (`model/...`) -> torchvision's
+    `convnext_small` state dict (inverse of its `convert_convnext_small_state`)."""
+    params = variables.get("params", variables)
+    params = params.get("model", params)
+    state = _conv_entries(params["stem_conv"], "features.0.0")
+    state.update(_norm_entries(params["stem_norm"], "features.0.1"))
+    for stage in range(4):
+        tv = 1 + 2 * stage
+        if stage > 0:
+            state.update(_norm_entries(params[f"down{stage}_norm"], f"features.{tv - 1}.0"))
+            state.update(_conv_entries(params[f"down{stage}_conv"], f"features.{tv - 1}.1"))
+        block = 0
+        while f"stage{stage}_block{block}" in params:
+            node, base = params[f"stage{stage}_block{block}"], f"features.{tv}.{block}"
+            state.update(_conv_entries(node["dwconv"], f"{base}.block.0"))
+            state.update(_norm_entries(node["norm"], f"{base}.block.2"))
+            state.update(_conv_entries(node["pw1"], f"{base}.block.3"))
+            state.update(_conv_entries(node["pw2"], f"{base}.block.5"))
+            state[f"{base}.layer_scale"] = np.asarray(node["layer_scale"]).reshape(-1, 1, 1)
+            block += 1
+    state.update(_norm_entries(params["head_norm"], "classifier.0"))
+    state.update(_conv_entries(params["head_fc"], "classifier.2"))
+    return state
+
+
+# torchvision vgg16 `features` index of each of the 13 convolutions
+_VGG16_CONV_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def export_vgg16_state(net: Any) -> Dict[str, np.ndarray]:
+    """The JAX package's LPIPS `net` node (`conv_{0..12}`) -> torchvision's
+    `vgg16` `features.{i}` entries."""
+    state: Dict[str, np.ndarray] = {}
+    for ordinal, index in enumerate(_VGG16_CONV_INDEX):
+        state.update(_conv_entries(net[f"conv_{ordinal}"], f"features.{index}"))
     return state

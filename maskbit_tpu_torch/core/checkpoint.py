@@ -12,12 +12,15 @@ metadata of a step is written only after its step has committed (at the
 next save, wait, restore or close), and the steps beyond `max_to_keep`,
 oldest first, and their metadata are deleted.
 
-`load_pretrained` is the counterpart of the `.bin` branch of
-`maskbit_tpu/core/checkpoint.load_pretrained`: a PyTorch state dict in the
-original repo's layout, with its legacy `token_emb.` -> `input_proj.` rename
-for LFQBert. `save_pretrained` writes such a `.bin` (float32 tensors on the
-CPU), which this loader and the JAX package's `load_pretrained` both read.
-The `.msgpack` format of the JAX package is neither read nor written yet.
+`load_pretrained` is the counterpart of `maskbit_tpu/core/checkpoint.load_pretrained`:
+a PyTorch state dict in the original repo's layout, with its legacy
+`token_emb.` -> `input_proj.` rename for LFQBert, or a flax `.msgpack` of the
+JAX package's (its `save_pretrained`, the zoo format), read by
+`compat/msgpack` and mapped to that layout by `compat/torch_export` (a
+tokenizer when it has an encoder or decoder, else a generator).
+`save_pretrained` writes a `.bin` (float32 tensors on the CPU), which this
+loader and the JAX package's `load_pretrained` both read; the port writes
+no `.msgpack`.
 """
 
 from __future__ import annotations
@@ -158,10 +161,37 @@ class CheckpointManager:
         self.wait()
 
 
+def _state_from_msgpack(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX package `.msgpack` tokenizer or generator as a state dict in the
+    original repo's layout; an LFQ tokenizer's buffers are rebuilt for the
+    codebook of its latent width (2 ** token_size)."""
+    import numpy as np
+
+    from maskbit_tpu_torch.compat.msgpack import read_msgpack
+    from maskbit_tpu_torch.compat.torch_export import (
+        export_generator_state,
+        export_tokenizer_state,
+    )
+
+    tree = read_msgpack(path)
+    params = tree.get("params", tree)
+    if "encoder" in params or "decoder" in params:
+        codebook_size = None
+        if "embedding" not in params.get("quantize", {}):
+            codebook_size = 2 ** int(np.asarray(params["encoder"]["conv_out"]["kernel"]).shape[-1])
+        state = export_tokenizer_state(params, codebook_size)
+    else:
+        state = export_generator_state(params)
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in state.items()}
+
+
 def load_pretrained(path: str, device="cpu") -> Dict[str, torch.Tensor]:
-    """Load a `.bin` / `.pth` / `.pt` state dict onto `device`."""
+    """Load a `.bin` / `.pth` / `.pt` state dict, or a JAX package
+    `.msgpack`, onto `device`."""
+    if path.endswith(".msgpack"):
+        return {k: v.to(device) for k, v in _state_from_msgpack(path).items()}
     if not path.endswith((".bin", ".pth", ".pt")):
-        raise NotImplementedError(f"{path}: only PyTorch state dicts load in the port")
+        raise NotImplementedError(f"{path}: neither a PyTorch state dict nor a flax .msgpack")
     state = torch.load(path, map_location=device, weights_only=True)
     if "state_dict" in state and isinstance(state["state_dict"], dict):
         state = state["state_dict"]

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maskbit_tpu_torch.nn.conv import trunc_normal_
 from maskbit_tpu_torch.nn.transformer import (
     DropoutRng,
     TransformerEncoder,
@@ -135,17 +136,6 @@ class LFQBert(nn.Module):
         return logits[:, : self.seq_len]
 
 
-_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
-
-
-def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    """flax's truncated_normal(std): a standard normal truncated to [-2, 2]
-    (inverse-CDF sampling), scaled so that the result has std `std`."""
-    edge = math.erf(2.0 / math.sqrt(2.0))  # 2 * Phi(2) - 1
-    t.uniform_(-edge, edge, generator=generator)
-    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std / _TRUNC_STD)
-
-
 @torch.no_grad()
 def init_generator_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisation (its flax initialisers, drawn from
@@ -162,7 +152,7 @@ def init_generator_weights_(model: nn.Module, generator: torch.Generator) -> Non
         elif name.endswith("bias"):
             p.zero_()
         else:
-            _trunc_normal_(p, 0.02, generator)
+            trunc_normal_(p, 0.02, generator)
     model.reset_buffers()
 
 

@@ -18,6 +18,7 @@ from the original repo and the JAX package:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -32,10 +33,10 @@ def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`layer` applied in x's dtype, with its own stride and padding."""
+    """`layer` applied in x's dtype, with its own stride, padding and groups."""
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.conv2d(x, layer.weight.to(x.dtype), bias, stride=layer.stride,
-                    padding=layer.padding)
+                    padding=layer.padding, groups=layer.groups)
 
 
 def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -46,6 +47,41 @@ def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
         total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """flax's truncated normal: a standard normal truncated to [-2, 2]
+    (inverse-CDF sampling), scaled so that the result has std `std`."""
+    edge = math.erf(2.0 / math.sqrt(2.0))
+    t.uniform_(-edge, edge, generator=generator)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std / _TRUNC_STD)
+
+
+@torch.no_grad()
+def init_flax_defaults_(module: nn.Module, generator: torch.Generator,
+                       conv_std: float = 0.0) -> None:
+    """flax's default initialisation, drawn from `generator`: conv and dense
+    kernels lecun-normal (truncated normal, variance 1 / fan_in), or
+    N(0, conv_std^2) when `conv_std` is given; biases 0; norm scales 1 and
+    biases 0; buffers rebuilt."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if conv_std:
+                m.weight.normal_(0.0, conv_std, generator=generator)
+            else:
+                trunc_normal_(m.weight, m.weight[0].numel() ** -0.5, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        if isinstance(m, nn.BatchNorm2d):
+            m.reset_running_stats()
+        if hasattr(m, "reset_buffers"):
+            m.reset_buffers()
 
 
 def _conv3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:

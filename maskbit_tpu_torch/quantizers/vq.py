@@ -4,10 +4,11 @@ Counterpart of `maskbit_tpu/quantizers/vq.SimpleVectorizer`: the nearest
 code by ||z||^2 + ||e||^2 - 2 z.e (one matrix product, in full float32 with
 TF32 off, as the JAX package's `Precision.HIGHEST`: the argmin is sensitive
 to near ties), optionally over L2-normalised latents and codes, the
-commitment and codebook losses, the straight-through estimator and
+commitment and codebook losses, the entropy term over -distances (only
+with `train` and a non-zero `entropy_loss_weight`,
+`ops.entropy.entropy_loss_fn`), the straight-through estimator and
 `get_codebook_entry`. The codebook is `embedding.weight` (the original
-repo's key). The entropy term is not ported yet: a forward in training mode
-with `entropy_loss_weight != 0` raises (ROADMAP.md, Queue 1 item 3b).
+repo's key).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maskbit_tpu_torch.ops.entropy import entropy_loss_fn
 from maskbit_tpu_torch.utils.precision import full_f32
 
 
@@ -39,14 +41,11 @@ class SimpleVectorizer(nn.Module):
         embedding = self.embedding.weight.float()
         return F.normalize(embedding, dim=-1) if self.use_l2_normalisation else embedding
 
-    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, z: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Channels-last latents (b, h, w, D) -> (quantized latents through
         the straight-through estimator, float32; the losses and
         `min_encoding_indices`, int32 (b, h, w))."""
-        if self.training and self.entropy_loss_weight != 0.0:
-            raise NotImplementedError(
-                "SimpleVectorizer: the entropy loss is not ported to maskbit_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 3b)")
         z = z.float()
         if self.use_l2_normalisation:
             z = F.normalize(z, dim=-1)
@@ -61,12 +60,18 @@ class SimpleVectorizer(nn.Module):
 
         commitment_loss = self.commitment_cost * torch.mean((z_quantized.detach() - z) ** 2)
         codebook_loss = torch.mean((z_quantized - z.detach()) ** 2)
-        zero = torch.zeros((), device=z.device)
-        loss = commitment_loss + codebook_loss
+        zero = z.new_zeros(())
+        per_sample_entropy = avg_entropy = entropy_loss = zero
+        if self.entropy_loss_weight != 0.0 and train:
+            per_sample_entropy, avg_entropy = entropy_loss_fn(
+                -distances, self.entropy_loss_temperature, self.entropy_gamma)
+            entropy_loss = self.entropy_loss_weight * (per_sample_entropy - avg_entropy)
+        loss = commitment_loss + codebook_loss + entropy_loss
         z_quantized = z + (z_quantized - z).detach()  # straight-through estimator
         return z_quantized, dict(
             quantizer_loss=loss, commitment_loss=commitment_loss, codebook_loss=codebook_loss,
-            entropy_loss=zero, per_sample_entropy=zero, avg_entropy=zero,
+            entropy_loss=entropy_loss, per_sample_entropy=per_sample_entropy,
+            avg_entropy=avg_entropy,
             min_encoding_indices=indices.to(torch.int32).reshape(b, h, w))
 
     def get_codebook_entry(self, indices: torch.Tensor) -> torch.Tensor:

@@ -75,7 +75,8 @@ def _tiny(**kw):
 def test_bin_checkpoint_with_token_emb_rename(tmp_path):
     """A zoo-style `.bin` whose input projection is named `token_emb` loads
     strictly into the port and gives the logits the JAX package computes
-    from the same file."""
+    from the same file; a weights format the port does not read is refused
+    (`.msgpack` is read: `tests/test_torch_msgpack.py`)."""
     jmodel = JaxLFQBert(**_tiny())
     variables = jmodel.init(jax.random.key(3), jnp.zeros((1, 16, 2), jnp.int32),
                             jnp.zeros((1,), jnp.int32))
@@ -99,7 +100,7 @@ def test_bin_checkpoint_with_token_emb_rename(tmp_path):
         got = tmodel(torch.from_numpy(tokens), torch.from_numpy(labels))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
     with pytest.raises(NotImplementedError):
-        load_pretrained(str(tmp_path / "weights.msgpack"))
+        load_pretrained(str(tmp_path / "weights.safetensors"))
 
 
 def _serve_cfg(**mlm):

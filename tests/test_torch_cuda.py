@@ -492,3 +492,73 @@ def test_vq_indices_on_the_card_equal_the_cpus():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert torch.equal(got, want)
+
+
+def test_lfq_entropy_on_the_card_holds_tf32_off():
+    """The streamed entropy (14 bits, chunks of 4096, T 0.01) on the card
+    with both global TF32 flags on, against the CPU: the terms within rtol
+    1e-4 and the gradient within 1e-3 of its largest entry."""
+    from maskbit_tpu_torch.ops.entropy import lfq_entropy_terms
+
+    _card()
+    z = torch.from_numpy(
+        (np.random.default_rng(0).normal(size=(4, 16, 16, 14)) * 0.05).astype(np.float32))
+
+    def run(dev):
+        zt = z.to(dev, copy=True).requires_grad_()
+        terms = lfq_entropy_terms(zt, 14, 0.01, 1.0, 4096)
+        (terms[0] - terms[1]).backward()
+        return [float(t.detach()) for t in terms], zt.grad.cpu()
+
+    want, want_grad = run("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got, got_grad = run("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert (got_grad - want_grad).abs().max() <= 1e-3 * want_grad.abs().max()
+
+
+def test_stage1_step_on_the_card_matches_the_cpus():
+    """One float32 Stage-I step of a 32 px tokenizer with the discriminator
+    and adaptive weight live (TF32 off) on the card and on the CPU from the
+    same weights: every loss and metric within rtol 1e-3."""
+    from maskbit_tpu_torch.losses.vqgan import VQGANLossConfig
+    from maskbit_tpu_torch.models.tokenizer import ConvVQModel, init_tokenizer_weights_
+    from maskbit_tpu_torch.nn.discriminator import (
+        NLayerDiscriminatorv2,
+        init_discriminator_weights_,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+    from maskbit_tpu_torch.train.tokenizer_trainer import (
+        init_tokenizer_train_state,
+        make_tokenizer_train_step,
+    )
+
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    loss_cfg = VQGANLossConfig(perceptual_weight=0.0, discriminator_gradient_penalty="adopt_weight",
+                               lecam_regularization_weight=0.001, discriminator_weight=0.1)
+    images = torch.from_numpy(
+        np.random.default_rng(1).uniform(size=(2, 32, 32, 3)).astype(np.float32))
+    model = ConvVQModel(hidden_channels=64, channel_mult=(1, 2), num_resolutions=2,
+                        num_res_blocks=1, token_size=10, codebook_size=1024,
+                        entropy_loss_weight=0.02)
+    disc = NLayerDiscriminatorv2(hidden_channels=64, num_stages=1, blur_resample=True)
+    init_tokenizer_weights_(model, torch.Generator().manual_seed(0))
+    init_discriminator_weights_(disc, torch.Generator().manual_seed(1))
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             {k: v.clone() for k, v in disc.state_dict().items()})
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        model.load_state_dict(start[0])
+        disc.load_state_dict(start[1])
+        model.to(dev), disc.to(dev)
+        state = init_tokenizer_train_state(model, disc,
+                                           make_optimizer(model.parameters(), lambda t: 1e-4),
+                                           make_optimizer(disc.parameters(), lambda t: 1e-4))
+        step = make_tokenizer_train_step(model, disc, loss_cfg, ema_kwargs={"decay": 0.999})
+        metrics[dev] = {k: float(v) for k, v in step(state, images.to(dev))[1].items()}
+    for key, want in metrics["cpu"].items():
+        np.testing.assert_allclose(metrics["cuda"][key], want, rtol=1e-3, atol=1e-6, err_msg=key)

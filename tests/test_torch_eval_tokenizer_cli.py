@@ -7,9 +7,13 @@
   key by key (rtol 1e-5, and atol 1e-6 for the random tokenizer's SSIM near
   0, a mean of float32 values in [-1, 1]; codebook usage and entropy
   exactly), for an LFQ and a VQ tokenizer; `eval_results.json` holds them.
-* LPIPS weights named are refused. (The CLI with Inception weights runs in
-  `tests/test_torch_no_jax.py` and on the card in `chip_smoke.py`; the IS
-  and rFID it computes are held against JAX in `tests/test_torch_eval.py`.)
+* With `MASKBIT_VGG16_WEIGHTS` naming a (random) torchvision VGG16 file,
+  both CLIs score LPIPS with the shipped lin heads and agree on it and on
+  every other metric as above (LPIPS rtol 1e-5). The test keeps its old
+  name, from when the port refused LPIPS weights. (The CLI with Inception
+  weights runs in `tests/test_torch_no_jax.py` and on the card in
+  `chip_smoke.py`; the IS and rFID it computes are held against JAX in
+  `tests/test_torch_eval.py`.)
 * `cli/demo` runs at a tiny size and names its classes.
 """
 
@@ -62,11 +66,25 @@ def test_eval_tokenizer_matches_jax(tmp_path, monkeypatch, vq_cfg):
 
 
 def test_eval_tokenizer_refuses_lpips_weights(tmp_path, monkeypatch):
+    from maskbit_tpu_torch.losses.lpips import random_vgg16_state
+
     monkeypatch.setenv("WORKSPACE", str(tmp_path / "ws"))
-    monkeypatch.setenv("MASKBIT_VGG16_WEIGHTS", str(tmp_path / "vgg16.pth"))
-    cfg = _cfg(tmp_path, "lpips", {"model.vq_model": VQ, "eval.device": "cpu"})
-    with pytest.raises(NotImplementedError, match="Queue 1 items 3a and 3c"):
-        et.main([f"config={cfg}"])
+    monkeypatch.setenv("MASKBIT_EVAL_MAX_BATCHES", "1")
+    for var in ("MASKBIT_INCEPTION_WEIGHTS", "MASKBIT_ADM_PB", "MASKBIT_LPIPS_WEIGHTS"):
+        monkeypatch.delenv(var, raising=False)
+    vgg_path = str(tmp_path / "vgg16.pth")
+    torch.save(random_vgg16_state(0), vgg_path)
+    monkeypatch.setenv("MASKBIT_VGG16_WEIGHTS", vgg_path)
+    extra = {"model.vq_model": VQ, "experiment.vqgan_checkpoint": _weights(tmp_path, VQ),
+             "eval.device": "cpu"}
+    want = jax_et.main([f"config={_cfg(tmp_path, 'jax_lpips', extra)}"])
+    got = et.main([f"config={_cfg(tmp_path, 'lpips', dict(extra, **{'training.per_device_batch_size': 16}))}"])
+    assert list(got) == list(want) and "LPIPS" in got
+    for key in want:
+        if key.startswith("Codebook"):
+            assert got[key] == want[key], key
+        else:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6, err_msg=key)
 
 
 def test_demo_runs_and_names_its_classes(tmp_path):

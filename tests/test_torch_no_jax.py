@@ -4,8 +4,11 @@
   `maskbit_tpu_torch`, reads a tiny config through the port's own
   `load_config`, serves a tiny model, takes one tiny train step on the
   CPU, writes image shards and pretokenizes them, resumes the train run
-  from its checkpoint for one step from those token shards, evaluates the
-  tokenizer and the generator (`cli.eval_tokenizer`, `cli.eval_maskbit`
+  from its checkpoint for one step from those token shards, trains the
+  tiny tokenizer two steps (`cli.train_tokenizer`, the discriminator live
+  from the second, LPIPS with the shipped lin heads and random VGG16
+  weights as the perceptual loss), evaluates the tokenizer (with LPIPS) and
+  the generator (`cli.eval_tokenizer`, `cli.eval_maskbit`
   with random Inception weights) and computes `cli.make_stats` over the
   image shard, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
   in `sys.modules`.
@@ -62,10 +65,17 @@ assert pretokenize([f"config={sys.argv[1]}", f"pretokenize.shards={work}/img-000
 result = train([f"config={sys.argv[1]}", "training.max_train_steps=2",
                 f"dataset.params.token_shards_path_or_url={work}/tok-0000.npz"])
 assert result["resumed_from"] == 1 and result["steps"] == 2, result
-from maskbit_tpu_torch.cli import eval_maskbit, eval_tokenizer, make_stats
+from maskbit_tpu_torch.cli import eval_maskbit, eval_tokenizer, make_stats, train_tokenizer
 from maskbit_tpu_torch.eval.inception import random_inception_state
+from maskbit_tpu_torch.losses.lpips import random_vgg16_state
+torch.save(random_vgg16_state(0), os.path.join(work, "vgg16.pth"))
+os.environ["MASKBIT_VGG16_WEIGHTS"] = os.path.join(work, "vgg16.pth")
+tok = train_tokenizer.main([f"config={sys.argv[1]}", "training.max_train_steps=2",
+                            f"experiment.output_dir={work}/tok"])
+assert tok["steps"] == 2 and tok["perceptual"], tok
+assert tok["history"][-1]["discriminator_loss"] != 0.0, tok["history"]
 os.environ["MASKBIT_EVAL_MAX_BATCHES"] = "1"
-assert "SSIM" in eval_tokenizer.main([f"config={sys.argv[1]}"])
+assert "LPIPS" in eval_tokenizer.main([f"config={sys.argv[1]}"])
 torch.save(random_inception_state(0), os.path.join(work, "inception.pth"))
 os.environ["MASKBIT_INCEPTION_WEIGHTS"] = os.path.join(work, "inception.pth")
 gen = eval_maskbit.main([f"config={sys.argv[1]}", "eval.total_samples=3", "eval.batch_size=2"])
@@ -84,7 +94,12 @@ def test_port_imports_no_jax(tmp_path):
                        "output_dir": str(tmp_path / "train")},
         "model": {"vq_model": TINY_VQ,
                   "mlm_model": dict(TINY_MLM, attention_impl="fused", hidden_dim=64, heads=1,
-                                    attention_dropout=0.1, fused_attention_dropout=True)},
+                                    attention_dropout=0.1, fused_attention_dropout=True),
+                  "discriminator": {"name": "VQGAN+Discriminator", "num_stages": 1,
+                                    "hidden_channels": 32, "blur_resample": True}},
+        "losses": {"perceptual_loss": "lpips", "perceptual_weight": 0.1,
+                   "discriminator_start": 1, "discriminator_gradient_penalty": "adopt_weight",
+                   "lecam_regularization_weight": 0.001},
         "dataset": DATASET,
         "optimizer": {"params": {"learning_rate": 1e-4}},
         "training": {"mixed_precision": "no", "seed": 0, "device": "cpu",

@@ -9,8 +9,12 @@
   `quantize/embedding` included): indices equal, reconstructions within
   atol 1e-4 (as `tests/test_torch_tokenizer_decode.py`), float32 on both
   sides; `decode_tokens` of a VQ tokenizer likewise.
-* What is not ported is refused: the entropy term in training mode and the
-  taming tokenizer.
+* The entropy term in training mode (`train=True`, weight 0.1, T 0.5):
+  every loss within rtol 1e-5 and the gradients with respect to the
+  latents and the codebook within 1e-5 of their largest entries; at
+  inference the term is 0.
+* What is not ported is refused: the taming tokenizer (and, as in JAX, the
+  VAE bottleneck).
 """
 
 import jax
@@ -87,12 +91,39 @@ def test_tokenizer_forward_matches_jax(cfg, legacy):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("l2", [False, True])
+def test_vq_entropy_term_matches_jax(l2):
+    rng = np.random.default_rng(10 + int(l2))
+    z = rng.normal(size=(2, 4, 4, 8)).astype(np.float32)
+    codebook = (rng.normal(size=(16, 8)) * 0.5).astype(np.float32)
+    kw = dict(codebook_size=16, token_size=8, entropy_loss_weight=0.1,
+              entropy_loss_temperature=0.5, use_l2_normalisation=l2)
+    jq = JaxSimpleVectorizer(**kw)
+
+    def jloss(z, emb):
+        _, d = jq.apply({"params": {"embedding": emb}}, z, train=True)
+        return d["quantizer_loss"], d
+
+    (_, want), (want_gz, want_ge) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(z), jnp.asarray(codebook))
+    q = SimpleVectorizer(16, 8, entropy_loss_weight=0.1, entropy_loss_temperature=0.5,
+                         use_l2_normalisation=l2)
+    with torch.no_grad():
+        q.embedding.weight.copy_(torch.from_numpy(codebook))
+    zt = torch.from_numpy(z).requires_grad_()
+    _, got = q(zt, train=True)
+    got["quantizer_loss"].backward()
+    assert float(got["entropy_loss"]) != 0.0
+    for key in ("quantizer_loss", "commitment_loss", "codebook_loss", "entropy_loss",
+                "per_sample_entropy", "avg_entropy"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, err_msg=key)
+    for g, w in ((zt.grad, want_gz), (q.embedding.weight.grad, want_ge)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+    assert float(q(zt)[1]["entropy_loss"]) == 0.0  # inference: no entropy term
+
+
 def test_what_is_not_ported_is_refused():
-    q = SimpleVectorizer(16, 4, entropy_loss_weight=0.1)
-    z = torch.randn(1, 2, 2, 4)
-    q.eval()(z)  # inference is fine
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        q.train()(z)
     from maskbit_tpu_torch.cli.eval_tokenizer import build_tokenizer
     from maskbit_tpu_torch.core.config import Config
 

@@ -111,6 +111,30 @@ Phases, each of which fails the run if it fails:
         ResNet-50 loss and the entropy timed alone;
      d. maskbit_tokenizer_18bit.yaml (262,144 codes): one step's time and
         peak memory, the entropy's forward and backward alone.
+ 10. variants (`--phases variants`): the Bert generator, the converter and
+     the taming tokenizer, random weights:
+     a. Bert (`maskbit_generator_12bit.yaml` with `model_cls=bert`: hidden
+        1024, 16 heads, 4096 codes in 2 splits, bf16, `attention_impl:
+        fused`) cut to depth 2: logits through the block kernel on the card
+        against a float32 plain forward on the CPU (relative error 3e-2, as
+        LFQBert's in phase 3);
+     b. `cli.serve` with that Bert at depth 24, serve batch 8: three seeded
+        8-label /generate requests (byte-identical), img/s, and the block
+        and `fused_attention` on every layer of every step; LFQBert on the
+        same config before it, for comparison;
+     c. `cli.train_maskbit` with it, batch 32, 6 steps, synthetic data:
+        finite losses, the dropout kernels on every layer and step,
+        samples/s and peak memory; LFQBert likewise after the convert;
+     d. `cli.convert_checkpoint` of that run's `model-6.bin` and of a random
+        14-bit LFQ tokenizer `.bin`, `.bin` -> `.msgpack` -> `.bin`: equal
+        key for key and bit for bit; the converted Bert's logits on the
+        card equal the original's bit for bit; seconds and sizes;
+     e. `cli.eval_tokenizer` on `configs/external/taming_vqgan_tokenizer.yaml`
+        at its published widths over 4 batches of 16 synthetic 256 px
+        images (every metric finite; img/s), one bf16 forward of 16 images
+        timed, and one float32 forward on the card (TF32 off) against the
+        CPU: tokens all equal, and the decode of the CPU's tokens within 1e-4.
+     Its files live under build/chip_smoke_data/ and are deleted.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -163,6 +187,10 @@ TOKENIZER_CONFIGS = tuple(os.path.join(ROOT, "configs", "tokenizer", name)
 TOKENIZER_18 = os.path.join(ROOT, "configs", "tokenizer", "maskbit_tokenizer_18bit.yaml")
 # phase 9: Stage-I steps, the discriminator's gate, saves, eval batches, the resume
 TOK_STEPS, TOK_GATE, TOK_SAVE, TOK_EVAL_BATCHES, TOK_RESUME = 6, 3, 3, 2, 8
+# phase 10: Bert is the 12-bit config's generator with this one override
+BERT_CONFIG = os.path.join(ROOT, "configs", "generator", "maskbit_generator_12bit.yaml")
+TAMING_CONFIG = os.path.join(ROOT, "configs", "external", "taming_vqgan_tokenizer.yaml")
+TAMING_BATCHES = 4
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -772,7 +800,7 @@ def phase_train_slice(torch, device_info) -> dict:
     result = main(argv)
     wall = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launched = dict(da.launches)
+    launched = {"attention_block": ab.launches, **da.launches}
     hist = result["history"]
     losses = [h["mlm_loss"] for h in hist]
     step_s = [h["perf/step_seconds"] for h in hist]
@@ -1683,8 +1711,319 @@ def _step_18bit(torch, images, logger, work) -> dict:
             "entropy_peak_mib": entropy_peak_mib, "total_loss": float(metrics["total_loss"])}
 
 
+def _bert_model() -> dict:
+    """The 12-bit generator config's `model` node with `model_cls: bert`."""
+    import yaml
+
+    with open(BERT_CONFIG) as f:
+        model = yaml.safe_load(f)["model"]
+    model["mlm_model"]["model_cls"] = "bert"
+    return model
+
+
+def _bert_logits_check(torch) -> dict:
+    """Bert at the 12-bit config's width, depth cut to 2: bf16 on the card
+    (the attention block kernel) against float32 plain on the CPU."""
+    from maskbit_tpu_torch.cli.common import build_module, random_init_
+    from maskbit_tpu_torch.models.generator import make_generator
+    from maskbit_tpu_torch.nn import attention_block as ab
+
+    model = _bert_model()
+    mlm, vq = dict(model["mlm_model"], depth=2), model["vq_model"]
+    card = build_module(lambda: make_generator("bert", mlm, vq, dtype=torch.bfloat16), "cuda")
+    random_init_(card, torch.Generator(device="cuda").manual_seed(11))
+    cpu = build_module(lambda: make_generator("bert", dict(mlm, attention_impl="einsum"), vq),
+                       "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+    card.to(torch.bfloat16)
+    g = torch.Generator().manual_seed(12)
+    b = 4
+    tokens = torch.randint(0, card.mask_token + 1, (b, card.seq_len, card.codebook_splits),
+                           generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 1000, (b,), generator=g)
+    drop = torch.tensor([False, True, False, True])
+    before = ab.launches
+    with torch.inference_mode():
+        got = card(tokens.cuda(), labels.cuda(), drop.cuda()).float().cpu()
+        ref = cpu(tokens, labels, drop)
+    launched = ab.launches - before
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"[variants] Bert logits (depth 2, bf16 block kernel on the card vs f32 plain on the "
+        f"CPU): shape {tuple(got.shape)}, relative error {rel:.3e} (tol 3e-2, as LFQBert's), "
+        f"max|ref| {ref.abs().max().item():.3f}; block launches {launched}")
+    if not torch.isfinite(got).all() or rel > 3e-2 or launched != 2:
+        raise AssertionError(f"Bert logits disagree: relative error {rel}, launches {launched}")
+    return {"relative_error": rel}
+
+
+def _serve_12bit(torch, device_info, model_cls: str) -> dict:
+    """`cli.serve` on the 12-bit config with the generator `model_cls` at
+    serve batch 8."""
+    from maskbit_tpu_torch.cli.serve import main
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    mlm = _bert_model()["mlm_model"]
+    depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+    argv = [f"config={BERT_CONFIG}", f"model.mlm_model.model_cls={model_cls}",
+            f"serve.batch_size={SERVE_BATCH}",
+            "serve.port=0", "serve.device=cuda", "experiment.vqgan_checkpoint=",
+            "experiment.generator_checkpoint="]
+    ab.launches = 0
+    for key in da.launches:
+        da.launches[key] = 0
+    t0 = time.perf_counter()
+    server, service = main(argv, serve_forever=False)
+    startup = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    labels = [1, 7, 282, 88, 207, 360, 387, 974][:SERVE_BATCH]
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        times, outputs = [], []
+        for _ in range(3):
+            data, dt = _post(base, {"labels": labels, "seed": 5})
+            outputs.append(data)
+            times.append(dt)
+        imgs = _images(outputs[0])
+        _check_images(imgs, len(labels))
+        if any(o != outputs[0] for o in outputs):
+            raise AssertionError(f"seeded {model_cls} repeats differ")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    torch.cuda.synchronize()
+    launches = {"attention_block": ab.launches, **da.launches}
+    expected = depth * steps * service.device_calls
+    request_s = statistics.median(times)
+    log(f"[variants] {model_cls} serve: startup {startup:.2f} s; {len(times)} seeded requests of "
+        f"{len(labels)} labels {', '.join(f'{t:.3f}' for t in times)} s (byte-identical); "
+        f"median {request_s:.3f} s = {len(labels) / request_s:.3f} img/s at serve batch "
+        f"{SERVE_BATCH} [{device_info['card']}]")
+    log(f"[variants] {model_cls} serve launches {launches}; expected depth {depth} x steps {steps} x "
+        f"device calls {service.device_calls} = {expected} of the block and fused_attention, "
+        f"0 of the dropout kernels")
+    want = {"attention_block": expected, "fused_attention": expected,
+            "dropout_attention_fwd": 0, "dropout_attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"{model_cls} serve launched {launches}, expected {want}")
+    return {"launches": launches, "request_s": times, "img_per_s": len(labels) / request_s,
+            "startup_s": startup}
+
+
+def _train_12bit(torch, device_info, out_dir, model_cls: str) -> dict:
+    """`cli.train_maskbit` on the 12-bit config with the generator
+    `model_cls`: 6 steps at batch 32."""
+    from maskbit_tpu_torch.cli.train_maskbit import main
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    depth = int(_bert_model()["mlm_model"]["depth"])
+    argv = [f"config={BERT_CONFIG}", f"model.mlm_model.model_cls={model_cls}",
+            f"training.per_device_batch_size={TRAIN_BATCH}",
+            f"training.max_train_steps={TRAIN_STEPS}", "training.device=cuda",
+            "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+            f"experiment.output_dir={out_dir}"]
+    for key in da.launches:
+        da.launches[key] = 0
+    ab.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = main(argv)
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launched = {"attention_block": ab.launches, **da.launches}
+    hist = result["history"]
+    losses = [h["mlm_loss"] for h in hist]
+    step_s = [h["perf/step_seconds"] for h in hist]
+    median_s = statistics.median(step_s[1:])
+    log(f"[variants] {model_cls} train: {len(hist)} steps at batch {TRAIN_BATCH}, depth {depth}: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; median step (steps 2..{len(hist)}) "
+        f"{median_s * 1e3:.1f} ms = {TRAIN_BATCH / median_s:.1f} samples/s; peak memory "
+        f"{peak_gib:.2f} GiB; wall {wall:.1f} s [{device_info['card']}]")
+    log(f"[variants] {model_cls} train launches {launched} (expected {depth * TRAIN_STEPS} of each "
+        f"dropout kernel)")
+    if len(losses) != TRAIN_STEPS or not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite or missing {model_cls} losses: {losses}")
+    for key in ("dropout_attention_fwd", "dropout_attention_bwd"):
+        if launched[key] != depth * TRAIN_STEPS:
+            raise AssertionError(f"{model_cls} train: {key} launched {launched[key]} times")
+    return {"launches": launched, "losses": losses, "step_seconds": step_s,
+            "median_step_s": median_s, "samples_per_s": TRAIN_BATCH / median_s,
+            "peak_gib": peak_gib}
+
+
+def _convert_round_trip(torch, work, bert_bin) -> dict:
+    """`cli.convert_checkpoint` .bin -> .msgpack -> .bin for the full-width
+    Bert and the 14-bit LFQ tokenizer, bit for bit; the converted Bert's
+    logits on the card against the original's."""
+    from maskbit_tpu_torch.cli import convert_checkpoint
+    from maskbit_tpu_torch.cli.common import build_module, random_init_
+    from maskbit_tpu_torch.core.checkpoint import load_pretrained, save_pretrained
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.models.generator import make_generator
+    from maskbit_tpu_torch.models.tokenizer import ConvVQModel
+
+    vq14 = load_config(TOKENIZER_CONFIGS[0]).model.vq_model
+    tok_bin = os.path.join(work, "tokenizer_14bit.bin")
+    tokenizer = build_module(lambda: ConvVQModel.from_config(vq14), "cpu")
+    random_init_(tokenizer, torch.Generator().manual_seed(13))
+    save_pretrained(tokenizer, tok_bin)
+    del tokenizer
+    out = {}
+    for name, source, flags in (("bert", bert_bin, []),
+                                ("tokenizer_14bit", tok_bin,
+                                 ["--codebook-size", str(vq14.codebook_size)])):
+        zoo, back = (os.path.join(work, f"{name}{ext}") for ext in (".msgpack", "-back.bin"))
+        t0 = time.perf_counter()
+        convert_checkpoint.main(["--input", source, "--output", zoo])
+        t1 = time.perf_counter()
+        convert_checkpoint.main(["--input", zoo, "--output", back] + flags)
+        t2 = time.perf_counter()
+        a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (source, back))
+        diff = sorted(set(a) ^ set(b)) + [k for k in a if k in b and not (
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and torch.equal(a[k], b[k]))]
+        sizes = {p: os.path.getsize(p) for p in (source, zoo, back)}
+        out[name] = {"to_msgpack_s": t1 - t0, "to_bin_s": t2 - t1, "keys": len(a),
+                     "bytes": {os.path.basename(p): v for p, v in sizes.items()}}
+        log(f"[variants] convert {name}: .bin -> .msgpack {t1 - t0:.2f} s, .msgpack -> .bin "
+            f"{t2 - t1:.2f} s; sizes " + ", ".join(f"{os.path.basename(p)} {v / 2**20:.1f} MiB"
+                                                   for p, v in sizes.items())
+            + f"; {len(a)} keys, {len(diff)} differ")
+        if diff:
+            raise AssertionError(f"convert {name}: keys differ after the round trip: {diff[:5]}")
+
+    model = _bert_model()
+    originals = []
+    for path in (bert_bin, os.path.join(work, "bert-back.bin")):
+        gen = build_module(lambda: make_generator("bert", model["mlm_model"], model["vq_model"],
+                                                  dtype=torch.bfloat16), "cuda")
+        gen.load_state_dict(load_pretrained(path, "cuda"), strict=True)
+        originals.append(gen)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    tokens = torch.randint(0, originals[0].mask_token + 1, (2, originals[0].seq_len, 2),
+                           generator=g, device="cuda", dtype=torch.int32)
+    labels = torch.tensor([5, 6], device="cuda")
+    with torch.inference_mode():
+        want, got = (m(tokens, labels) for m in originals)
+    equal = bool(torch.equal(want, got))
+    log(f"[variants] converted Bert on the card: logits {tuple(got.shape)} equal bit for bit "
+        f"to the original's: {equal}")
+    if not equal:
+        raise AssertionError("the converted Bert's logits differ from the original's")
+    return out
+
+
+def _taming(torch, device_info, work) -> dict:
+    """`cli.eval_tokenizer` on the taming config at its published widths,
+    then one float32 forward on the card (TF32 off) against the CPU."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import eval_tokenizer
+    from maskbit_tpu_torch.cli.common import build_module, random_init_
+    from maskbit_tpu_torch.core.config import load_config
+    from maskbit_tpu_torch.models.taming import OriginalVQModel
+    from maskbit_tpu_torch.utils.precision import full_f32
+
+    pattern = os.path.join(work, "shards", "img-%04d.tar")
+    os.makedirs(os.path.dirname(pattern))
+    _write_image_shards(pattern, TAMING_BATCHES * 16, 256)
+    shards = os.path.join(work, "shards", "img-0000.tar")
+    # the metrics that need no Inception, ADM-graph or VGG16 weights
+    env = {"MASKBIT_EVAL_MAX_BATCHES": str(TAMING_BATCHES), "MASKBIT_INCEPTION_WEIGHTS": "",
+           "MASKBIT_ADM_PB": "", "MASKBIT_VGG16_WEIGHTS": ""}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        metrics = eval_tokenizer.main([
+            f"config={TAMING_CONFIG}", "eval.device=cuda", "experiment.vqgan_checkpoint=",
+            f"dataset.params.train_shards_path_or_url={shards}",
+            f"dataset.params.eval_shards_path_or_url={shards}",
+            f"experiment.output_dir={os.path.join(work, 'eval_taming')}"])
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if len(metrics) != 6 or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"eval_tokenizer taming: {metrics}")
+
+    vq = load_config(TAMING_CONFIG).model.vq_model
+    card = build_module(lambda: OriginalVQModel.from_config(vq, dtype=torch.bfloat16), "cuda")
+    random_init_(card, torch.Generator(device="cuda").manual_seed(15))
+    images = torch.from_numpy(np.random.default_rng(16).uniform(
+        size=(16, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        forward_ms = _time_ms(torch, lambda: card(images), iters=5, warmup=2)
+    log(f"[variants] eval_tokenizer taming (bf16, ch 128, ch_mult (1, 1, 2, 2, 4), attention at "
+        f"16, z 256, codebook 1024 x 256): {TAMING_BATCHES} batches of 16 in {wall:.1f} s "
+        f"(model build, random init and shard reading included) = "
+        f"{TAMING_BATCHES * 16 / wall:.2f} img/s; one forward of 16 images {forward_ms:.1f} ms = "
+        f"{16e3 / forward_ms:.1f} img/s [{device_info['card']}]; {metrics}")
+
+    # float32, TF32 off on the card, against the CPU
+    card = build_module(lambda: OriginalVQModel.from_config(vq), "cuda")
+    random_init_(card, torch.Generator(device="cuda").manual_seed(15))
+    cpu = build_module(lambda: OriginalVQModel.from_config(vq), "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+    x = images[:1].cpu()
+    with torch.inference_mode(), full_f32():
+        want, want_result = cpu(x)
+        got, got_result = card(x.cuda())
+        tokens = want_result["min_encoding_indices"].reshape(1, -1)
+        decoded_cpu = cpu.decode_tokens(tokens)
+        decoded_card = card.decode_tokens(tokens.cuda())
+    agree = (got_result["min_encoding_indices"].cpu() == want_result["min_encoding_indices"])
+    agree = agree.float().mean().item()
+    scale = decoded_cpu.abs().max().item()
+    decode_gap = (decoded_card.cpu() - decoded_cpu).abs().max().item() / scale
+    recon_gap = (got.cpu() - want).abs().max().item() / scale
+    log(f"[variants] taming float32 forward, card (TF32 off) vs CPU, one 256 px image: tokens "
+        f"equal {agree:.4%}; decode of the CPU's tokens max |diff| / max|cpu| {decode_gap:.3e} "
+        f"(tol 1e-4, tokens all equal); reconstruction {recon_gap:.3e}")
+    if agree != 1.0 or decode_gap > 1e-4 or not torch.isfinite(got).all():
+        raise AssertionError(f"taming card vs CPU: tokens {agree}, decode gap {decode_gap}")
+    return {"metrics": metrics, "wall_s": wall, "img_per_s": TAMING_BATCHES * 16 / wall,
+            "forward_ms": forward_ms, "token_agreement": agree, "decode_gap": decode_gap,
+            "recon_gap": recon_gap}
+
+
+def phase_variants(torch, device_info) -> dict:
+    """Bert served and trained through the kernels, the converter's round
+    trip, and the taming tokenizer (phase 10)."""
+    work = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    try:
+        check = _bert_logits_check(torch)
+        # LFQBert at the same widths, for comparison, within the same call
+        lfq_serve = _serve_12bit(torch, device_info, "lfq_bert")
+        serve = _serve_12bit(torch, device_info, "bert")
+        train = _train_12bit(torch, device_info, os.path.join(work, "bert_train"), "bert")
+        convert = _convert_round_trip(
+            torch, work, os.path.join(work, "bert_train", f"model-{TRAIN_STEPS}.bin"))
+        shutil.rmtree(os.path.join(work, "bert_train"))
+        lfq_train = _train_12bit(torch, device_info, os.path.join(work, "lfq_train"), "lfq_bert")
+        shutil.rmtree(os.path.join(work, "lfq_train"))
+        taming = _taming(torch, device_info, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[variants] 12-bit widths, Bert vs LFQBert: serve {serve['img_per_s']:.3f} vs "
+        f"{lfq_serve['img_per_s']:.3f} img/s; train {train['samples_per_s']:.1f} vs "
+        f"{lfq_train['samples_per_s']:.1f} samples/s, peak {train['peak_gib']:.2f} vs "
+        f"{lfq_train['peak_gib']:.2f} GiB [{device_info['card']}]")
+    log(f"[variants] phase time {time.perf_counter() - t0:.1f} s")
+    return {"logits_check": check, "serve": serve, "train": train, "convert": convert,
+            "taming": taming, "lfq_bert_serve": lfq_serve, "lfq_bert_train": lfq_train}
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval", "tokenizer_train")
+          "eval", "tokenizer_train", "variants")
 
 
 def _args(argv):
@@ -1709,6 +2048,7 @@ def _args(argv):
 def main(argv=None) -> int:
     import torch
 
+    t_start = time.perf_counter()
     args = _args(sys.argv[1:] if argv is None else argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -1731,22 +2071,27 @@ def main(argv=None) -> int:
     data = phase_train_data(torch, device_info, tr) if "train_data" in run else None
     ev = phase_eval(torch, device_info) if "eval" in run else None
     tok = phase_tokenizer_train(torch, device_info) if "tokenizer_train" in run else None
+    var = phase_variants(torch, device_info) if "variants" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
-                       "train_data": data, "eval": ev, "tokenizer_train": tok}, f, indent=1)
-        log(f"[done] phases {args.phases} passed")
+                       "train_data": data, "eval": ev, "tokenizer_train": tok,
+                       "variants": var}, f, indent=1)
+        log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     def row(name, source, replaces, launches, rows, **extra):
         first = rows[0]
         # phase 7 drives all four kernels again: its counts, read after its first run
-        data_launches = data["launches"]["attention_block" if name == "fused_attention_block"
-                                          else name]
+        key = "attention_block" if name == "fused_attention_block" else name
+        data_launches = data["launches"][key]
+        # phase 10: the Bert generator served and trained
+        bert = {"launches_bert_serve": var["serve"]["launches"][key],
+                "launches_bert_train": var["train"]["launches"][key]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "launches_train_data": data_launches,
+                "launches": launches, "launches_train_data": data_launches, **bert,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -1774,15 +2119,20 @@ def main(argv=None) -> int:
             sl["fused_attention_launches"], drop["fused_attention"],
             launches_eval=ev["launches"]["fused_attention"]),
     ]}
+    bert_path = {"fused_attention_block": "launches_bert_serve",
+                 "fused_attention": "launches_bert_serve",
+                 "dropout_attention_fwd": "launches_bert_train",
+                 "dropout_attention_bwd": "launches_bert_train"}
     idle = [k["name"] for k in record["kernels"]
             if k["launches"] <= 0 or k["launches_train_data"] <= 0
-            or k.get("launches_eval", 1) <= 0]
+            or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
-                   "eval": ev, "tokenizer_train": tok}, f, indent=1)
+                   "eval": ev, "tokenizer_train": tok, "variants": var}, f, indent=1)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

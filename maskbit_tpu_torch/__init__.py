@@ -13,7 +13,9 @@ kernels; evaluation (`eval/`: Inception, the ADM protocol, the streaming
 evaluators; `cli/eval_maskbit`, `cli/eval_tokenizer`, `cli/make_stats`,
 `cli/demo`); Stage-I tokenizer training (`train/tokenizer_trainer`,
 `cli/train_tokenizer`: the LFQ and VQ training losses, the PatchGAN
-discriminators, the GAN, perceptual and LPIPS losses).
+discriminators, the GAN, perceptual and LPIPS losses); the Bert generator
+and the taming VQGAN baselines; `cli/convert_checkpoint` between the
+original repo's `.bin` and the zoo's `.msgpack`.
 """
 
 __version__ = "0.1.0"

@@ -5,9 +5,11 @@
         experiment.vqgan_checkpoint=/path/maskbit_tokenizer_14bit.bin eval.device=cuda
 
 Counterpart of `maskbit_tpu/cli/eval_tokenizer.py`: the tokenizer of
-`model.vq_model.model_class` (`vqgan+` / `maskbit`, or `maskgit` with the
-legacy decoder; weights from `experiment.vqgan_checkpoint`, a `.bin`,
-else seeded random weights with a warning) reconstructs the eval batches
+`model.vq_model.model_class` (`vqgan+` / `maskbit`, `maskgit` with the
+legacy decoder, or `taming`, `models/taming.OriginalVQModel` with the JAX
+CLI's keys and defaults; weights from `experiment.vqgan_checkpoint`, a
+`.bin` (a taming one with its `loss.*` keys) or a `.msgpack`, else seeded
+random weights with a warning) reconstructs the eval batches
 (`dataset.params.eval_shards_path_or_url` when the train shards exist,
 else the synthetic eval batches) and `TokenizerEvaluator` streams MAE, MSE,
 PSNR, SSIM, codebook usage and entropy, and with Inception weights rFID and
@@ -21,8 +23,7 @@ Inception weights (`make_inception_fn`): `MASKBIT_ADM_PB`, the ADM suite's
 `MASKBIT_INCEPTION_WEIGHTS`, a pt-fid `.pth`. LPIPS (`make_lpips_fn`) is
 scored when `MASKBIT_VGG16_WEIGHTS` names torchvision's VGG16 state dict;
 its lin heads come from `MASKBIT_LPIPS_WEIGHTS`, by default the port's
-shipped copy of the JAX package's `.msgpack`. Not ported yet: the `taming`
-tokenizer (ROADMAP.md, Queue 1 item 3f).
+shipped copy of the JAX package's `.msgpack`.
 """
 
 from __future__ import annotations
@@ -45,11 +46,13 @@ from maskbit_tpu_torch.cli.common import (
 from maskbit_tpu_torch.core.checkpoint import load_pretrained
 from maskbit_tpu_torch.core.config import config_from_cli
 from maskbit_tpu_torch.eval.streaming import TokenizerEvaluator
+from maskbit_tpu_torch.models.taming import OriginalVQModel
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
 
 
-def build_tokenizer(config, dtype: torch.dtype) -> ConvVQModel:
-    """vqgan+ / maskbit, or maskgit (the legacy decoder); taming is refused."""
+def build_tokenizer(config, dtype: torch.dtype) -> torch.nn.Module:
+    """vqgan+ / maskbit, maskgit (the legacy decoder), or taming (the
+    CompVis VQGAN with attention)."""
     vq_cfg = config.model.vq_model
     model_class = vq_cfg.get("model_class", "vqgan+")
     if model_class in ("vqgan+", "maskbit"):
@@ -57,8 +60,7 @@ def build_tokenizer(config, dtype: torch.dtype) -> ConvVQModel:
     if model_class == "maskgit":
         return ConvVQModel.from_config(vq_cfg, legacy=True, dtype=dtype)
     if model_class == "taming":
-        raise NotImplementedError("model_class 'taming' is not ported to maskbit_tpu_torch yet "
-                                  "(ROADMAP.md, Queue 1 item 3f)")
+        return OriginalVQModel.from_config(vq_cfg, dtype=dtype)
     raise ValueError(f"Unknown tokenizer model_class {model_class!r}")
 
 

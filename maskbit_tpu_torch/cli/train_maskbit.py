@@ -3,8 +3,8 @@
     python -m maskbit_tpu_torch.cli.train_maskbit \\
         config=configs/generator/maskbit_generator_14bit.yaml training.device=cuda
 
-Counterpart of `maskbit_tpu/cli/train_maskbit.py`. LFQBert trains with the
-MLM loss, clip + AdamW on the configured LR schedule, and an EMA of its
+Counterpart of `maskbit_tpu/cli/train_maskbit.py`. The generator of
+`model.mlm_model.model_cls` (`lfq_bert` or `bert`) trains with the MLM loss, clip + AdamW on the configured LR schedule, and an EMA of its
 weights, from one of three inputs:
   * `dataset.params.token_shards_path_or_url` set: pre-tokenized shards
     (`cli/pretokenize.py`, `TokenShardDataset`), no tokenizer in the step;

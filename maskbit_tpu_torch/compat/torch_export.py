@@ -50,6 +50,16 @@ def _unmerge(part: str) -> str:
     return ".".join(parts)
 
 
+# the CompVis mid block's children keep their underscores (`mid.block_1`)
+_TAMING_MID = ("block_1", "attn_1", "block_2")
+
+
+def _torch_key(path: tuple) -> str:
+    """A flax module path -> the dotted torch module name."""
+    return ".".join(p if i and path[i - 1] == "mid" and p in _TAMING_MID else _unmerge(p)
+                    for i, p in enumerate(path))
+
+
 def _lfq_buffers(codebook_size: int) -> Dict[str, np.ndarray]:
     """The LFQ quantizer's registered buffers (lookup_free.py:38-43)."""
     token_bits = int(round(math.log2(codebook_size)))
@@ -64,7 +74,8 @@ def _lfq_buffers(codebook_size: int) -> Dict[str, np.ndarray]:
 def export_tokenizer_state(
     variables: Any, codebook_size: Optional[int] = None
 ) -> Dict[str, np.ndarray]:
-    """Flax ConvVQModel params -> reference ConvVQModel state dict.
+    """Flax ConvVQModel or taming OriginalVQModel params -> the original
+    repo's (or CompVis's) state dict.
 
     LFQ tokenizers have no quantizer parameters (embedding-free), so their
     state-dict buffers must be reconstructed — pass `codebook_size`
@@ -77,10 +88,10 @@ def export_tokenizer_state(
     has_vq_embedding = False
     for path, value in flat.items():
         leaf = path[-1]
-        base = ".".join(_unmerge(p) for p in path[:-1])
+        base = _torch_key(path[:-1])
         if leaf == "embedding":
             # stored AT quantize/embedding by the importer
-            state[".".join(_unmerge(p) for p in path) + ".weight"] = value
+            state[_torch_key(path) + ".weight"] = value
             has_vq_embedding = True
         elif leaf == "kernel":
             if value.ndim == 4:  # HWIO -> OIHW

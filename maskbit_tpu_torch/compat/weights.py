@@ -31,7 +31,7 @@ def _to_tensors(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def generator_from_flax(np_tree: Any, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a JAX LFQBert parameter tree into `model` (strict)."""
+    """Load a JAX Bert or LFQBert parameter tree into `model` (strict)."""
     state = export_generator_state(np_tree, model.codebook_splits)
     model.load_state_dict(_to_tensors(state), strict=True)
     return model
@@ -39,9 +39,10 @@ def generator_from_flax(np_tree: Any, model: torch.nn.Module) -> torch.nn.Module
 
 def tokenizer_from_flax(np_tree: Any, model: torch.nn.Module,
                         codebook_size: Optional[int] = None) -> torch.nn.Module:
-    """Load a JAX ConvVQModel parameter tree into `model`: encoder, decoder
-    and the quantizer (LFQ's buffers, rebuilt from `codebook_size`, or VQ's
-    `quantize/embedding`), strict."""
+    """Load a JAX ConvVQModel or taming OriginalVQModel parameter tree into
+    `model`: encoder, decoder, the quantizer (LFQ's buffers, rebuilt from
+    `codebook_size`, or VQ's `quantize/embedding`) and taming's quant
+    convolutions, strict."""
     state = export_tokenizer_state(np_tree, codebook_size)
     model.load_state_dict(_to_tensors(state), strict=True)
     return model

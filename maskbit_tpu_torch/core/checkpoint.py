@@ -14,13 +14,14 @@ oldest first, and their metadata are deleted.
 
 `load_pretrained` is the counterpart of `maskbit_tpu/core/checkpoint.load_pretrained`:
 a PyTorch state dict in the original repo's layout, with its legacy
-`token_emb.` -> `input_proj.` rename for LFQBert, or a flax `.msgpack` of the
-JAX package's (its `save_pretrained`, the zoo format), read by
-`compat/msgpack` and mapped to that layout by `compat/torch_export` (a
-tokenizer when it has an encoder or decoder, else a generator).
-`save_pretrained` writes a `.bin` (float32 tensors on the CPU), which this
-loader and the JAX package's `load_pretrained` both read; the port writes
-no `.msgpack`.
+`token_emb.` -> `input_proj.` rename for LFQBert and without the `loss.*`
+keys a taming checkpoint bundles, or a flax `.msgpack` of the JAX package's
+(its `save_pretrained`, the zoo format), read by `compat/msgpack` and mapped
+to that layout by `compat/torch_export` (a tokenizer when it has an encoder
+or decoder, else a generator). `save_pretrained` writes a `.bin` (float32
+tensors on the CPU), which this loader and the JAX package's
+`load_pretrained` both read; `cli/convert_checkpoint` writes the
+`.msgpack`.
 """
 
 from __future__ import annotations
@@ -196,7 +197,7 @@ def load_pretrained(path: str, device="cpu") -> Dict[str, torch.Tensor]:
     if "state_dict" in state and isinstance(state["state_dict"], dict):
         state = state["state_dict"]
     return {("input_proj." + k[len("token_emb."):] if k.startswith("token_emb.") else k): v
-            for k, v in state.items()}
+            for k, v in state.items() if not k.startswith("loss.")}
 
 
 def save_pretrained(model: nn.Module, path: str,

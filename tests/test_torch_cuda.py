@@ -562,3 +562,93 @@ def test_stage1_step_on_the_card_matches_the_cpus():
         metrics[dev] = {k: float(v) for k, v in step(state, images.to(dev))[1].items()}
     for key, want in metrics["cpu"].items():
         np.testing.assert_allclose(metrics["cuda"][key], want, rtol=1e-3, atol=1e-6, err_msg=key)
+
+
+def _bert(dtype, attention_impl="fused", **kw):
+    from maskbit_tpu_torch.models.generator import Bert
+
+    return Bert(img_size=256, hidden_dim=256, codebook_size=4096, codebook_splits=2, depth=2,
+                heads=4, mlp_dim=512, attention_impl=attention_impl, dtype=dtype, **kw)
+
+
+def test_bert_forward_on_the_card_matches_the_cpus_float32():
+    """Bert in bf16 on the card (the attention block kernel on each layer)
+    against the float32 plain path on the CPU, same weights: relative error
+    within 3e-2, LFQBert's tolerance in `chip_smoke.py`."""
+    from maskbit_tpu_torch.models.generator import init_generator_weights_
+
+    _card()
+    cpu = _bert(torch.float32, attention_impl="einsum").eval()
+    init_generator_weights_(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for bias in cpu.bias:  # the initialisation zeroes them
+            bias.normal_(generator=torch.Generator().manual_seed(1))
+    card = _bert(torch.bfloat16).eval()
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    card.cuda().to(torch.bfloat16)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 65, (3, 256, 2), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 1000, (3,), generator=g)
+    before = ab.launches
+    with torch.inference_mode():
+        got = card(tokens.cuda(), labels.cuda()).float().cpu()
+        want = cpu(tokens, labels)
+    assert ab.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 3e-2
+
+
+def test_bert_train_step_on_the_card_reaches_the_dropout_kernels():
+    """One MLM step of Bert in bf16 with attention dropout through the
+    hand-written kernels: a forward and a backward launch per layer, a
+    finite loss and gradient norm."""
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.models.generator import init_generator_weights_
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    _card()
+    model = build_module(lambda: _bert(torch.bfloat16, dropout=0.1, attention_dropout=0.1,
+                                       fused_attention_dropout=True), "cuda")
+    init_generator_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    state = init_generator_train_state(model, make_optimizer(model.parameters(), lambda t: 1e-4))
+    step = make_generator_train_step_from_tokens(model, 4096, MLMLossConfig())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 4096, (4, 256), generator=g, device="cuda")
+    labels = torch.randint(0, 1000, (4,), generator=g, device="cuda")
+    before = dict(da.launches)
+    _, metrics = step(state, tokens, labels, g)
+    torch.cuda.synchronize()
+    launched = {k: da.launches[k] - before[k] for k in before}
+    assert launched["dropout_attention_fwd"] == 2 and launched["dropout_attention_bwd"] == 2
+    assert np.isfinite(float(metrics["mlm_loss"])) and np.isfinite(float(metrics["grad_norm"]))
+
+
+def test_taming_on_the_card_holds_tf32_off():
+    """The taming VQGAN (32 px, attention at 16 px and in the mid block) in
+    float32 under `full_f32` on the card against the CPU: tokens equal,
+    reconstructions within 1e-4 of their largest value."""
+    from maskbit_tpu_torch.cli.common import random_init_
+    from maskbit_tpu_torch.models.taming import OriginalVQModel
+    from maskbit_tpu_torch.utils.precision import full_f32
+
+    _card()
+    model = OriginalVQModel(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                            z_channels=64, codebook_size=32, token_size=48).eval()
+    random_init_(model, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(size=(2, 32, 32, 3)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode(), full_f32():
+            want, want_result = model(x)
+            got, got_result = model.cuda()(x.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    tokens = got_result["min_encoding_indices"].cpu()
+    assert torch.equal(tokens, want_result["min_encoding_indices"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -6,7 +6,8 @@
   random weights written as a `.bin` and read by both): every metric agrees
   key by key (rtol 1e-5, and atol 1e-6 for the random tokenizer's SSIM near
   0, a mean of float32 values in [-1, 1]; codebook usage and entropy
-  exactly), for an LFQ and a VQ tokenizer; `eval_results.json` holds them.
+  exactly), for an LFQ, a VQ and a taming tokenizer; `eval_results.json`
+  holds them.
 * With `MASKBIT_VGG16_WEIGHTS` naming a (random) torchvision VGG16 file,
   both CLIs score LPIPS with the shipped lin heads and agree on it and on
   every other metric as above (LPIPS rtol 1e-5). The test keeps its old
@@ -32,6 +33,10 @@ from tests.test_cli_eval_demo import TINY_MLM, TINY_VQ, _cfg
 
 torch.set_num_threads(2)
 VQ = dict(TINY_VQ, quantizer_type="lookup", codebook_size=32, token_size=16)
+# the taming VQGAN at 32 px, attention at 16 px (the JAX package's own
+# taming CLI test's config)
+TAMING = dict(VQ, model_class="taming", channel_mult=[1, 2], attn_resolutions=[16],
+              z_channels=32, resolution=32)
 
 
 def _weights(tmp_path, vq_cfg) -> str:
@@ -43,7 +48,7 @@ def _weights(tmp_path, vq_cfg) -> str:
     return path
 
 
-@pytest.mark.parametrize("vq_cfg", [TINY_VQ, VQ], ids=["lfq", "vq"])
+@pytest.mark.parametrize("vq_cfg", [TINY_VQ, VQ, TAMING], ids=["lfq", "vq", "taming"])
 def test_eval_tokenizer_matches_jax(tmp_path, monkeypatch, vq_cfg):
     monkeypatch.setenv("WORKSPACE", str(tmp_path / "ws"))
     monkeypatch.setenv("MASKBIT_EVAL_MAX_BATCHES", "2")

@@ -10,7 +10,9 @@
   weights as the perceptual loss), evaluates the tokenizer (with LPIPS) and
   the generator (`cli.eval_tokenizer`, `cli.eval_maskbit`
   with random Inception weights) and computes `cli.make_stats` over the
-  image shard, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
+  image shard, takes a Bert generator and a taming tokenizer through
+  `cli.convert_checkpoint` (`.bin` -> `.msgpack` -> `.bin`, equal bit for
+  bit) and runs each from its `.msgpack`, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
   in `sys.modules`.
 * In the source: an AST scan of every `.py` under `maskbit_tpu_torch/` and
   of `chip_smoke.py` finds no `import maskbit_tpu...` or
@@ -82,6 +84,36 @@ gen = eval_maskbit.main([f"config={sys.argv[1]}", "eval.total_samples=3", "eval.
 assert gen["count"] == 3 and "InceptionScore" in gen["results"], gen
 assert make_stats.main(["--shards", f"{work}/img-0000.tar", "--output", f"{work}/stats.npz",
                         "--resolution", "32", "--device", "cpu"]) == 4
+from maskbit_tpu_torch.cli import convert_checkpoint
+from maskbit_tpu_torch.cli.common import build_module, random_init_
+from maskbit_tpu_torch.core.checkpoint import load_pretrained, save_pretrained
+from maskbit_tpu_torch.models.generator import make_generator
+from maskbit_tpu_torch.models.taming import OriginalVQModel
+config = load_config(sys.argv[1])
+builders = {
+    "bert": lambda: make_generator("bert", config.model.mlm_model, config.model.vq_model),
+    "taming": lambda: OriginalVQModel(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                                      z_channels=32, codebook_size=32, token_size=16),
+}
+for name, ctor in builders.items():
+    model = build_module(ctor, "cpu")
+    random_init_(model, torch.Generator().manual_seed(0))
+    save_pretrained(model, f"{work}/{name}.bin")
+    convert_checkpoint.main(["--input", f"{work}/{name}.bin", "--output", f"{work}/{name}.msgpack"])
+    convert_checkpoint.main(["--input", f"{work}/{name}.msgpack",
+                             "--output", f"{work}/{name}-back.bin"])
+    back = load_pretrained(f"{work}/{name}-back.bin")
+    assert back.keys() == model.state_dict().keys(), name
+    assert all(torch.equal(back[k], v) for k, v in model.state_dict().items()), name
+with torch.inference_mode():
+    bert = build_module(builders["bert"], "cpu")
+    bert.load_state_dict(load_pretrained(f"{work}/bert.msgpack"), strict=True)
+    logits = bert(torch.zeros(2, bert.seq_len, 2, dtype=torch.int32), torch.tensor([1, 2]))
+    assert logits.shape == (2, bert.seq_len, 2, bert.effective_codebook_size), logits.shape
+    taming = build_module(builders["taming"], "cpu")
+    taming.load_state_dict(load_pretrained(f"{work}/taming.msgpack"), strict=True)
+    recon, result = taming(torch.rand(1, 32, 32, 3))
+    assert recon.shape == (1, 32, 32, 3) and result["min_encoding_indices"].shape == (1, 16, 16)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)

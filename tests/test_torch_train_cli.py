@@ -11,6 +11,8 @@ Through `maskbit_tpu_torch.cli.train_maskbit.main` with
   `tests/test_torch_train_step.py`; hidden dropout 0, attention dropout
   0.1): per step the loss within rtol 1e-5, and the saved weights and EMA
   within atol 2e-6, that test's tolerances;
+* two steps of a tiny `model_cls: bert` config, whose saved weights give
+  the JAX package's Bert the same logits;
 * two steps from tar shards;
 * resume from a `save_every` checkpoint, and a run stopped by SIGTERM that
   saves and from which the next run resumes (as `tests/test_preemption.py`
@@ -120,12 +122,39 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setenv("MASKBIT_DECODE_BACKEND", "native")
     with pytest.raises(ValueError, match="native decoder"):
         main([f"config={cfg}", f"dataset.params.train_shards_path_or_url={_image_shards(tmp_path)}"])
-    with pytest.raises(NotImplementedError, match="Bert generator"):
-        main([f"config={cfg}", "model.mlm_model.model_cls=bert"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([f"config={cfg}", "training.device=cuda"])
     assert not os.path.exists(tmp_path / "out" / "model-2.bin")
+
+
+def test_train_cli_trains_bert_on_cpu(tmp_path):
+    """`model_cls: bert` through `main`: two steps with finite losses; the
+    weights moved (the model's differ from its slow EMA's, which stays near
+    the initial weights), and the JAX package's Bert, reading
+    `model-2.bin` with its own `load_pretrained`, gives the port's logits
+    (float32, atol 1e-4 as in `tests/test_torch_bert.py`)."""
+    from maskbit_tpu.models.generator import Bert as JaxBert
+    from maskbit_tpu_torch.models.generator import Bert
+
+    cfg = dict(MLM, model_cls="bert")
+    result = main([f"config={_config(tmp_path, mlm=cfg)}"])
+    losses = [h["mlm_loss"] for h in result["history"]]
+    assert result["steps"] == 2 and len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    out = tmp_path / "out"
+    model, ema = (load_pretrained(str(out / name)) for name in ("model-2.bin", "ema_model-2.bin"))
+    assert "tok_emb_list.1.weight" in model and "bias.0" in model
+    assert not torch.equal(model["tok_emb_list.0.weight"], ema["tok_emb_list.0.weight"])
+    bert = Bert.from_config(cfg, TINY_VQ).eval()
+    bert.load_state_dict(model, strict=True)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, bert.mask_token + 1, size=(2, bert.seq_len, 2)).astype(np.int32)
+    labels = np.array([3, 4], np.int32)
+    with torch.inference_mode():
+        got = bert(torch.from_numpy(tokens), torch.from_numpy(labels))
+    want = JaxBert.from_config(cfg, TINY_VQ).apply(
+        jax_load_pretrained(str(out / "model-2.bin")), jnp.asarray(tokens), jnp.asarray(labels))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
 def test_profile_train_reports_phases_on_cpu(tmp_path):

@@ -13,8 +13,10 @@
   every loss within rtol 1e-5 and the gradients with respect to the
   latents and the codebook within 1e-5 of their largest entries; at
   inference the term is 0.
-* What is not ported is refused: the taming tokenizer (and, as in JAX, the
-  VAE bottleneck).
+* What is not supported is refused, as in JAX: the VAE bottleneck and an
+  unknown `model_class` (the taming tokenizer, refused before it was
+  ported, is held against JAX in `tests/test_torch_taming.py` and
+  `tests/test_torch_eval_tokenizer_cli.py`).
 """
 
 import jax
@@ -127,8 +129,8 @@ def test_what_is_not_ported_is_refused():
     from maskbit_tpu_torch.cli.eval_tokenizer import build_tokenizer
     from maskbit_tpu_torch.core.config import Config
 
-    config = Config({"model": {"vq_model": dict(VQ, model_class="taming")}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
+    config = Config({"model": {"vq_model": dict(VQ, model_class="vqgan")}})
+    with pytest.raises(ValueError, match="Unknown tokenizer model_class"):
         build_tokenizer(config, torch.float32)
     with pytest.raises(NotImplementedError, match="VAE"):
         ConvVQModel.from_config(dict(VQ, quantizer_type="vae"))

@@ -135,6 +135,38 @@ Phases, each of which fails the run if it fails:
         timed, and one float32 forward on the card (TF32 off) against the
         CPU: tokens all equal, and the decode of the CPU's tokens within 1e-4.
      Its files live under build/chip_smoke_data/ and are deleted.
+ 11. distributed (`--phases distributed`): data-parallel runs across
+     processes; the ranks are this script in `--worker` mode with
+     torchrun's variables set by hand, two sharing the card over gloo
+     (NCCL refuses two ranks on one device), each logging to
+     chiprun_out/chip_smoke/distributed_<tag>_rank<r>.log:
+     a. `cli.train_maskbit` on 2 ranks, the 14-bit flagship at full width
+        and depth from 512 random token shards' tokens, per-rank batch 16
+        (global 32), `save_every=3`; SIGTERM to rank 1 once step 4 is
+        logged: both ranks stop on the same step, a multiple of 8 (the
+        cross-process check), with the final save the newest committed
+        step; a second pair resumes from it for one step. Per rank: the
+        dropout kernels' launches (depth x steps each), the median step and
+        the gradient all-reduce's time apart from the rest of the step;
+     c. meanwhile one rank alone through `cli.train_maskbit`
+        (`MASKBIT_DISTRIBUTED=1`, world size 1, depth 2, 3 steps): the
+        backend is NCCL;
+     b. in a second pair of ranks: one step of the flagship-width LFQBert
+        (depth 24, hidden dropout off, attention dropout 0.1, bf16) with
+        injected global draws, 2 ranks x batch 16 against one process x
+        batch 32 (this process, meanwhile): the reduced gradients' relative
+        L2 gap and the updates' sign agreement, with `DP_GRAD_TOL`;
+     d. the same ranks: `maskbit_tokenizer_14bit.yaml` (ResNet-50 from
+        random weights) at per-rank batch 8, 4 steps across
+        `discriminator_start=2`: every rank's parameters, EMA and LeCam
+        state equal bit for bit after every step;
+     e. the same ranks: `cli.eval_maskbit` on 300 samples at batch 100
+        (each rank's second batch half padding): 300 scored, the merged
+        float64 moments within 1e-12 of the concatenated per-rank Inception
+        features', and the block's and `fused_attention`'s launches per
+        rank (depth x steps x 2 batches).
+     Its files (about 15 GB) live under build/chip_smoke_data/ and are
+     deleted.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -146,6 +178,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -191,6 +224,22 @@ TOK_STEPS, TOK_GATE, TOK_SAVE, TOK_EVAL_BATCHES, TOK_RESUME = 6, 3, 3, 2, 8
 BERT_CONFIG = os.path.join(ROOT, "configs", "generator", "maskbit_generator_12bit.yaml")
 TAMING_CONFIG = os.path.join(ROOT, "configs", "external", "taming_vqgan_tokenizer.yaml")
 TAMING_BATCHES = 4
+# phase 11: two ranks share the card. Stage-II per-rank batch (global 32),
+# the gradient check's depth, the NCCL rank's depth and steps, Stage I's
+# per-rank batch, steps and gate, the sharded eval, each launch's limit (s)
+DP_SIZES = {"batch": 16, "grad_depth": 24, "nccl_depth": 2, "nccl_steps": 3, "tok_batch": 8,
+            "tok_steps": 4, "tok_gate": 2, "eval_samples": 300, "eval_batch": 100,
+            "timeout": 600}
+DP_CHECK_EVERY = 8  # GracefulShutdown's cross-process check, as the train CLIs use it
+# b: two ranks' reduced gradients against one process's, relative L2 over
+# every gradient. In bf16 the ranks' linears see 16 rows where one process
+# sees 32 (other cuBLAS tiles, other summation order) and the mean over 32
+# rows is summed in another order: a few 1e-3 are expected, 1e-2 allowed.
+# Adam's first update is lr * g / (|g| + eps), so its sign follows g: the
+# updates' signs agree wherever |g| stands above that noise (99% of them).
+# In float32 on the CPU only the summation order differs.
+DP_GRAD_TOL = {"grad_rel_l2": 1e-2, "update_same_sign": 0.99}
+DP_GRAD_TOL_CPU = {"grad_rel_l2": 1e-5, "update_same_sign": 0.999}
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -565,12 +614,17 @@ def phase_dropout_kernels(torch) -> dict:
     return rows
 
 
-def _flagship() -> dict:
-    """The flagship config's `model` node (plain YAML, no interpolation)."""
+def _model_node(path: str) -> dict:
+    """A config's `model` node (plain YAML, no interpolation)."""
     import yaml
 
-    with open(CONFIG) as f:
+    with open(path) as f:
         return yaml.safe_load(f)["model"]
+
+
+def _flagship() -> dict:
+    """The flagship config's `model` node."""
+    return _model_node(CONFIG)
 
 
 def phase_generator(torch) -> None:
@@ -2022,8 +2076,514 @@ def phase_variants(torch, device_info) -> dict:
             "taming": taming, "lfq_bert_serve": lfq_serve, "lfq_bert_train": lfq_train}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(spec: dict, world: int, env: dict = None) -> list:
+    """`world` processes of this script in `--worker` mode, joined as one
+    torch.distributed group (torchrun's variables set by hand); each logs
+    to chiprun_out/chip_smoke/distributed_<tag>_rank<r>.log."""
+    base = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                **(env or {}))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(OUT_DIR, f"distributed_{spec['tag']}_rank{rank}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker", json.dumps(spec)],
+                cwd=ROOT, env=dict(base, RANK=str(rank), LOCAL_RANK=str(rank)), stdout=f,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def _wait_ranks(procs: list, tag: str, timeout: float) -> None:
+    """Every rank exits 0 within `timeout` seconds; otherwise every rank is
+    killed and the run fails with the end of the first failing log."""
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[distributed] {tag}: ranks still running after {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(OUT_DIR, f"distributed_{tag}_rank{rank}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"[distributed] {tag} rank {rank} exited {p.returncode}:\n{tail}")
+
+
+def _rank_results(work: str, tag: str, world: int) -> list:
+    out = []
+    for rank in range(world):
+        with open(os.path.join(work, f"{tag}_rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _rank_write(spec: dict, rank: int, result: dict) -> None:
+    with open(os.path.join(spec["work"], f"{spec['tag']}_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _sync(torch, device) -> float:
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _timed_all_reduce(torch, device, seconds: list, captured: list = None):
+    """Wrap `generator_trainer.all_reduce_mean_` so each call's time (the
+    card synchronised on both sides) is kept apart from the rest of the
+    step; with `captured`, a host copy of the reduced tensors too. Returns
+    the function it wrapped, for the caller to put back."""
+    from maskbit_tpu_torch.train import generator_trainer as gt
+
+    real = gt.all_reduce_mean_
+
+    def timed(tensors):
+        t0 = _sync(torch, device)
+        out = real(tensors)
+        seconds.append(_sync(torch, device) - t0)
+        if captured is not None:
+            captured.extend(t.detach().float().cpu().clone() for t in out)
+        return out
+
+    gt.all_reduce_mean_ = timed
+    return real
+
+
+def _rank_train_cli(torch, spec) -> None:
+    """One rank of `cli/train_maskbit.main`, its dropout-kernel launches
+    counted from 0 just before and read just after."""
+    import torch.distributed as dist
+
+    from maskbit_tpu_torch.cli import train_maskbit
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.parallel.mesh import process_count, process_index
+
+    reduce_s = []
+    _timed_all_reduce(torch, spec["device"], reduce_s)
+    for key in da.launches:
+        da.launches[key] = 0
+    result = train_maskbit.main(spec["argv"])
+    hist = result["history"]
+    _rank_write(spec, process_index(), {
+        "world": process_count(), "backend": dist.get_backend(), "steps": result["steps"],
+        "resumed_from": result["resumed_from"], "launches": dict(da.launches),
+        "losses": [h["mlm_loss"] for h in hist], "step_s": [h["perf/step_seconds"] for h in hist],
+        "all_reduce_s": reduce_s, "save_s": result["save_seconds"]})
+
+
+def _grad_step_inputs(torch, spec):
+    """The flagship-width LFQBert of the gradient check (hidden dropout off,
+    attention dropout through the kernels), its seeded weights and one step's
+    global-batch tokens, labels and injected draws."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli.common import build_module
+    from maskbit_tpu_torch.models.generator import LFQBert, init_generator_weights_
+
+    model_cfg = _model_node(spec["gen_config"])
+    mlm = dict(model_cfg["mlm_model"], depth=spec["grad_depth"], dropout=0.0,
+               attention_dropout=RATE)
+    vq = model_cfg["vq_model"]
+    dtype = torch.bfloat16 if spec["device"] == "cuda" else torch.float32
+    model = build_module(lambda: LFQBert.from_config(mlm, vq, dtype=dtype), spec["device"])
+    init_generator_weights_(model, torch.Generator(device=spec["device"]).manual_seed(1))
+    b, seq, depth = spec["global_batch"], model.seq_len, mlm["depth"]
+    rng = np.random.default_rng(0)
+    data = {"tokens": rng.integers(0, vq["codebook_size"], size=(b, seq)).astype(np.int64),
+            "labels": rng.integers(0, 1000, size=(b,)).astype(np.int64),
+            "injected": {"mask_ratio_uniform": rng.random(b, dtype=np.float32),
+                         "mask_token_uniform": rng.random((b, seq, mlm["codebook_splits"]),
+                                                          dtype=np.float32),
+                         "label_drop_uniform": rng.random(b, dtype=np.float32),
+                         "attention_seeds": [rng.integers(0, 2**32, size=(b, mlm["heads"]),
+                                                          dtype=np.int64)
+                                             for _ in range(depth)]}}
+    return model, vq, data
+
+
+def _grad_step(torch, spec, model, vq, data, captured, reduce_s):
+    """One step of `make_generator_train_step_from_tokens` on this process's
+    rows; returns the updated parameters on the host."""
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.parallel.mesh import local_rows, process_count
+    from maskbit_tpu_torch.train import generator_trainer as gt
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    real = _timed_all_reduce(torch, spec["device"], reduce_s, captured)
+    opt = make_optimizer(model.parameters(), lambda t: 1e-4, beta2=0.96, weight_decay=0.045)
+    step = make_generator_train_step_from_tokens(model, vq["codebook_size"], MLMLossConfig(),
+                                                 class_label_dropout=0.1,
+                                                 ema_kwargs={"decay": 0.9999})
+    local = data["tokens"].shape[0] // process_count()
+    tokens = torch.from_numpy(local_rows(data["tokens"], local)).to(spec["device"])
+    labels = torch.from_numpy(local_rows(data["labels"], local)).to(spec["device"])
+    try:
+        _, metrics = step(init_generator_train_state(model, opt), tokens, labels,
+                          injected=data["injected"])
+    finally:
+        gt.all_reduce_mean_ = real
+    return {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}, metrics
+
+
+def _digest(tensors) -> list:
+    """float64 sums of each tensor and of its square: equal bits on two
+    ranks that hold equal tensors."""
+    return [v for t in tensors for v in (t.double().sum().item(), t.double().pow(2).sum().item())]
+
+
+def _rank_combined(torch, spec) -> None:
+    """b, d and e of phase 11 in one pair of ranks (one start-up)."""
+    from maskbit_tpu_torch.cli import eval_maskbit, train_tokenizer
+    from maskbit_tpu_torch.cli.common import synthetic_batches
+    from maskbit_tpu_torch.core.config import config_from_cli
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.parallel.mesh import (
+        maybe_init_distributed,
+        process_allgather_f64,
+        process_index,
+    )
+
+    device = maybe_init_distributed(torch.device(spec["device"]))
+    rank = process_index()
+    out = {}
+    # b. the reduced gradients of one step with injected global draws
+    model, vq, data = _grad_step_inputs(torch, spec)
+    captured, reduce_s = [], []
+    t0 = _sync(torch, device)
+    params, metrics = _grad_step(torch, spec, model, vq, data, captured, reduce_s)
+    out["grad_step_s"] = _sync(torch, device) - t0
+    out["grad_all_reduce_s"] = reduce_s
+    out["grad_loss"] = float(metrics["mlm_loss"])
+    agree = process_allgather_f64(_digest(list(params.values()) + captured))
+    out["grad_ranks_agree"] = bool((agree == agree[0]).all())
+    if rank == 0:
+        torch.save({"grads": captured, "params": params},
+                   os.path.join(spec["work"], "dp_grads.pt"))
+    del model, params, captured
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # d. Stage I across the discriminator's gate
+    logger = train_tokenizer._logger()
+    run = train_tokenizer.build_training(config_from_cli(spec["tok_argv"]), logger)
+    state, step = run["state"], run["train_step"]
+    batches = synthetic_batches(spec["tok_batch"], spec["tok_res"], seed=rank)
+    tok = {"agree": [], "lecam": [], "step_s": [], "total_loss": [], "d_factor": []}
+    for _ in range(spec["tok_steps"]):
+        images = torch.from_numpy(next(batches)["image"]).to(device)
+        t0 = _sync(torch, device)
+        state, m = step(state, images)
+        tok["step_s"].append(_sync(torch, device) - t0)
+        tensors = (list(run["model"].parameters()) + list(run["discriminator"].parameters())
+                   + list(state.ema.params.values()) + list(state.lecam))
+        gathered = process_allgather_f64(_digest(tensors))
+        tok["agree"].append(bool((gathered == gathered[0]).all()))
+        tok["lecam"].append([t.item() for t in state.lecam])
+        tok["total_loss"].append(float(m["total_loss"]))
+        tok["d_factor"].append(float(m["discriminator_factor"]))
+    out["tokenizer"] = tok
+    del run, state, step
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # e. eval_maskbit, its samples split over the ranks
+    feats = []
+    real_make = eval_maskbit.make_inception_fn
+
+    def make_inception_fn(dev):
+        fn = real_make(dev)
+
+        def recording(images):
+            result = fn(images)
+            feats.append(result["2048"].double().cpu())
+            return result
+
+        return recording
+
+    eval_maskbit.make_inception_fn = make_inception_fn
+    for key in da.launches:
+        da.launches[key] = 0
+    ab.launches = 0
+    t0 = time.perf_counter()
+    gen = eval_maskbit.main(spec["eval_argv"])
+    out["eval_s"] = time.perf_counter() - t0
+    out["eval_launches"] = {"attention_block": ab.launches,
+                            "fused_attention": da.launches["fused_attention"]}
+    out["eval_count"] = gen["count"]
+    out["eval_local_samples"] = gen["local_samples"]
+    acc = gen["accumulator"]
+    torch.save({"features": torch.cat(feats)[:gen["local_samples"]].numpy(),
+                "act_sum": acc.act_sum, "act_outer": acc.act_outer,
+                "results": gen["results"]},
+               os.path.join(spec["work"], f"dp_eval_rank{rank}.pt"))
+    _rank_write(spec, rank, out)
+
+
+def _rank_main(spec: dict) -> int:
+    """A rank process of phase 11 (`chip_smoke.py --worker SPEC`)."""
+    sys.path.insert(0, spec["tree"])
+    import torch
+
+    if spec["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    {"train_cli": _rank_train_cli, "combined": _rank_combined}[spec["task"]](torch, spec)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _logged_steps(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    steps = []
+    with open(path) as f:
+        for line in f:
+            try:
+                steps.append(json.loads(line)["step"])
+            except (ValueError, KeyError):
+                continue  # a line cut mid-write
+    return steps
+
+
+def _check_grads(torch, ranks_file: str, grads_1, params_0, params_1) -> dict:
+    """The two ranks' reduced gradients and updated parameters against the
+    one-process step's: relative L2 gaps, the worst tensor's, and the share
+    of parameters whose update has the same sign."""
+    saved = torch.load(ranks_file, weights_only=False)
+    g2, g1 = saved["grads"], grads_1
+    if len(g2) != len(g1):
+        raise AssertionError(f"{len(g2)} reduced gradients, {len(g1)} in one process")
+    diff = sum(float((a - b).double().pow(2).sum()) for a, b in zip(g2, g1))
+    ref = sum(float(b.double().pow(2).sum()) for b in g1)
+    worst = max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(g2, g1))
+    up_diff = up_ref = 0.0
+    same_sign = total = 0
+    for name, p1 in params_1.items():
+        d1, d2 = p1 - params_0[name], saved["params"][name] - params_0[name]
+        up_diff += float((d2 - d1).double().pow(2).sum())
+        up_ref += float(d1.double().pow(2).sum())
+        same_sign += int((torch.sign(d1) == torch.sign(d2)).sum())
+        total += d1.numel()
+    return {"grad_rel_l2": (diff / ref) ** 0.5, "grad_worst_tensor_rel_l2": worst,
+            "update_rel_l2": (up_diff / up_ref) ** 0.5, "update_same_sign": same_sign / total}
+
+
+def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
+                      tok_config=TOKENIZER_CONFIGS[0], sizes=None) -> dict:
+    """Data-parallel runs across processes (phase 11): two ranks share the
+    card (gloo over CUDA tensors; NCCL refuses two ranks on one device).
+    device="cpu" with tiny configs and `sizes` rehearses the phase (launches
+    are then not checked)."""
+    import numpy as np
+
+    import maskbit_tpu_torch
+    from maskbit_tpu_torch.data.token_shards import TokenShardWriter
+    from maskbit_tpu_torch.eval import inception as inc
+
+    s = dict(DP_SIZES, **(sizes or {}))
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored; checkpoints ~5 GB
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if cuda:
+        torch.cuda.empty_cache()
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(maskbit_tpu_torch.__file__)))
+    base = {"tree": tree, "device": device, "work": work}
+    model_cfg = _model_node(gen_config)
+    mlm, vq = model_cfg["mlm_model"], model_cfg["vq_model"]
+    depth, sampling_steps = int(mlm["depth"]), int(mlm["num_steps"])
+    seq = (int(mlm.get("img_size", 256)) // int(mlm.get("input_stride", 16))) ** 2
+    rng = np.random.default_rng(0)
+    writer = TokenShardWriter(os.path.join(work, "tokens", "train-%04d.npz"), maxcount=256)
+    writer.write_batch(rng.integers(0, vq["codebook_size"], size=(512, seq)),
+                       rng.integers(0, 1000, size=(512,)))
+    writer.close()
+    common = [f"config={gen_config}", f"training.device={device}",
+              f"dataset.params.token_shards_path_or_url={os.path.join(work, 'tokens', '*.npz')}",
+              "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+              "experiment.generate_every=100000", "experiment.eval_every=100000"]
+    out = {}
+    try:
+        # a. two ranks of train_maskbit; SIGTERM to rank 1; a resume
+        out_a = os.path.join(work, "dp_train")
+        argv = common + [f"training.per_device_batch_size={s['batch']}",
+                         "training.max_train_steps=100000", f"experiment.save_every={SAVE_EVERY}",
+                         f"experiment.output_dir={out_a}"]
+        procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_stop", argv=argv), 2)
+        try:
+            deadline = time.time() + s["timeout"]
+            while len(_logged_steps(os.path.join(out_a, "metrics.jsonl"))) < SAVE_EVERY + 1:
+                if any(p.poll() is not None for p in procs) or time.time() > deadline:
+                    break  # _wait_ranks reports it
+                time.sleep(0.2)
+            procs[1].send_signal(signal.SIGTERM)
+            t_signal = _logged_steps(os.path.join(out_a, "metrics.jsonl"))
+        finally:
+            _wait_ranks(procs, "stage2_stop", s["timeout"])
+        first = _rank_results(work, "stage2_stop", 2)
+        stopped = first[0]["steps"]
+        ckpt_dir = os.path.join(out_a, "checkpoints")
+        committed = sorted(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
+        for r in first:
+            log(f"[distributed] a. rank of {r['world']} ({r['backend']}): stopped at step "
+                f"{r['steps']} (SIGTERM to rank 1 after step {t_signal[-1] if t_signal else None}"
+                f"); launches {r['launches']}; median step {statistics.median(r['step_s'][1:]):.3f}"
+                f" s; gradient all-reduce median {statistics.median(r['all_reduce_s'][1:]):.3f} s "
+                f"of {len(r['all_reduce_s'])}; saves in the loop "
+                f"{', '.join(f'{x:.2f}' for x in r['save_s'])} s [{device_info['card']}]")
+        if [r["steps"] for r in first] != [stopped] * 2 or stopped % DP_CHECK_EVERY:
+            raise AssertionError(f"the ranks stopped at {[r['steps'] for r in first]}")
+        if committed[-1] != stopped or not os.path.exists(os.path.join(out_a, f"model-{stopped}.bin")):
+            raise AssertionError(f"committed steps {committed}, stopped at {stopped}")
+        for r in first:
+            want = depth * stopped
+            if cuda and (r["launches"]["dropout_attention_fwd"] != want
+                         or r["launches"]["dropout_attention_bwd"] != want):
+                raise AssertionError(f"launches {r['launches']}, expected {want} of each")
+        argv = common + [f"training.per_device_batch_size={s['batch']}",
+                         f"training.max_train_steps={stopped + 1}",
+                         f"experiment.save_every={SAVE_EVERY}", f"experiment.output_dir={out_a}"]
+        procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_resume", argv=argv), 2)
+        _wait_ranks(procs, "stage2_resume", s["timeout"])
+        second = _rank_results(work, "stage2_resume", 2)
+        log(f"[distributed] a. resume: {[(r['resumed_from'], r['steps']) for r in second]} "
+            f"(resumed from, steps); losses {[r['losses'] for r in second]}")
+        if any((r["resumed_from"], r["steps"]) != (stopped, stopped + 1) for r in second):
+            raise AssertionError(f"resume: {second}")
+        out["stage2"] = {"stopped": stopped, "committed": committed, "ranks": first,
+                         "resume": second}
+        shutil.rmtree(out_a, ignore_errors=True)
+
+        # c. one NCCL rank, and b, d, e in a second pair of ranks, at once
+        weights = os.path.join(work, "pt_inception.pth")
+        torch.save(inc.random_inception_state(0), weights)
+        resnet = os.path.join(work, "resnet50.pth")
+        _random_resnet50(torch, resnet)
+        out_c = os.path.join(work, "dp_nccl")
+        nccl = _spawn_ranks(dict(base, task="train_cli", tag="nccl", argv=common + [
+            f"model.mlm_model.depth={s['nccl_depth']}", f"training.per_device_batch_size={s['batch']}",
+            f"training.max_train_steps={s['nccl_steps']}", f"experiment.output_dir={out_c}"]),
+            1, env={"MASKBIT_DISTRIBUTED": "1"})
+        tok_res = int(s.get("tok_res", 256))
+        spec = dict(base, task="combined", tag="combined", gen_config=gen_config,
+                    grad_depth=s["grad_depth"], global_batch=2 * s["batch"],
+                    tok_batch=s["tok_batch"], tok_res=tok_res, tok_steps=s["tok_steps"],
+                    tok_argv=[f"config={tok_config}", f"training.device={device}",
+                              f"training.per_device_batch_size={s['tok_batch']}",
+                              f"losses.discriminator_start={s['tok_gate']}",
+                              f"training.max_train_steps={s['tok_steps']}",
+                              f"experiment.output_dir={os.path.join(work, 'dp_tok')}"],
+                    eval_argv=[f"config={gen_config}", f"eval.device={device}",
+                               f"eval.total_samples={s['eval_samples']}",
+                               f"eval.batch_size={s['eval_batch']}", "eval.stats_path=",
+                               "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
+                               f"experiment.output_dir={os.path.join(work, 'dp_eval')}"])
+        combined = _spawn_ranks(spec, 2, env={"MASKBIT_INCEPTION_WEIGHTS": weights,
+                                             "MASKBIT_ADM_PB": "", "MASKBIT_RESNET50_WEIGHTS": resnet})
+        try:
+            # b's one-process reference at the global batch, here, meanwhile
+            model, vq_node, data = _grad_step_inputs(torch, dict(spec, global_batch=2 * s["batch"]))
+            params_0 = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+            grads_1, reduce_1 = [], []
+            params_1, metrics_1 = _grad_step(torch, spec, model, vq_node, data, grads_1, reduce_1)
+            del model
+            if cuda:
+                torch.cuda.empty_cache()
+        finally:
+            _wait_ranks(nccl, "nccl", s["timeout"])
+            _wait_ranks(combined, "combined", s["timeout"])
+        (nccl_result,) = _rank_results(work, "nccl", 1)
+        log(f"[distributed] c. one rank, backend {nccl_result['backend']}: {nccl_result['steps']} "
+            f"steps at depth {s['nccl_depth']}, losses {nccl_result['losses']}, launches "
+            f"{nccl_result['launches']}")
+        if nccl_result["steps"] != s["nccl_steps"] or (
+                cuda and nccl_result["backend"] != "nccl"):
+            raise AssertionError(f"the NCCL rank: {nccl_result}")
+        if cuda and nccl_result["launches"]["dropout_attention_fwd"] != s["nccl_depth"] * s[
+                "nccl_steps"]:
+            raise AssertionError(f"the NCCL rank's launches {nccl_result['launches']}")
+        ranks = _rank_results(work, "combined", 2)
+
+        # b. the reduced gradients against one process
+        gap = _check_grads(torch, os.path.join(work, "dp_grads.pt"), grads_1, params_0, params_1)
+        tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
+        log(f"[distributed] b. one step, depth {s['grad_depth']}, 2 ranks x batch {s['batch']} vs 1 "
+            f"process x batch {2 * s['batch']} ({'bf16' if cuda else 'float32'}): reduced "
+            f"gradients relative L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst "
+            f"tensor {gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
+            f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol "
+            f">= {tol['update_same_sign']}); ranks equal {[r['grad_ranks_agree'] for r in ranks]}; "
+            f"loss per rank {[r['grad_loss'] for r in ranks]} vs {float(metrics_1['mlm_loss'])}; "
+            f"all-reduce {[r['grad_all_reduce_s'] for r in ranks]} s; step "
+            f"{[round(r['grad_step_s'], 3) for r in ranks]} s [{device_info['card']}]")
+        if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
+                or gap["update_same_sign"] < tol["update_same_sign"]
+                or not all(r["grad_ranks_agree"] for r in ranks)):
+            raise AssertionError(f"reduced gradients disagree: {gap}")
+        out["grads"] = dict(gap, tol=tol, depth=s["grad_depth"])
+
+        # d. Stage I: every rank's state equal after every step
+        for r in ranks:
+            tok = r["tokenizer"]
+            log(f"[distributed] d. Stage I, rank: ranks equal after each step {tok['agree']}; "
+                f"LeCam {tok['lecam']}; total loss {tok['total_loss']}; discriminator factor "
+                f"{tok['d_factor']}; step s {[round(x, 3) for x in tok['step_s']]} "
+                f"[{device_info['card']}]")
+            if not all(tok["agree"]) or tok["d_factor"] != [0.0] * s["tok_gate"] + [1.0] * (
+                    s["tok_steps"] - s["tok_gate"]) or not np.isfinite(tok["total_loss"]).all():
+                raise AssertionError(f"Stage I across ranks: {tok}")
+        out["tokenizer"] = [r["tokenizer"] for r in ranks]
+
+        # e. eval_maskbit: merged moments against the concatenated features
+        evals = [torch.load(os.path.join(work, f"dp_eval_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        feats = np.concatenate([e["features"] for e in evals])
+        want_sum, want_outer = feats.sum(0), feats.T @ feats
+        eval_gap = max(float(np.abs(e[k] - w).max() / np.abs(w).max())
+                       for e in evals for k, w in (("act_sum", want_sum), ("act_outer", want_outer)))
+        per_rank = -(-s["eval_samples"] // 2)
+        batches = -(-per_rank // s["eval_batch"])
+        want = depth * sampling_steps * batches
+        for r in ranks:
+            log(f"[distributed] e. eval_maskbit rank: {r['eval_local_samples']} of "
+                f"{r['eval_count']} samples, launches {r['eval_launches']} (expected {want} each); "
+                f"{r['eval_s']:.1f} s [{device_info['card']}]")
+        log(f"[distributed] e. merged moments vs the concatenated features: max relative gap "
+            f"{eval_gap:.3e} (tol 1e-12); IS {[e['results'] for e in evals]}")
+        if (eval_gap > 1e-12 or any(r["eval_count"] != s["eval_samples"] for r in ranks)
+                or len(feats) != s["eval_samples"]
+                or (cuda and any(v != want for r in ranks for v in r["eval_launches"].values()))):
+            raise AssertionError(f"the sharded eval: gap {eval_gap}, {ranks}")
+        out.update(nccl=nccl_result, eval_gap=eval_gap, ranks=ranks)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[distributed] phase time {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval", "tokenizer_train", "variants")
+          "eval", "tokenizer_train", "variants", "distributed")
 
 
 def _args(argv):
@@ -2046,10 +2606,13 @@ def _args(argv):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--worker"]:  # a rank of phase 11
+        return _rank_main(json.loads(argv[1]))
     import torch
 
     t_start = time.perf_counter()
-    args = _args(sys.argv[1:] if argv is None else argv)
+    args = _args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import maskbit_tpu_torch  # noqa: F401 — fails when run outside the checkout
@@ -2072,13 +2635,14 @@ def main(argv=None) -> int:
     ev = phase_eval(torch, device_info) if "eval" in run else None
     tok = phase_tokenizer_train(torch, device_info) if "tokenizer_train" in run else None
     var = phase_variants(torch, device_info) if "variants" in run else None
+    dp = phase_distributed(torch, device_info) if "distributed" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
                        "train_data": data, "eval": ev, "tokenizer_train": tok,
-                       "variants": var}, f, indent=1)
+                       "variants": var, "distributed": dp}, f, indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -2090,8 +2654,15 @@ def main(argv=None) -> int:
         # phase 10: the Bert generator served and trained
         bert = {"launches_bert_serve": var["serve"]["launches"][key],
                 "launches_bert_train": var["train"]["launches"][key]}
+        # phase 11: per rank, Stage II's stop run (dropout kernels) or the sharded eval
+        if name.startswith("dropout"):
+            per_rank = {"launches_distributed_per_rank": [
+                r["launches"][name] for r in dp["stage2"]["ranks"]]}
+        else:
+            per_rank = {"launches_distributed_eval_per_rank": [
+                r["eval_launches"][key] for r in dp["ranks"]]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "launches_train_data": data_launches, **bert,
+                "launches": launches, "launches_train_data": data_launches, **bert, **per_rank,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -2125,13 +2696,16 @@ def main(argv=None) -> int:
                  "dropout_attention_bwd": "launches_bert_train"}
     idle = [k["name"] for k in record["kernels"]
             if k["launches"] <= 0 or k["launches_train_data"] <= 0
-            or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0]
+            or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0
+            or min(k.get("launches_distributed_per_rank", [1])) <= 0
+            or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
-                   "eval": ev, "tokenizer_train": tok, "variants": var}, f, indent=1)
+                   "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp},
+                  f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,14 @@
 
 Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
 `resolve_compute_dtype` (here `compute_dtype`), `load_generation_models`,
-`setup_experiment` (one process), `synthetic_batches`, `build_dataloaders`,
-`build_perceptual`, `reset_optimizer_counts`, `GracefulShutdown` (one
-process) and `StepTimer`.
-`expand_shard_pattern` lives in `data/tar_reader.py` and is re-exported here.
+`setup_experiment`, `synthetic_batches`, `build_dataloaders`,
+`build_perceptual`, `reset_optimizer_counts`, `GracefulShutdown` and
+`StepTimer`; `setup_device` joins the data-parallel process group
+(`parallel/mesh.py`) where the JAX package's `setup_experiment` calls
+`maybe_init_distributed`. Under several processes each feeds its share of
+the global batch and the main process alone writes directories, configs
+and logs. `expand_shard_pattern` lives in `data/tar_reader.py` and is
+re-exported here.
 """
 
 from __future__ import annotations
@@ -14,7 +18,6 @@ import logging
 import math
 import os
 import signal
-import sys
 import time
 from typing import Callable, Iterator, Optional, Tuple
 
@@ -26,18 +29,16 @@ from maskbit_tpu_torch.core.checkpoint import load_pretrained
 from maskbit_tpu_torch.data.tar_reader import SimpleImagenet, expand_shard_pattern
 from maskbit_tpu_torch.models.generator import make_generator
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
+from maskbit_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    is_main_process,
+    maybe_init_distributed,
+    process_allgather_f64,
+    process_count,
+    process_index,
+)
 from maskbit_tpu_torch.sampling.sample import SamplingConfig
-
-
-def stdout_logger(name: str) -> logging.Logger:
-    """The entry points' logger: INFO and up, to stdout."""
-    logger = logging.getLogger(name)
-    if not logger.handlers:
-        handler = logging.StreamHandler(sys.stdout)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
-    return logger
+from maskbit_tpu_torch.utils.meter import AverageMeter
 
 
 def resolve_device(config, key: str) -> torch.device:
@@ -46,6 +47,16 @@ def resolve_device(config, key: str) -> torch.device:
     device = torch.device(config.select(key, "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{key} is cuda but no CUDA device is available")
+    return device
+
+
+def setup_device(config, key: str, logger: Optional[logging.Logger] = None) -> torch.device:
+    """`resolve_device`, then join the data-parallel process group when
+    torchrun started several processes (`parallel.mesh.maybe_init_distributed`):
+    the device this process computes on. The `parallel` node is checked
+    (its data axis only is ported)."""
+    device = maybe_init_distributed(resolve_device(config, key), logger)
+    MeshConfig.from_config(config)
     return device
 
 
@@ -170,7 +181,8 @@ def load_generation_models(config, logger, device, cast_weights: bool = False):
 
 def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterator[dict]:
     """Random image/label batches (numpy, NHWC in [0, 1]); the same stream
-    as the JAX package's for the same seed."""
+    as the JAX package's for the same seed (`build_dataloaders` adds the
+    process index to the seed, so each process draws its own)."""
     rng = np.random.default_rng(seed)
     while True:
         yield {
@@ -179,27 +191,40 @@ def synthetic_batches(batch_size: int, resolution: int, seed: int = 0) -> Iterat
         }
 
 
-def setup_experiment(config, subdir: str = "") -> dict:
-    """The evaluation entry points' output directory and logger: {"output_dir",
-    "logger", "seed"}. The directory is `experiment.output_dir` when set,
-    else `$WORKSPACE/<experiment.name>` (WORKSPACE defaults to
-    ./workspace), then `subdir`; the config is saved there as config.yaml."""
+def output_directory(config, subdir: str = "") -> str:
+    """`experiment.output_dir` when set, else `$WORKSPACE/<experiment.name>`
+    (WORKSPACE defaults to ./workspace), then `subdir`; made, with the
+    config saved there as config.yaml, by the main process."""
     base = config.select("experiment.output_dir", "") or os.path.join(
         os.environ.get("WORKSPACE", "./workspace"), config.select("experiment.name", "run"))
     output_dir = os.path.join(base, subdir) if subdir else base
-    os.makedirs(output_dir, exist_ok=True)
-    config.save_yaml(os.path.join(output_dir, "config.yaml"))
-    return {"output_dir": output_dir, "logger": stdout_logger("maskbit_tpu_torch.eval"),
+    if is_main_process():
+        os.makedirs(output_dir, exist_ok=True)
+        config.save_yaml(os.path.join(output_dir, "config.yaml"))
+    return output_dir
+
+
+def setup_experiment(config, subdir: str = "") -> dict:
+    """The evaluation entry points' device, output directory and logger:
+    {"device", "output_dir", "logger", "seed"} (`setup_device` on
+    `eval.device`, `output_directory`)."""
+    from maskbit_tpu_torch.utils.logger import setup_logger
+
+    logger = setup_logger("maskbit_tpu_torch.eval")
+    device = setup_device(config, "eval.device", logger)
+    return {"device": device, "output_dir": output_directory(config, subdir), "logger": logger,
             "seed": int(config.select("training.seed", 42))}
 
 
 def build_dataloaders(config, logger, global_batch_size: int
                       ) -> Tuple[Callable[[], Iterator[dict]], Callable[[], Iterator[dict]], bool]:
-    """(train iterator factory, eval iterator factory, synthetic?):
+    """(train iterator factory, eval iterator factory, synthetic?) of this
+    process's batches, `global_batch_size // process_count()` each:
     `SimpleImagenet` over the train and eval shards when the first train
-    shard exists; otherwise endless synthetic train batches and, for eval,
-    two copies of the first synthetic batch of seed 1, as in the JAX
-    package."""
+    shard exists (the eval shards split across the processes); otherwise
+    endless synthetic train batches and, for eval, two copies of the first
+    synthetic batch of seed 1, as in the JAX package, each process's seeds
+    offset by its index."""
     params = config.dataset.params
     prep = config.dataset.preprocessing
     resolution = prep.get("resolution", 256)
@@ -208,9 +233,10 @@ def build_dataloaders(config, logger, global_batch_size: int
     if not (expanded and os.path.exists(expanded[0])):
         logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
                        "Point dataset.params.train_shards_path_or_url at real shards for training.")
+        per_process, rank = global_batch_size // process_count(), process_index()
         make_eval = lambda: iter(  # noqa: E731
-            [next(synthetic_batches(global_batch_size, resolution, seed=1)) for _ in range(2)])
-        return lambda: synthetic_batches(global_batch_size, resolution, seed=0), make_eval, True
+            [next(synthetic_batches(per_process, resolution, seed=1 + rank)) for _ in range(2)])
+        return lambda: synthetic_batches(per_process, resolution, seed=rank), make_eval, True
     logger.info(f"training from tar shards {train_shards!r} ({len(expanded)} shards)")
     data = SimpleImagenet(
         train_shards_path_or_url=train_shards,
@@ -225,7 +251,8 @@ def build_dataloaders(config, logger, global_batch_size: int
         use_aspect_ratio_aug=prep.get("use_aspect_ratio_aug", True),
         use_random_crop=prep.get("use_random_crop", True),
         interpolation=prep.get("interpolation", "bilinear"),
-        seed=int(config.select("training.seed", 42)))
+        seed=int(config.select("training.seed", 42)),
+        process_index=process_index(), process_count=process_count())
     return (lambda: iter(data.train_dataloader)), (lambda: data.eval_dataloader), False
 
 
@@ -278,13 +305,23 @@ def reset_optimizer_counts(opt):
 
 
 class GracefulShutdown:
-    """Preemption-safe training on one process: SIGTERM sets a flag; the
-    train loop finishes the step in flight, sees `should_stop()`, writes a
-    final checkpoint and exits, so resume-latest continues from that step.
-    `close()` puts the previous handler back."""
+    """Preemption-safe training: SIGTERM sets a flag; the train loop
+    finishes the step in flight, sees `should_stop(step)`, writes a final
+    blocking checkpoint and exits, so resume-latest continues from that
+    step. `close()` puts the previous handler back.
 
-    def __init__(self, logger=None):
+    Across processes the final save is collective, so the stop decision is
+    global: SIGTERM may reach only some processes, and a local decision
+    would leave the others waiting in the next collective. `should_stop`
+    therefore ORs the flag over the processes, on the steps divisible by
+    `check_every` only (every process agrees on which steps from the global
+    step; the reduction waits for every process, so it does not run every
+    step). Once true it stays true; in one process it is immediate."""
+
+    def __init__(self, logger=None, check_every: int = 8):
         self.requested = False
+        self.check_every = max(1, int(check_every))
+        self._stopped = False
         self._logger = logger
         try:
             self._prev = signal.signal(signal.SIGTERM, self._handle)
@@ -297,25 +334,20 @@ class GracefulShutdown:
             self._logger.warning("SIGTERM received — finishing the in-flight step, then "
                                  "writing a final checkpoint and exiting")
 
-    def should_stop(self) -> bool:
-        return self.requested
+    def should_stop(self, step: int = 0) -> bool:
+        """The global stop decision after global step `step`."""
+        if self._stopped:
+            return True
+        if process_count() == 1:
+            self._stopped = self.requested
+        elif step % self.check_every == 0:
+            self._stopped = bool(process_allgather_f64([float(self.requested)]).any())
+        return self._stopped
 
     def close(self) -> None:
         if self._prev is not None:
             signal.signal(signal.SIGTERM, self._prev)
             self._prev = None
-
-
-class AverageMeter:
-    def __init__(self):
-        self.val = self.sum = self.avg = 0.0
-        self.count = 0
-
-    def update(self, val: float):
-        self.val = val
-        self.sum += val
-        self.count += 1
-        self.avg = self.sum / self.count
 
 
 class StepTimer:

@@ -1,30 +1,35 @@
-"""ADM-protocol generation evaluation, the headline gFID (PyTorch, one device).
+"""ADM-protocol generation evaluation, the headline gFID (PyTorch; one
+device, or one process per device under torchrun).
 
     python -m maskbit_tpu_torch.cli.eval_maskbit \\
         config=configs/generator/maskbit_generator_14bit.yaml \\
         experiment.vqgan_checkpoint=... experiment.generator_checkpoint=... \\
         eval.stats_path=metrics/stats/train_imagenet256_stats.npz eval.device=cuda
 
-Counterpart of `maskbit_tpu/cli/eval_maskbit.py` in one process:
+Counterpart of `maskbit_tpu/cli/eval_maskbit.py`:
   * class-balanced labels: `np.random.default_rng(training.seed)
     .permutation(1000)` tiled to `eval.total_samples` (numpy on both
-    sides, so the labels equal the JAX package's);
+    sides, so the labels equal the JAX package's); process p of P takes
+    `labels[p::P]`, so its sample j is global sample j * P + p (the
+    Inception Score's splits stay those of one process);
   * batches of `eval.batch_size` through the masked CFG sampler (every
     attention layer of every step through the attention block kernel on the
-    card); the last batch is padded with class 0 to the full batch and the
-    padded rows never reach the accumulator, so exactly
-    `eval.total_samples` are scored;
+    card); each process's last batch is padded with class 0 to the full
+    batch and the padded rows never reach the accumulator, so exactly
+    `eval.total_samples` are scored for any process count and batch size;
   * the images' uint8 truncation `floor(clip(x, 0, 1) * 255)`, computed in
     the dtype the decoder gives (bf16 under `mixed_precision: bf16`, as in
     JAX), then InceptionV3 and `AdmMomentAccumulator` (float64 moments);
-  * the Inception Score, and FID against `eval.stats_path` when it exists.
+  * the moments merged over the processes (`merge_across_hosts`), then the
+    Inception Score, and FID against `eval.stats_path` when it exists.
 Without Inception weights (`MASKBIT_INCEPTION_WEIGHTS` / `MASKBIT_ADM_PB`)
-the samples are generated and no metric is computed. Weights: the two
+the samples are generated and no metric is computed; every process must
+agree on that, and on the stats file, or the run raises. Weights: the two
 checkpoints (`.bin`), else seeded random weights with a warning, stored in
 float32 and computed in the configured dtype. The sampler's random stream
-(a `torch.Generator` seeded with `training.seed`) differs from the JAX
-package's. The sharded multi-device sampler and the merge across processes
-wait for the runtime slice (ROADMAP.md, Queue 1 item 4).
+(a `torch.Generator` seeded with `training.seed` plus the process index)
+differs from the JAX package's. The sharded multi-device sampler of one
+process waits for a later PR (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -39,13 +44,18 @@ import torch
 
 from maskbit_tpu_torch.cli.common import (
     load_generation_models,
-    resolve_device,
     setup_experiment,
     validate_generator_config,
 )
 from maskbit_tpu_torch.cli.eval_tokenizer import make_inception_fn
 from maskbit_tpu_torch.core.config import config_from_cli
 from maskbit_tpu_torch.eval.adm import AdmMomentAccumulator, Evaluator
+from maskbit_tpu_torch.parallel.mesh import (
+    assert_host_agreement,
+    is_main_process,
+    process_count,
+    process_index,
+)
 from maskbit_tpu_torch.sampling.sample import make_sampler
 
 
@@ -69,15 +79,16 @@ def _sync(device: torch.device) -> float:
 
 def main(argv=None) -> dict:
     """Generate and score; returns {"results": the metrics (also printed and
-    written to eval_results.json), "count": samples scored (None without
-    Inception weights), "batch_seconds": per batch {"sampler",
-    "inception", "moments"} seconds (host clock, the card synchronised
-    between phases), "output_dir"}."""
+    written to eval_results.json by the main process), "count": samples
+    scored over every process (None without Inception weights),
+    "accumulator": the merged `AdmMomentAccumulator` (None likewise),
+    "local_samples": this process's share, "batch_seconds": per batch
+    {"sampler", "inception", "moments"} seconds (host clock, the card
+    synchronised between phases), "output_dir"}."""
     config = config_from_cli(argv if argv is not None else sys.argv[1:])
     validate_generator_config(config)
     ctx = setup_experiment(config, subdir="eval_generation")
-    logger = ctx["logger"]
-    device = resolve_device(config, "eval.device")
+    logger, device = ctx["logger"], ctx["device"]
     vq_cfg, mlm_cfg = config.model.vq_model, config.model.mlm_model
 
     tokenizer, generator, sampling_cfg, _, _ = load_generation_models(config, logger, device)
@@ -85,17 +96,23 @@ def main(argv=None) -> dict:
     batch_size = int(config.select("eval.batch_size", 100))
     total_samples = int(config.select("eval.total_samples", 50_000))
     seed = ctx["seed"]
-    labels = class_balanced_labels(total_samples, seed)
+    p_idx, p_cnt = process_index(), process_count()
+    labels = class_balanced_labels(total_samples, seed)[p_idx::p_cnt]
     num_batches = int(np.ceil(len(labels) / batch_size))
 
     inception_fn = make_inception_fn(device)
+    stats_path = config.select("eval.stats_path", "")
+    has_stats = bool(stats_path and os.path.exists(stats_path))
+    assert_host_agreement({"inception weights found": inception_fn is not None,
+                           "eval.stats_path found": has_stats}, context="eval_maskbit")
     evaluator = Evaluator(inception_fn) if inception_fn is not None else None
     if evaluator is None:
         logger.warning("MASKBIT_INCEPTION_WEIGHTS not set — generating samples but "
                        "skipping FID/IS computation")
     accum = AdmMomentAccumulator(total_samples=total_samples) if evaluator else None
-    rng = torch.Generator(device=device).manual_seed(seed)
-    logger.info(f"generating {len(labels)} samples in {num_batches} batches of {batch_size}")
+    rng = torch.Generator(device=device).manual_seed(seed + p_idx)
+    logger.info(f"generating {len(labels)} samples in {num_batches} batches of {batch_size} "
+                f"on each of {p_cnt} process(es)")
     batch_seconds = []
     for i in range(num_batches):
         chunk = labels[i * batch_size:(i + 1) * batch_size]
@@ -110,7 +127,8 @@ def main(argv=None) -> dict:
             feats = inception_fn(to_pixels_255(images))
             t2 = _sync(device)
             acts, logits = (feats[k][:valid].cpu().numpy() for k in ("2048", "logits_unbiased"))
-            accum.update(acts, logits, np.arange(i * batch_size, i * batch_size + valid))
+            local_idx = np.arange(i * batch_size, i * batch_size + valid)
+            accum.update(acts, logits, local_idx * p_cnt + p_idx)
             times.update(inception=t2 - t1, moments=time.perf_counter() - t2)
         batch_seconds.append(times)
         if (i + 1) % 10 == 0:
@@ -122,8 +140,7 @@ def main(argv=None) -> dict:
         if accum.count != total_samples:
             raise RuntimeError(f"accumulated {accum.count} != eval.total_samples {total_samples}")
         results["InceptionScore"] = accum.inception_score()
-        stats_path = config.select("eval.stats_path", "")
-        if stats_path and os.path.exists(stats_path):
+        if has_stats:
             ref_stats = evaluator.read_statistics(stats_path, None)
             results["FID"] = accum.fid_statistics().frechet_distance(ref_stats)
         else:
@@ -131,10 +148,12 @@ def main(argv=None) -> dict:
 
     logger.info(f"Results for {vq_cfg.get('token_size')} bits with "
                 f"{mlm_cfg.get('num_steps')} steps: {results}")
-    print(json.dumps(results))
-    with open(os.path.join(ctx["output_dir"], "eval_results.json"), "w") as f:
-        json.dump(results, f, indent=2)
+    if is_main_process():
+        print(json.dumps(results))
+        with open(os.path.join(ctx["output_dir"], "eval_results.json"), "w") as f:
+            json.dump(results, f, indent=2)
     return {"results": results, "count": accum.count if accum is not None else None,
+            "accumulator": accum, "local_samples": len(labels),
             "batch_seconds": batch_seconds, "output_dir": ctx["output_dir"]}
 
 

@@ -1,4 +1,5 @@
-"""Tokenizer reconstruction evaluation (PyTorch, one device).
+"""Tokenizer reconstruction evaluation (PyTorch; one device, or one process
+per device under torchrun).
 
     python -m maskbit_tpu_torch.cli.eval_tokenizer \\
         config=configs/tokenizer/maskbit_tokenizer_14bit.yaml \\
@@ -13,10 +14,13 @@ random weights with a warning) reconstructs the eval batches
 (`dataset.params.eval_shards_path_or_url` when the train shards exist,
 else the synthetic eval batches) and `TokenizerEvaluator` streams MAE, MSE,
 PSNR, SSIM, codebook usage and entropy, and with Inception weights rFID and
-the Inception Score. `MASKBIT_EVAL_MAX_BATCHES` caps the batches. The
-results go to stdout and `eval/eval_results.json` under the experiment's
-output directory (`cli.common.setup_experiment`). `eval.device` (default
-"cuda") names the device.
+the Inception Score. `MASKBIT_EVAL_MAX_BATCHES` caps the batches (of each
+process). Across processes each evaluates its split of the eval shards
+(shard i goes to process i % process_count) and the accumulators are
+summed over the processes (`merge_across_hosts`). The results go to
+stdout and `eval/eval_results.json` under the experiment's output
+directory (`cli.common.setup_experiment`), from the main process.
+`eval.device` (default "cuda") names the device.
 
 Inception weights (`make_inception_fn`): `MASKBIT_ADM_PB`, the ADM suite's
 `classify_image_graph_def.pb`, takes precedence over
@@ -40,7 +44,6 @@ from maskbit_tpu_torch.cli.common import (
     build_module,
     compute_dtype,
     random_init_,
-    resolve_device,
     setup_experiment,
 )
 from maskbit_tpu_torch.core.checkpoint import load_pretrained
@@ -48,6 +51,7 @@ from maskbit_tpu_torch.core.config import config_from_cli
 from maskbit_tpu_torch.eval.streaming import TokenizerEvaluator
 from maskbit_tpu_torch.models.taming import OriginalVQModel
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
+from maskbit_tpu_torch.parallel.mesh import is_main_process, process_count
 
 
 def build_tokenizer(config, dtype: torch.dtype) -> torch.nn.Module:
@@ -112,8 +116,7 @@ def main(argv=None) -> dict:
     eval_results.json)."""
     config = config_from_cli(argv if argv is not None else sys.argv[1:])
     ctx = setup_experiment(config, subdir="eval")
-    logger = ctx["logger"]
-    device = resolve_device(config, "eval.device")
+    logger, device = ctx["logger"], ctx["device"]
     dtype = compute_dtype(config, default="no")
     model = build_module(lambda: build_tokenizer(config, dtype), device)
 
@@ -147,7 +150,7 @@ def main(argv=None) -> dict:
     )
 
     batch_size = config.select("training.per_device_batch_size", 16)
-    _, make_eval, _ = build_dataloaders(config, logger, batch_size)
+    _, make_eval, _ = build_dataloaders(config, logger, batch_size * process_count())
     max_batches = int(os.environ.get("MASKBIT_EVAL_MAX_BATCHES", "0")) or None
     with torch.inference_mode():
         for i, batch in enumerate(make_eval()):
@@ -161,9 +164,10 @@ def main(argv=None) -> dict:
 
     results = evaluator.result()
     logger.info(f"EVALUATION: {results}")
-    print(json.dumps(results))
-    with open(os.path.join(ctx["output_dir"], "eval_results.json"), "w") as f:
-        json.dump(results, f, indent=2)
+    if is_main_process():
+        print(json.dumps(results))
+        with open(os.path.join(ctx["output_dir"], "eval_results.json"), "w") as f:
+            json.dump(results, f, indent=2)
     return results
 
 

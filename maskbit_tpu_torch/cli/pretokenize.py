@@ -33,13 +33,13 @@ from maskbit_tpu_torch.cli.common import (
     build_tokenizer,
     compute_dtype,
     resolve_device,
-    stdout_logger,
 )
 from maskbit_tpu_torch.core.config import config_from_cli
 from maskbit_tpu_torch.data.tar_reader import TarImageDataset, batched
 from maskbit_tpu_torch.data.token_shards import TokenShardWriter
 from maskbit_tpu_torch.data.transforms import EvalTransform, TrainTransform
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
+from maskbit_tpu_torch.utils.logger import setup_logger
 
 
 def tokenize_to_shards(tokenizer: ConvVQModel, batches: Iterable[dict],
@@ -66,7 +66,7 @@ def tokenize_to_shards(tokenizer: ConvVQModel, batches: Iterable[dict],
 
 def main(argv=None) -> int:
     config = config_from_cli(argv if argv is not None else sys.argv[1:])
-    logger = stdout_logger("maskbit_tpu_torch.pretokenize")
+    logger = setup_logger("maskbit_tpu_torch.pretokenize")
     device = resolve_device(config, "pretokenize.device")
     output_dir = os.path.join(os.environ.get("WORKSPACE", "./workspace"),
                               config.select("experiment.name", "run"), "pretokenize")

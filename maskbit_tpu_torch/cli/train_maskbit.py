@@ -1,6 +1,9 @@
-"""Stage-II generator training entry point (PyTorch, one device).
+"""Stage-II generator training entry point (PyTorch; one device, or one
+process per device under torchrun).
 
     python -m maskbit_tpu_torch.cli.train_maskbit \\
+        config=configs/generator/maskbit_generator_14bit.yaml training.device=cuda
+    torchrun --nproc_per_node=N -m maskbit_tpu_torch.cli.train_maskbit \\
         config=configs/generator/maskbit_generator_14bit.yaml training.device=cuda
 
 Counterpart of `maskbit_tpu/cli/train_maskbit.py`. The generator of
@@ -46,6 +49,17 @@ seed from that stream. Each eval draws from a generator of its own, seeded
 from `training.seed` and the step, and leaves the step stream as it was.
 `training.device` (default "cuda") names the device;
 CUDA requested and absent is an error.
+
+Data parallelism (torchrun, `parallel/mesh.py`): each process takes
+`training.per_device_batch_size` rows of a global batch that many times the
+process count, from its own token or tar shards (`process_index`,
+`process_count`), and its own step stream (the rank folded into the seed,
+`rank_seed`); the gradients are averaged over the processes in the step.
+The main process alone writes the config, the tracker's logs, the sample
+grids and the `.bin` files; the train-state checkpoint is collective
+(`core/checkpoint.py`) and the SIGTERM stop is decided across the
+processes every 8 steps (`GracefulShutdown`). The in-training eval shards
+its batches over the processes and merges their moments.
 """
 
 from __future__ import annotations
@@ -66,9 +80,9 @@ from maskbit_tpu_torch.cli.common import (
     build_module,
     build_tokenizer,
     compute_dtype,
+    output_directory,
     reset_optimizer_counts,
-    resolve_device,
-    stdout_logger,
+    setup_device,
     validate_generator_config,
 )
 from maskbit_tpu_torch.core.checkpoint import CheckpointManager, save_pretrained
@@ -80,6 +94,13 @@ from maskbit_tpu_torch.eval.streaming import GeneratorEvaluator
 from maskbit_tpu_torch.losses.mlm import MLMLossConfig
 from maskbit_tpu_torch.models.generator import init_generator_weights_, make_generator
 from maskbit_tpu_torch.ops.bitops import combine_factorized_tokens
+from maskbit_tpu_torch.parallel.mesh import (
+    assert_host_agreement,
+    is_main_process,
+    process_count,
+    process_index,
+    rank_seed,
+)
 from maskbit_tpu_torch.sampling.sample import SamplingConfig, make_sampler
 from maskbit_tpu_torch.train.generator_trainer import (
     init_generator_train_state,
@@ -87,7 +108,9 @@ from maskbit_tpu_torch.train.generator_trainer import (
     make_generator_train_step_from_tokens,
 )
 from maskbit_tpu_torch.train.optim import make_optimizer
+from maskbit_tpu_torch.utils.logger import setup_logger
 from maskbit_tpu_torch.utils.lr_schedules import get_schedule
+from maskbit_tpu_torch.utils.params import summarize_params
 from maskbit_tpu_torch.utils.tracker import create_tracker
 from maskbit_tpu_torch.utils.viz import (
     make_viz_generated_stage_two,
@@ -96,7 +119,7 @@ from maskbit_tpu_torch.utils.viz import (
 
 
 def _logger() -> logging.Logger:
-    return stdout_logger("maskbit_tpu_torch.train")
+    return setup_logger("maskbit_tpu_torch.train")
 
 
 def build_training(config, logger) -> dict:
@@ -104,23 +127,20 @@ def build_training(config, logger) -> dict:
     "output_dir", "tokenizer", "generator", "state", "train_step",
     "token_shards", "batch_size", "train_iter", "rng"}."""
     validate_generator_config(config)
-    device = resolve_device(config, "training.device")
+    device = setup_device(config, "training.device", logger)
     dtype = compute_dtype(config, default="no")
     seed = int(config.select("training.seed", 42))
-    name = config.select("experiment.name", "run")
-    output_dir = config.select("experiment.output_dir", "") or os.path.join(
-        os.environ.get("WORKSPACE", "./workspace"), name)
-    os.makedirs(output_dir, exist_ok=True)
-    config.save_yaml(os.path.join(output_dir, "config.yaml"))
+    output_dir = output_directory(config)
 
     vq_cfg, mlm_cfg = config.model.vq_model, config.model.mlm_model
     tokenizer = build_tokenizer(config, logger, device, dtype)
     generator = build_module(lambda: make_generator(mlm_cfg.get("model_cls", "lfq_bert"),
                                                     mlm_cfg, vq_cfg, dtype=dtype), device)
     init_generator_weights_(generator, torch.Generator(device=device).manual_seed(seed))
-    n_params = sum(p.numel() for p in generator.parameters())
-    logger.info(f"generator: {n_params / 1e6:.2f}M parameters on {device}, compute {dtype}"
-                f"{', remat' if mlm_cfg.get('remat', False) else ''}")
+    logger.info(summarize_params(generator, "generator"))
+    logger.info(f"generator on {device}, compute {dtype}"
+                f"{', remat' if mlm_cfg.get('remat', False) else ''}, {process_count()} "
+                "process(es)")
 
     max_steps = int(config.select("training.max_train_steps", 1_000_000))
     opt_cfg = config.optimizer.params
@@ -154,18 +174,21 @@ def build_training(config, logger) -> dict:
             "tokenizer": tokenizer, "generator": generator, "state": state,
             "train_step": train_step, "token_shards": token_shards, "batch_size": batch_size,
             "train_iter": build_train_iter(config, logger, token_shards, batch_size),
-            "rng": torch.Generator(device=device).manual_seed(seed + 1)}
+            "rng": torch.Generator(device=device).manual_seed(rank_seed(seed + 1))}
 
 
 def build_train_iter(config, logger, token_shards: str, batch_size: int):
-    """Batches of {"tokens" or "image", "class_id"} numpy arrays."""
+    """This process's batches of {"tokens" or "image", "class_id"} numpy
+    arrays, `batch_size` rows each."""
     if token_shards:
         logger.info(f"training from pre-tokenized shards {token_shards}")
         dataset = TokenShardDataset(token_shards, resample=True,
-                                    seed=int(config.select("training.seed", 42)))
+                                    seed=int(config.select("training.seed", 42)),
+                                    process_index=process_index(),
+                                    process_count=process_count())
         train_iter = dataset.batches(batch_size)
     else:
-        train_iter = build_dataloaders(config, logger, batch_size)[0]()
+        train_iter = build_dataloaders(config, logger, batch_size * process_count())[0]()
     if config.select("training.overfit_batch", False):
         n = config.select("training.overfit_batch_num", 1)
         train_iter = itertools.cycle([next(train_iter) for _ in range(n)])
@@ -217,28 +240,37 @@ def generate(run: dict, sampler, labels, seed: int) -> np.ndarray:
 
 def eval_generation(run: dict, config, sampler, seed: int, logger):
     """In-training generation eval: IS (and FID against `eval.stats_path`)
-    over EMA samples of random labels; the evaluator, or None (with a log
-    line) without Inception weights."""
+    over EMA samples of random labels; the evaluator, merged across the
+    processes, or None (with a log line) without Inception weights. Each
+    process draws every batch's labels and seed from one stream and samples
+    the batches i with i % process_count() == process_index(), so N
+    processes score the sample set of one."""
     from maskbit_tpu_torch.cli.eval_tokenizer import make_inception_fn
 
     num_samples = int(config.select("eval.num_generation_samples", 2000))
     batch_size = int(config.select("eval.generation_batch_size", 50))
     device = run["device"]
     inception_fn = make_inception_fn(device)
+    stats_path = config.select("eval.stats_path", "")
+    has_stats = bool(stats_path and os.path.exists(stats_path))
+    assert_host_agreement({"inception weights found": inception_fn is not None,
+                           "eval.stats_path found": has_stats},
+                          context="in-training generation eval")
     if inception_fn is None:
         logger.info("in-training generation eval skipped (no inception weights); "
                     "run cli.eval_maskbit for the full 50k ADM gFID")
         return None
     real_mu = real_sigma = None
-    stats_path = config.select("eval.stats_path", "")
-    if stats_path and os.path.exists(stats_path):
+    if has_stats:
         real_mu, real_sigma = load_stats_npz(stats_path)
     evaluator = GeneratorEvaluator(inception_fn, real_mu, real_sigma)
     rng = torch.Generator(device=device).manual_seed(seed)
-    for _ in range(num_samples // batch_size):
+    for i in range(num_samples // batch_size):
         labels = torch.randint(0, 1000, (batch_size,), generator=rng, device=device)
         batch_seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
-        evaluator.update(torch.from_numpy(generate(run, sampler, labels, batch_seed)))
+        if i % process_count() == process_index():
+            evaluator.update(torch.from_numpy(generate(run, sampler, labels, batch_seed)))
+    evaluator.merge_across_hosts()
     return evaluator
 
 
@@ -255,15 +287,17 @@ def decoded_pair(run: dict, viz: dict, codebook_size: int, splits: int, n: int) 
 
 
 def save_checkpoint(ckpt: CheckpointManager, run: dict, step: int, logger) -> float:
-    """The train state (written in the background) and the bare `.bin`
-    weights; returns the seconds the call held the loop."""
+    """The train state (written in the background; a collective) and, from
+    the main process, the bare `.bin` weights; returns the seconds the call
+    held the loop."""
     t0 = time.perf_counter()
     state, generator, output_dir = run["state"], run["generator"], run["output_dir"]
     ckpt.save(step, state)
-    save_pretrained(generator, os.path.join(output_dir, f"model-{step}.bin"))
-    if state.ema is not None:
-        save_pretrained(generator, os.path.join(output_dir, f"ema_model-{step}.bin"),
-                        params=state.ema.params)
+    if is_main_process():
+        save_pretrained(generator, os.path.join(output_dir, f"model-{step}.bin"))
+        if state.ema is not None:
+            save_pretrained(generator, os.path.join(output_dir, f"ema_model-{step}.bin"),
+                            params=state.ema.params)
     seconds = time.perf_counter() - t0
     logger.info(f"saved checkpoint @ step {step} (model-{step}.bin, ema_model-{step}.bin) "
                 f"in {seconds:.2f} s")
@@ -295,11 +329,13 @@ def main(argv=None) -> dict:
     res = config.select("dataset.preprocessing.resolution", 256)
     sampler = make_sampler(run["generator"], run["tokenizer"], SamplingConfig.from_config(
         mlm_cfg, vq_cfg)._replace(patch_size=res // 2 ** (vq_cfg.get("num_resolutions", 5) - 1)))
-    tracker = create_tracker(config.select("experiment.logger", "jsonl"), output_dir,
+    tracker = create_tracker(config.select("experiment.logger", "jsonl")
+                             if is_main_process() else "none", output_dir,
                              project=config.select("experiment.project", "maskbit_tpu"),
                              run_name=config.select("experiment.name", "run"),
                              config=config.to_dict())
     rng = run["rng"]
+    num_devices = process_count()
     timer = StepTimer()
     history, save_seconds = [], []
     shutdown = GracefulShutdown(logger)
@@ -309,7 +345,7 @@ def main(argv=None) -> dict:
             timer.data_tick()
             state, metrics = train_step(state, inputs, labels, rng)
             step = state.step
-            if shutdown.should_stop():
+            if shutdown.should_stop(step):
                 logger.warning(f"preemption: stopping cleanly at step {step}")
                 break
             viz = {k: metrics.pop(k) for k in list(metrics) if k.startswith("_")}
@@ -320,9 +356,8 @@ def main(argv=None) -> dict:
                 scalars = {k: float(v) for k, v in metrics.items()
                            if not k.startswith("grad_norm/")}
                 timer.batch_tick()  # after the sync above: the step's device time
-                # one device: the JAX CLI's per-device rate is the rate
-                scalars["perf/samples_per_sec_per_device"] = batch_size / max(
-                    timer.batch_time.avg, 1e-9)
+                samples_per_sec = batch_size * num_devices / max(timer.batch_time.avg, 1e-9)
+                scalars["perf/samples_per_sec_per_device"] = samples_per_sec / num_devices
                 scalars["perf/step_seconds"] = timer.batch_time.val  # data included
                 scalars["perf/data_seconds"] = timer.data_time.val
                 history.append(dict(scalars, step=step))
@@ -334,13 +369,16 @@ def main(argv=None) -> dict:
                 timer.batch_tick()
             if step % generate_every == 0:
                 t0 = time.perf_counter()
+                # drawn on every process, so every step stream advances alike
                 seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
-                images = generate(run, sampler, labels[:num_gen], seed)
-                tracker.log_image("train/generated", make_viz_generated_stage_two(images)[1], step)
-                tracker.log_image("train/decoded",
-                                  decoded_pair(run, viz, codebook_size, splits, num_gen), step)
-                logger.info(f"generated {len(images)} images with the EMA weights at step {step} "
-                            f"in {time.perf_counter() - t0:.2f} s")
+                if is_main_process():
+                    images = generate(run, sampler, labels[:num_gen], seed)
+                    tracker.log_image("train/generated",
+                                      make_viz_generated_stage_two(images)[1], step)
+                    tracker.log_image("train/decoded",
+                                      decoded_pair(run, viz, codebook_size, splits, num_gen), step)
+                    logger.info(f"generated {len(images)} images with the EMA weights at step "
+                                f"{step} in {time.perf_counter() - t0:.2f} s")
                 timer.restart()
             if step % save_every == 0:
                 save_seconds.append(save_checkpoint(ckpt, run, step, logger))
@@ -356,7 +394,7 @@ def main(argv=None) -> dict:
                 timer.restart()
         if state.step != last_saved:
             save_seconds.append(save_checkpoint(ckpt, run, state.step, logger))
-        ckpt.close()
+        ckpt.close()  # every process waits here until the last write has committed
     finally:
         shutdown.close()
         tracker.close()

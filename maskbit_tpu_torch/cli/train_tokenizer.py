@@ -1,6 +1,9 @@
-"""Stage-I tokenizer training entry point (PyTorch, one device).
+"""Stage-I tokenizer training entry point (PyTorch; one device, or one
+process per device under torchrun).
 
     python -m maskbit_tpu_torch.cli.train_tokenizer \\
+        config=configs/tokenizer/maskbit_tokenizer_14bit.yaml training.device=cuda
+    torchrun --nproc_per_node=N -m maskbit_tpu_torch.cli.train_tokenizer \\
         config=configs/tokenizer/maskbit_tokenizer_14bit.yaml training.device=cuda
 
 Counterpart of `maskbit_tpu/cli/train_tokenizer.py`. The VQGAN+ tokenizer
@@ -41,6 +44,15 @@ bias corrections, `experiment.dont_resume_optimizer: true` starts both
 optimizers afresh. SIGTERM stops the run after the step in flight, with a
 final checkpoint. `training.device` (default "cuda") names the device; CUDA
 requested and absent is an error.
+
+Data parallelism (torchrun, `parallel/mesh.py`): each process takes
+`training.per_device_batch_size` rows of the global batch from its own
+shards (or synthetic seed) and the trainer averages the gradients and the
+batch-level terms over the processes; `scale_lr` counts every process's
+device. The main process alone writes the config, the logs, the grids and
+the `.bin` files; the checkpoint is collective, the SIGTERM stop is decided
+across the processes every 8 steps, and the in-training eval runs on each
+process's split of the eval shards and merges the accumulators.
 """
 
 from __future__ import annotations
@@ -62,9 +74,9 @@ from maskbit_tpu_torch.cli.common import (
     build_module,
     build_perceptual,
     compute_dtype,
+    output_directory,
     reset_optimizer_counts,
-    resolve_device,
-    stdout_logger,
+    setup_device,
 )
 from maskbit_tpu_torch.core.checkpoint import CheckpointManager, load_pretrained, save_pretrained
 from maskbit_tpu_torch.core.config import config_from_cli
@@ -73,19 +85,22 @@ from maskbit_tpu_torch.eval.streaming import TokenizerEvaluator
 from maskbit_tpu_torch.losses.vqgan import VQGANLossConfig
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel, init_tokenizer_weights_
 from maskbit_tpu_torch.nn.discriminator import create_discriminator, init_discriminator_weights_
+from maskbit_tpu_torch.parallel.mesh import is_main_process, process_count
 from maskbit_tpu_torch.train.optim import make_optimizer
 from maskbit_tpu_torch.train.tokenizer_trainer import (
     init_tokenizer_train_state,
     make_tokenizer_train_step,
     trainable_parameters,
 )
+from maskbit_tpu_torch.utils.logger import setup_logger
 from maskbit_tpu_torch.utils.lr_schedules import get_schedule
+from maskbit_tpu_torch.utils.params import summarize_params
 from maskbit_tpu_torch.utils.tracker import create_tracker
 from maskbit_tpu_torch.utils.viz import make_viz_from_samples
 
 
 def _logger() -> logging.Logger:
-    return stdout_logger("maskbit_tpu_torch.train_tokenizer")
+    return setup_logger("maskbit_tpu_torch.train_tokenizer")
 
 
 def build_optimizers(config, model, discriminator, num_devices: int = 1):
@@ -122,13 +137,10 @@ def build_training(config, logger) -> dict:
     """Everything a run needs, from a config: {"device", "dtype",
     "output_dir", "model", "discriminator", "perceptual", "loss_cfg",
     "state", "train_step", "batch_size"}."""
-    device = resolve_device(config, "training.device")
+    device = setup_device(config, "training.device", logger)
     dtype = compute_dtype(config, "no")
     seed = int(config.select("training.seed", 42))
-    output_dir = config.select("experiment.output_dir", "") or os.path.join(
-        os.environ.get("WORKSPACE", "./workspace"), config.select("experiment.name", "run"))
-    os.makedirs(output_dir, exist_ok=True)
-    config.save_yaml(os.path.join(output_dir, "config.yaml"))
+    output_dir = output_directory(config)
 
     model = build_module(lambda: ConvVQModel.from_config(config.model.vq_model, dtype=dtype),
                          device)
@@ -142,15 +154,15 @@ def build_training(config, logger) -> dict:
         model.load_state_dict(load_pretrained(init_ckpt, device), strict=True)
         logger.info(f"initialized weights from {init_ckpt}")
     for name, module in (("tokenizer", model), ("discriminator", discriminator)):
-        n = sum(p.numel() for p in module.parameters())
-        logger.info(f"{name}: {n / 1e6:.2f}M parameters on {device}, compute {dtype}")
+        logger.info(summarize_params(module, name))
+    logger.info(f"on {device}, compute {dtype}, {process_count()} process(es)")
 
     loss_cfg = VQGANLossConfig.from_config(config.losses)
     perceptual = build_perceptual(config, logger, device)
     if perceptual is None and loss_cfg.perceptual_weight > 0:
         loss_cfg = loss_cfg._replace(perceptual_loss="none", perceptual_weight=0.0)
 
-    gen_opt, disc_opt = build_optimizers(config, model, discriminator)
+    gen_opt, disc_opt = build_optimizers(config, model, discriminator, process_count())
     state = init_tokenizer_train_state(model, discriminator, gen_opt, disc_opt,
                                        use_ema=config.select("training.use_ema", True))
     max_steps = int(config.select("training.max_train_steps", 1_000_000))
@@ -202,7 +214,8 @@ def reconstruct(run: dict, images: torch.Tensor) -> np.ndarray:
 
 def eval_reconstruction(run: dict, eval_batches, config) -> dict:
     """In-training eval of the EMA weights: PSNR, SSIM, MSE, MAE, codebook
-    usage and entropy over at most `eval.max_eval_batches` batches."""
+    usage and entropy over at most `eval.max_eval_batches` batches of each
+    process's eval split, merged over the processes (a collective)."""
     max_batches = int(config.select("eval.max_eval_batches", 50))
     evaluator = TokenizerEvaluator(
         enable_psnr_score=True, enable_ssim_score=True, enable_mse_error=True,
@@ -217,19 +230,22 @@ def eval_reconstruction(run: dict, eval_batches, config) -> dict:
             recons, result = model.eval()(images)
             evaluator.update(images, recons.clamp(0.0, 1.0),
                              codebook_indices=result["min_encoding_indices"])
+    evaluator.merge_across_hosts()
     return evaluator.result()
 
 
 def save_checkpoint(ckpt: CheckpointManager, run: dict, step: int, logger) -> float:
-    """The train state (written in the background) and the tokenizer's bare
-    `.bin` weights; returns the seconds the call held the loop."""
+    """The train state (written in the background; a collective) and, from
+    the main process, the tokenizer's bare `.bin` weights; returns the
+    seconds the call held the loop."""
     t0 = time.perf_counter()
     state, model, output_dir = run["state"], run["model"], run["output_dir"]
     ckpt.save(step, state)
-    save_pretrained(model, os.path.join(output_dir, f"model-{step}.bin"))
-    if state.ema is not None:
-        save_pretrained(model, os.path.join(output_dir, f"ema_model-{step}.bin"),
-                        params=state.ema.params)
+    if is_main_process():
+        save_pretrained(model, os.path.join(output_dir, f"model-{step}.bin"))
+        if state.ema is not None:
+            save_pretrained(model, os.path.join(output_dir, f"ema_model-{step}.bin"),
+                            params=state.ema.params)
     seconds = time.perf_counter() - t0
     logger.info(f"saved checkpoint @ step {step} in {seconds:.2f} s")
     return seconds
@@ -255,13 +271,15 @@ def main(argv=None) -> dict:
     ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"), max_to_keep=3)
     resumed_from = restore(config, logger, ckpt, state)
     last_saved = resumed_from if resumed_from else -1
-    make_train, make_eval, _ = build_dataloaders(config, logger, batch_size)
+    num_devices = process_count()
+    make_train, make_eval, _ = build_dataloaders(config, logger, batch_size * num_devices)
     train_iter = make_train()
     if config.select("training.overfit_batch", False):
         n = config.select("training.overfit_batch_num", 1)
         train_iter = itertools.cycle([next(train_iter) for _ in range(n)])
         logger.info(f"overfitting on {n} cached batch(es)")
-    tracker = create_tracker(config.select("experiment.logger", "jsonl"), output_dir,
+    tracker = create_tracker(config.select("experiment.logger", "jsonl")
+                             if is_main_process() else "none", output_dir,
                              project=config.select("experiment.project", "maskbit_tpu"),
                              run_name=config.select("experiment.name", "run"),
                              config=config.to_dict())
@@ -275,7 +293,7 @@ def main(argv=None) -> dict:
             timer.data_tick()
             state, metrics = train_step(state, images)
             step = state.step
-            if shutdown.should_stop():
+            if shutdown.should_stop(step):
                 logger.warning(f"preemption: stopping cleanly at step {step}")
                 break
             if log_grad_norm_every and step % log_grad_norm_every == 0:
@@ -285,8 +303,8 @@ def main(argv=None) -> dict:
                 scalars = {k: float(v) for k, v in metrics.items()
                            if not k.startswith("grad_norm/")}
                 timer.batch_tick()  # after the sync above: the step's device time
-                scalars["perf/samples_per_sec_per_device"] = batch_size / max(
-                    timer.batch_time.avg, 1e-9)
+                samples_per_sec = batch_size * num_devices / max(timer.batch_time.avg, 1e-9)
+                scalars["perf/samples_per_sec_per_device"] = samples_per_sec / num_devices
                 scalars["perf/batch_time"] = timer.batch_time.avg
                 scalars["perf/data_time"] = timer.data_time.avg
                 scalars["perf/step_seconds"] = timer.batch_time.val
@@ -297,7 +315,7 @@ def main(argv=None) -> dict:
                             f"{scalars['perf/samples_per_sec_per_device']:.1f} samples/s/dev")
             else:
                 timer.batch_tick()
-            if step % generate_every == 0:
+            if step % generate_every == 0 and is_main_process():
                 shown = images[:num_images]
                 grid = make_viz_from_samples(shown.cpu().numpy(), reconstruct(run, shown))[1]
                 tracker.log_image("train/reconstructions", grid, step)
@@ -314,7 +332,7 @@ def main(argv=None) -> dict:
                 timer.restart()
         if state.step != last_saved:
             save_seconds.append(save_checkpoint(ckpt, run, state.step, logger))
-        ckpt.close()
+        ckpt.close()  # every process waits here until the last write has committed
     finally:
         shutdown.close()
         tracker.close()

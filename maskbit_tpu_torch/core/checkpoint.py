@@ -12,6 +12,14 @@ metadata of a step is written only after its step has committed (at the
 next save, wait, restore or close), and the steps beyond `max_to_keep`,
 oldest first, and their metadata are deleted.
 
+Across data-parallel processes (`parallel/mesh.py`) the manager is
+collective: every process calls `save`, `wait`, `restore_latest` and
+`close` at the same steps. The weights are replicated, so the main process
+alone copies and writes; `wait` ends in a barrier, so no process goes on to
+its next save, or exits, before the write in flight has committed. Every
+process restores the newest step, agreed through `assert_host_agreement`
+(a step one process's disk lacks raises rather than hangs).
+
 `load_pretrained` is the counterpart of `maskbit_tpu/core/checkpoint.load_pretrained`:
 a PyTorch state dict in the original repo's layout, with its legacy
 `token_emb.` -> `input_proj.` rename for LFQBert and without the `loss.*`
@@ -36,6 +44,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from maskbit_tpu_torch.parallel.mesh import assert_host_agreement, barrier, is_main_process
+
 STATE_FILE = "state.pt"
 
 
@@ -59,10 +69,11 @@ class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: Optional[int] = None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
-        for name in os.listdir(self.directory):  # a write cut short never committed
-            if name.startswith(".tmp-"):
-                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        if is_main_process():
+            os.makedirs(self.directory, exist_ok=True)
+            for name in os.listdir(self.directory):  # a write cut short never committed
+                if name.startswith(".tmp-"):
+                    shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
         self.max_to_keep = max_to_keep
         self.timings: List[dict] = []
         self._writer: Optional[threading.Thread] = None
@@ -71,14 +82,21 @@ class CheckpointManager:
 
     def all_steps(self) -> List[int]:
         """The committed steps, in ascending order."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit()
                       and os.path.exists(os.path.join(self.directory, n, STATE_FILE)))
 
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
         """Copy `state.state_dict()` to the host now and write it in the
         background (the next save, wait, restore or close waits for it);
-        blocking=True waits here."""
+        blocking=True waits here. Collective; only the main process
+        writes."""
         self.wait()
+        if not is_main_process():
+            if blocking:
+                self.wait()
+            return
         t0 = time.perf_counter()
         tree = host_copy(state.state_dict())
         record = {"step": int(step), "host_copy_s": time.perf_counter() - t0}
@@ -113,7 +131,8 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until the save in flight has committed, then write its
-        metadata; raise what the write raised."""
+        metadata; raise what the write raised. Collective: every process
+        leaves it once the main process's write has committed."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
@@ -121,6 +140,7 @@ class CheckpointManager:
             error, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from error
         self._flush_metadata()
+        barrier()
 
     def _flush_metadata(self) -> None:
         if self._pending_meta is None:
@@ -147,8 +167,11 @@ class CheckpointManager:
 
     def restore_latest(self, state: Any) -> Optional[Tuple[Any, int]]:
         """Load the newest step into `state` in place; (state, step), or
-        None when no step has committed."""
+        None when no step has committed. Collective: every process loads
+        the same step."""
         step = self.latest_step()
+        assert_host_agreement({"newest checkpoint step": -1 if step is None else step},
+                              context=f"restore from {self.directory}")
         if step is None:
             return None
         t0 = time.perf_counter()

@@ -9,9 +9,10 @@ the Inception Score's moments per split, keyed by each sample's global
 index, so that partial accumulators merge (`merge_state`) to exactly what
 one accumulator over all samples holds.
 
-One process only: `merge_across_hosts` does nothing in one process and
-raises when `torch.distributed` is initialised (cross-process runs come
-with the runtime slice, ROADMAP.md Queue 1 item 4).
+Across data-parallel processes each accumulates its share of the samples
+and `merge_across_hosts` (a collective) sums the moments over the
+processes, in rank order, through the bit-exact float64 allgather
+(`parallel.mesh.process_allgather_f64`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from maskbit_tpu_torch.eval.fid import frechet_distance, get_covariance
+from maskbit_tpu_torch.parallel.mesh import process_allgather_f64, process_count
 
 
 def to_float64(x) -> np.ndarray:
@@ -31,13 +33,12 @@ def to_float64(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
-def refuse_distributed(what: str) -> None:
-    """Raise if this process is one of several: merges across processes
-    are not ported yet."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise NotImplementedError(
-            f"{what}: merging across processes is not ported to maskbit_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 4); run the evaluation in one process")
+def sum_across_processes(x) -> np.ndarray:
+    """The float64 sum over the processes, in rank order, of `x` (an array
+    or a scalar, returned with its shape); exact transport, so the merge
+    equals one process's sum of the same parts."""
+    x = np.asarray(x, np.float64)
+    return process_allgather_f64(x).sum(axis=0).reshape(x.shape)
 
 
 class FIDStatistics:
@@ -138,8 +139,14 @@ class AdmMomentAccumulator:
             getattr(self, name).__iadd__(np.asarray(state[name]))
 
     def merge_across_hosts(self) -> None:
-        """Nothing to merge in one process (raises under torch.distributed)."""
-        refuse_distributed("AdmMomentAccumulator.merge_across_hosts")
+        """Sum the moments over the processes (collective; nothing to do in
+        one process)."""
+        if process_count() == 1:
+            return
+        self.count = int(sum_across_processes(self.count))
+        for name in self._ARRAYS:
+            setattr(self, name, sum_across_processes(getattr(self, name))
+                    .astype(getattr(self, name).dtype))
 
     def fid_statistics(self) -> FIDStatistics:
         mu = self.act_sum / self.count

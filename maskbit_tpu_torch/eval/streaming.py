@@ -12,8 +12,10 @@ float64, as in the JAX package. Images are NHWC in [0, 1], as tensors on
 any device or numpy arrays; fake images become uint8 (`clip(x * 255)`
 truncated, in the images' dtype) before the Inception network.
 
-One process only: `merge_across_hosts` does nothing in one process and
-raises when `torch.distributed` is initialised.
+Across data-parallel processes each evaluator accumulates its share and
+`merge_across_hosts` (a collective every process runs) sums the
+accumulators over the processes through the bit-exact float64 allgather,
+after checking that every process enables the same metrics.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from maskbit_tpu_torch.eval import fid as fid_lib
-from maskbit_tpu_torch.eval.adm import to_float64, refuse_distributed
+from maskbit_tpu_torch.eval.adm import sum_across_processes as total
+from maskbit_tpu_torch.eval.adm import to_float64
+from maskbit_tpu_torch.parallel.mesh import assert_host_agreement, process_count
 from maskbit_tpu_torch.utils.precision import full_f32
 
 
@@ -194,8 +198,40 @@ class TokenizerEvaluator:
             self._codebook_frequencies[entries.astype(np.int64)] += counts.astype(np.float64)
 
     def merge_across_hosts(self) -> None:
-        """Nothing to merge in one process (raises under torch.distributed)."""
-        refuse_distributed("TokenizerEvaluator.merge_across_hosts")
+        """Sum the accumulators over the processes (collective; nothing to do
+        in one process). The codebook-usage set travels as a presence vector
+        (union = elementwise max). The enable flags decide which collectives
+        run, so they are checked to agree first."""
+        if process_count() == 1:
+            return
+        flags = {"mae": self._enable_mae_error, "mse": self._enable_mse_error,
+                 "psnr": self._enable_psnr_score, "ssim": self._enable_ssim_score,
+                 "lpips": self._enable_lpips_score,
+                 "inception_score": self._enable_inception_score, "rfid": self._enable_rfid,
+                 "codebook_usage": self._enable_codebook_usage_measure,
+                 "codebook_entropy": self._enable_codebook_entropy_measure}
+        assert_host_agreement(flags, context="TokenizerEvaluator.merge_across_hosts")
+        self._num_examples = int(total(self._num_examples))
+        self._num_updates = int(total(self._num_updates))
+        for flag, name in (("mae", "_mae_sum"), ("mse", "_mse_sum"), ("psnr", "_psnr_sum"),
+                           ("ssim", "_ssim_sum"), ("lpips", "_lpips_sum")):
+            if flags[flag]:
+                setattr(self, name, float(total(getattr(self, name))))
+        if self._enable_inception_score:
+            self._is_prob_total = total(self._is_prob_total)
+            self._is_total_kl_d = total(self._is_total_kl_d)
+        if self._enable_rfid:
+            self._rfid_real_total = total(self._rfid_real_total)
+            self._rfid_fake_total = total(self._rfid_fake_total)
+            self._rfid_real_sigma = total(self._rfid_real_sigma)
+            self._rfid_fake_sigma = total(self._rfid_fake_sigma)
+        if self._enable_codebook_usage_measure:
+            presence = np.zeros(self._num_codebook_entries, np.float64)
+            if self._codebook_set:
+                presence[np.asarray(sorted(self._codebook_set), np.int64)] = 1.0
+            self._codebook_set = set(np.nonzero(total(presence))[0].tolist())
+        if self._enable_codebook_entropy_measure:
+            self._codebook_frequencies = total(self._codebook_frequencies)
 
     def result(self) -> Mapping[str, float]:
         if self._num_examples < 1:
@@ -268,8 +304,22 @@ class GeneratorEvaluator:
             self._fake_sigma += f.T @ f
 
     def merge_across_hosts(self) -> None:
-        """Nothing to merge in one process (raises under torch.distributed)."""
-        refuse_distributed("GeneratorEvaluator.merge_across_hosts")
+        """Sum the accumulators over the processes (collective; nothing to do
+        in one process). FID is on only where the stats file was found, a
+        fact of each process's disk, so the flags are checked to agree
+        first."""
+        if process_count() == 1:
+            return
+        assert_host_agreement({"inception_score": self._enable_inception_score,
+                               "fid(real stats npz found)": self._enable_fid},
+                              context="GeneratorEvaluator.merge_across_hosts")
+        self._num_examples = int(total(self._num_examples))
+        if self._enable_inception_score:
+            self._is_prob_total = total(self._is_prob_total)
+            self._is_total_kl_d = total(self._is_total_kl_d)
+        if self._enable_fid:
+            self._fake_total = total(self._fake_total)
+            self._fake_sigma = total(self._fake_sigma)
 
     def result(self) -> Mapping[str, float]:
         if self._num_examples < 1:

@@ -5,6 +5,10 @@ over ALL positions (torch convention: (1-eps) * NLL(target) + eps *
 mean_c NLL(c)), the masked-only loss and accuracy as mask-weighted means,
 `correct_tokens ** m` over the m codebook splits, and the optional
 `sum_splits` scaling. Computed in float32 whatever the logits' dtype.
+Across data-parallel processes the returned loss is this process's mean
+(its gradients are averaged), while the metrics are the global batch's, as
+JAX computes them over the global array: the sums and the denominators are
+summed over the processes before the divisions and powers.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, process_count
 
 
 class MLMLossConfig(NamedTuple):
@@ -35,15 +41,15 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, masks: torch.Tensor,
 
     with torch.no_grad():
         correct = (logits.argmax(-1) == targets).float()
-        correct_tokens = correct.mean() ** m
-    mask_f = masks.float()
-    denom = mask_f.sum().clamp(min=1.0)
-    masked_loss = (ce * mask_f).sum() / denom
-    masked_correct_tokens = ((correct * mask_f).sum() / denom) ** m
-
+        mask_f = masks.float()
+        # the per-process mean of each sum, so the ratios below are global
+        sums = torch.stack([ce.sum(), correct.sum(), (ce * mask_f).sum(),
+                            (correct * mask_f).sum(), mask_f.sum()])
+        ce_sum, correct_sum, masked_ce, masked_correct, mask_count = all_reduce_mean_([sums])[0]
+        denom = mask_count.clamp(min=1.0 / process_count())
+        n, scale = ce.numel(), (m if cfg.sum_splits else 1)
     if cfg.sum_splits:
         loss = loss * m
-        masked_loss = masked_loss * m
-    return loss, dict(mlm_loss=loss, correct_tokens=correct_tokens,
-                      masked_token_loss=masked_loss,
-                      masked_correct_tokens=masked_correct_tokens)
+    return loss, dict(mlm_loss=ce_sum / n * scale, correct_tokens=(correct_sum / n) ** m,
+                      masked_token_loss=masked_ce / denom * scale,
+                      masked_correct_tokens=(masked_correct / denom) ** m)

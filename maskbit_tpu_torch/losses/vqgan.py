@@ -13,6 +13,13 @@ Counterpart of `maskbit_tpu/losses/vqgan.py`:
   * `calculate_adaptive_weight` = ||grad nll|| / (||grad g|| + 1e-4),
     clamped to [0, 1e4], on the decoder's last convolution.
 Metrics come back detached, under the JAX package's keys.
+
+Across data-parallel processes the batch-level nonlinear terms are the
+global batch's, as JAX computes them over the global array: the LeCam
+regulariser and its EMA take the logits' means over every process
+(`parallel.mesh.global_mean`), so every process holds the same LeCam
+state, and the adaptive weight is the ratio of the norms of the two
+gradients averaged over the processes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from maskbit_tpu_torch.losses import gan
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean
 
 
 class VQGANLossConfig(NamedTuple):
@@ -73,7 +81,10 @@ def reconstruction_loss_fn(cfg: VQGANLossConfig, inputs: torch.Tensor,
 
 
 def calculate_adaptive_weight(nll_grads: torch.Tensor, g_grads: torch.Tensor) -> torch.Tensor:
-    """||nll_grads|| / (||g_grads|| + 1e-4), clamped to [0, 1e4], detached."""
+    """||nll_grads|| / (||g_grads|| + 1e-4), clamped to [0, 1e4], detached;
+    the gradients are averaged over the processes first (the global
+    batch's)."""
+    nll_grads, g_grads = all_reduce_mean_([nll_grads.detach().clone(), g_grads.detach().clone()])
     d_weight = torch.linalg.vector_norm(nll_grads) / (torch.linalg.vector_norm(g_grads) + 1e-4)
     return d_weight.clamp(0.0, 1e4).detach()
 
@@ -143,7 +154,8 @@ def discriminator_loss(cfg: VQGANLossConfig, logits_real: torch.Tensor,
     lecam_loss = logits_real.new_zeros(())
     new_state = lecam_state
     if cfg.lecam_regularization_weight > 0.0:
-        real_mean, fake_mean = logits_real.mean(), logits_fake.mean()
+        real_mean, fake_mean = global_mean(torch.stack([logits_real.mean(),
+                                                        logits_fake.mean()])).unbind()
         lecam_loss = gan.compute_lecam_loss(
             real_mean, fake_mean, lecam_state.ema_real_logits_mean,
             lecam_state.ema_fake_logits_mean) * cfg.lecam_regularization_weight

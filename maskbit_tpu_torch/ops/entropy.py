@@ -15,7 +15,14 @@ Counterpart of `maskbit_tpu/ops/entropy.py`:
 `lfq_entropy_terms` is a `torch.autograd.Function`: its backward recomputes
 each chunk's probabilities and applies the gradient analytically, so
 nothing of a chunk is kept between the passes (at 18 bits and 4096 rows a
-chunk is 64 MB, and there are 64). The affinity products run in full
+chunk is 64 MB, and there are 64) but its mean probabilities (2^K floats).
+
+Across data-parallel processes both terms are the global batch's, as JAX
+computes them over the global array: each chunk's mean probability is
+averaged over the processes before its entropy (one small all-reduce per
+chunk, in the forward; the backward reuses them), and the per-sample
+entropy, a mean, is averaged too. Each process's gradient is its share of
+the global one (`parallel.mesh.global_mean`). The affinity products run in full
 float32 in both passes (`utils/precision.full_f32`, whatever the caller's
 TF32 flags), as the JAX package's `Precision.HIGHEST`: with T = 0.01 a
 TF32 product's ~1e-3 relative error becomes an O(1) error in the
@@ -29,6 +36,7 @@ from typing import Tuple
 import torch
 
 from maskbit_tpu_torch.ops.bitops import indices_to_bits
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean
 from maskbit_tpu_torch.utils.precision import full_f32
 
 
@@ -43,8 +51,8 @@ def entropy_loss_fn(affinity: torch.Tensor, temperature: float, entropy_gamma: f
     softmax(affinity / temperature) over the last axis, in float32."""
     flat = affinity.reshape(-1, affinity.shape[-1]).float() / temperature
     probability = torch.softmax(flat, dim=-1)
-    average_probability = probability.mean(dim=0)
-    per_sample_entropy = -(probability * clamp_log(probability)).sum(dim=-1).mean()
+    average_probability = global_mean(probability.mean(dim=0))
+    per_sample_entropy = global_mean(-(probability * clamp_log(probability)).sum(dim=-1).mean())
     avg_entropy = (-average_probability * clamp_log(average_probability)).sum()
     return per_sample_entropy, avg_entropy * entropy_gamma
 
@@ -70,19 +78,22 @@ class _LfqEntropy(torch.autograd.Function):
             log_z = _log2cosh(2.0 * inv_t * rows).sum(dim=-1)  # (R,)
             psum = torch.zeros_like(log_z)
             avg_entropy = rows.new_zeros(())
+            avg_ps = []
             for start in range(0, n_codes, chunk_size):
                 codes = _chunk_codes(start, chunk_size, num_bits, rows.device)
                 p = torch.exp((2.0 * inv_t) * (rows @ codes.t()) - log_z[:, None])
                 psum += (p * clamp_log(p, eps)).sum(dim=-1)
-                avg_p = p.mean(dim=0)
+                avg_p = all_reduce_mean_([p.mean(dim=0)])[0]  # the global batch's
                 avg_entropy += (-avg_p * clamp_log(avg_p, eps)).sum()
-        ctx.save_for_backward(rows, log_z)
+                avg_ps.append(avg_p)
+            per_sample = all_reduce_mean_([-psum.mean()])[0]
+        ctx.save_for_backward(rows, log_z, torch.cat(avg_ps))
         ctx.num_bits, ctx.inv_t, ctx.chunk_size, ctx.eps = num_bits, inv_t, chunk_size, eps
-        return -psum.mean(), avg_entropy
+        return per_sample, avg_entropy
 
     @staticmethod
     def backward(ctx, g_per_sample, g_avg):
-        rows, log_z = ctx.saved_tensors
+        rows, log_z, avg_ps = ctx.saved_tensors
         num_bits, inv_t, chunk_size, eps = ctx.num_bits, ctx.inv_t, ctx.chunk_size, ctx.eps
         n_rows = rows.shape[0]
         grad = torch.zeros_like(rows)
@@ -91,9 +102,10 @@ class _LfqEntropy(torch.autograd.Function):
             for start in range(0, 2**num_bits, chunk_size):
                 codes = _chunk_codes(start, chunk_size, num_bits, rows.device)
                 p = torch.exp((2.0 * inv_t) * (rows @ codes.t()) - log_z[:, None])
-                avg_p = p.mean(dim=0)
+                avg_p = avg_ps[start:start + chunk_size]
                 # d/dp of -mean_i sum_c p log(max(p, eps)) and of
-                # sum_c -avg_p log(max(avg_p, eps)), avg_p = mean_i p
+                # sum_c -avg_p log(max(avg_p, eps)), avg_p = mean_i p (over
+                # the global batch: this process's share of the gradient)
                 d_p = (-g_per_sample / n_rows) * (clamp_log(p, eps) + (p > eps).float())
                 d_p -= (g_avg / n_rows) * (clamp_log(avg_p, eps) + (avg_p > eps).float())
                 d_logits = d_p * p  # p = exp(logits - log_z)

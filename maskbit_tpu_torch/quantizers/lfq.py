@@ -5,7 +5,8 @@ quantize (sign -> ±1 -> LSB-first `min_encoding_indices`), the commitment
 loss, the full-codebook entropy loss (only with `train` and a non-zero
 `entropy_loss_weight`; streamed over codebook chunks by
 `ops.entropy.lfq_entropy_terms`), the straight-through estimator
-z + (z_q - z).detach(), and `get_codebook_entry`. The original repo's
+z + (z_q - z).detach(), and `get_codebook_entry`. Across data-parallel
+processes the entropy terms are the global batch's (`ops/entropy.py`). The original repo's
 registered buffers `bits_to_indices` and `codebook` are kept so that state
 dicts load strictly.
 """

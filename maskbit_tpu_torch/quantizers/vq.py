@@ -6,8 +6,8 @@ TF32 off, as the JAX package's `Precision.HIGHEST`: the argmin is sensitive
 to near ties), optionally over L2-normalised latents and codes, the
 commitment and codebook losses, the entropy term over -distances (only
 with `train` and a non-zero `entropy_loss_weight`,
-`ops.entropy.entropy_loss_fn`), the straight-through estimator and
-`get_codebook_entry`. The codebook is `embedding.weight` (the original
+`ops.entropy.entropy_loss_fn`, the global batch's across data-parallel
+processes), the straight-through estimator and `get_codebook_entry`. The codebook is `embedding.weight` (the original
 repo's key).
 """
 

@@ -24,12 +24,26 @@ attention layer call in order (tests hand both frameworks the same draws).
 With `log_param_grad_norms` the metrics also hold each parameter's gradient
 norm as "grad_norm/<parameter name>" (the JAX package names them by its
 Flax paths).
+
+Data parallelism (`parallel/mesh.py`): each process steps on its share of
+the global batch, and its gradients are averaged over the processes
+(`all_reduce_mean_`, in the "train/all_reduce" range) before the grad norm
+and the optimizer, so every process applies the global batch's update and
+the per-parameter norms are the global gradient's. The metrics are the
+global batch's (`losses/mlm.py`; the masked fraction averaged). Injected
+draws are given for the global batch and each process takes its rows
+(`local_rows`), so a run over N processes draws the masks, label drops and
+attention dropout masks of a one-process run row for row; a
+`torch.Generator` is the caller's to seed per process
+(`parallel.mesh.rank_seed`). Under remat the recompute runs inside
+`torch.autograd.grad`, so the gradients are reduced once, after it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -39,6 +53,7 @@ from maskbit_tpu_torch.losses.mlm import MLMLossConfig, mlm_loss
 from maskbit_tpu_torch.nn.transformer import DropoutRng
 from maskbit_tpu_torch.ops.bitops import split_factorized_tokens
 from maskbit_tpu_torch.ops.masking import get_mask_tokens
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean, local_rows
 from maskbit_tpu_torch.train.optim import AdamW, global_norm
 
 
@@ -88,6 +103,18 @@ def per_param_grad_norms(names, grads) -> Dict[str, torch.Tensor]:
     return {f"grad_norm/{name}": n for name, n in zip(names, norms)}
 
 
+def local_injected(injected: Mapping[str, Any], b_local: int) -> Dict[str, Any]:
+    """This process's rows of draws given for the global batch: the (b,)
+    and (b, n, m) uniforms and each (b, h) attention seed table."""
+    def rows(x):
+        return local_rows(x if torch.is_tensor(x) else np.asarray(x), b_local)
+
+    out = {k: rows(v) for k, v in injected.items() if k != "attention_seeds"}
+    if "attention_seeds" in injected:
+        out["attention_seeds"] = [rows(t) for t in injected["attention_seeds"]]
+    return out
+
+
 def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_schedule: str,
                    class_label_dropout: float, ema_kwargs: Mapping[str, Any],
                    log_param_grad_norms: bool) -> Callable:
@@ -98,6 +125,8 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
                generator: Optional[torch.Generator] = None,
                injected: Optional[Mapping[str, Any]] = None):
         b, dev = tokens.shape[0], tokens.device
+        if injected is not None:
+            injected = local_injected(injected, b)
         split_tokens = split_factorized_tokens(tokens, codebook_size, splits)
         masked_tokens, masks = get_mask_tokens(split_tokens, mask_token, mode=mask_schedule,
                                                generator=generator, injected=injected)
@@ -116,6 +145,8 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
             loss, loss_dict = mlm_loss(logits, split_tokens, masks, mlm_cfg)
         with record_function("train/backward"):
             grads = list(torch.autograd.grad(loss, params))
+        with record_function("train/all_reduce"):
+            all_reduce_mean_(grads)
         with record_function("train/optimizer"):
             grad_norm = global_norm(grads)
             state.opt.step(grads)
@@ -126,7 +157,7 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
 
         metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = grad_norm
-        metrics["train/masked_fraction"] = masks.float().mean()
+        metrics["train/masked_fraction"] = global_mean(masks.float().mean())
         if log_param_grad_norms:
             metrics.update(per_param_grad_norms([n for n, _ in named], grads))
         # non-scalar viz payloads (underscore keys; the CLI pops them)

@@ -26,7 +26,17 @@ Python function, computes what the JAX step computes:
     gate on; before the gate its metrics are zeros;
   * the EMA of the generator's parameters.
 Parameters, moments and EMA shadows are updated in place. Stage I draws no
-random numbers in the step. The phases run inside
+random numbers in the step.
+
+Data parallelism (`parallel/mesh.py`): each process steps on its share of
+the global batch; the tokenizer's gradients, and from the gate on the
+discriminator's, are averaged over the processes before the grad norm and
+the optimizers (a frozen discriminator sends nothing), so every process
+holds the same parameters; the entropy, LeCam and adaptive-weight terms are
+the global batch's (`ops/entropy.py`, `losses/vqgan.py`), and the metrics
+are averaged over the processes, so they are the global batch's too. The
+Pix2Pix discriminator's BatchNorm would need the global batch's statistics:
+it is refused across processes. The phases run inside
 `torch.profiler.record_function` ranges ("tokenizer/generator",
 "tokenizer/adaptive_weight", "tokenizer/backward", "tokenizer/optimizer",
 "tokenizer/discriminator", "tokenizer/ema").
@@ -50,7 +60,8 @@ from maskbit_tpu_torch.losses.vqgan import (
     generator_loss,
     nll_loss_only,
 )
-from maskbit_tpu_torch.nn.discriminator import NLayerDiscriminatorv2
+from maskbit_tpu_torch.nn.discriminator import NLayerDiscriminatorv2, OriginalNLayerDiscriminator
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, mean_across_processes, process_count
 from maskbit_tpu_torch.train.generator_trainer import per_param_grad_norms
 from maskbit_tpu_torch.train.optim import AdamW, global_norm
 
@@ -114,6 +125,10 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
     """Build train_step(state, images) -> (state, metrics). Images are NHWC
     in [0, 1]; `perceptual_fn(a, b)` is the perceptual loss (a module such as
     `PerceptualLoss` or `LPIPS`, frozen) or None (zero)."""
+    if isinstance(discriminator, OriginalNLayerDiscriminator) and process_count() > 1:
+        raise NotImplementedError(
+            "the Pix2Pix discriminator's BatchNorm takes the global batch's statistics under "
+            "data parallelism, which maskbit_tpu_torch does not port; use VQGAN+Discriminator")
     ema_kwargs = dict(ema_kwargs or {})
     use_adaptive = loss_cfg.discriminator_gradient_penalty == "adopt_weight"
     batch_disc_passes = isinstance(discriminator, NLayerDiscriminatorv2)
@@ -149,6 +164,8 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
                                         logits_fake=logits_fake, d_weight=d_weight)
         with record_function("tokenizer/backward"):
             grads = list(torch.autograd.grad(total, gen_params, materialize_grads=True))
+        with record_function("tokenizer/all_reduce"):
+            all_reduce_mean_(grads)
         with record_function("tokenizer/optimizer"):
             metrics["grad_norm"] = global_norm(grads)
             if log_param_grad_norms:
@@ -168,8 +185,9 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
                     logits_real, logits_fake = discriminator(images), discriminator(fakes)
                 d_loss, d_metrics, state.lecam = discriminator_loss(
                     loss_cfg, logits_real, logits_fake, step, state.lecam)
-                d_grads = torch.autograd.grad(d_loss, disc_params, materialize_grads=True)
-                state.disc_opt.step(list(d_grads))
+                d_grads = list(torch.autograd.grad(d_loss, disc_params, materialize_grads=True))
+                all_reduce_mean_(d_grads)
+                state.disc_opt.step(d_grads)
         else:
             zero = images.new_zeros(())
             d_metrics = {k: zero for k in ("discriminator_loss", "logits_real", "logits_fake",
@@ -180,7 +198,8 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
             with record_function("tokenizer/ema"):
                 ema_update(state.ema, model, **ema_kwargs)
         state.step += 1
-        return state, {**metrics, **d_metrics, "train/total_loss": total.detach()}
+        return state, mean_across_processes(
+            {**metrics, **d_metrics, "train/total_loss": total.detach()})
 
     return train_step
 

@@ -13,7 +13,9 @@
   the comparison covers what the evaluators compute: the pixel sums, the
   SSIM convolution, the uint8 truncation, the softmax moments and the
   float64 host math.
-* The cross-process merges refuse to run under `torch.distributed`.
+* The cross-process merges run under an initialised one-process
+  `torch.distributed` group and leave the accumulators as they were (the
+  merges across processes: `tests/test_torch_distributed.py`).
 """
 
 import jax.numpy as jnp
@@ -212,17 +214,23 @@ def test_generator_evaluator_matches_jax(dtype):
 
 
 def test_merges_refuse_to_run_across_processes(tmp_path):
+    """Once refused under `torch.distributed`; now a merge in a one-process
+    group runs and changes nothing."""
     import torch.distributed as dist
 
     acc = adm.AdmMomentAccumulator(dim=4, nclass=3, total_samples=10)
+    rng = np.random.default_rng(3)
+    acc.update(rng.normal(size=(5, 4)), rng.normal(size=(5, 3)), np.arange(5))
     evaluators = [acc, streaming.TokenizerEvaluator(), streaming.GeneratorEvaluator(None)]
+    before = {k: np.array(v, copy=True) for k, v in acc.state().items()}
     for ev in evaluators:
         ev.merge_across_hosts()  # one process: nothing to merge
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
                             world_size=1)
     try:
         for ev in evaluators:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-                ev.merge_across_hosts()
+            ev.merge_across_hosts()
+        for key, value in acc.state().items():
+            np.testing.assert_array_equal(value, before[key], err_msg=key)
     finally:
         dist.destroy_process_group()

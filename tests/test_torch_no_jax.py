@@ -14,10 +14,11 @@
   `cli.convert_checkpoint` (`.bin` -> `.msgpack` -> `.bin`, equal bit for
   bit) and runs each from its `.msgpack`, and then finds no module of `jax`, `jaxlib`, `flax`, `optax`, `orbax` or `maskbit_tpu`
   in `sys.modules`.
-* In the source: an AST scan of every `.py` under `maskbit_tpu_torch/` and
-  of `chip_smoke.py` finds no `import maskbit_tpu...` or
-  `from maskbit_tpu... import` other than of `maskbit_tpu_torch`, and no
-  import of JAX's packages.
+* In the source: an AST scan of every `.py` under `maskbit_tpu_torch/`
+  (`parallel/` and `utils/` among them), of `chip_smoke.py` and of the
+  distributed tests' rank worker `tests/torch_distributed_worker.py` finds
+  no `import maskbit_tpu...` or `from maskbit_tpu... import` other than of
+  `maskbit_tpu_torch`, and no import of JAX's packages.
 """
 
 import ast
@@ -167,7 +168,9 @@ def _forbidden_imports(path):
 
 
 SOURCES = sorted(glob.glob(os.path.join(ROOT, "maskbit_tpu_torch", "**", "*.py"),
-                           recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+                           recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
+                                               os.path.join(ROOT, "tests",
+                                                            "torch_distributed_worker.py")]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, ROOT))

@@ -76,7 +76,7 @@ def _config(tmp_path, mlm=None, **sections):
                      "max_train_steps": 2, "max_grad_norm": 1.0, "device": "cpu"},
     }
     for section, values in sections.items():
-        tree[section].update(values)
+        tree[section] = dict(tree[section], **values)  # the shared dicts stay as they are
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(tree))
     return str(path)

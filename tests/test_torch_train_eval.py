@@ -27,7 +27,7 @@ from tests.test_torch_train_cli import MLM, _config
 
 torch.set_num_threads(2)
 GRID_8 = dict(MLM, img_size=16, num_steps=2, guidance_scale=2.0)
-# command-line overrides: `_config`'s sections update shared dicts in place
+# command-line overrides (`_config` takes whole sections)
 RES_16 = "dataset.preprocessing.resolution=16"
 EVAL = [f"eval.{k}={v}" for k, v in {"num_generation_samples": 4,
                                      "generation_batch_size": 2}.items()]

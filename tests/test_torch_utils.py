@@ -9,7 +9,13 @@ gradient norms, on the CPU.
   images, and 'tensorboard' or 'wandb' fall back to jsonl alone when their
   package cannot be imported, as in the JAX package;
 * `per_param_grad_norms`: one norm a trainable parameter, named by it, whose
-  squares sum to the step's global grad norm (float32, rtol 1e-5).
+  squares sum to the step's global grad norm (float32, rtol 1e-5);
+* `utils/logger.setup_logger`: a local log file and a `scheme://` one
+  through fsspec's buffered stream, as the JAX package's tests hold its
+  logger, and nothing emitted where the process is not the main one;
+  `utils/meter.AverageMeter` against the JAX package's on the same
+  updates; `utils/params.summarize_params`: the generator's total equal to
+  the JAX package's count of the same model's Flax parameters.
 """
 
 import builtins
@@ -22,6 +28,7 @@ import torch
 from PIL import Image
 
 from maskbit_tpu.utils import tracker as jax_tracker
+from maskbit_tpu.utils.meter import AverageMeter as JaxAverageMeter
 from maskbit_tpu.utils import viz as jax_viz
 from maskbit_tpu_torch.losses.mlm import MLMLossConfig
 from maskbit_tpu_torch.models.generator import LFQBert, init_generator_weights_
@@ -30,6 +37,7 @@ from maskbit_tpu_torch.train.generator_trainer import (
     make_generator_train_step_from_tokens,
 )
 from maskbit_tpu_torch.train.optim import make_optimizer
+from maskbit_tpu_torch.utils import logger as port_logger
 from maskbit_tpu_torch.utils import tracker as port_tracker
 from maskbit_tpu_torch.utils import viz as port_viz
 
@@ -108,3 +116,53 @@ def test_per_param_grad_norms_sum_to_the_global_norm():
     assert list(norms) == [n for n, _ in model.named_parameters()]
     total = math.sqrt(sum(float(v) ** 2 for v in norms.values()))
     assert total == pytest.approx(float(metrics["grad_norm"]), rel=1e-5)
+
+
+def test_logger_writes_local_and_remote_files_from_the_main_process_only(tmp_path,
+                                                                         monkeypatch):
+    import fsspec
+
+    path = tmp_path / "sub" / "run.log"
+    url = "memory://port_logs/run.log"
+    local = port_logger.setup_logger("port_t_local", output_file=str(path))
+    remote = port_logger.setup_logger("port_t_remote", output_file=url)
+    local.info("hello local")
+    remote.warning("hello remote")
+    monkeypatch.setattr(port_logger, "is_main_process", lambda: False)
+    local.info("from another rank")
+    remote.warning("from another rank")
+    for h in local.handlers:
+        h.flush()
+    assert path.read_text().splitlines()[-1].endswith("hello local")
+    port_logger._cached_log_stream(url).close()  # committed on close, as at exit
+    data = fsspec.filesystem("memory").cat("/port_logs/run.log").decode()
+    assert "hello remote" in data and "another rank" not in data
+    port_logger._cached_log_stream.cache_clear()
+
+
+def test_meter_and_param_summary_match_jax():
+    import jax
+    import jax.numpy as jnp
+
+    from maskbit_tpu.models.generator import LFQBert as JaxLFQBert
+    from maskbit_tpu.utils.params import count_params as jax_count_params
+    from maskbit_tpu_torch.utils.meter import AverageMeter
+    from maskbit_tpu_torch.utils.params import count_params, summarize_params
+
+    mine, theirs = AverageMeter(), JaxAverageMeter()
+    for val, n in ((0.5, 1), (2.0, 3), (-1.25, 2)):
+        mine.update(val, n)
+        theirs.update(val, n)
+        assert vars(mine) == vars(theirs)
+    cfg = {"hidden_dim": 32, "depth": 1, "heads": 2, "mlp_dim": 64, "codebook_splits": 2,
+           "img_size": 16, "input_stride": 2, "nclass": 10}
+    vq = {"codebook_size": 16, "token_size": 4}
+    model = LFQBert.from_config(cfg, vq)
+    jmodel = JaxLFQBert.from_config(cfg, vq)
+    tokens = jnp.zeros((1, jmodel.seq_len, 2), jnp.int32)
+    params = jax.eval_shape(jmodel.init, jax.random.key(0), tokens, jnp.zeros((1,), jnp.int32))
+    assert count_params(model) == jax_count_params(params["params"])
+    lines = summarize_params(model, "generator").splitlines()
+    assert lines[0] == f"generator: {count_params(model) / 1e6:.2f}M params"
+    tops = {name.split(".")[0] for name, _ in model.named_parameters()}
+    assert [line.split(":")[0].strip() for line in lines[1:]] == sorted(tops)

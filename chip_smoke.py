@@ -141,7 +141,7 @@ Phases, each of which fails the run if it fails:
      (NCCL refuses two ranks on one device), each logging to
      chiprun_out/chip_smoke/distributed_<tag>_rank<r>.log:
      a. `cli.train_maskbit` on 2 ranks, the 14-bit flagship at full width
-        and depth from 512 random token shards' tokens, per-rank batch 16
+        (depth cut to 12) from 512 random token shards' tokens, per-rank batch 16
         (global 32), `save_every=3`; SIGTERM to rank 1 once step 4 is
         logged: both ranks stop on the same step, a multiple of 8 (the
         cross-process check), with the final save the newest committed
@@ -155,7 +155,8 @@ Phases, each of which fails the run if it fails:
         (depth 24, hidden dropout off, attention dropout 0.1, bf16) with
         injected global draws, 2 ranks x batch 16 against one process x
         batch 32 (this process, meanwhile): the reduced gradients' relative
-        L2 gap and the updates' sign agreement, with `DP_GRAD_TOL`;
+        L2 gap and the updates' sign agreement, with `DP_GRAD_TOL`; each
+        rank's train-state bytes and peak memory (phase 12's yardstick);
      d. the same ranks: `maskbit_tokenizer_14bit.yaml` (ResNet-50 from
         random weights) at per-rank batch 8, 4 steps across
         `discriminator_start=2`: every rank's parameters, EMA and LeCam
@@ -167,6 +168,27 @@ Phases, each of which fails the run if it fails:
         rank (depth x steps x 2 batches).
      Its files (about 15 GB) live under build/chip_smoke_data/ and are
      deleted.
+ 12. sharded (`--phases sharded`): the fsdp and tensor axes
+     (`parallel/zero.py`), two ranks sharing the card over gloo, first at
+     parallel.fsdp=2, then at tensor=2, each logging as phase 11's ranks:
+     the flagship-width LFQBert at depth 24 (hidden dropout off, attention
+     dropout 0.1, bf16), per-device batch 16 (global 32; under tensor=2
+     both ranks hold the 32 rows, 8 heads each), 4 steps with injected
+     global draws: the first update against one process x batch 32 on the
+     card (the reduced gradients gathered whole: relative L2 and the
+     updates' signs, `DP_GRAD_TOL`); the second with its all-gather,
+     reduce-scatter and tensor all-reduce timed apart; per rank the
+     train-state bytes (at most `SH_STATE_RATIO` of data=2's under fsdp=2,
+     phase 11's when it ran), peak memory, step seconds and the dropout
+     kernels' launches with the heads they ran on. Under fsdp=2: a save
+     of the sliced state, resumed in this process bit for bit and stepped
+     once, and the 14-bit tokenizer through `cli.train_tokenizer`'s
+     `build_training` at fsdp=2 for 3 steps (the gate at 1): both ranks'
+     gathered states equal after every step. Under tensor=2: 2 labels
+     sampled on each rank with the whole EMA weights (the attention block
+     on every layer), the layers tensor-parallel again afterwards. The
+     kernels line gains `launches_sharded_per_rank`. Its files (about 5 GB)
+     live under build/chip_smoke_sharded/ and are deleted.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -225,9 +247,11 @@ BERT_CONFIG = os.path.join(ROOT, "configs", "generator", "maskbit_generator_12bi
 TAMING_CONFIG = os.path.join(ROOT, "configs", "external", "taming_vqgan_tokenizer.yaml")
 TAMING_BATCHES = 4
 # phase 11: two ranks share the card. Stage-II per-rank batch (global 32),
-# the gradient check's depth, the NCCL rank's depth and steps, Stage I's
-# per-rank batch, steps and gate, the sharded eval, each launch's limit (s)
-DP_SIZES = {"batch": 16, "grad_depth": 24, "nccl_depth": 2, "nccl_steps": 3, "tok_batch": 8,
+# the stop run's depth (cut from 24 to make room for phase 12), the gradient
+# check's depth, the NCCL rank's depth and steps, Stage I's per-rank batch,
+# steps and gate, the sharded eval, each launch's limit (s)
+DP_SIZES = {"batch": 16, "stop_depth": 12, "grad_depth": 24, "nccl_depth": 2, "nccl_steps": 3,
+            "tok_batch": 8,
             "tok_steps": 4, "tok_gate": 2, "eval_samples": 300, "eval_batch": 100,
             "timeout": 600}
 DP_CHECK_EVERY = 8  # GracefulShutdown's cross-process check, as the train CLIs use it
@@ -531,8 +555,10 @@ def phase_dropout_kernels(torch) -> dict:
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     rows = {"dropout_attention_fwd": [], "dropout_attention_bwd": [], "fused_attention": []}
-    for b, n in ((TRAIN_BATCH, 257), (LONG_BATCH, 1025)):
-        h = HEADS
+    # the train shape, the 512 px one, and a rank's share of the heads in
+    # phase 12's tensor=2 steps (the global batch of 32 rows, 8 heads)
+    for b, n, h in ((TRAIN_BATCH, 257, HEADS), (LONG_BATCH, 1025, HEADS),
+                    (2 * SH_SIZES["batch"], 257, HEADS // 2)):
         q, k, v = _qkv_packed(torch, b, n, h, seed=b * n)
         seeds = torch.randint(0, 2**32, (b, h), generator=torch.Generator(device="cuda").manual_seed(n),
                               device="cuda", dtype=torch.int64)
@@ -2143,23 +2169,26 @@ def _sync(torch, device) -> float:
 
 
 def _timed_all_reduce(torch, device, seconds: list, captured: list = None):
-    """Wrap `generator_trainer.all_reduce_mean_` so each call's time (the
-    card synchronised on both sides) is kept apart from the rest of the
-    step; with `captured`, a host copy of the reduced tensors too. Returns
-    the function it wrapped, for the caller to put back."""
-    from maskbit_tpu_torch.train import generator_trainer as gt
+    """Wrap `ShardedParams.reduce_scatter_grads` (the trainers' gradient reduction)
+    so each call's time (the card synchronised on both sides) is kept apart
+    from the rest of the step; with `captured`, a host copy of the reduced
+    gradients too, gathered whole from the slices when the store is split
+    (a collective every rank makes at the same point). Returns the function
+    it wrapped, for the caller to put back."""
+    from maskbit_tpu_torch.parallel import zero
 
-    real = gt.all_reduce_mean_
+    real = zero.ShardedParams.reduce_scatter_grads
 
-    def timed(tensors):
+    def timed(self, names, grads):
         t0 = _sync(torch, device)
-        out = real(tensors)
+        out = real(self, names, grads)
         seconds.append(_sync(torch, device) - t0)
         if captured is not None:
-            captured.extend(t.detach().float().cpu().clone() for t in out)
+            whole = self.whole(names, out)
+            captured.extend(t.detach().float().cpu().clone() for t in whole)
         return out
 
-    gt.all_reduce_mean_ = timed
+    zero.ShardedParams.reduce_scatter_grads = timed
     return real
 
 
@@ -2219,8 +2248,8 @@ def _grad_step(torch, spec, model, vq, data, captured, reduce_s):
     """One step of `make_generator_train_step_from_tokens` on this process's
     rows; returns the updated parameters on the host."""
     from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.parallel import zero
     from maskbit_tpu_torch.parallel.mesh import local_rows, process_count
-    from maskbit_tpu_torch.train import generator_trainer as gt
     from maskbit_tpu_torch.train.generator_trainer import (
         init_generator_train_state,
         make_generator_train_step_from_tokens,
@@ -2236,11 +2265,68 @@ def _grad_step(torch, spec, model, vq, data, captured, reduce_s):
     tokens = torch.from_numpy(local_rows(data["tokens"], local)).to(spec["device"])
     labels = torch.from_numpy(local_rows(data["labels"], local)).to(spec["device"])
     try:
-        _, metrics = step(init_generator_train_state(model, opt), tokens, labels,
-                          injected=data["injected"])
+        state, metrics = step(init_generator_train_state(model, opt), tokens, labels,
+                              injected=data["injected"])
     finally:
-        gt.all_reduce_mean_ = real
+        zero.ShardedParams.reduce_scatter_grads = real
+    metrics["state_bytes"] = _state_bytes(state)
     return {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}, metrics
+
+
+def _resident_bytes(tensors) -> int:
+    """The bytes of the storages behind `tensors`, each storage once."""
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
+def _state_bytes(state) -> int:
+    """The bytes this rank keeps of a Stage-II train state between steps:
+    the module's parameters (under a sharded store, empty where split), the
+    store's slices, the AdamW moments and the EMA shadows."""
+    return _resident_bytes(
+        list(state.model.parameters()) + list(state.store.shards.values()) + state.opt.mu
+        + state.opt.nu + (list(state.ema.params.values()) if state.ema is not None else []))
+
+
+def _timed_collectives(torch, device, seconds: dict):
+    """Wrap the collectives of `parallel/mesh.py` where `parallel/zero.py` and
+    the Megatron layers call them, so each call's time (the card
+    synchronised on both sides) adds to `seconds` under its kind:
+    all_gather, reduce_scatter, tensor_all_reduce (over the tensor group)
+    or all_reduce (over any other group). Returns a function that puts the
+    originals back."""
+    from maskbit_tpu_torch.parallel import mesh as pm
+    from maskbit_tpu_torch.parallel import zero
+
+    tensor_ranks = pm.group("tensor").ranks
+
+    def timed(fn, kind_of):
+        def wrapper(x, g=None):
+            if pm._size(g) == 1:
+                return fn(x, g)
+            t0 = _sync(torch, device)
+            out = fn(x, g)
+            kind = kind_of(g)
+            seconds[kind] = seconds.get(kind, 0.0) + _sync(torch, device) - t0
+            return out
+        return wrapper
+
+    reduce_kind = lambda g: ("tensor_all_reduce" if g is not None  # noqa: E731
+                             and g.ranks == tensor_ranks else "all_reduce")
+    real = {(pm, "_all_reduce_sum_"): (pm._all_reduce_sum_, reduce_kind),
+            (zero, "_all_reduce_sum_"): (zero._all_reduce_sum_, reduce_kind),
+            (zero, "all_gather_flat"): (zero.all_gather_flat, lambda g: "all_gather"),
+            (zero, "reduce_scatter_flat"): (zero.reduce_scatter_flat, lambda g: "reduce_scatter")}
+    for (module, name), (fn, kind_of) in real.items():
+        setattr(module, name, timed(fn, kind_of))
+
+    def restore():
+        for (module, name), (fn, _) in real.items():
+            setattr(module, name, fn)
+    return restore
 
 
 def _digest(tensors) -> list:
@@ -2268,9 +2354,14 @@ def _rank_combined(torch, spec) -> None:
     # b. the reduced gradients of one step with injected global draws
     model, vq, data = _grad_step_inputs(torch, spec)
     captured, reduce_s = [], []
+    if str(device).startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
     t0 = _sync(torch, device)
     params, metrics = _grad_step(torch, spec, model, vq, data, captured, reduce_s)
     out["grad_step_s"] = _sync(torch, device) - t0
+    out["state_bytes"] = metrics.pop("state_bytes")
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated() if str(device).startswith("cuda")
+                         else None)
     out["grad_all_reduce_s"] = reduce_s
     out["grad_loss"] = float(metrics["mlm_loss"])
     agree = process_allgather_f64(_digest(list(params.values()) + captured))
@@ -2345,7 +2436,8 @@ def _rank_main(spec: dict) -> int:
 
     if spec["device"] == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    {"train_cli": _rank_train_cli, "combined": _rank_combined}[spec["task"]](torch, spec)
+    {"train_cli": _rank_train_cli, "combined": _rank_combined,
+     "sharded": _rank_sharded}[spec["task"]](torch, spec)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return 0
@@ -2427,6 +2519,7 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
         # a. two ranks of train_maskbit; SIGTERM to rank 1; a resume
         out_a = os.path.join(work, "dp_train")
         argv = common + [f"training.per_device_batch_size={s['batch']}",
+                         f"model.mlm_model.depth={s['stop_depth']}",
                          "training.max_train_steps=100000", f"experiment.save_every={SAVE_EVERY}",
                          f"experiment.output_dir={out_a}"]
         procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_stop", argv=argv), 2)
@@ -2456,11 +2549,12 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
         if committed[-1] != stopped or not os.path.exists(os.path.join(out_a, f"model-{stopped}.bin")):
             raise AssertionError(f"committed steps {committed}, stopped at {stopped}")
         for r in first:
-            want = depth * stopped
+            want = s["stop_depth"] * stopped
             if cuda and (r["launches"]["dropout_attention_fwd"] != want
                          or r["launches"]["dropout_attention_bwd"] != want):
                 raise AssertionError(f"launches {r['launches']}, expected {want} of each")
         argv = common + [f"training.per_device_batch_size={s['batch']}",
+                         f"model.mlm_model.depth={s['stop_depth']}",
                          f"training.max_train_steps={stopped + 1}",
                          f"experiment.save_every={SAVE_EVERY}", f"experiment.output_dir={out_a}"]
         procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_resume", argv=argv), 2)
@@ -2535,7 +2629,9 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
             f">= {tol['update_same_sign']}); ranks equal {[r['grad_ranks_agree'] for r in ranks]}; "
             f"loss per rank {[r['grad_loss'] for r in ranks]} vs {float(metrics_1['mlm_loss'])}; "
             f"all-reduce {[r['grad_all_reduce_s'] for r in ranks]} s; step "
-            f"{[round(r['grad_step_s'], 3) for r in ranks]} s [{device_info['card']}]")
+            f"{[round(r['grad_step_s'], 3) for r in ranks]} s; train-state bytes per rank "
+            f"{[r['state_bytes'] for r in ranks]}, peak {[r['peak_bytes'] for r in ranks]} "
+            f"[{device_info['card']}]")
         if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
                 or gap["update_same_sign"] < tol["update_same_sign"]
                 or not all(r["grad_ranks_agree"] for r in ranks)):
@@ -2582,8 +2678,356 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
     return out
 
 
+# phase 12: the fsdp and tensor axes, two ranks sharing the card. Stage-II
+# per-rank batch (global 32 under fsdp=2; under tensor=2 the ranks hold the
+# same 32 rows), steps per run (the first checked against one process, the
+# second with the collectives timed, the rest timed as steps), sampler
+# labels per rank under tensor=2, Stage I's per-rank batch and steps, each
+# launch's limit (s)
+SH_SIZES = {"batch": 16, "depth": 24, "steps": 4, "sample": 2, "tok_batch": 8, "tok_steps": 3,
+            "timeout": 600}
+SH_MESHES = (("fsdp2", {"fsdp": 2, "tensor": 1}), ("tensor2", {"fsdp": 1, "tensor": 2}))
+# the state a rank keeps under fsdp=2 against data=2's (replicated): half,
+# and the replicated leaves (none at the flagship's widths) would add to it
+SH_STATE_RATIO = 0.6
+
+
+def _rank_sharded(torch, spec) -> None:
+    """A rank of phase 12 on mesh `spec["mesh"]`: the flagship's steps with
+    injected global draws (the first update against one process, the
+    collectives timed apart, the dropout kernels' launches and heads
+    counted), then under fsdp=2 a save for the one-process resume and the
+    tokenizer's steps, under tensor=2 a few samples with the whole EMA
+    weights through the attention block."""
+    import numpy as np
+
+    import maskbit_tpu_torch.nn.transformer as transformer
+    from maskbit_tpu_torch.cli import train_tokenizer
+    from maskbit_tpu_torch.cli.common import build_module, random_init_, synthetic_batches
+    from maskbit_tpu_torch.core.checkpoint import CheckpointManager
+    from maskbit_tpu_torch.core.config import config_from_cli
+    from maskbit_tpu_torch.core.ema import swapped_in
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.models.tokenizer import ConvVQModel
+    from maskbit_tpu_torch.parallel import mesh as pm
+    from maskbit_tpu_torch.parallel import zero
+    from maskbit_tpu_torch.parallel.zero import ShardedParams
+    from maskbit_tpu_torch.sampling.sample import SamplingConfig, make_sampler
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+
+    device = pm.maybe_init_distributed(torch.device(spec["device"]))
+    mesh = pm.init_mesh(pm.MeshConfig(**spec["mesh"]))
+    rank, cuda = pm.process_index(), str(device).startswith("cuda")
+    out = {"mesh": spec["mesh"], "coords": list(mesh.coords)}
+    model, vq, data = _grad_step_inputs(torch, spec)
+    store = ShardedParams(model)
+    params = store.parameters()
+    opt = make_optimizer(params, lambda t: 1e-4, beta2=0.96, weight_decay=0.045,
+                         norm_fn=store.norm_fn(params))
+    state = init_generator_train_state(model, opt, store=store)
+    step = make_generator_train_step_from_tokens(model, vq["codebook_size"], MLMLossConfig(),
+                                                 class_label_dropout=0.1,
+                                                 ema_kwargs={"decay": 0.9999})
+    b = data["tokens"].shape[0] // pm.batch_shard_count()
+    rows = lambda x: torch.from_numpy(  # noqa: E731
+        pm.local_rows(x, b, pm.batch_group())).to(device)
+    heads = []
+    real_attention = transformer.dropout_attention
+
+    def counted(q, k, v, seeds, rate):
+        heads.append(int(q.shape[2]))
+        return real_attention(q, k, v, seeds, rate)
+
+    transformer.dropout_attention = counted
+    for key in da.launches:
+        da.launches[key] = 0
+    captured, reduce_s, step_s, comm = [], [], [], {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(spec["steps"]):
+        real_reduce = _timed_all_reduce(torch, device, reduce_s, captured) if i == 0 else None
+        untime = _timed_collectives(torch, device, comm) if i == 1 else None
+        t0 = _sync(torch, device)
+        try:
+            state, metrics = step(state, rows(data["tokens"]), rows(data["labels"]),
+                                  injected=data["injected"])
+        finally:
+            if real_reduce is not None:
+                zero.ShardedParams.reduce_scatter_grads = real_reduce
+            if untime is not None:
+                untime()
+        step_s.append(_sync(torch, device) - t0)
+        if i == 0:
+            whole = {n: t.float().cpu().clone() for n, t in store.whole_params().items()}
+            out["loss"] = float(metrics["mlm_loss"])
+            if rank == 0:
+                torch.save({"grads": captured, "params": whole},
+                           os.path.join(spec["work"], f"sh_{spec['tag']}_grads.pt"))
+            del whole, captured
+    transformer.dropout_attention = real_attention
+    out.update(step_s=step_s, comm_s=comm, reduce_s=reduce_s, launches=dict(da.launches),
+               heads=sorted(set(heads)), state_bytes=_state_bytes(state),
+               whole_state_bytes=4 * sum(4 * int(np.prod(s)) for s in store.global_shapes.values()),
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+               split=len(store.splits), params=len(store.names))
+    if spec["mesh"]["fsdp"] > 1:
+        # the state saved from the slices, for the one-process resume
+        t0 = time.perf_counter()
+        ckpt = CheckpointManager(os.path.join(spec["work"], "sh_ckpt"))
+        ckpt.save(state.step, state, blocking=True)
+        ckpt.close()
+        out["save_s"] = time.perf_counter() - t0
+        whole = state.state_dict()
+        out["digest"] = _digest(list(whole["params"].values())
+                                + list(whole["ema"]["params"].values())
+                                + whole["opt"]["mu"] + whole["opt"]["nu"])
+        del whole
+    else:
+        # generation: the whole EMA weights, the attention block on every layer
+        mlm = _model_node(spec["gen_config"])["mlm_model"]
+        tokenizer = build_module(lambda: ConvVQModel.from_config(vq, dtype=model.dtype), device)
+        random_init_(tokenizer, torch.Generator(device=device).manual_seed(0))
+        tokenizer.to(model.dtype)
+        cfg = SamplingConfig.from_config(mlm, vq)._replace(
+            patch_size=spec["res"] // 2 ** (vq.get("num_resolutions", 5) - 1))
+        sampler = make_sampler(model, tokenizer, cfg)
+        block_heads = []
+        real_block = transformer.fused_attention_block
+
+        def counted_block(*args, num_heads, **kwargs):
+            block_heads.append(int(num_heads))
+            return real_block(*args, num_heads=num_heads, **kwargs)
+
+        transformer.fused_attention_block = counted_block
+        ab.launches = 0
+        da.launches["fused_attention"] = 0
+        t0 = _sync(torch, device)
+        try:
+            with swapped_in(state.ema, model, store), torch.inference_mode():
+                model.eval()
+                images, _ = sampler(torch.arange(spec["sample"], device=device),
+                                    torch.Generator(device=device).manual_seed(rank))
+        finally:
+            transformer.fused_attention_block = real_block
+        out["sample_s"] = _sync(torch, device) - t0
+        out["block_heads"] = sorted(set(block_heads))
+        out["sample_finite"] = bool(torch.isfinite(images.float()).all())
+        out["sample_launches"] = {"attention_block": ab.launches,
+                                  "fused_attention": da.launches["fused_attention"]}
+        out["restored_tensor_local"] = all(
+            m.tensor_group is not None for m in model.modules() if hasattr(m, "num_heads"))
+    del model, state, step, store
+    if cuda:
+        torch.cuda.empty_cache()
+
+    if spec["mesh"]["fsdp"] > 1 and spec.get("tok_argv"):
+        # Stage I at fsdp=2: the gathered state equal on both ranks after every step
+        run = train_tokenizer.build_training(config_from_cli(spec["tok_argv"]),
+                                             train_tokenizer._logger())
+        tstate, tstep = run["state"], run["train_step"]
+        batches = synthetic_batches(spec["tok_batch"], spec["tok_res"], seed=rank)
+        tok = {"agree": [], "step_s": [], "total_loss": []}
+        for _ in range(spec["tok_steps"]):
+            images = torch.from_numpy(next(batches)["image"]).to(device)
+            t0 = _sync(torch, device)
+            tstate, m = tstep(tstate, images)
+            tok["step_s"].append(_sync(torch, device) - t0)
+            whole = tstate.state_dict()
+            gathered = pm.process_allgather_f64(_digest(
+                list(whole["gen_params"].values()) + list(whole["disc_params"].values())
+                + list(whole["ema"]["params"].values())))
+            tok["agree"].append(bool((gathered == gathered[0]).all()))
+            tok["total_loss"].append(float(m["total_loss"]))
+        gs, ds = tstate.gen_store, tstate.disc_store
+        tok["state_bytes"] = _resident_bytes(
+            [p for st in (gs, ds) for p in list(st.params.values()) + list(st.shards.values())]
+            + [t for o in (tstate.gen_opt, tstate.disc_opt) for t in o.mu + o.nu]
+            + list(tstate.ema.params.values()))
+        tok["whole_state_bytes"] = sum(4 * int(np.prod(s)) for st in (gs, ds)
+                                       for s in st.global_shapes.values()) * 3 + sum(
+            4 * int(np.prod(gs.global_shapes[n])) for n in tstate.ema.params)
+        tok["split"] = [len(gs.splits), len(gs.names), len(ds.splits), len(ds.names)]
+        out["tokenizer"] = tok
+    _rank_write(spec, rank, out)
+
+
+def phase_sharded(torch, device_info, device="cuda", gen_config=CONFIG,
+                  tok_config=TOKENIZER_CONFIGS[0], sizes=None, data_parallel=None) -> dict:
+    """The fsdp and tensor axes across processes (phase 12): two ranks share
+    the card (gloo), first at parallel.fsdp=2, then at tensor=2.
+    `data_parallel`: phase 11's ranks (their state bytes and peak memory at
+    data=2, the same per-rank batch), for the comparison. device="cpu" with
+    tiny configs and `sizes` rehearses the phase (launches and memory are
+    then not checked)."""
+    import numpy as np
+
+    import maskbit_tpu_torch
+
+    s = dict(SH_SIZES, **(sizes or {}))
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_sharded")  # git-ignored; ~5 GB
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if cuda:
+        torch.cuda.empty_cache()
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(maskbit_tpu_torch.__file__)))
+    model_cfg = _model_node(gen_config)
+    mlm = model_cfg["mlm_model"]
+    depth, heads = s["depth"], int(mlm["heads"])
+    res = int(mlm.get("img_size", 256))
+    base = dict(tree=tree, device=device, work=work, task="sharded", gen_config=gen_config,
+                grad_depth=depth, global_batch=2 * s["batch"], steps=s["steps"],
+                sample=s["sample"], res=res, tok_batch=s["tok_batch"], tok_steps=s["tok_steps"],
+                tok_res=int(s.get("tok_res", 256)))
+    resnet = os.path.join(work, "resnet50.pth")
+    _random_resnet50(torch, resnet)
+    out = {"meshes": {}}
+    try:
+        for name, axes in SH_MESHES:
+            spec = dict(base, tag=f"sharded_{name}", mesh=axes)
+            if axes["fsdp"] > 1:
+                spec["tok_argv"] = [f"config={tok_config}", f"training.device={device}",
+                                    f"parallel.fsdp={axes['fsdp']}",
+                                    f"training.per_device_batch_size={s['tok_batch']}",
+                                    f"training.max_train_steps={s['tok_steps']}",
+                                    "losses.discriminator_start=1",
+                                    f"experiment.output_dir={os.path.join(work, 'tok')}"]
+            procs = _spawn_ranks(spec, 2, env={"MASKBIT_RESNET50_WEIGHTS": resnet})
+            try:
+                if name == "fsdp2":
+                    # one process at the global batch, meanwhile: the reference step
+                    model, vq, data = _grad_step_inputs(torch, spec)
+                    params_0 = {n: p.detach().float().cpu().clone()
+                                for n, p in model.named_parameters()}
+                    grads_1, reduce_1 = [], []
+                    params_1, metrics_1 = _grad_step(torch, spec, model, vq, data, grads_1,
+                                                     reduce_1)
+                    del model
+                    if cuda:
+                        torch.cuda.empty_cache()
+            finally:
+                _wait_ranks(procs, spec["tag"], s["timeout"])
+            ranks = _rank_results(work, spec["tag"], 2)
+            gap = _check_grads(torch, os.path.join(work, f"sh_{spec['tag']}_grads.pt"), grads_1,
+                               params_0, params_1)
+            tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
+            log(f"[sharded] {name}: first update, depth {depth}, 2 ranks vs 1 process x batch "
+                f"{2 * s['batch']} ({'bf16' if cuda else 'float32'}): reduced gradients relative "
+                f"L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst tensor "
+                f"{gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
+                f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol >= "
+                f"{tol['update_same_sign']}); loss per rank {[r['loss'] for r in ranks]} vs "
+                f"{float(metrics_1['mlm_loss'])} [{device_info['card']}]")
+            for r in ranks:
+                comm = ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["comm_s"].items()))
+                log(f"[sharded] {name} rank {r['coords']}: {r['split']} of {r['params']} "
+                    f"parameters split; state {r['state_bytes'] / 2**30:.3f} GiB of "
+                    f"{r['whole_state_bytes'] / 2**30:.3f} whole; peak "
+                    f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB; steps "
+                    f"{[round(x, 3) for x in r['step_s']]} s; collectives of step 2: {comm} s; "
+                    f"dropout launches {r['launches']} at {r['heads']} heads "
+                    f"[{device_info['card']}]")
+            if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
+                    or gap["update_same_sign"] < tol["update_same_sign"]):
+                raise AssertionError(f"{name}: the first update disagrees with one process: {gap}")
+            want_heads = [heads // axes["tensor"]]
+            for r in ranks:
+                if r["heads"] != want_heads:
+                    raise AssertionError(f"{name}: the kernels saw heads {r['heads']}")
+                if cuda and (r["launches"]["dropout_attention_fwd"] != depth * s["steps"]
+                             or r["launches"]["dropout_attention_bwd"] != depth * s["steps"]):
+                    raise AssertionError(f"{name}: launches {r['launches']}")
+            mesh_out = {"grads": dict(gap, tol=tol), "ranks": ranks}
+            if name == "fsdp2":
+                dp_state = ([r["state_bytes"] for r in data_parallel] if data_parallel
+                            else [r["whole_state_bytes"] for r in ranks])
+                ratio = max(r["state_bytes"] for r in ranks) / min(dp_state)
+                dp_peak = [r.get("peak_bytes") for r in data_parallel] if data_parallel else None
+                log(f"[sharded] fsdp=2 state per rank {[r['state_bytes'] for r in ranks]} B vs "
+                    f"data=2 {dp_state} B ({'phase 11' if data_parallel else 'replicated'}): "
+                    f"ratio {ratio:.4f} (<= {SH_STATE_RATIO}); peak per rank "
+                    f"{[r['peak_bytes'] for r in ranks]} B vs data=2 {dp_peak} B "
+                    f"[{device_info['card']}]")
+                if ratio > SH_STATE_RATIO:
+                    raise AssertionError(f"fsdp=2 keeps {ratio:.3f} of data=2's state")
+                mesh_out.update(state_ratio=ratio, data_parallel_state=dp_state,
+                                data_parallel_peak=dp_peak)
+                # the save under fsdp=2, resumed in one process
+                from maskbit_tpu_torch.core.checkpoint import CheckpointManager
+                from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+                from maskbit_tpu_torch.train.generator_trainer import (
+                    init_generator_train_state,
+                    make_generator_train_step_from_tokens,
+                )
+                from maskbit_tpu_torch.train.optim import make_optimizer
+
+                model, vq, data = _grad_step_inputs(torch, spec)
+                opt = make_optimizer(model.parameters(), lambda t: 1e-4, beta2=0.96,
+                                     weight_decay=0.045)
+                state = init_generator_train_state(model, opt)
+                t0 = time.perf_counter()
+                restored = CheckpointManager(os.path.join(work, "sh_ckpt")).restore_latest(state)
+                restore_s = time.perf_counter() - t0
+                sd = state.state_dict()
+                digest = _digest(list(sd["params"].values()) + list(sd["ema"]["params"].values())
+                                 + sd["opt"]["mu"] + sd["opt"]["nu"])
+                step = make_generator_train_step_from_tokens(
+                    model, vq["codebook_size"], MLMLossConfig(), class_label_dropout=0.1,
+                    ema_kwargs={"decay": 0.9999})
+                _, m = step(state, torch.from_numpy(data["tokens"]).to(device),
+                            torch.from_numpy(data["labels"]).to(device), injected=data["injected"])
+                resumed = {"step": restored[1], "bitwise": digest == ranks[0]["digest"],
+                           "next_loss": float(m["mlm_loss"]), "restore_s": restore_s,
+                           "save_s": [r["save_s"] for r in ranks]}
+                log(f"[sharded] fsdp=2 save (step {restored[1]}, {resumed['save_s']} s per "
+                    f"rank) resumed in one process in {restore_s:.1f} s: state equal bit for bit "
+                    f"{resumed['bitwise']}; next step's loss {resumed['next_loss']:.4f}")
+                if not resumed["bitwise"] or restored[1] != s["steps"] or not np.isfinite(
+                        resumed["next_loss"]):
+                    raise AssertionError(f"the one-process resume: {resumed}")
+                mesh_out["resume"] = resumed
+                del model, state, step, sd
+                if cuda:
+                    torch.cuda.empty_cache()
+                for r in ranks:
+                    tok = r["tokenizer"]
+                    log(f"[sharded] fsdp=2 Stage I rank {r['coords']}: {tok['split'][0]} of "
+                        f"{tok['split'][1]} tokenizer and {tok['split'][2]} of {tok['split'][3]} "
+                        f"discriminator parameters split; state {tok['state_bytes']} of "
+                        f"{tok['whole_state_bytes']} B; ranks equal {tok['agree']}; total loss "
+                        f"{tok['total_loss']}; steps {[round(x, 3) for x in tok['step_s']]} s "
+                        f"[{device_info['card']}]")
+                    if not all(tok["agree"]) or not np.isfinite(tok["total_loss"]).all() or (
+                            tok["state_bytes"] > SH_STATE_RATIO * tok["whole_state_bytes"]):
+                        raise AssertionError(f"Stage I at fsdp=2: {tok}")
+            else:
+                for r in ranks:
+                    log(f"[sharded] tensor=2 rank {r['coords']}: {s['sample']} samples with the "
+                        f"whole EMA weights in {r['sample_s']:.2f} s, launches "
+                        f"{r['sample_launches']} at {r['block_heads']} heads; finite "
+                        f"{r['sample_finite']}; tensor-local again {r['restored_tensor_local']}")
+                    want = depth * int(mlm["num_steps"])
+                    if not (r["sample_finite"] and r["restored_tensor_local"]) or (
+                            r["block_heads"] != [heads]) or (
+                            cuda and any(v != want for v in r["sample_launches"].values())):
+                        raise AssertionError(f"tensor=2 generation: {r}")
+            out["meshes"][name] = mesh_out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase time {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval", "tokenizer_train", "variants", "distributed")
+          "eval", "tokenizer_train", "variants", "distributed", "sharded")
 
 
 def _args(argv):
@@ -2636,13 +3080,15 @@ def main(argv=None) -> int:
     tok = phase_tokenizer_train(torch, device_info) if "tokenizer_train" in run else None
     var = phase_variants(torch, device_info) if "variants" in run else None
     dp = phase_distributed(torch, device_info) if "distributed" in run else None
+    sh = (phase_sharded(torch, device_info, data_parallel=dp and dp["ranks"])
+          if "sharded" in run else None)
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
                        "train_data": data, "eval": ev, "tokenizer_train": tok,
-                       "variants": var, "distributed": dp}, f, indent=1)
+                       "variants": var, "distributed": dp, "sharded": sh}, f, indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -2661,6 +3107,16 @@ def main(argv=None) -> int:
         else:
             per_rank = {"launches_distributed_eval_per_rank": [
                 r["eval_launches"][key] for r in dp["ranks"]]}
+        # phase 12: per rank and mesh, the dropout kernels' launches in the
+        # flagship's steps and their heads, or the block's in the sampler
+        # with the whole EMA weights under tensor=2
+        per_rank["launches_sharded_per_rank"] = [
+            {"mesh": mesh, "coords": r["coords"],
+             **({"launches": r["launches"][name], "heads": r["heads"]}
+                if name.startswith("dropout") else
+                {"launches": r["sample_launches"][key], "heads": r["block_heads"]})}
+            for mesh, m in sh["meshes"].items() for r in m["ranks"]
+            if name.startswith("dropout") or "sample_launches" in r]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_train_data": data_launches, **bert, **per_rank,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2698,14 +3154,15 @@ def main(argv=None) -> int:
             if k["launches"] <= 0 or k["launches_train_data"] <= 0
             or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0
             or min(k.get("launches_distributed_per_rank", [1])) <= 0
-            or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0]
+            or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0
+            or min(x["launches"] for x in k["launches_sharded_per_rank"]) <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
-                   "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp},
-                  f, indent=1)
+                   "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp,
+                   "sharded": sh}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

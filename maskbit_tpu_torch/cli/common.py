@@ -4,11 +4,13 @@ Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
 `resolve_compute_dtype` (here `compute_dtype`), `load_generation_models`,
 `setup_experiment`, `synthetic_batches`, `build_dataloaders`,
 `build_perceptual`, `reset_optimizer_counts`, `GracefulShutdown` and
-`StepTimer`; `setup_device` joins the data-parallel process group
+`StepTimer`; `setup_device` joins the process group and lays out the
+(data, fsdp, tensor) mesh of the config's `parallel` node
 (`parallel/mesh.py`) where the JAX package's `setup_experiment` calls
-`maybe_init_distributed`. Under several processes each feeds its share of
-the global batch and the main process alone writes directories, configs
-and logs. `expand_shard_pattern` lives in `data/tar_reader.py` and is
+`maybe_init_distributed` and builds its mesh. Under several processes each
+batch shard (the ranks of one tensor group share one) feeds its share of
+the global batch, evaluation splits its data over every process, and the
+main process alone writes directories, configs and logs. `expand_shard_pattern` lives in `data/tar_reader.py` and is
 re-exported here.
 """
 
@@ -31,6 +33,9 @@ from maskbit_tpu_torch.models.generator import make_generator
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel
 from maskbit_tpu_torch.parallel.mesh import (
     MeshConfig,
+    batch_shard_count,
+    batch_shard_index,
+    init_mesh,
     is_main_process,
     maybe_init_distributed,
     process_allgather_f64,
@@ -51,12 +56,17 @@ def resolve_device(config, key: str) -> torch.device:
 
 
 def setup_device(config, key: str, logger: Optional[logging.Logger] = None) -> torch.device:
-    """`resolve_device`, then join the data-parallel process group when
-    torchrun started several processes (`parallel.mesh.maybe_init_distributed`):
-    the device this process computes on. The `parallel` node is checked
-    (its data axis only is ported)."""
+    """`resolve_device`, then join the process group when torchrun started
+    several processes (`parallel.mesh.maybe_init_distributed`) and lay out
+    the mesh of the `parallel` node: `data x fsdp x tensor` must equal the
+    process count (`data: -1` takes the rest), and the batch, fsdp, tensor,
+    data and model groups are made (`parallel.mesh.init_mesh`, a
+    collective). Returns the device this process computes on."""
     device = maybe_init_distributed(resolve_device(config, key), logger)
-    MeshConfig.from_config(config)
+    mesh = init_mesh(MeshConfig.from_config(config))
+    if process_count() > 1 and logger is not None:
+        logger.info(f"mesh data={mesh.shape.data} fsdp={mesh.shape.fsdp} "
+                    f"tensor={mesh.shape.tensor}; this rank (d, f, t) = {mesh.coords}")
     return device
 
 
@@ -218,13 +228,17 @@ def setup_experiment(config, subdir: str = "") -> dict:
 
 def build_dataloaders(config, logger, global_batch_size: int
                       ) -> Tuple[Callable[[], Iterator[dict]], Callable[[], Iterator[dict]], bool]:
-    """(train iterator factory, eval iterator factory, synthetic?) of this
-    process's batches, `global_batch_size // process_count()` each:
-    `SimpleImagenet` over the train and eval shards when the first train
-    shard exists (the eval shards split across the processes); otherwise
-    endless synthetic train batches and, for eval, two copies of the first
-    synthetic batch of seed 1, as in the JAX package, each process's seeds
-    offset by its index."""
+    """(train iterator factory, eval iterator factory, synthetic?): the
+    train batches of this rank's batch shard (`batch_shard_index` of
+    `batch_shard_count`, `global_batch_size // batch_shard_count()` rows;
+    the ranks of one tensor group read the same), and the eval batches of
+    this process (`process_index` of `process_count`: evaluation runs
+    data-parallel over every process, with whole weights), each
+    `global_batch_size // process_count()` rows. `SimpleImagenet` over the
+    train and eval shards when the first train shard exists; otherwise
+    endless synthetic train batches (seed: the batch shard's index) and, for
+    eval, two copies of the first synthetic batch of seed 1 + the process
+    index, as in the JAX package."""
     params = config.dataset.params
     prep = config.dataset.preprocessing
     resolution = prep.get("resolution", 256)
@@ -233,27 +247,32 @@ def build_dataloaders(config, logger, global_batch_size: int
     if not (expanded and os.path.exists(expanded[0])):
         logger.warning(f"Train shards {train_shards!r} not found — using SYNTHETIC data. "
                        "Point dataset.params.train_shards_path_or_url at real shards for training.")
+        per_shard, shard = global_batch_size // batch_shard_count(), batch_shard_index()
         per_process, rank = global_batch_size // process_count(), process_index()
         make_eval = lambda: iter(  # noqa: E731
             [next(synthetic_batches(per_process, resolution, seed=1 + rank)) for _ in range(2)])
-        return lambda: synthetic_batches(per_process, resolution, seed=rank), make_eval, True
+        return lambda: synthetic_batches(per_shard, resolution, seed=shard), make_eval, True
     logger.info(f"training from tar shards {train_shards!r} ({len(expanded)} shards)")
-    data = SimpleImagenet(
-        train_shards_path_or_url=train_shards,
-        eval_shards_path_or_url=params.get("eval_shards_path_or_url", train_shards),
-        num_train_examples=config.select("experiment.max_train_examples", 1_281_167),
-        per_device_batch_size=config.select("training.per_device_batch_size", 16),
-        global_batch_size=global_batch_size,
-        num_workers_per_device=params.get("num_workers_per_device", 8),
-        resolution=resolution,
-        shuffle_buffer_size=params.get("shuffle_buffer_size", 1000),
-        min_scale=prep.get("min_scale", 0.8),
-        use_aspect_ratio_aug=prep.get("use_aspect_ratio_aug", True),
-        use_random_crop=prep.get("use_random_crop", True),
-        interpolation=prep.get("interpolation", "bilinear"),
-        seed=int(config.select("training.seed", 42)),
-        process_index=process_index(), process_count=process_count())
-    return (lambda: iter(data.train_dataloader)), (lambda: data.eval_dataloader), False
+
+    def data(index: int, count: int) -> SimpleImagenet:
+        return SimpleImagenet(
+            train_shards_path_or_url=train_shards,
+            eval_shards_path_or_url=params.get("eval_shards_path_or_url", train_shards),
+            num_train_examples=config.select("experiment.max_train_examples", 1_281_167),
+            per_device_batch_size=config.select("training.per_device_batch_size", 16),
+            global_batch_size=global_batch_size,
+            num_workers_per_device=params.get("num_workers_per_device", 8),
+            resolution=resolution,
+            shuffle_buffer_size=params.get("shuffle_buffer_size", 1000),
+            min_scale=prep.get("min_scale", 0.8),
+            use_aspect_ratio_aug=prep.get("use_aspect_ratio_aug", True),
+            use_random_crop=prep.get("use_random_crop", True),
+            interpolation=prep.get("interpolation", "bilinear"),
+            seed=int(config.select("training.seed", 42)),
+            process_index=index, process_count=count)
+
+    return (lambda: iter(data(batch_shard_index(), batch_shard_count()).train_dataloader),
+            lambda: data(process_index(), process_count()).eval_dataloader, False)
 
 
 def build_perceptual(config, logger, device) -> Optional[nn.Module]:

@@ -28,8 +28,13 @@ agree on that, and on the stats file, or the run raises. Weights: the two
 checkpoints (`.bin`), else seeded random weights with a warning, stored in
 float32 and computed in the configured dtype. The sampler's random stream
 (a `torch.Generator` seeded with `training.seed` plus the process index)
-differs from the JAX package's. The sharded multi-device sampler of one
-process waits for a later PR (ROADMAP.md, Queue 1).
+differs from the JAX package's. A config with `parallel.fsdp` or
+`parallel.tensor` (a training config's mesh, laid out by `setup_device`)
+generates the same way: data-parallel over every process, each with whole
+weights. JAX's per-host clamp of those axes to its local devices (its
+sharded per-host sampler mesh) has no counterpart: the port's eval splits
+no weights. The sharded multi-device sampler of one process waits for a
+later PR (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

@@ -17,7 +17,9 @@ PSNR, SSIM, codebook usage and entropy, and with Inception weights rFID and
 the Inception Score. `MASKBIT_EVAL_MAX_BATCHES` caps the batches (of each
 process). Across processes each evaluates its split of the eval shards
 (shard i goes to process i % process_count) and the accumulators are
-summed over the processes (`merge_across_hosts`). The results go to
+summed over the processes (`merge_across_hosts`); a config with
+`parallel.fsdp` or `parallel.tensor` evaluates the same way, data-parallel
+over every process with whole weights. The results go to
 stdout and `eval/eval_results.json` under the experiment's output
 directory (`cli.common.setup_experiment`), from the main process.
 `eval.device` (default "cuda") names the device.

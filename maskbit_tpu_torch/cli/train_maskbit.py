@@ -50,16 +50,23 @@ from `training.seed` and the step, and leaves the step stream as it was.
 `training.device` (default "cuda") names the device;
 CUDA requested and absent is an error.
 
-Data parallelism (torchrun, `parallel/mesh.py`): each process takes
-`training.per_device_batch_size` rows of a global batch that many times the
-process count, from its own token or tar shards (`process_index`,
-`process_count`), and its own step stream (the rank folded into the seed,
-`rank_seed`); the gradients are averaged over the processes in the step.
-The main process alone writes the config, the tracker's logs, the sample
-grids and the `.bin` files; the train-state checkpoint is collective
-(`core/checkpoint.py`) and the SIGTERM stop is decided across the
-processes every 8 steps (`GracefulShutdown`). The in-training eval shards
-its batches over the processes and merges their moments.
+Across processes (torchrun, `parallel/mesh.py`, `parallel/zero.py`): the
+config's `parallel` node lays out the (data, fsdp, tensor) mesh
+(`setup_device`). The global batch is `training.per_device_batch_size`
+times the process count, as JAX's is (tensor ranks included); each batch
+shard (`batch_shard_index` of `batch_shard_count`; the ranks of one tensor
+group share one) takes its rows from its own token or tar shards and its
+own step stream (`rank_seed` over the batch group). The generator's
+parameters, AdamW moments and EMA are held as this rank's slices
+(`ShardedParams`), gathered for each step; under `tensor` each rank runs
+its share of the heads and MLP columns. The main process alone writes the
+config, the tracker's logs, the sample grids and the `.bin` files (whole,
+gathered on every process first); the train-state checkpoint is
+collective and does not depend on the mesh (`core/checkpoint.py`), and the
+SIGTERM stop is decided across the processes every 8 steps
+(`GracefulShutdown`). Generation and the in-training eval lend the module
+the whole EMA weights on every rank (a collective); the eval shards its
+batches over every process and merges their moments.
 """
 
 from __future__ import annotations
@@ -96,11 +103,15 @@ from maskbit_tpu_torch.models.generator import init_generator_weights_, make_gen
 from maskbit_tpu_torch.ops.bitops import combine_factorized_tokens
 from maskbit_tpu_torch.parallel.mesh import (
     assert_host_agreement,
+    batch_group,
+    batch_shard_count,
+    batch_shard_index,
     is_main_process,
     process_count,
     process_index,
     rank_seed,
 )
+from maskbit_tpu_torch.parallel.zero import ShardedParams
 from maskbit_tpu_torch.sampling.sample import SamplingConfig, make_sampler
 from maskbit_tpu_torch.train.generator_trainer import (
     init_generator_train_state,
@@ -138,14 +149,16 @@ def build_training(config, logger) -> dict:
                                                     mlm_cfg, vq_cfg, dtype=dtype), device)
     init_generator_weights_(generator, torch.Generator(device=device).manual_seed(seed))
     logger.info(summarize_params(generator, "generator"))
+    store = ShardedParams(generator)
     logger.info(f"generator on {device}, compute {dtype}"
                 f"{', remat' if mlm_cfg.get('remat', False) else ''}, {process_count()} "
-                "process(es)")
+                f"process(es), {len(store.splits)} of {len(store.names)} parameters split")
 
     max_steps = int(config.select("training.max_train_steps", 1_000_000))
     opt_cfg = config.optimizer.params
+    params = store.parameters()
     opt = make_optimizer(
-        generator.parameters(),
+        params,
         get_schedule(config.select("lr_scheduler.scheduler", "constant"),
                      opt_cfg.get("learning_rate", 1e-4),
                      num_warmup_steps=config.select("lr_scheduler.params.warmup_steps", 5000),
@@ -154,9 +167,11 @@ def build_training(config, logger) -> dict:
         beta1=opt_cfg.get("beta1", 0.9), beta2=opt_cfg.get("beta2", 0.96),
         weight_decay=opt_cfg.get("weight_decay", 0.045), epsilon=opt_cfg.get("epsilon", 1e-8),
         max_grad_norm=config.select("training.max_grad_norm", 1.0),
-        gradient_accumulation_steps=config.select("training.gradient_accumulation_steps", 1))
+        gradient_accumulation_steps=config.select("training.gradient_accumulation_steps", 1),
+        norm_fn=store.norm_fn(params))
     state = init_generator_train_state(generator, opt,
-                                       use_ema=config.select("training.use_ema", True))
+                                       use_ema=config.select("training.use_ema", True),
+                                       store=store)
     log_grad_norm_every = int(config.select("experiment.log_grad_norm_every", 0))
     step_kwargs = dict(mask_schedule=mlm_cfg.get("train_mask_schedule_strategy", "arccos"),
                        class_label_dropout=mlm_cfg.get("class_label_dropout", 0.1),
@@ -174,21 +189,23 @@ def build_training(config, logger) -> dict:
             "tokenizer": tokenizer, "generator": generator, "state": state,
             "train_step": train_step, "token_shards": token_shards, "batch_size": batch_size,
             "train_iter": build_train_iter(config, logger, token_shards, batch_size),
-            "rng": torch.Generator(device=device).manual_seed(rank_seed(seed + 1))}
+            "rng": torch.Generator(device=device).manual_seed(rank_seed(seed + 1, batch_group()))}
 
 
 def build_train_iter(config, logger, token_shards: str, batch_size: int):
-    """This process's batches of {"tokens" or "image", "class_id"} numpy
-    arrays, `batch_size` rows each."""
+    """This batch shard's batches of {"tokens" or "image", "class_id"}
+    numpy arrays: `batch_size` x the process count rows (the global batch)
+    over the batch shards."""
+    global_batch = batch_size * process_count()
     if token_shards:
         logger.info(f"training from pre-tokenized shards {token_shards}")
         dataset = TokenShardDataset(token_shards, resample=True,
                                     seed=int(config.select("training.seed", 42)),
-                                    process_index=process_index(),
-                                    process_count=process_count())
-        train_iter = dataset.batches(batch_size)
+                                    process_index=batch_shard_index(),
+                                    process_count=batch_shard_count())
+        train_iter = dataset.batches(global_batch // batch_shard_count())
     else:
-        train_iter = build_dataloaders(config, logger, batch_size * process_count())[0]()
+        train_iter = build_dataloaders(config, logger, global_batch)[0]()
     if config.select("training.overfit_batch", False):
         n = config.select("training.overfit_batch_num", 1)
         train_iter = itertools.cycle([next(train_iter) for _ in range(n)])
@@ -223,28 +240,34 @@ def restore(config, logger, ckpt: CheckpointManager, state) -> int:
     return step
 
 
+def generation_weights(run: dict):
+    """A context in which the generator holds the whole EMA weights (the
+    trained ones without an EMA); a collective under a sharded store."""
+    state = run["state"]
+    if state.ema is None:
+        return state.store.whole_weights()
+    return swapped_in(state.ema, run["generator"], state.store)
+
+
 def generate(run: dict, sampler, labels, seed: int) -> np.ndarray:
-    """Samples for `labels` with the EMA weights (the trained ones without an
-    EMA), NHWC float32 in [0, 1]."""
-    state, generator, device = run["state"], run["generator"], run["device"]
+    """Samples for `labels` with the weights the generator holds (inside
+    `generation_weights`: the EMA's), NHWC float32 in [0, 1]."""
+    device = run["device"]
     labels = torch.as_tensor(labels, dtype=torch.int64, device=device)
     rng = torch.Generator(device=device).manual_seed(seed)
-    generator.eval()
-    if state.ema is None:
-        images, _ = sampler(labels, rng)
-    else:
-        with swapped_in(state.ema, generator):
-            images, _ = sampler(labels, rng)
+    run["generator"].eval()
+    images, _ = sampler(labels, rng)
     return images.clamp(0, 1).float().cpu().numpy()
 
 
 def eval_generation(run: dict, config, sampler, seed: int, logger):
     """In-training generation eval: IS (and FID against `eval.stats_path`)
     over EMA samples of random labels; the evaluator, merged across the
-    processes, or None (with a log line) without Inception weights. Each
-    process draws every batch's labels and seed from one stream and samples
-    the batches i with i % process_count() == process_index(), so N
-    processes score the sample set of one."""
+    processes, or None (with a log line) without Inception weights. Every
+    process holds the whole EMA weights (gathered, a collective), draws
+    every batch's labels and seed from one stream and samples the batches i
+    with i % process_count() == process_index(), so N processes score the
+    sample set of one."""
     from maskbit_tpu_torch.cli.eval_tokenizer import make_inception_fn
 
     num_samples = int(config.select("eval.num_generation_samples", 2000))
@@ -265,11 +288,12 @@ def eval_generation(run: dict, config, sampler, seed: int, logger):
         real_mu, real_sigma = load_stats_npz(stats_path)
     evaluator = GeneratorEvaluator(inception_fn, real_mu, real_sigma)
     rng = torch.Generator(device=device).manual_seed(seed)
-    for i in range(num_samples // batch_size):
-        labels = torch.randint(0, 1000, (batch_size,), generator=rng, device=device)
-        batch_seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
-        if i % process_count() == process_index():
-            evaluator.update(torch.from_numpy(generate(run, sampler, labels, batch_seed)))
+    with generation_weights(run):
+        for i in range(num_samples // batch_size):
+            labels = torch.randint(0, 1000, (batch_size,), generator=rng, device=device)
+            batch_seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
+            if i % process_count() == process_index():
+                evaluator.update(torch.from_numpy(generate(run, sampler, labels, batch_seed)))
     evaluator.merge_across_hosts()
     return evaluator
 
@@ -288,16 +312,17 @@ def decoded_pair(run: dict, viz: dict, codebook_size: int, splits: int, n: int) 
 
 def save_checkpoint(ckpt: CheckpointManager, run: dict, step: int, logger) -> float:
     """The train state (written in the background; a collective) and, from
-    the main process, the bare `.bin` weights; returns the seconds the call
-    held the loop."""
+    the main process, the bare `.bin` weights, whole (from the tree the
+    save gathered); returns the seconds the call held the loop."""
     t0 = time.perf_counter()
     state, generator, output_dir = run["state"], run["generator"], run["output_dir"]
-    ckpt.save(step, state)
+    tree = ckpt.save(step, state)
+    params, ema = tree["params"], tree["ema"] and tree["ema"]["params"]
     if is_main_process():
-        save_pretrained(generator, os.path.join(output_dir, f"model-{step}.bin"))
-        if state.ema is not None:
+        save_pretrained(generator, os.path.join(output_dir, f"model-{step}.bin"), params=params)
+        if ema is not None:
             save_pretrained(generator, os.path.join(output_dir, f"ema_model-{step}.bin"),
-                            params=state.ema.params)
+                            params=ema)
     seconds = time.perf_counter() - t0
     logger.info(f"saved checkpoint @ step {step} (model-{step}.bin, ema_model-{step}.bin) "
                 f"in {seconds:.2f} s")
@@ -335,7 +360,7 @@ def main(argv=None) -> dict:
                              run_name=config.select("experiment.name", "run"),
                              config=config.to_dict())
     rng = run["rng"]
-    num_devices = process_count()
+    num_devices = process_count()  # samples/s per device counts the global batch
     timer = StepTimer()
     history, save_seconds = [], []
     shutdown = GracefulShutdown(logger)
@@ -371,14 +396,15 @@ def main(argv=None) -> dict:
                 t0 = time.perf_counter()
                 # drawn on every process, so every step stream advances alike
                 seed = int(torch.randint(0, 2**62, (1,), generator=rng, device=device))
-                if is_main_process():
-                    images = generate(run, sampler, labels[:num_gen], seed)
-                    tracker.log_image("train/generated",
-                                      make_viz_generated_stage_two(images)[1], step)
-                    tracker.log_image("train/decoded",
-                                      decoded_pair(run, viz, codebook_size, splits, num_gen), step)
-                    logger.info(f"generated {len(images)} images with the EMA weights at step "
-                                f"{step} in {time.perf_counter() - t0:.2f} s")
+                with generation_weights(run):  # gathered on every process
+                    if is_main_process():
+                        images = generate(run, sampler, labels[:num_gen], seed)
+                        tracker.log_image("train/generated",
+                                          make_viz_generated_stage_two(images)[1], step)
+                        tracker.log_image("train/decoded", decoded_pair(
+                            run, viz, codebook_size, splits, num_gen), step)
+                        logger.info(f"generated {len(images)} images with the EMA weights at "
+                                    f"step {step} in {time.perf_counter() - t0:.2f} s")
                 timer.restart()
             if step % save_every == 0:
                 save_seconds.append(save_checkpoint(ckpt, run, step, logger))

@@ -45,19 +45,25 @@ optimizers afresh. SIGTERM stops the run after the step in flight, with a
 final checkpoint. `training.device` (default "cuda") names the device; CUDA
 requested and absent is an error.
 
-Data parallelism (torchrun, `parallel/mesh.py`): each process takes
-`training.per_device_batch_size` rows of the global batch from its own
-shards (or synthetic seed) and the trainer averages the gradients and the
-batch-level terms over the processes; `scale_lr` counts every process's
-device. The main process alone writes the config, the logs, the grids and
-the `.bin` files; the checkpoint is collective, the SIGTERM stop is decided
-across the processes every 8 steps, and the in-training eval runs on each
+Across processes (torchrun, `parallel/mesh.py`, `parallel/zero.py`): the
+config's `parallel` node lays out the (data, fsdp, tensor) mesh. The global
+batch is `training.per_device_batch_size` times the process count, as
+JAX's is; each batch shard (the ranks of one tensor group share one) takes
+its rows from its own shards (or synthetic seed), and the trainer reduces
+the gradients and the batch-level terms over the batch group. The
+tokenizer's and the discriminator's parameters, moments and the EMA are
+held as this rank's slices (`ShardedParams`; the tensor axis splits their
+storage only); `scale_lr` counts every process's device. The main process
+alone writes the config, the logs, the grids and the `.bin` files (whole,
+gathered on every process first); the checkpoint is collective and does not
+depend on the mesh, the SIGTERM stop is decided across the processes every
+8 steps, and the reconstructions and the in-training eval lend the model
+the whole EMA weights on every rank (a collective); the eval runs on each
 process's split of the eval shards and merges the accumulators.
 """
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import logging
 import os
@@ -86,6 +92,7 @@ from maskbit_tpu_torch.losses.vqgan import VQGANLossConfig
 from maskbit_tpu_torch.models.tokenizer import ConvVQModel, init_tokenizer_weights_
 from maskbit_tpu_torch.nn.discriminator import create_discriminator, init_discriminator_weights_
 from maskbit_tpu_torch.parallel.mesh import is_main_process, process_count
+from maskbit_tpu_torch.parallel.zero import ShardedParams
 from maskbit_tpu_torch.train.optim import make_optimizer
 from maskbit_tpu_torch.train.tokenizer_trainer import (
     init_tokenizer_train_state,
@@ -103,9 +110,11 @@ def _logger() -> logging.Logger:
     return setup_logger("maskbit_tpu_torch.train_tokenizer")
 
 
-def build_optimizers(config, model, discriminator, num_devices: int = 1):
+def build_optimizers(config, model, discriminator, num_devices: int,
+                     gen_store: ShardedParams, disc_store: ShardedParams):
     """(generator AdamW, discriminator AdamW) as the JAX CLI's
-    `build_optimizers` configures its optax chains."""
+    `build_optimizers` configures its optax chains, over the stores' slices
+    (the clip's norm over every rank's)."""
     opt = config.optimizer.params
     lr = opt.get("learning_rate", 1e-4)
     disc_lr = opt.get("discriminator_learning_rate", lr)
@@ -122,14 +131,18 @@ def build_optimizers(config, model, discriminator, num_devices: int = 1):
                   max_grad_norm=config.select("training.max_grad_norm", 1.0),
                   gradient_accumulation_steps=accum)
     finetune = config.select("model.vq_model.finetune_decoder", False)
+    names = {id(p): n for n, p in model.named_parameters()}
+    gen_params = gen_store.parameters([names[id(p)]
+                                       for p in trainable_parameters(model, finetune)])
+    disc_params = disc_store.parameters()
     gen_opt = make_optimizer(
-        trainable_parameters(model, finetune),
-        get_schedule(sched_name, lr, num_training_steps=max_steps, **sched_kwargs), **common)
+        gen_params, get_schedule(sched_name, lr, num_training_steps=max_steps, **sched_kwargs),
+        norm_fn=gen_store.norm_fn(gen_params), **common)
     disc_steps = max(1, max_steps - config.select("losses.discriminator_start", 0))
     disc_opt = make_optimizer(
-        discriminator.parameters(),
+        disc_params,
         get_schedule(sched_name, disc_lr, num_training_steps=disc_steps, **sched_kwargs),
-        **common)
+        norm_fn=disc_store.norm_fn(disc_params), **common)
     return gen_opt, disc_opt
 
 
@@ -162,9 +175,12 @@ def build_training(config, logger) -> dict:
     if perceptual is None and loss_cfg.perceptual_weight > 0:
         loss_cfg = loss_cfg._replace(perceptual_loss="none", perceptual_weight=0.0)
 
-    gen_opt, disc_opt = build_optimizers(config, model, discriminator, process_count())
+    gen_store, disc_store = ShardedParams(model), ShardedParams(discriminator)
+    gen_opt, disc_opt = build_optimizers(config, model, discriminator, process_count(),
+                                         gen_store, disc_store)
     state = init_tokenizer_train_state(model, discriminator, gen_opt, disc_opt,
-                                       use_ema=config.select("training.use_ema", True))
+                                       use_ema=config.select("training.use_ema", True),
+                                       gen_store=gen_store, disc_store=disc_store)
     max_steps = int(config.select("training.max_train_steps", 1_000_000))
     log_grad_norm_every = int(config.select("experiment.log_grad_norm_every", 0))
     train_step = make_tokenizer_train_step(
@@ -198,17 +214,19 @@ def restore(config, logger, ckpt: CheckpointManager, state) -> int:
 
 
 def _eval_weights(run: dict):
-    """The EMA weights lent to the model (the trained ones without an EMA)."""
+    """The whole EMA weights lent to the model (the trained ones without an
+    EMA); a collective under a sharded store."""
     state = run["state"]
     if state.ema is None:
-        return contextlib.nullcontext(run["model"])
-    return swapped_in(state.ema, run["model"])
+        return state.gen_store.whole_weights()
+    return swapped_in(state.ema, run["model"], state.gen_store)
 
 
 def reconstruct(run: dict, images: torch.Tensor) -> np.ndarray:
-    """Reconstructions of `images` with the EMA weights, NHWC float32 in [0, 1]."""
-    with _eval_weights(run) as model, torch.inference_mode():
-        recons, _ = model.eval()(images)
+    """Reconstructions of `images` with the weights the model holds
+    (inside `_eval_weights`: the EMA's), NHWC float32 in [0, 1]."""
+    with torch.inference_mode():
+        recons, _ = run["model"].eval()(images)
     return recons.clamp(0.0, 1.0).float().cpu().numpy()
 
 
@@ -236,16 +254,17 @@ def eval_reconstruction(run: dict, eval_batches, config) -> dict:
 
 def save_checkpoint(ckpt: CheckpointManager, run: dict, step: int, logger) -> float:
     """The train state (written in the background; a collective) and, from
-    the main process, the tokenizer's bare `.bin` weights; returns the
-    seconds the call held the loop."""
+    the main process, the tokenizer's bare `.bin` weights, whole (from the
+    tree the save gathered); returns the seconds the call held the loop."""
     t0 = time.perf_counter()
     state, model, output_dir = run["state"], run["model"], run["output_dir"]
-    ckpt.save(step, state)
+    tree = ckpt.save(step, state)
+    params, ema = tree["gen_params"], tree["ema"] and tree["ema"]["params"]
     if is_main_process():
-        save_pretrained(model, os.path.join(output_dir, f"model-{step}.bin"))
-        if state.ema is not None:
+        save_pretrained(model, os.path.join(output_dir, f"model-{step}.bin"), params=params)
+        if ema is not None:
             save_pretrained(model, os.path.join(output_dir, f"ema_model-{step}.bin"),
-                            params=state.ema.params)
+                            params=ema)
     seconds = time.perf_counter() - t0
     logger.info(f"saved checkpoint @ step {step} in {seconds:.2f} s")
     return seconds
@@ -315,10 +334,13 @@ def main(argv=None) -> dict:
                             f"{scalars['perf/samples_per_sec_per_device']:.1f} samples/s/dev")
             else:
                 timer.batch_tick()
-            if step % generate_every == 0 and is_main_process():
-                shown = images[:num_images]
-                grid = make_viz_from_samples(shown.cpu().numpy(), reconstruct(run, shown))[1]
-                tracker.log_image("train/reconstructions", grid, step)
+            if step % generate_every == 0:
+                with _eval_weights(run):  # gathered on every process
+                    if is_main_process():
+                        shown = images[:num_images]
+                        grid = make_viz_from_samples(shown.cpu().numpy(),
+                                                     reconstruct(run, shown))[1]
+                        tracker.log_image("train/reconstructions", grid, step)
                 timer.restart()
             if step % save_every == 0:
                 save_seconds.append(save_checkpoint(ckpt, run, step, logger))

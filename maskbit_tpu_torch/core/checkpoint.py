@@ -12,13 +12,17 @@ metadata of a step is written only after its step has committed (at the
 next save, wait, restore or close), and the steps beyond `max_to_keep`,
 oldest first, and their metadata are deleted.
 
-Across data-parallel processes (`parallel/mesh.py`) the manager is
-collective: every process calls `save`, `wait`, `restore_latest` and
-`close` at the same steps. The weights are replicated, so the main process
-alone copies and writes; `wait` ends in a barrier, so no process goes on to
-its next save, or exits, before the write in flight has committed. Every
-process restores the newest step, agreed through `assert_host_agreement`
-(a step one process's disk lacks raises rather than hangs).
+Across processes (`parallel/mesh.py`) the manager is collective: every
+process calls `save`, `wait`, `restore_latest` and `close` at the same
+steps. The saved format does not depend on the mesh: `save` takes the
+state's whole `state_dict()` on every process (gathered from the ranks'
+slices when the state is sharded, a collective; the live tensors when it
+is not) and the main process alone copies and writes it; `wait` ends in a
+barrier, so no process goes on to its next save, or exits, before the
+write in flight has committed. Every process restores the newest step,
+agreed through `assert_host_agreement` (a step one process's disk lacks
+raises rather than hangs), and the state's `load_state_dict` keeps its own
+slices, so a run saved on one mesh resumes on another.
 
 `load_pretrained` is the counterpart of `maskbit_tpu/core/checkpoint.load_pretrained`:
 a PyTorch state dict in the original repo's layout, with its legacy
@@ -87,18 +91,21 @@ class CheckpointManager:
         return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit()
                       and os.path.exists(os.path.join(self.directory, n, STATE_FILE)))
 
-    def save(self, step: int, state: Any, blocking: bool = False) -> None:
+    def save(self, step: int, state: Any, blocking: bool = False) -> dict:
         """Copy `state.state_dict()` to the host now and write it in the
         background (the next save, wait, restore or close waits for it);
-        blocking=True waits here. Collective; only the main process
-        writes."""
+        blocking=True waits here. Collective (the whole state is gathered
+        on every process); only the main process writes. Returns the whole
+        tree (the main process's host copy), for exports of the same
+        step."""
         self.wait()
+        t0 = time.perf_counter()
+        tree = state.state_dict()
         if not is_main_process():
             if blocking:
                 self.wait()
-            return
-        t0 = time.perf_counter()
-        tree = host_copy(state.state_dict())
+            return tree
+        tree = host_copy(tree)
         record = {"step": int(step), "host_copy_s": time.perf_counter() - t0}
         self.timings.append(record)
         meta = {"global_step": int(step)}
@@ -107,6 +114,7 @@ class CheckpointManager:
         self._writer.start()
         if blocking:
             self.wait()
+        return tree
 
     def _write(self, step: int, tree: dict, meta: dict, record: dict) -> None:
         try:
@@ -226,7 +234,8 @@ def load_pretrained(path: str, device="cpu") -> Dict[str, torch.Tensor]:
 def save_pretrained(model: nn.Module, path: str,
                     params: Optional[Mapping[str, torch.Tensor]] = None) -> None:
     """Write `model`'s state dict as a `.bin`; `params` (name -> tensor, e.g.
-    the EMA shadows) replace the model's parameters of the same names."""
+    the EMA shadows, or the whole parameters of a saved train state) replace
+    the model's parameters of the same names."""
     if not path.endswith(".bin"):
         raise NotImplementedError(f"{path}: the port writes `.bin` state dicts only")
     state = model.state_dict()

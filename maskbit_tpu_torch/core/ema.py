@@ -4,14 +4,17 @@ Counterpart of `maskbit_tpu/core/ema.py`: the same decay schedule
 ((1+s)/(10+s) or the power-law warmup), `update_after_step` gating,
 `update_every` thinning and `min_decay` floor. The shadows are float32
 tensors kept beside the model (a name -> tensor dict, as the JAX package
-keeps a parameter tree) and updated in place. `swapped_in` lends them to
-the model (in-training generation samples with the EMA weights).
+keeps a parameter tree) and updated in place. Under a sharded store
+(`parallel/zero.py`) they shadow this rank's slices: `init_ema` and
+`ema_update` take the store's `shards` in place of the model. `swapped_in`
+lends them to the model (in-training generation samples with the EMA
+weights); given the store it gathers them whole first (a collective).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Mapping, Union
 
 import torch
 from torch import nn
@@ -23,9 +26,14 @@ class EmaState:
         self.step = step
 
 
-def init_ema(model: nn.Module) -> EmaState:
-    """float32 copies of the model's parameters (never aliases)."""
-    return EmaState({name: p.detach().float().clone() for name, p in model.named_parameters()})
+def _named(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+
+
+def init_ema(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> EmaState:
+    """float32 copies of a model's parameters, or of {name: slice} (never
+    aliases)."""
+    return EmaState({name: p.detach().float().clone() for name, p in _named(params).items()})
 
 
 def ema_decay(optimization_step: int, decay: float = 0.9999, min_decay: float = 0.0,
@@ -43,7 +51,7 @@ def ema_decay(optimization_step: int, decay: float = 0.9999, min_decay: float = 
 
 
 @torch.no_grad()
-def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
+def ema_update(state: EmaState, model: Union[nn.Module, Mapping[str, torch.Tensor]], decay: float = 0.9999,
                min_decay: float = 0.0, update_after_step: int = 0,
                use_ema_warmup: bool = False, inv_gamma: float = 1.0,
                power: float = 2.0 / 3.0, update_every: int = 1) -> EmaState:
@@ -54,7 +62,7 @@ def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
     d = ema_decay(state.step, decay, min_decay, update_after_step, use_ema_warmup,
                   inv_gamma, power)
     names = list(state.params)
-    params = dict(model.named_parameters())
+    params = _named(model)
     shadows = [state.params[n] for n in names]
     diffs = torch._foreach_sub(shadows, [params[n].float() for n in names])
     torch._foreach_mul_(diffs, 1.0 - d)
@@ -63,10 +71,16 @@ def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
 
 
 @contextlib.contextmanager
-def swapped_in(state: EmaState, model: nn.Module) -> Iterator[nn.Module]:
+def swapped_in(state: EmaState, model: nn.Module, store=None) -> Iterator[nn.Module]:
     """Inside the block the model's parameters hold the EMA shadows and
     `state.params` the trained weights: the tensors are exchanged, not
-    copied, and exchanged back on exit."""
+    copied, and exchanged back on exit. With a sharded store the shadows
+    are gathered whole and lent to the model (`ShardedParams.whole_weights`,
+    a collective)."""
+    if store is not None and store.sharded:
+        with store.whole_weights(state.params) as module:
+            yield module
+        return
     params = dict(model.named_parameters())
 
     def swap():

@@ -5,10 +5,11 @@ over ALL positions (torch convention: (1-eps) * NLL(target) + eps *
 mean_c NLL(c)), the masked-only loss and accuracy as mask-weighted means,
 `correct_tokens ** m` over the m codebook splits, and the optional
 `sum_splits` scaling. Computed in float32 whatever the logits' dtype.
-Across data-parallel processes the returned loss is this process's mean
-(its gradients are averaged), while the metrics are the global batch's, as
-JAX computes them over the global array: the sums and the denominators are
-summed over the processes before the divisions and powers.
+Across processes the returned loss is this rank's mean over its rows (its
+gradients are averaged over the batch group), while the metrics are the
+global batch's, as JAX computes them over the global array: the sums and
+the denominators are summed over the batch group (the ranks that hold
+different rows) before the divisions and powers.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, process_count
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, batch_group
 
 
 class MLMLossConfig(NamedTuple):
@@ -42,11 +43,13 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, masks: torch.Tensor,
     with torch.no_grad():
         correct = (logits.argmax(-1) == targets).float()
         mask_f = masks.float()
-        # the per-process mean of each sum, so the ratios below are global
+        # the batch shards' mean of each sum, so the ratios below are global
         sums = torch.stack([ce.sum(), correct.sum(), (ce * mask_f).sum(),
                             (correct * mask_f).sum(), mask_f.sum()])
-        ce_sum, correct_sum, masked_ce, masked_correct, mask_count = all_reduce_mean_([sums])[0]
-        denom = mask_count.clamp(min=1.0 / process_count())
+        shards = batch_group()
+        ce_sum, correct_sum, masked_ce, masked_correct, mask_count = all_reduce_mean_(
+            [sums], shards)[0]
+        denom = mask_count.clamp(min=1.0 / shards.size)
         n, scale = ce.numel(), (m if cfg.sum_splits else 1)
     if cfg.sum_splits:
         loss = loss * m

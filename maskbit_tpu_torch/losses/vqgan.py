@@ -14,12 +14,12 @@ Counterpart of `maskbit_tpu/losses/vqgan.py`:
     clamped to [0, 1e4], on the decoder's last convolution.
 Metrics come back detached, under the JAX package's keys.
 
-Across data-parallel processes the batch-level nonlinear terms are the
-global batch's, as JAX computes them over the global array: the LeCam
-regulariser and its EMA take the logits' means over every process
-(`parallel.mesh.global_mean`), so every process holds the same LeCam
-state, and the adaptive weight is the ratio of the norms of the two
-gradients averaged over the processes.
+Across processes the batch-level nonlinear terms are the global batch's,
+as JAX computes them over the global array: the LeCam regulariser and its
+EMA take the logits' means over the batch group (the ranks that hold
+different rows; `parallel.mesh.global_mean`), so every process holds the
+same LeCam state, and the adaptive weight is the ratio of the norms of the
+two gradients averaged over the batch group.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from maskbit_tpu_torch.losses import gan
-from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, batch_group, global_mean
 
 
 class VQGANLossConfig(NamedTuple):
@@ -82,9 +82,10 @@ def reconstruction_loss_fn(cfg: VQGANLossConfig, inputs: torch.Tensor,
 
 def calculate_adaptive_weight(nll_grads: torch.Tensor, g_grads: torch.Tensor) -> torch.Tensor:
     """||nll_grads|| / (||g_grads|| + 1e-4), clamped to [0, 1e4], detached;
-    the gradients are averaged over the processes first (the global
+    the gradients are averaged over the batch group first (the global
     batch's)."""
-    nll_grads, g_grads = all_reduce_mean_([nll_grads.detach().clone(), g_grads.detach().clone()])
+    nll_grads, g_grads = all_reduce_mean_([nll_grads.detach().clone(), g_grads.detach().clone()],
+                                          batch_group())
     d_weight = torch.linalg.vector_norm(nll_grads) / (torch.linalg.vector_norm(g_grads) + 1e-4)
     return d_weight.clamp(0.0, 1e4).detach()
 
@@ -155,7 +156,8 @@ def discriminator_loss(cfg: VQGANLossConfig, logits_real: torch.Tensor,
     new_state = lecam_state
     if cfg.lecam_regularization_weight > 0.0:
         real_mean, fake_mean = global_mean(torch.stack([logits_real.mean(),
-                                                        logits_fake.mean()])).unbind()
+                                                        logits_fake.mean()]),
+                                           batch_group()).unbind()
         lecam_loss = gan.compute_lecam_loss(
             real_mean, fake_mean, lecam_state.ema_real_logits_mean,
             lecam_state.ema_fake_logits_mean) * cfg.lecam_regularization_weight

@@ -28,6 +28,21 @@ Compute runs in x's dtype (weights are cast on use); softmax and LayerNorm
     the same masks and seeds, so remat on and off give the same loss and
     gradients. The recompute launches the dropout-attention forward kernel
     a second time.
+  * Tensor parallelism (`parallel/zero.py` sets `tensor_group` on each
+    `MultiHeadSelfAttention` and `BertFeedForward` and cuts their weights
+    to the rank's share): q, k and v of the rank's heads [t h/T, (t+1)
+    h/T), the dropout-attention kernels run on those h/T heads, and
+    `out_proj` takes the matching columns; `fc1` its chunk of rows and
+    `fc2` the matching columns. Each layer's input goes through Megatron's
+    `copy_to_group` and its partial output through `reduce_from_group`
+    (one all-reduce over the tensor group) before the bias. Every draw is
+    made for the whole layer and sliced: the (b, h) seed table's columns
+    of the rank's heads (the kernel's mask is a hash of (row, col, seed),
+    so each rank's mask is the one-process mask's heads, bit for bit), the
+    softmax-weight dropout's mask likewise, and the hidden dropout's masks
+    whole on every rank of the group, which shares one step stream. The
+    attention block at inference needs whole weights
+    (`ShardedParams.whole_weights`), as JAX's `need_tensor_1`.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from maskbit_tpu_torch.nn.attention_block import fused_attention_block
 from maskbit_tpu_torch.nn.dropout_attention import dropout_attention
+from maskbit_tpu_torch.parallel.mesh import copy_to_group, reduce_from_group
 
 LAYERNORM_EPS = 1e-12
 
@@ -60,14 +76,18 @@ class DropoutRng:
         self._seeds = None if attention_seeds is None else list(attention_seeds)
         self._next_seed = 0
 
-    def attention_seeds(self, b: int, h: int, device) -> torch.Tensor:
-        """(b, h) int64 seeds in [0, 2^32)."""
+    def attention_seeds(self, b: int, h: int, device, heads: Optional[slice] = None
+                        ) -> torch.Tensor:
+        """(b, h) int64 seeds in [0, 2^32); with `heads`, those columns of
+        the table drawn for all h heads."""
         if self._seeds is not None:
             table = self._seeds[self._next_seed]
             self._next_seed += 1
-            return torch.as_tensor(np.asarray(table, np.int64), device=device)
-        return torch.randint(0, 2**32, (b, h), generator=self.generator, device=device,
-                             dtype=torch.int64)
+            table = torch.as_tensor(np.asarray(table, np.int64), device=device)
+        else:
+            table = torch.randint(0, 2**32, (b, h), generator=self.generator, device=device,
+                                  dtype=torch.int64)
+        return table if heads is None else table[:, heads].contiguous()
 
     def position(self) -> Tuple[Optional[torch.Tensor], int]:
         """Where the draws stand: the generator's state and the next
@@ -91,11 +111,17 @@ class DropoutRng:
         finally:
             self._seek(now)
 
-    def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
-        """Keep with probability 1 - p, kept values scaled by 1 / (1 - p)."""
+    def dropout(self, x: torch.Tensor, p: float, heads: Optional[Tuple[int, slice]] = None
+                ) -> torch.Tensor:
+        """Keep with probability 1 - p, kept values scaled by 1 / (1 - p).
+        With `heads` (h, cols), x holds those columns of dim 1 of an array
+        with h there, and the mask is drawn for that array and sliced."""
         if self.generator is None:
             raise ValueError("hidden dropout needs the step's torch.Generator")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - p
+        shape = x.shape if heads is None else (x.shape[0], heads[0]) + tuple(x.shape[2:])
+        keep = torch.rand(shape, generator=self.generator, device=x.device) < 1.0 - p
+        if heads is not None:
+            keep = keep[:, heads[1]]
         return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -121,7 +147,10 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadSelfAttention(nn.Module):
     """torch-MHA parameter layout: packed `in_proj_weight` (3E, E) and
-    `in_proj_bias`, plus `out_proj`."""
+    `in_proj_bias`, plus `out_proj`. With `tensor_group` set, the weights
+    are the rank's share of the heads (module docstring)."""
+
+    tensor_group = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  attention_dropout: Optional[float] = None, fused_dropout: bool = False):
@@ -133,23 +162,37 @@ class MultiHeadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         self.attn_drop = nn.Dropout(dropout if attention_dropout is None else attention_dropout)
 
+    def _output(self, out: torch.Tensor) -> torch.Tensor:
+        if self.tensor_group is None:
+            return linear(self.out_proj, out)
+        partial = F.linear(out, self.out_proj.weight.to(out.dtype))
+        return reduce_from_group(partial, self.tensor_group) + self.out_proj.bias.to(out.dtype)
+
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, n, e = x.shape
-        h = self.num_heads
-        d = e // h
+        d = e // self.num_heads
+        tg = self.tensor_group
+        h = self.num_heads if tg is None else self.num_heads // tg.size
+        heads = None if tg is None else slice(tg.index * h, (tg.index + 1) * h)
         p = self.attn_drop.p
+        if tg is not None:
+            x = copy_to_group(x, tg)
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = qkv.view(b, n, 3, h, d).unbind(2)
         if self.training and p > 0.0 and self.fused_dropout:
             if rng is None:
                 raise ValueError("training-mode dropout needs the step's DropoutRng")
-            out = dropout_attention(q, k, v, rng.attention_seeds(b, h, x.device), p)
-            return linear(self.out_proj, out.reshape(b, n, e))
+            seeds = rng.attention_seeds(b, self.num_heads, x.device, heads)
+            out = dropout_attention(q, k, v, seeds, p)
+            return self._output(out.reshape(b, n, h * d))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
         weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        weights = dropout(weights, p, self.training, rng)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, e)
-        return linear(self.out_proj, out)
+        if self.training and p > 0.0:
+            if rng is None:
+                raise ValueError("training-mode dropout needs the step's DropoutRng")
+            weights = rng.dropout(weights, p, None if heads is None else (self.num_heads, heads))
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, h * d)
+        return self._output(out)
 
 
 class BertAttention(nn.Module):
@@ -167,6 +210,9 @@ class BertAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if self.attention_impl == "fused" and not self.use_prenorm and not self.training:
+            if self.mha.tensor_group is not None:
+                raise ValueError("the attention block runs on whole weights: lend the module "
+                                 "whole weights first (ShardedParams.whole_weights)")
             # the vectors go as they are stored (f32 or bf16; the kernels widen
             # bf16), and weights already in x's dtype are not copied: with
             # the serving generator's bf16 weights a call launches only the
@@ -192,6 +238,8 @@ class BertAttention(nn.Module):
 
 
 class BertFeedForward(nn.Module):
+    tensor_group = None  # set: fc1 holds a chunk of the rows, fc2 its columns
+
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  use_prenorm: bool = False):
         super().__init__()
@@ -202,8 +250,13 @@ class BertFeedForward(nn.Module):
 
     def _net(self, h: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
         fc1, _, fc2, drop = self.net
-        # exact-erf GELU; torch evaluates it in float32 for bf16 inputs
-        return dropout(linear(fc2, F.gelu(linear(fc1, h))), drop.p, self.training, rng)
+        tg = self.tensor_group
+        if tg is None:
+            # exact-erf GELU; torch evaluates it in float32 for bf16 inputs
+            return dropout(linear(fc2, F.gelu(linear(fc1, h))), drop.p, self.training, rng)
+        a = F.gelu(linear(fc1, copy_to_group(h, tg)))
+        y = reduce_from_group(F.linear(a, fc2.weight.to(a.dtype)), tg) + fc2.bias.to(a.dtype)
+        return dropout(y, drop.p, self.training, rng)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if self.use_prenorm:

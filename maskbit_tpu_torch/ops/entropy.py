@@ -17,11 +17,11 @@ each chunk's probabilities and applies the gradient analytically, so
 nothing of a chunk is kept between the passes (at 18 bits and 4096 rows a
 chunk is 64 MB, and there are 64) but its mean probabilities (2^K floats).
 
-Across data-parallel processes both terms are the global batch's, as JAX
-computes them over the global array: each chunk's mean probability is
-averaged over the processes before its entropy (one small all-reduce per
-chunk, in the forward; the backward reuses them), and the per-sample
-entropy, a mean, is averaged too. Each process's gradient is its share of
+Across processes both terms are the global batch's, as JAX computes them
+over the global array: each chunk's mean probability is averaged over the
+batch group (the ranks that hold different rows) before its entropy (one
+small all-reduce per chunk, in the forward; the backward reuses them), and
+the per-sample entropy, a mean, is averaged too. Each process's gradient is its share of
 the global one (`parallel.mesh.global_mean`). The affinity products run in full
 float32 in both passes (`utils/precision.full_f32`, whatever the caller's
 TF32 flags), as the JAX package's `Precision.HIGHEST`: with T = 0.01 a
@@ -36,7 +36,7 @@ from typing import Tuple
 import torch
 
 from maskbit_tpu_torch.ops.bitops import indices_to_bits
-from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean
+from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, batch_group, global_mean
 from maskbit_tpu_torch.utils.precision import full_f32
 
 
@@ -51,8 +51,9 @@ def entropy_loss_fn(affinity: torch.Tensor, temperature: float, entropy_gamma: f
     softmax(affinity / temperature) over the last axis, in float32."""
     flat = affinity.reshape(-1, affinity.shape[-1]).float() / temperature
     probability = torch.softmax(flat, dim=-1)
-    average_probability = global_mean(probability.mean(dim=0))
-    per_sample_entropy = global_mean(-(probability * clamp_log(probability)).sum(dim=-1).mean())
+    average_probability = global_mean(probability.mean(dim=0), batch_group())
+    per_sample_entropy = global_mean(-(probability * clamp_log(probability)).sum(dim=-1).mean(),
+                                     batch_group())
     avg_entropy = (-average_probability * clamp_log(average_probability)).sum()
     return per_sample_entropy, avg_entropy * entropy_gamma
 
@@ -83,10 +84,10 @@ class _LfqEntropy(torch.autograd.Function):
                 codes = _chunk_codes(start, chunk_size, num_bits, rows.device)
                 p = torch.exp((2.0 * inv_t) * (rows @ codes.t()) - log_z[:, None])
                 psum += (p * clamp_log(p, eps)).sum(dim=-1)
-                avg_p = all_reduce_mean_([p.mean(dim=0)])[0]  # the global batch's
+                avg_p = all_reduce_mean_([p.mean(dim=0)], batch_group())[0]  # the global batch's
                 avg_entropy += (-avg_p * clamp_log(avg_p, eps)).sum()
                 avg_ps.append(avg_p)
-            per_sample = all_reduce_mean_([-psum.mean()])[0]
+            per_sample = all_reduce_mean_([-psum.mean()], batch_group())[0]
         ctx.save_for_backward(rows, log_z, torch.cat(avg_ps))
         ctx.num_bits, ctx.inv_t, ctx.chunk_size, ctx.eps = num_bits, inv_t, chunk_size, eps
         return per_sample, avg_entropy

@@ -25,18 +25,30 @@ With `log_param_grad_norms` the metrics also hold each parameter's gradient
 norm as "grad_norm/<parameter name>" (the JAX package names them by its
 Flax paths).
 
-Data parallelism (`parallel/mesh.py`): each process steps on its share of
-the global batch, and its gradients are averaged over the processes
-(`all_reduce_mean_`, in the "train/all_reduce" range) before the grad norm
-and the optimizer, so every process applies the global batch's update and
-the per-parameter norms are the global gradient's. The metrics are the
-global batch's (`losses/mlm.py`; the masked fraction averaged). Injected
-draws are given for the global batch and each process takes its rows
-(`local_rows`), so a run over N processes draws the masks, label drops and
-attention dropout masks of a one-process run row for row; a
-`torch.Generator` is the caller's to seed per process
-(`parallel.mesh.rank_seed`). Under remat the recompute runs inside
-`torch.autograd.grad`, so the gradients are reduced once, after it.
+Across processes (`parallel/mesh.py`, `parallel/zero.py`): the state's
+`ShardedParams` store holds this rank's slices of the parameters, AdamW
+moments and EMA shadows (with nothing split, the module's own tensors).
+Each step gathers the whole parameters into the module ("train/gather"),
+runs forward and backward on this rank's rows of the global batch (the
+batch group's share: the ranks of one tensor group hold the same rows and
+each runs its share of the heads and MLP columns), frees the whole
+parameters again (`ShardedParams.release`), reduces the gradients
+to the slices' gradients of the global batch ("train/all_reduce": a
+reduce-scatter over fsdp and an all-reduce over data, or one all-reduce
+over the batch group for a replicated parameter), takes the global norm
+over every rank's slices, and updates the slices and their EMA. So every
+process applies the global batch's update and the per-parameter norms are
+the global gradient's. The metrics are the global batch's
+(`losses/mlm.py`; the masked fraction averaged over the batch group).
+Injected draws are given for the global batch and each process takes its
+batch shard's rows (`local_rows`) and, for the attention seeds, its heads'
+columns, so a run on any mesh draws the masks, label drops and attention
+dropout masks of a one-process run; a `torch.Generator` is the caller's to
+seed per batch shard (`parallel.mesh.rank_seed` over the batch group).
+Under remat the recompute runs inside `torch.autograd.grad`, so the
+gradients are reduced once, after it. `state_dict()` gathers the whole
+state (a collective) and `load_state_dict` keeps this rank's slices, so a
+checkpoint does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -53,61 +65,84 @@ from maskbit_tpu_torch.losses.mlm import MLMLossConfig, mlm_loss
 from maskbit_tpu_torch.nn.transformer import DropoutRng
 from maskbit_tpu_torch.ops.bitops import split_factorized_tokens
 from maskbit_tpu_torch.ops.masking import get_mask_tokens
-from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, global_mean, local_rows
-from maskbit_tpu_torch.train.optim import AdamW, global_norm
+from maskbit_tpu_torch.parallel.mesh import batch_group, global_mean, local_rows, shard_train_state
+from maskbit_tpu_torch.parallel.zero import ShardedParams
+from maskbit_tpu_torch.train.optim import AdamW
+
+
+def whole_opt_state(store: ShardedParams, opt: AdamW) -> dict:
+    """The optimizer's `state_dict` with its moments whole (a collective)."""
+    sd = opt.state_dict()
+    names = store.names_of(opt.params)
+    for key in ("mu", "nu", "acc"):
+        if sd[key] is not None:
+            sd[key] = store.whole(names, sd[key])
+    return sd
 
 
 class GeneratorTrainState:
-    """The model (its parameters), the optimizer and the EMA shadows."""
+    """The model (its parameters), their store, the optimizer and the EMA
+    shadows."""
 
-    def __init__(self, model: nn.Module, opt: AdamW, ema: Optional[EmaState]):
+    def __init__(self, model: nn.Module, opt: AdamW, ema: Optional[EmaState],
+                 store: ShardedParams):
         self.step = 0
-        self.model, self.opt, self.ema = model, opt, ema
+        self.model, self.opt, self.ema, self.store = model, opt, ema, store
 
     def state_dict(self) -> dict:
-        """The live tensors and counts of the state: step, parameters by
-        name, the optimizer's `state_dict`, the EMA shadows and step."""
+        """The whole state: step, parameters by name, the optimizer's
+        `state_dict`, the EMA shadows and step (a collective; the live
+        tensors when nothing is split)."""
+        store = self.store
         return {"step": self.step,
-                "params": {n: p.detach() for n, p in self.model.named_parameters()},
-                "opt": self.opt.state_dict(),
-                "ema": None if self.ema is None else {"params": dict(self.ema.params),
+                "params": {n: t.detach() for n, t in store.whole_params().items()},
+                "opt": whole_opt_state(store, self.opt),
+                "ema": None if self.ema is None else {"params": store.whole_dict(self.ema.params),
                                                       "step": self.ema.step}}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Copy a `state_dict` into this state's tensors, in place."""
-        params = dict(self.model.named_parameters())
-        if set(state["params"]) != set(params):
-            raise KeyError(f"saved parameters differ: {sorted(set(state['params']) ^ set(params))[:5]}")
+        """Copy a whole `state_dict` into this state's tensors (this rank's
+        slices), in place."""
         if (state["ema"] is None) != (self.ema is None):
             raise ValueError("the saved state and this one differ in having an EMA")
-        for name, p in params.items():
-            p.copy_(state["params"][name])
-        self.opt.load_state_dict(state["opt"])
+        store = self.store
+        store.load_whole_(state["params"])
+        self.opt.load_state_dict(shard_train_state(state["opt"], store.splits,
+                                                    store.names_of(self.opt.params)))
         if self.ema is not None:
-            for name, shadow in self.ema.params.items():
-                shadow.copy_(state["ema"]["params"][name])
+            for name, shadow in shard_train_state(state["ema"]["params"], store.splits).items():
+                self.ema.params[name].copy_(shadow)
             self.ema.step = int(state["ema"]["step"])
         self.step = int(state["step"])
 
 
-def init_generator_train_state(model: nn.Module, opt: AdamW,
-                               use_ema: bool = True) -> GeneratorTrainState:
-    return GeneratorTrainState(model, opt, init_ema(model) if use_ema else None)
+def init_generator_train_state(model: nn.Module, opt: AdamW, use_ema: bool = True,
+                               store: Optional[ShardedParams] = None) -> GeneratorTrainState:
+    """The state of `model` and `opt`: over `store`'s slices (the
+    optimizer made from `store.parameters()`), or, without a store, over
+    the module's own parameters."""
+    store = ShardedParams(model, replicate=True) if store is None else store
+    return GeneratorTrainState(model, opt, init_ema(store.shards) if use_ema else None, store)
 
 
-def per_param_grad_norms(names, grads) -> Dict[str, torch.Tensor]:
+def per_param_grad_norms(names, grads, store: Optional[ShardedParams] = None
+                         ) -> Dict[str, torch.Tensor]:
     """{"grad_norm/<name>": float32 L2 norm} for the original repo's
-    periodic per-parameter dump."""
-    norms = torch._foreach_norm([g.float() for g in grads])
+    periodic per-parameter dump; of slices' gradients over every rank with
+    a sharded store (a collective)."""
+    if store is not None and store.sharded:
+        norms = store.squared_norms(names, grads).sqrt().unbind()
+    else:
+        norms = torch._foreach_norm([g.float() for g in grads])
     return {f"grad_norm/{name}": n for name, n in zip(names, norms)}
 
 
 def local_injected(injected: Mapping[str, Any], b_local: int) -> Dict[str, Any]:
-    """This process's rows of draws given for the global batch: the (b,)
-    and (b, n, m) uniforms and each (b, h) attention seed table."""
+    """This batch shard's rows of draws given for the global batch: the
+    (b,) and (b, n, m) uniforms and each (b, h) attention seed table."""
     def rows(x):
-        return local_rows(x if torch.is_tensor(x) else np.asarray(x), b_local)
+        return local_rows(x if torch.is_tensor(x) else np.asarray(x), b_local, batch_group())
 
     out = {k: rows(v) for k, v in injected.items() if k != "attention_seeds"}
     if "attention_seeds" in injected:
@@ -137,29 +172,31 @@ def _mlm_step_core(model, mlm_cfg: MLMLossConfig, codebook_size: int, mask_sched
         drop_label_mask = u < class_label_dropout
         rng = DropoutRng(generator, None if injected is None else injected["attention_seeds"])
 
-        model = state.model.train()
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        params = [p for _, p in named]
+        model, store = state.model.train(), state.store
+        names = store.names_of(state.opt.params)
+        with record_function("train/gather"):
+            store.gather()
         with record_function("train/forward"):
             logits = model(masked_tokens, labels, drop_label_mask, rng)
             loss, loss_dict = mlm_loss(logits, split_tokens, masks, mlm_cfg)
         with record_function("train/backward"):
-            grads = list(torch.autograd.grad(loss, params))
+            grads = list(torch.autograd.grad(loss, [store.params[n] for n in names]))
+            store.release()
         with record_function("train/all_reduce"):
-            all_reduce_mean_(grads)
+            grads = store.reduce_scatter_grads(names, grads)
         with record_function("train/optimizer"):
-            grad_norm = global_norm(grads)
+            grad_norm = store.global_norm(names, grads)
             state.opt.step(grads)
         if state.ema is not None:
             with record_function("train/ema"):
-                ema_update(state.ema, model, **ema_kwargs)
+                ema_update(state.ema, store.shards, **ema_kwargs)
         state.step += 1
 
         metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = grad_norm
-        metrics["train/masked_fraction"] = global_mean(masks.float().mean())
+        metrics["train/masked_fraction"] = global_mean(masks.float().mean(), batch_group())
         if log_param_grad_norms:
-            metrics.update(per_param_grad_norms([n for n, _ in named], grads))
+            metrics.update(per_param_grad_norms(names, grads, store))
         # non-scalar viz payloads (underscore keys; the CLI pops them)
         metrics["_input_tokens"] = split_tokens
         metrics["_predicted_tokens"] = logits.detach().argmax(-1)

@@ -14,7 +14,10 @@ accumulating). Where optax and `torch.optim` differ, this follows optax:
     apply to the mean every k-th micro-step; the others leave the
     parameters unchanged.
 Parameters and moments are float32; the update runs in place with
-`torch._foreach_*` ops. `state_dict` / `load_state_dict` carry the moments,
+`torch._foreach_*` ops. The parameters may be slices of a sharded store
+(`parallel/zero.py`): the update is elementwise, and `norm_fn` (the
+store's `norm_fn`) gives the clip the norm over every rank's slices.
+`state_dict` / `load_state_dict` carry the moments,
 the accumulator and both counts (resume); `reset` is a fresh optimizer's
 state (optax's `tx.init`).
 """
@@ -35,8 +38,10 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     def __init__(self, params, schedule: Callable[[int], float], beta1: float = 0.9,
                  beta2: float = 0.999, weight_decay: float = 1e-4, epsilon: float = 1e-8,
-                 max_grad_norm: Optional[float] = 1.0, gradient_accumulation_steps: int = 1):
+                 max_grad_norm: Optional[float] = 1.0, gradient_accumulation_steps: int = 1,
+                 norm_fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None):
         self.params = [p for p in params if p.requires_grad]
+        self.norm_fn = global_norm if norm_fn is None else norm_fn
         if any(p.dtype != torch.float32 for p in self.params):
             raise TypeError("AdamW keeps float32 parameters (compute casts them on use)")
         self.schedule, self.b1, self.b2 = schedule, beta1, beta2
@@ -67,7 +72,7 @@ class AdamW:
             grads = self.acc
         if self.max_grad_norm is not None:
             # optax: t if g_norm < max_norm else (t / g_norm) * max_norm
-            g_norm = global_norm(grads)
+            g_norm = self.norm_fn(grads)
             clip = g_norm >= self.max_grad_norm
             div = torch.where(clip, g_norm, torch.ones_like(g_norm))
             mul = torch.where(clip, torch.full_like(g_norm, self.max_grad_norm),
@@ -125,7 +130,7 @@ class AdamW:
 def make_optimizer(params, learning_rate_schedule, beta1: float = 0.9, beta2: float = 0.999,
                    weight_decay: float = 1e-4, epsilon: float = 1e-8,
                    max_grad_norm: Optional[float] = 1.0,
-                   gradient_accumulation_steps: int = 1) -> AdamW:
+                   gradient_accumulation_steps: int = 1, norm_fn=None) -> AdamW:
     """Counterpart of `maskbit_tpu.train.tokenizer_trainer.make_optimizer`."""
     return AdamW(params, learning_rate_schedule, beta1, beta2, weight_decay, epsilon,
-                 max_grad_norm, gradient_accumulation_steps)
+                 max_grad_norm, gradient_accumulation_steps, norm_fn)

@@ -28,17 +28,26 @@ Python function, computes what the JAX step computes:
 Parameters, moments and EMA shadows are updated in place. Stage I draws no
 random numbers in the step.
 
-Data parallelism (`parallel/mesh.py`): each process steps on its share of
-the global batch; the tokenizer's gradients, and from the gate on the
-discriminator's, are averaged over the processes before the grad norm and
-the optimizers (a frozen discriminator sends nothing), so every process
-holds the same parameters; the entropy, LeCam and adaptive-weight terms are
-the global batch's (`ops/entropy.py`, `losses/vqgan.py`), and the metrics
-are averaged over the processes, so they are the global batch's too. The
-Pix2Pix discriminator's BatchNorm would need the global batch's statistics:
-it is refused across processes. The phases run inside
+Across processes (`parallel/mesh.py`, `parallel/zero.py`): the tokenizer
+and the discriminator each have a `ShardedParams` store of this rank's
+slices (parameters, AdamW moments and the tokenizer's EMA shadows; with
+nothing split, the modules' own tensors). Each step gathers both modules'
+whole parameters, runs on this rank's rows of the global batch, frees
+each module's whole parameters once its gradients are taken, and
+reduces the tokenizer's gradients, and from the gate on the
+discriminator's, to the slices' gradients of the global batch's mean
+before the grad norm (over every rank's slices) and the optimizers (a
+frozen discriminator sends nothing). No tokenizer convolution is split
+over `tensor` by the rules: the tensor axis only splits storage, and the
+ranks of a tensor group step on the same rows. The entropy, LeCam and
+adaptive-weight terms are the global batch's (`ops/entropy.py`,
+`losses/vqgan.py`), and the metrics are averaged over the batch group, so
+they are the global batch's too. The Pix2Pix discriminator's BatchNorm
+would need the global batch's statistics: it is refused when the batch is
+split. The phases run inside
 `torch.profiler.record_function` ranges ("tokenizer/generator",
-"tokenizer/adaptive_weight", "tokenizer/backward", "tokenizer/optimizer",
+"tokenizer/gather", "tokenizer/adaptive_weight", "tokenizer/backward",
+"tokenizer/all_reduce", "tokenizer/optimizer",
 "tokenizer/discriminator", "tokenizer/ema").
 """
 
@@ -61,49 +70,65 @@ from maskbit_tpu_torch.losses.vqgan import (
     nll_loss_only,
 )
 from maskbit_tpu_torch.nn.discriminator import NLayerDiscriminatorv2, OriginalNLayerDiscriminator
-from maskbit_tpu_torch.parallel.mesh import all_reduce_mean_, mean_across_processes, process_count
-from maskbit_tpu_torch.train.generator_trainer import per_param_grad_norms
-from maskbit_tpu_torch.train.optim import AdamW, global_norm
+from maskbit_tpu_torch.parallel.mesh import (
+    batch_group,
+    batch_shard_count,
+    mean_across_processes,
+    shard_train_state,
+)
+from maskbit_tpu_torch.parallel.zero import ShardedParams
+from maskbit_tpu_torch.train.generator_trainer import (
+    per_param_grad_norms,
+    whole_opt_state,
+)
+from maskbit_tpu_torch.train.optim import AdamW
 
 
 class TokenizerTrainState:
-    """The tokenizer and discriminator (their parameters), their two
-    optimizers, the EMA shadows of the tokenizer, the LeCam state and the
-    step."""
+    """The tokenizer and discriminator (their parameters) and their
+    stores, their two optimizers, the EMA shadows of the tokenizer, the
+    LeCam state and the step."""
 
     def __init__(self, model: nn.Module, discriminator: nn.Module, gen_opt: AdamW,
-                 disc_opt: AdamW, ema: Optional[EmaState], lecam: LecamState):
+                 disc_opt: AdamW, ema: Optional[EmaState], lecam: LecamState,
+                 gen_store: ShardedParams, disc_store: ShardedParams):
         self.step = 0
         self.model, self.discriminator = model, discriminator
         self.gen_opt, self.disc_opt, self.ema, self.lecam = gen_opt, disc_opt, ema, lecam
+        self.gen_store, self.disc_store = gen_store, disc_store
 
     def state_dict(self) -> dict:
-        """The live tensors and counts of the state."""
+        """The whole state (a collective; the live tensors when nothing is
+        split)."""
+        gs, ds = self.gen_store, self.disc_store
         return {"step": self.step,
-                "gen_params": {n: p.detach() for n, p in self.model.named_parameters()},
-                "disc_params": {n: p.detach() for n, p in self.discriminator.named_parameters()},
-                "gen_opt": self.gen_opt.state_dict(), "disc_opt": self.disc_opt.state_dict(),
-                "ema": None if self.ema is None else {"params": dict(self.ema.params),
+                "gen_params": {n: t.detach() for n, t in gs.whole_params().items()},
+                "disc_params": {n: t.detach() for n, t in ds.whole_params().items()},
+                "gen_opt": whole_opt_state(gs, self.gen_opt),
+                "disc_opt": whole_opt_state(ds, self.disc_opt),
+                "ema": None if self.ema is None else {"params": gs.whole_dict(self.ema.params),
                                                       "step": self.ema.step},
                 "lecam": dict(self.lecam._asdict())}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Copy a `state_dict` into this state's tensors, in place."""
-        for key, module in (("gen_params", self.model), ("disc_params", self.discriminator)):
-            params = dict(module.named_parameters())
-            if set(state[key]) != set(params):
-                raise KeyError(f"saved {key} differ: "
-                               f"{sorted(set(state[key]) ^ set(params))[:5]}")
-            for name, p in params.items():
-                p.copy_(state[key][name])
+        """Copy a whole `state_dict` into this state's tensors (this rank's
+        slices), in place."""
+        for key, store in (("gen_params", self.gen_store), ("disc_params", self.disc_store)):
+            try:
+                store.load_whole_(state[key])
+            except KeyError as e:
+                raise KeyError(f"saved {key} differ: {e}") from None
         if (state["ema"] is None) != (self.ema is None):
             raise ValueError("the saved state and this one differ in having an EMA")
-        self.gen_opt.load_state_dict(state["gen_opt"])
-        self.disc_opt.load_state_dict(state["disc_opt"])
+        for opt, store, key in ((self.gen_opt, self.gen_store, "gen_opt"),
+                                (self.disc_opt, self.disc_store, "disc_opt")):
+            opt.load_state_dict(shard_train_state(state[key], store.splits,
+                                                  store.names_of(opt.params)))
         if self.ema is not None:
-            for name, shadow in self.ema.params.items():
-                shadow.copy_(state["ema"]["params"][name])
+            sliced = shard_train_state(state["ema"]["params"], self.gen_store.splits)
+            for name, shadow in sliced.items():
+                self.ema.params[name].copy_(shadow)
             self.ema.step = int(state["ema"]["step"])
         for mine, saved in zip(self.lecam, (state["lecam"][k] for k in LecamState._fields)):
             mine.copy_(saved)
@@ -111,10 +136,19 @@ class TokenizerTrainState:
 
 
 def init_tokenizer_train_state(model: nn.Module, discriminator: nn.Module, gen_opt: AdamW,
-                               disc_opt: AdamW, use_ema: bool = True) -> TokenizerTrainState:
+                               disc_opt: AdamW, use_ema: bool = True,
+                               gen_store: Optional[ShardedParams] = None,
+                               disc_store: Optional[ShardedParams] = None) -> TokenizerTrainState:
+    """The state over the stores' slices (each optimizer made from its
+    store's `parameters()`), or, without stores, over the modules' own
+    parameters."""
     device = next(model.parameters()).device
+    gen_store = ShardedParams(model, replicate=True) if gen_store is None else gen_store
+    disc_store = (ShardedParams(discriminator, replicate=True) if disc_store is None
+                  else disc_store)
     return TokenizerTrainState(model, discriminator, gen_opt, disc_opt,
-                               init_ema(model) if use_ema else None, LecamState.init(device))
+                               init_ema(gen_store.shards) if use_ema else None,
+                               LecamState.init(device), gen_store, disc_store)
 
 
 def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
@@ -125,21 +159,26 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
     """Build train_step(state, images) -> (state, metrics). Images are NHWC
     in [0, 1]; `perceptual_fn(a, b)` is the perceptual loss (a module such as
     `PerceptualLoss` or `LPIPS`, frozen) or None (zero)."""
-    if isinstance(discriminator, OriginalNLayerDiscriminator) and process_count() > 1:
+    if isinstance(discriminator, OriginalNLayerDiscriminator) and batch_shard_count() > 1:
         raise NotImplementedError(
             "the Pix2Pix discriminator's BatchNorm takes the global batch's statistics under "
             "data parallelism, which maskbit_tpu_torch does not port; use VQGAN+Discriminator")
     ema_kwargs = dict(ema_kwargs or {})
     use_adaptive = loss_cfg.discriminator_gradient_penalty == "adopt_weight"
     batch_disc_passes = isinstance(discriminator, NLayerDiscriminatorv2)
-    names = {id(p): n for n, p in model.named_parameters()}
 
     def train_step(state: TokenizerTrainState, images: torch.Tensor):
         images = images.float()
         step = state.step
         disc_trainable = step >= loss_cfg.discriminator_start
-        gen_params = state.gen_opt.params
-        disc_params = state.disc_opt.params
+        gen_store, disc_store = state.gen_store, state.disc_store
+        gen_names = gen_store.names_of(state.gen_opt.params)
+        disc_names = disc_store.names_of(state.disc_opt.params)
+        gen_params = [gen_store.params[n] for n in gen_names]
+        disc_params = [disc_store.params[n] for n in disc_names]
+        with record_function("tokenizer/gather"):
+            gen_store.gather()
+            disc_store.gather()
 
         # ---- generator pass: D's current parameters, out of autograd ----
         discriminator.requires_grad_(False)
@@ -164,12 +203,13 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
                                         logits_fake=logits_fake, d_weight=d_weight)
         with record_function("tokenizer/backward"):
             grads = list(torch.autograd.grad(total, gen_params, materialize_grads=True))
+            gen_store.release()
         with record_function("tokenizer/all_reduce"):
-            all_reduce_mean_(grads)
+            grads = gen_store.reduce_scatter_grads(gen_names, grads)
         with record_function("tokenizer/optimizer"):
-            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norm"] = gen_store.global_norm(gen_names, grads)
             if log_param_grad_norms:
-                metrics.update(per_param_grad_norms([names[id(p)] for p in gen_params], grads))
+                metrics.update(per_param_grad_norms(gen_names, grads, gen_store))
             state.gen_opt.step(grads)
         del grads, logits_fake
 
@@ -186,20 +226,20 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
                 d_loss, d_metrics, state.lecam = discriminator_loss(
                     loss_cfg, logits_real, logits_fake, step, state.lecam)
                 d_grads = list(torch.autograd.grad(d_loss, disc_params, materialize_grads=True))
-                all_reduce_mean_(d_grads)
-                state.disc_opt.step(d_grads)
+                state.disc_opt.step(disc_store.reduce_scatter_grads(disc_names, d_grads))
         else:
             zero = images.new_zeros(())
             d_metrics = {k: zero for k in ("discriminator_loss", "logits_real", "logits_fake",
                                            "lecam_loss")}
         discriminator.requires_grad_(True)  # as the step found it
+        disc_store.release()
 
         if state.ema is not None:
             with record_function("tokenizer/ema"):
-                ema_update(state.ema, model, **ema_kwargs)
+                ema_update(state.ema, gen_store.shards, **ema_kwargs)
         state.step += 1
         return state, mean_across_processes(
-            {**metrics, **d_metrics, "train/total_loss": total.detach()})
+            {**metrics, **d_metrics, "train/total_loss": total.detach()}, batch_group())
 
     return train_step
 

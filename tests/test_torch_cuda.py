@@ -185,8 +185,9 @@ def _seeds(b, h, seed):
 DROPOUT_ATOL = 2e-2
 
 
+# (16, 257, 8): one rank's share of the flagship's 16 heads under tensor=2
 @pytest.mark.parametrize("b,n,h,layout", [(2, 257, 4, "packed"), (1, 33, 2, "separate"),
-                                          (1, 130, 3, "packed")])
+                                          (1, 130, 3, "packed"), (16, 257, 8, "packed")])
 def test_dropout_attention_kernels_match_plain_versions(b, n, h, layout):
     from maskbit_tpu_torch.nn import dropout_attention as da
 

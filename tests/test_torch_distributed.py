@@ -1,6 +1,7 @@
-"""Data-parallel runs of the port across processes, on the CPU (gloo).
+"""Multi-process runs of the port, on the CPU (gloo): the data axis, and the
+fsdp and tensor axes.
 
-Each test spawns 2 or 3 ranks of `tests/torch_distributed_worker.py`
+Each test spawns 2 to 4 ranks of `tests/torch_distributed_worker.py`
 (torch and `maskbit_tpu_torch` only, no JAX), joined through the port's
 `maybe_init_distributed`; this process runs the JAX side, in one process on
 the global batch, and hands the ranks their inputs through files. Each
@@ -36,6 +37,23 @@ Tiny shapes: 2 layers, width 64, 8x8 token grids (16x16 in Stage I).
 * `cli.eval_tokenizer` on 2 ranks over 5 shards: each rank's shards
   disjoint and covering, the merged metrics equal to one process's (rtol
   1e-5: float32 batch sums over other batches; codebook usage exactly).
+* The fsdp and tensor axes (`parallel/zero.py`), 2 heads: Stage II at
+  parallel.fsdp=2, at tensor=2 and at fsdp=2 x tensor=2 (2, 2 and 4 ranks)
+  against JAX's one-process steps at batch 8 with the same injected
+  draws, with the data axis's tolerances (metrics rtol 1e-5, grad norm
+  1e-4, parameters and EMA atol 2e-6: the row-parallel layers' partial
+  sums and the sharded norm add float32 reassociation only); every rank's
+  gathered state equal bit for bit; each rank's dropout kernels run on
+  2 / tensor heads with the keep masks of the one-process rows and heads,
+  bit for bit; the stored bytes about 1 / (fsdp x tensor) of the whole
+  where the rules split. Stage I at fsdp=2 (2 ranks x batch 2) against JAX
+  with Stage I's tolerances. A one-process checkpoint restored on fsdp=2 x
+  tensor=2 equal bit for bit, then a step and a save there restored in one
+  process equal bit for bit, its `.bin` exports equal to one process's.
+  `cli.train_maskbit` on 2 ranks at tensor=2 (grids and eval with the
+  whole EMA weights, whole `.bin` files, then resumed by the same CLI in
+  one process) and `cli.train_tokenizer` at fsdp=2 (merged eval, a save, a
+  resume).
 """
 
 import json
@@ -65,6 +83,7 @@ from maskbit_tpu.train import tokenizer_trainer as jax_tok_trainer
 from maskbit_tpu.utils.lr_schedules import get_schedule as jax_get_schedule
 from maskbit_tpu_torch.cli import eval_tokenizer
 from maskbit_tpu_torch.cli.eval_maskbit import class_balanced_labels
+from maskbit_tpu_torch.core.checkpoint import CheckpointManager, save_pretrained
 from maskbit_tpu_torch.compat.torch_export import export_discriminator_state, export_tokenizer_state
 from maskbit_tpu_torch.compat.weights import (
     discriminator_from_flax,
@@ -147,20 +166,43 @@ def _load(workdir, name, rank):
     return torch.load(os.path.join(workdir, f"{name}_rank{rank}.pt"), weights_only=False)
 
 
-@pytest.mark.parametrize("node,error", [({"fsdp": 2}, NotImplementedError),
-                                        ({"tensor": 2}, NotImplementedError),
-                                        ({"data": 2}, ValueError), ({"data": -1}, None),
-                                        (None, None)])
-def test_mesh_config_ports_the_data_axis_only(node, error):
+@pytest.mark.parametrize("node,world,error", [
+    pytest.param({"fsdp": 2, "tensor": 2}, 8, None, id="data-1-fsdp2-tensor2-world8"),
+    pytest.param({"data": 1, "tensor": 2}, 2, None, id="data1-tensor2-world2"),
+    pytest.param({"fsdp": 2}, 3, ValueError, id="fsdp2-world3-ValueError"),
+    pytest.param({"data": 2}, 1, ValueError, id="node2-ValueError"),
+    pytest.param({"data": -1}, 1, None, id="node3-None"),
+    pytest.param(None, 1, None, id="None-None")])
+def test_mesh_config_ports_the_data_axis_only(node, world, error):
+    """The `parallel` node against a world of processes: fsdp and tensor are
+    accepted where data x fsdp x tensor can equal it (data -1 takes the
+    rest); otherwise a ValueError names the numbers."""
     from maskbit_tpu_torch.core.config import Config
     from maskbit_tpu_torch.parallel.mesh import MeshConfig
 
     cfg = Config({} if node is None else {"parallel": node})
     if error is None:
-        assert MeshConfig.from_config(cfg) == MeshConfig()
+        mesh = MeshConfig.from_config(cfg, world=world)
+        assert mesh == MeshConfig(**(node or {}))
+        resolved = mesh.resolve(world)
+        assert resolved.data * resolved.fsdp * resolved.tensor == world
     else:
-        with pytest.raises(error, match="later PR" if error is NotImplementedError else "1 "):
-            MeshConfig.from_config(cfg)
+        with pytest.raises(error, match=f"{world} processes"):
+            MeshConfig.from_config(cfg, world=world)
+
+
+def test_mesh_layout_is_jax_axes_order():
+    """Rank (d, f, t) = (d * fsdp + f) * tensor + t, as the JAX mesh's
+    device array on the 8 virtual devices; the batch shard index d * fsdp
+    + f is JAX's `batch_sharding` row block."""
+    from maskbit_tpu.parallel.mesh import MeshConfig as JaxMeshConfig, create_mesh
+    from maskbit_tpu_torch.parallel.mesh import MeshConfig, coords_of
+
+    for shape in ((2, 2, 2), (1, 2, 4), (4, 1, 2), (2, 4, 1)):
+        jmesh = create_mesh(JaxMeshConfig(*shape))
+        ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+        for r in range(8):
+            assert ids[coords_of(r, MeshConfig(*shape))] == r, (shape, r)
 
 
 def test_one_process_collectives_are_identities():
@@ -188,10 +230,10 @@ OPT = dict(beta1=0.9, beta2=0.96, weight_decay=0.045, epsilon=1e-8, max_grad_nor
 EMA = {"decay": 0.9999}
 
 
-def _stage2_jax(monkeypatch):
+def _stage2_jax(monkeypatch, mlm=MLM):
     """JAX's three steps at the global batch; the inputs and draws."""
     rng = np.random.default_rng(0)
-    depth, heads = MLM["depth"], MLM["heads"]
+    depth, heads = mlm["depth"], mlm["heads"]
     seed_table = rng.integers(0, 2**32, size=(STEPS2 * depth, BATCH2, heads), dtype=np.int64)
     real = pallas_attention.dropout_attention
     calls = iter(seed_table)
@@ -200,7 +242,7 @@ def _stage2_jax(monkeypatch):
         return real(q, k, v, jnp.asarray(next(calls).astype(np.uint32)), rate, interpret=interpret)
 
     monkeypatch.setattr(pallas_attention, "dropout_attention", with_table_seeds)
-    jgen = JaxLFQBert.from_config(MLM, VQ)
+    jgen = JaxLFQBert.from_config(mlm, VQ)
     from maskbit_tpu.train.tokenizer_trainer import make_optimizer as jax_make_optimizer
 
     tx = jax_make_optimizer(jax_get_schedule(**SCHEDULE), **OPT)
@@ -209,7 +251,7 @@ def _stage2_jax(monkeypatch):
     start = jax.tree.map(np.asarray, {"params": jstate.params})
     jstep = jax_trainer.make_generator_train_step_from_tokens(
         jgen, VQ["codebook_size"], tx, JaxMLMLossConfig(), "arccos", 0.1, EMA)
-    inp = {"mlm": MLM, "vq": VQ, "schedule": SCHEDULE, "opt": OPT, "ema": EMA,
+    inp = {"mlm": mlm, "vq": VQ, "schedule": SCHEDULE, "opt": OPT, "ema": EMA,
            "tokens": [], "labels": [], "injected": []}
     history = []
     for step in range(STEPS2):
@@ -231,13 +273,13 @@ def _stage2_jax(monkeypatch):
     want = {"params": export_generator_state(jax.tree.map(np.asarray, jstate.params), 2),
             "ema": export_generator_state(jax.tree.map(np.asarray, jstate.ema.params), 2),
             "history": history}
-    model = generator_from_flax(start, LFQBert.from_config(MLM, VQ))
+    model = generator_from_flax(start, LFQBert.from_config(mlm, VQ))
     inp["state"] = {k: v.clone() for k, v in model.state_dict().items()}
     return inp, want
 
 
 def _stage2_one_process(inp):
-    model = LFQBert.from_config(MLM, VQ)
+    model = LFQBert.from_config(inp["mlm"], VQ)
     model.load_state_dict(inp["state"], strict=True)
     opt = make_optimizer(model.parameters(), get_schedule(**SCHEDULE), **OPT)
     state = init_generator_train_state(model, opt)
@@ -382,14 +424,21 @@ def _stage1_miss(got, want) -> float:
     return worst
 
 
-def test_stage1_two_ranks_match_jax_and_rank_local_means_do_not(tmp_path):
+@pytest.fixture(scope="module")
+def stage1_reference():
+    """JAX's Stage-I steps and the inputs the ranks load."""
     images = _stage1_images()
     (gen_params, disc_params), want = _stage1_jax(images)
     model = tokenizer_from_flax(gen_params, ConvVQModel.from_config(LFQ), VQ["codebook_size"])
     disc = discriminator_from_flax(disc_params, create_discriminator(V2))
-    torch.save({"vq": LFQ, "disc": V2, "losses": LOSSES, "schedule": SCHEDULE1, "eps": EPS,
-                "images": images, "gen_state": model.state_dict(),
-                "disc_state": disc.state_dict()}, tmp_path / "stage1_in.pt")
+    inp = {"vq": LFQ, "disc": V2, "losses": LOSSES, "schedule": SCHEDULE1, "eps": EPS,
+           "images": images, "gen_state": model.state_dict(), "disc_state": disc.state_dict()}
+    return inp, want
+
+
+def test_stage1_two_ranks_match_jax_and_rank_local_means_do_not(tmp_path, stage1_reference):
+    inp, want = stage1_reference
+    torch.save(inp, tmp_path / "stage1_in.pt")
     procs = {mode: _launch(tmp_path, 2, "stage1", mode) for mode in ("global", "local")}
     for mode, p in procs.items():
         _wait(p, tmp_path, "stage1", 150)
@@ -578,3 +627,190 @@ def test_eval_tokenizer_two_ranks_split_the_shards_and_merge(tmp_path):
         for key, value in one.items():
             np.testing.assert_allclose(r["results"][key], value, rtol=1e-5, err_msg=key)
         assert r["results"]["CodebookUsage"] == one["CodebookUsage"]
+
+
+# -------------------------------------------------- the fsdp and tensor axes
+
+MLM_TP = dict(MLM, heads=2)  # 2 heads of 32: one a rank under tensor=2
+
+
+@pytest.fixture(scope="module")
+def stage2_tp_reference():
+    with pytest.MonkeyPatch.context() as mp:
+        return _stage2_jax(mp, MLM_TP)
+
+
+@pytest.mark.parametrize("fsdp,tensor", [(2, 1), (1, 2), (2, 2)],
+                         ids=["fsdp2", "tensor2", "fsdp2-tensor2"])
+def test_stage2_sharded_ranks_match_jax(tmp_path, stage2_tp_reference, fsdp, tensor):
+    inp, want = stage2_tp_reference
+    world = fsdp * tensor
+    torch.save(inp, tmp_path / "stage2_sharded_in.pt")
+    _run(tmp_path, world, "stage2_sharded", fsdp, tensor, timeout=150)
+    ranks = [_load(tmp_path, f"stage2_sharded_{fsdp}_{tensor}", r) for r in range(world)]
+    got = ranks[0]
+    _assert_stage2_close(got, want, f"fsdp={fsdp} tensor={tensor} vs JAX")
+    calls = STEPS2 * MLM_TP["depth"]
+    for r in ranks:
+        assert (r["digests"] == r["digests"][0]).all(), "the ranks' gathered states differ"
+        assert r["history"] == got["history"]  # the global batch's metrics on every rank
+        assert r["heads_seen"] == [MLM_TP["heads"] // tensor] * calls
+        assert r["masks_equal"] == [True] * calls
+        assert r["split"] > 0 and r["whole_bytes"] / (fsdp * tensor) <= r["stored_bytes"]
+        assert r["stored_bytes"] < 0.6 * r["whole_bytes"], (r["stored_bytes"], r["whole_bytes"])
+
+
+def test_stage1_fsdp_ranks_match_jax(tmp_path, stage1_reference):
+    inp, want = stage1_reference
+    torch.save(inp, tmp_path / "stage1_in.pt")
+    _run(tmp_path, 2, "stage1", "fsdp", timeout=150)
+    got = [_load(tmp_path, "stage1_fsdp", r) for r in range(2)]
+    for rank in got:
+        assert all(rank["agree"]), rank["agree"]  # the gathered states, after every step
+    for step, (g, w) in enumerate(zip(got[0]["history"], want["history"])):
+        assert set(g) == set(w), set(g) ^ set(w)
+        for key in w:
+            np.testing.assert_allclose(g[key], w[key], rtol=METRIC_RTOL, atol=METRIC_ATOL,
+                                       err_msg=f"step {step} {key}")
+    assert _stage1_miss(got[0], want) <= 1.0
+    whole = sum(v.numel() * 4 for part in ("gen", "disc") for k, v in got[0][part].items()
+                if v.is_floating_point() and k in inp[f"{part}_state"])
+    assert got[0]["stored_bytes"] < 0.6 * whole
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["kernel-dropout", "weights-dropout"])
+def test_tensor_ranks_share_the_step_stream(tmp_path, stage2_tp_reference, fused):
+    """Without injected draws, the 2 ranks of a tensor group draw the
+    one-process run's masks from one stream (the batch shard's): hidden
+    dropout 0.1 on the whole activations, attention dropout 0.1 through
+    the kernels' seeds or on the softmax weights, each rank's heads sliced
+    from draws made for all heads. The port's one process with the same
+    seed within the data axis's tolerances."""
+    inp, _ = stage2_tp_reference
+    mlm = dict(MLM_TP, dropout=0.1, fused_attention_dropout=fused)
+    inp = dict(inp, mlm=mlm, seed=5, tokens=inp["tokens"][:2], labels=inp["labels"][:2])
+    torch.save(inp, tmp_path / "stage2_stream_in.pt")
+    procs = _launch(tmp_path, 2, "stage2_stream", 2, int(fused))
+    model = LFQBert.from_config(mlm, VQ)
+    model.load_state_dict(inp["state"], strict=True)
+    opt = make_optimizer(model.parameters(), get_schedule(**SCHEDULE), **OPT)
+    state = init_generator_train_state(model, opt)
+    step = make_generator_train_step_from_tokens(model, VQ["codebook_size"], MLMLossConfig(),
+                                                 "arccos", 0.1, EMA)
+    rng = torch.Generator().manual_seed(5)
+    history = []
+    for tokens, labels in zip(inp["tokens"], inp["labels"]):
+        state, m = step(state, torch.from_numpy(tokens), torch.from_numpy(labels), rng)
+        history.append({k: float(v) for k, v in m.items() if not k.startswith("_")})
+    _wait(procs, tmp_path, "stage2_stream", 150)
+    one = {"history": history,
+           "params": {k: v.detach().numpy() for k, v in model.named_parameters()},
+           "ema": {k: v.numpy() for k, v in state.ema.params.items()}}
+    for r in range(2):
+        _assert_stage2_close(_load(tmp_path, f"stage2_stream_{int(fused)}", r), one,
+                             f"tensor=2 rank {r} vs 1 process")
+
+
+def test_sharded_checkpoint_resumes_in_one_process_and_back(tmp_path, stage2_tp_reference):
+    inp, _ = stage2_tp_reference
+    torch.save(inp, tmp_path / "checkpoint_in.pt")
+    # one process: a step, then a checkpoint at step 1
+    model = LFQBert.from_config(MLM_TP, VQ)
+    model.load_state_dict(inp["state"], strict=True)
+    opt = make_optimizer(model.parameters(), get_schedule(**SCHEDULE), **OPT)
+    state = init_generator_train_state(model, opt)
+    step = make_generator_train_step_from_tokens(model, VQ["codebook_size"], MLMLossConfig(),
+                                                 "arccos", 0.1, EMA)
+    state, _ = step(state, torch.from_numpy(inp["tokens"][0]), torch.from_numpy(inp["labels"][0]),
+                    injected=inp["injected"][0])
+    ckpt = CheckpointManager(str(tmp_path / "one_process"))
+    ckpt.save(1, state, blocking=True)
+    ckpt.close()
+    _run(tmp_path, 4, "checkpoint_sharded", timeout=150)
+    ranks = [_load(tmp_path, "checkpoint_sharded", r) for r in range(4)]
+    for r in ranks:
+        assert r["restored_step"] == 1 and r["restored_equal"]
+        assert r["heads"] == [1] * MLM_TP["depth"]  # 2 heads over tensor=2
+    # the sharded run's step-2 save, restored here, equals its gathered state
+    fresh = LFQBert.from_config(MLM_TP, VQ)
+    opt = make_optimizer(fresh.parameters(), get_schedule(**SCHEDULE), **OPT)
+    back = init_generator_train_state(fresh, opt)
+    assert CheckpointManager(str(tmp_path / "sharded")).restore_latest(back)[1] == 2
+    mine, theirs = back.state_dict(), ranks[0]["state"]
+    assert mine["step"] == theirs["step"] == 2
+    for part in ("params", "ema"):
+        tree = mine[part] if part == "params" else mine["ema"]["params"]
+        other = theirs[part] if part == "params" else theirs["ema"]["params"]
+        for name, value in tree.items():
+            assert torch.equal(value, other[name]), (part, name)
+    for key in ("mu", "nu"):
+        for a, b in zip(mine["opt"][key], theirs["opt"][key]):
+            assert torch.equal(a, b), key
+    # the `.bin` exports: whole, equal to one process's export of the same state
+    save_pretrained(fresh, str(tmp_path / "one_model.bin"))
+    save_pretrained(fresh, str(tmp_path / "one_ema_model.bin"), params=back.ema.params)
+    for name in ("model", "ema_model"):
+        a = torch.load(tmp_path / f"one_{name}.bin", weights_only=True)
+        b = torch.load(tmp_path / f"sharded_{name}.bin", weights_only=True)
+        assert set(a) == set(b)
+        for key in a:
+            assert torch.equal(a[key], b[key]), (name, key)
+
+
+def test_train_maskbit_cli_tensor2_generates_saves_and_resumes_in_one_process(tmp_path):
+    """`cli.train_maskbit` on 2 ranks at parallel.tensor=2 (2 heads, one a
+    rank): one pair of grids and one eval drawn with the whole EMA weights,
+    whole `.bin` exports (they load strictly into a one-process model), and
+    the checkpoint resumed by the same CLI in one process."""
+    from maskbit_tpu_torch.cli import train_maskbit
+
+    weights = tmp_path / "pt_inception.pth"
+    torch.save(random_inception_state(0), weights)
+    argv = [_train_config(tmp_path, 2), "model.mlm_model.heads=2", "parallel.tensor=2",
+            "experiment.generate_every=2", "experiment.eval_every=2",
+            "training.num_generated_images=2", "eval.num_generation_samples=4",
+            "eval.generation_batch_size=2"]
+    _run(tmp_path, 2, "train_cli", *argv, timeout=180,
+         env={"MASKBIT_INCEPTION_WEIGHTS": str(weights), "MASKBIT_ADM_PB": ""})
+    for r in range(2):
+        assert json.load(open(tmp_path / f"train_cli_rank{r}.json"))["steps"] == 2
+    records = [json.loads(line) for line in open(tmp_path / "out" / "metrics.jsonl")]
+    assert [r["step"] for r in records if "mlm_loss" in r] == [1, 2]
+    assert [r["step"] for r in records if "eval/InceptionScore" in r] == [2]
+    assert sorted(os.listdir(tmp_path / "out" / "images")) == [
+        "train_decoded-000000002.png", "train_generated-000000002.png"]
+    for name in ("model-2.bin", "ema_model-2.bin"):
+        state = torch.load(tmp_path / "out" / name, weights_only=True)
+        LFQBert.from_config(dict(CLI_MLM, heads=2), VQ).load_state_dict(state, strict=True)
+    result = train_maskbit.main([_train_config(tmp_path, 3), "model.mlm_model.heads=2"])
+    assert (result["resumed_from"], result["steps"]) == (2, 3)
+
+
+def test_train_tokenizer_cli_fsdp2_evaluates_saves_and_resumes(tmp_path):
+    """`cli.train_tokenizer` on 2 ranks at parallel.fsdp=2: the eval merged
+    (equal on both ranks), a save, and a resume on the same mesh."""
+    tree = {"experiment": {"name": "tok", "output_dir": str(tmp_path / "out"), "log_every": 1,
+                           "save_every": 2, "eval_every": 2, "generate_every": 2},
+            "model": {"vq_model": LFQ, "discriminator": V2},
+            "losses": dict(LOSSES, discriminator_start=1),
+            "dataset": {"params": {"train_shards_path_or_url": "/nonexistent/{0000..0001}.tar"},
+                        "preprocessing": {"resolution": RES1}},
+            "optimizer": {"params": {"learning_rate": 1e-3, "epsilon": EPS}},
+            "training": {"per_device_batch_size": 2, "mixed_precision": "no", "seed": 0,
+                         "max_train_steps": 2, "device": "cpu"},
+            "parallel": {"fsdp": 2},
+            "eval": {"max_eval_batches": 2}}
+    cfg = tmp_path / "tok.yaml"
+    cfg.write_text(yaml.safe_dump(tree))
+    _run(tmp_path, 2, "train_tokenizer_cli", f"config={cfg}", timeout=180)
+    ranks = [json.load(open(tmp_path / f"train_tokenizer_cli_rank{r}.json")) for r in range(2)]
+    assert [r["steps"] for r in ranks] == [2, 2]
+    assert ranks[0]["evals"] == ranks[1]["evals"] and ranks[0]["evals"][0]["step"] == 2
+    assert os.listdir(tmp_path / "out" / "images") == ["train_reconstructions-000000002.png"]
+    state = torch.load(tmp_path / "out" / "ema_model-2.bin", weights_only=True)
+    ConvVQModel.from_config(LFQ).load_state_dict(state, strict=True)
+    _run(tmp_path, 2, "train_tokenizer_cli", f"config={cfg}", "training.max_train_steps=3",
+         timeout=180)
+    for r in range(2):
+        result = json.load(open(tmp_path / f"train_tokenizer_cli_rank{r}.json"))
+        assert (result["resumed_from"], result["steps"]) == (2, 3), (r, result)

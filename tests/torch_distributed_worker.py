@@ -10,9 +10,20 @@ joined through the port's own `maybe_init_distributed` (gloo on the CPU).
 Scenarios:
   stage2          Stage-II steps from tokens with injected global draws;
   stage2_draws    the CLI's step stream (un-injected) draws per rank;
-  stage1 MODE     Stage-I steps; MODE "global", or "local" with the entropy
-                  and LeCam means left rank-local (the defect the test must
-                  catch);
+  stage1 MODE     Stage-I steps; MODE "global", "fsdp" (the tokenizer's and
+                  the discriminator's state split over parallel.fsdp=2), or
+                  "local" with the entropy and LeCam means left rank-local
+                  (the defect the test must catch);
+  stage2_sharded FSDP TENSOR  Stage-II steps on the mesh (data, FSDP,
+                  TENSOR), the state in slices, with injected global draws;
+                  the whole state gathered, the dropout seeds and heads each
+                  rank's kernels saw, and each rank's stored bytes;
+  stage2_stream TENSOR FUSED  Stage-II steps on parallel.tensor=TENSOR
+                  drawing from the step stream (no injected draws), hidden
+                  dropout on, attention dropout through the kernels' plain
+                  versions (FUSED 1) or on the softmax weights (0);
+  checkpoint_sharded  on parallel.fsdp=2, tensor=2: restore a one-process
+                  checkpoint, one step, a save and whole `.bin` exports;
   train_cli ARGS  `cli.train_maskbit.main(ARGS)`;
   train_tokenizer_cli ARGS  `cli.train_tokenizer.main(ARGS)`;
   eval_maskbit ARGS  `cli.eval_maskbit.main(ARGS)` with a stand-in Inception;
@@ -83,6 +94,140 @@ def stage2(workdir):
     torch.save(out, _out(workdir, "stage2") + ".pt")
 
 
+def _sharded_stage2(inp, fsdp, tensor):
+    """The mesh, and a Stage-II state over a store of this rank's slices."""
+    from maskbit_tpu_torch.losses.mlm import MLMLossConfig
+    from maskbit_tpu_torch.models.generator import LFQBert
+    from maskbit_tpu_torch.parallel.zero import ShardedParams
+    from maskbit_tpu_torch.train.generator_trainer import (
+        init_generator_train_state,
+        make_generator_train_step_from_tokens,
+    )
+    from maskbit_tpu_torch.train.optim import make_optimizer
+    from maskbit_tpu_torch.utils.lr_schedules import get_schedule
+
+    mesh.maybe_init_distributed(torch.device("cpu"))
+    mesh.init_mesh(mesh.MeshConfig(fsdp=int(fsdp), tensor=int(tensor)))
+    model = LFQBert.from_config(inp["mlm"], inp["vq"])
+    model.load_state_dict(inp["state"], strict=True)
+    store = ShardedParams(model)
+    params = store.parameters()
+    opt = make_optimizer(params, get_schedule(**inp["schedule"]), norm_fn=store.norm_fn(params),
+                         **inp["opt"])
+    state = init_generator_train_state(model, opt, store=store)
+    step = make_generator_train_step_from_tokens(
+        model, inp["vq"]["codebook_size"], MLMLossConfig(), "arccos", 0.1, inp["ema"])
+    return model, state, step
+
+
+def _step_rows(state, step, inp, i):
+    b = inp["tokens"][i].shape[0] // mesh.batch_shard_count()
+    rows = lambda x: torch.from_numpy(mesh.local_rows(x, b, mesh.batch_group()))  # noqa: E731
+    return step(state, rows(inp["tokens"][i]), rows(inp["labels"][i]), injected=inp["injected"][i])
+
+
+def stage2_sharded(workdir, fsdp, tensor):
+    import maskbit_tpu_torch.nn.transformer as transformer
+    from maskbit_tpu_torch.nn.dropout_attention import hash_keep_mask
+
+    inp = torch.load(os.path.join(workdir, "stage2_sharded_in.pt"), weights_only=False)
+    seen = []
+    real = transformer.dropout_attention
+
+    def recording(q, k, v, seeds, rate):
+        seen.append((q.shape[2], seeds.clone(), rate))
+        return real(q, k, v, seeds, rate)
+
+    transformer.dropout_attention = recording
+    model, state, step = _sharded_stage2(inp, fsdp, tensor)
+    history = []
+    for i in range(len(inp["tokens"])):
+        state, metrics = _step_rows(state, step, inp, i)
+        history.append({k: float(v) for k, v in metrics.items() if not k.startswith("_")})
+    # each call's keep masks against the one-process masks' rows and heads
+    tables = [t for inj in inp["injected"] for t in inj["attention_seeds"]]
+    b = inp["tokens"][0].shape[0] // mesh.batch_shard_count()
+    n = model.seq_len + 1
+    heads_seen, masks_equal = [], []
+    h_local = inp["mlm"]["heads"] // int(tensor)
+    t, r = mesh.current_mesh().coord("tensor"), mesh.batch_shard_index()
+    for (h, seeds, rate), table in zip(seen, tables):
+        want = torch.as_tensor(table)[r * b:(r + 1) * b, t * h_local:(t + 1) * h_local]
+        heads_seen.append(h)
+        masks_equal.append(bool(torch.equal(hash_keep_mask(seeds, n, rate),
+                                            hash_keep_mask(want, n, rate))))
+    whole = state.state_dict()
+    stored = _resident_bytes(list(state.store.shards.values()) + list(model.parameters()))
+    torch.save({"history": history, "params": whole["params"], "ema": whole["ema"]["params"],
+                "heads_seen": heads_seen, "masks_equal": masks_equal, "stored_bytes": stored,
+                "whole_bytes": sum(v.numel() * v.element_size() for v in whole["params"].values()),
+                "split": len(state.store.splits),
+                "digests": mesh.process_allgather_f64(_param_digest(
+                    list(whole["params"].values()) + list(whole["ema"]["params"].values())))},
+               _out(workdir, f"stage2_sharded_{fsdp}_{tensor}") + ".pt")
+
+
+def stage2_stream(workdir, tensor, fused):
+    inp = torch.load(os.path.join(workdir, "stage2_stream_in.pt"), weights_only=False)
+    inp["mlm"] = dict(inp["mlm"], fused_attention_dropout=bool(int(fused)))
+    model, state, step = _sharded_stage2(inp, 1, tensor)
+    rng = torch.Generator().manual_seed(mesh.rank_seed(inp["seed"], mesh.batch_group()))
+    history = []
+    for tokens, labels in zip(inp["tokens"], inp["labels"]):
+        state, metrics = step(state, torch.from_numpy(tokens), torch.from_numpy(labels), rng)
+        history.append({k: float(v) for k, v in metrics.items() if not k.startswith("_")})
+    whole = state.state_dict()
+    torch.save({"history": history, "params": whole["params"], "ema": whole["ema"]["params"]},
+               _out(workdir, f"stage2_stream_{fused}") + ".pt")
+
+
+def checkpoint_sharded(workdir):
+    from maskbit_tpu_torch.core.checkpoint import CheckpointManager, save_pretrained
+
+    inp = torch.load(os.path.join(workdir, "checkpoint_in.pt"), weights_only=False)
+    model, state, step = _sharded_stage2(inp, 2, 2)
+    ckpt = CheckpointManager(os.path.join(workdir, "one_process"))
+    restored = ckpt.restore_latest(state)[1]
+    saved = torch.load(os.path.join(workdir, "one_process", str(restored), "state.pt"),
+                       weights_only=True)
+    whole = state.state_dict()
+    equal = _tree_equal(whole, saved)
+    state, _ = _step_rows(state, step, inp, restored)
+    out = CheckpointManager(os.path.join(workdir, "sharded"))
+    tree = out.save(state.step, state, blocking=True)
+    out.close()
+    params, ema = tree["params"], tree["ema"]["params"]
+    if mesh.is_main_process():
+        save_pretrained(model, os.path.join(workdir, "sharded_model.bin"), params=params)
+        save_pretrained(model, os.path.join(workdir, "sharded_ema_model.bin"), params=ema)
+    torch.save({"restored_step": restored, "restored_equal": equal,
+                "state": state.state_dict(), "heads": [m.num_heads // m.tensor_group.size
+                                                       for m in model.modules()
+                                                       if getattr(m, "num_heads", None)]},
+               _out(workdir, "checkpoint_sharded") + ".pt")
+
+
+def _resident_bytes(tensors) -> int:
+    """The bytes of the storages behind `tensors`, each storage once: a
+    rank's slices and whatever its modules still hold between steps."""
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
+def _tree_equal(a, b) -> bool:
+    """Equal structure and values, tensors bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
 def stage2_draws(workdir, config):
     """The masks and attention seeds the CLI's step stream gives this rank."""
     from maskbit_tpu_torch.cli import train_maskbit
@@ -115,18 +260,33 @@ def stage1(workdir, mode):
     from maskbit_tpu_torch.utils.lr_schedules import get_schedule
 
     if mode == "local":  # each rank's own batch in the entropy and LeCam means
-        entropy.all_reduce_mean_ = lambda tensors: list(tensors)
-        entropy.global_mean = vqgan.global_mean = lambda x: x
+        entropy.all_reduce_mean_ = lambda tensors, group=None: list(tensors)
+        entropy.global_mean = vqgan.global_mean = lambda x, group=None: x
     mesh.maybe_init_distributed(torch.device("cpu"))
+    if mode == "fsdp":
+        mesh.init_mesh(mesh.MeshConfig(fsdp=mesh.process_count()))
     inp = torch.load(os.path.join(workdir, "stage1_in.pt"), weights_only=False)
     model = ConvVQModel.from_config(inp["vq"])
     model.load_state_dict(inp["gen_state"], strict=True)
     disc = create_discriminator(inp["disc"])
     disc.load_state_dict(inp["disc_state"], strict=True)
     name, lr, kw = inp["schedule"]
-    gen_opt = make_optimizer(model.parameters(), get_schedule(name, lr, **kw), epsilon=inp["eps"])
-    disc_opt = make_optimizer(disc.parameters(), get_schedule(name, lr, **kw), epsilon=inp["eps"])
-    state = init_tokenizer_train_state(model, disc, gen_opt, disc_opt)
+    stores = {}
+    if mode == "fsdp":
+        from maskbit_tpu_torch.parallel.zero import ShardedParams
+
+        stores = {"gen_store": ShardedParams(model), "disc_store": ShardedParams(disc)}
+        gen_params, disc_params = (stores[k].parameters() for k in ("gen_store", "disc_store"))
+        norms = {"gen": stores["gen_store"].norm_fn(gen_params),
+                 "disc": stores["disc_store"].norm_fn(disc_params)}
+    else:
+        gen_params, disc_params = list(model.parameters()), list(disc.parameters())
+        norms = {"gen": None, "disc": None}
+    gen_opt = make_optimizer(gen_params, get_schedule(name, lr, **kw), epsilon=inp["eps"],
+                             norm_fn=norms["gen"])
+    disc_opt = make_optimizer(disc_params, get_schedule(name, lr, **kw), epsilon=inp["eps"],
+                              norm_fn=norms["disc"])
+    state = init_tokenizer_train_state(model, disc, gen_opt, disc_opt, **stores)
     step = make_tokenizer_train_step(model, disc, VQGANLossConfig(**inp["losses"]),
                                      ema_kwargs={"decay": 0.999})
     history, agree = [], []
@@ -134,14 +294,20 @@ def stage1(workdir, mode):
         b = images.shape[0] // mesh.process_count()
         state, metrics = step(state, torch.from_numpy(mesh.local_rows(images, b)))
         history.append({k: float(v) for k, v in metrics.items()})
-        digest = _param_digest(model, disc, state.ema.params.values(), state.lecam)
+        whole = state.state_dict()  # gathered from the slices under fsdp
+        digest = _param_digest(whole["gen_params"].values(), whole["disc_params"].values(),
+                               whole["ema"]["params"].values(), state.lecam)
         gathered = mesh.process_allgather_f64(digest)
         agree.append(bool((gathered == gathered[0]).all()))
+    buffers = lambda m: {k: v for k, v in m.state_dict().items()  # noqa: E731
+                         if k not in dict(m.named_parameters())}
+    stored = _resident_bytes([t for store in stores.values()
+                              for t in list(store.shards.values()) + list(store.params.values())])
     torch.save({"history": history, "agree": agree,
-                "gen": {k: v.clone() for k, v in model.state_dict().items()},
-                "disc": {k: v.clone() for k, v in disc.state_dict().items()},
-                "ema": {k: v.clone() for k, v in state.ema.params.items()},
-                "lecam": [t.item() for t in state.lecam]},
+                "gen": {**buffers(model), **{k: v.clone() for k, v in whole["gen_params"].items()}},
+                "disc": {**buffers(disc), **{k: v.clone() for k, v in whole["disc_params"].items()}},
+                "ema": {k: v.clone() for k, v in whole["ema"]["params"].items()},
+                "lecam": [t.item() for t in state.lecam], "stored_bytes": stored},
                _out(workdir, f"stage1_{mode}") + ".pt")
 
 

@@ -189,6 +189,31 @@ Phases, each of which fails the run if it fails:
      on every layer), the layers tensor-parallel again afterwards. The
      kernels line gains `launches_sharded_per_rank`. Its files (about 5 GB)
      live under build/chip_smoke_sharded/ and are deleted.
+ 13. split (`--phases split`): one batch split over a process's devices
+     (`sampling/serve.py`), over two entries that name the one card, and
+     the native JPEG decoder:
+     a. `make_sharded_sampler` on [cuda:0, cuda:0] (one shared replica,
+        two threads, a stream each) with the flagship at full width
+        (depth 24, hidden 1024, 64 steps, bf16, random weights) at serve
+        batch 8 with injected draws: equal bit for bit to two one-device
+        calls at batch 4 on the same rows (else the largest gap and the
+        tokens that differ, and a failure); beside the whole batch's call,
+        the token agreement and the largest image gap (no gate: other GEMM
+        shapes); the split's and the whole call's wall times; the attention
+        block's launches per replica, depth x steps each;
+     b. `cli.serve` with `local_devices` patched to those two entries: a
+        seeded 8-label request twice, the same bytes, through the split;
+     c. `cli.eval_maskbit` in this process over the two entries, 200
+        samples at batch 100 (random Inception weights): 200 scored, and
+        2 x depth x steps x 2 batches block launches;
+     d. when g++ finds `jpeglib.h`: the native decoder built, 256 synthetic
+        500 x 375 JPEGs written with `data/shard_writer`, img/s of the
+        `thread` (PIL) and `native` backends at batch 32 with 1 and 8
+        decode threads (the config's crop, flip and filter), beside phase
+        6's Stage-II step when it ran; native against PIL within JAX's
+        tolerances (per image mean gap under 0.01, 0.012 bicubic), labels
+        and order equal. Without the header: one line, and the run goes on.
+     The kernels line gains `launches_split_per_replica`.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -198,6 +223,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import shutil
 import signal
@@ -264,6 +290,10 @@ DP_CHECK_EVERY = 8  # GracefulShutdown's cross-process check, as the train CLIs 
 # In float32 on the CPU only the summation order differs.
 DP_GRAD_TOL = {"grad_rel_l2": 1e-2, "update_same_sign": 0.99}
 DP_GRAD_TOL_CPU = {"grad_rel_l2": 1e-5, "update_same_sign": 0.999}
+# phase 13: the serve batch split in two, the eval samples and batch, the
+# synthetic 500 x 375 JPEGs, the reader's batch and output size
+SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "photos": 256,
+               "decode_batch": 32, "decode_res": None}  # None: the config's resolution
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -3026,8 +3056,283 @@ def phase_sharded(torch, device_info, device="cuda", gen_config=CONFIG,
     return out
 
 
+def _jpeg_header_present() -> bool:
+    """Whether g++ finds libjpeg's header (the native decoder's build needs it)."""
+    try:
+        proc = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                              input="#include <cstdio>\n#include <jpeglib.h>\n",
+                              capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return proc.returncode == 0
+
+
+def _write_photo_shards(pattern: str, n: int, h: int, w: int) -> None:
+    """n synthetic h x w JPEGs (ImageNet's typical photo is 500 x 375):
+    smooth random colour fields with grain (std 4), quality 90, as tar
+    shards of 128 through the port's `ShardWriter`."""
+    import numpy as np
+    from PIL import Image
+
+    from maskbit_tpu_torch.data.shard_writer import ShardWriter
+
+    rng = np.random.default_rng(1)
+    writer = ShardWriter(pattern, maxcount=128)
+    for i in range(n):
+        low = Image.fromarray(rng.uniform(0, 255, (6, 8, 3)).astype(np.uint8))
+        arr = np.asarray(low.resize((w, h), Image.BICUBIC), np.float32)
+        arr = np.clip(arr + rng.normal(0, 4, arr.shape), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90)
+        writer.write(f"{i:06d}", buf.getvalue(), i % 1000)
+    writer.close()
+
+
+def _decode_rates(work: str, res: int, interpolation: str, stage2_step_s, photos: int,
+                  batch: int) -> dict:
+    """(d) The tar reader on `photos` synthetic 500 x 375 JPEGs at `batch`:
+    the thread backend (PIL) with 1 and 8 decode threads and the process
+    backend with 8; the native decoder likewise when g++ finds libjpeg's
+    header, held against the PIL path."""
+    import numpy as np
+
+    from maskbit_tpu_torch import native
+    from maskbit_tpu_torch.data.tar_reader import TarImageDataset, batched
+    from maskbit_tpu_torch.data.transforms import TrainTransform
+
+    header = _jpeg_header_present()
+    build_s = None
+    if header:
+        t0 = time.perf_counter()
+        if not native.is_available():
+            raise AssertionError(f"jpeglib.h is present but the native decoder did not build: "
+                                 f"{native.build_error()}")
+        build_s = time.perf_counter() - t0
+    else:
+        log("[split] native decode: jpeglib.h is absent on this machine (g++ cannot include "
+            "it); the native decoder is optional, as in JAX: only the PIL backends are timed")
+    pattern = os.path.join(work, "photos", "img-%04d.tar")
+    os.makedirs(os.path.dirname(pattern))
+    _write_photo_shards(pattern, photos, 375, 500)
+    shards = os.path.join(work, "photos", f"img-{{0000..{(photos - 1) // 128:04d}}}.tar")
+
+    def stream(backend, threads):
+        transform = TrainTransform(resolution=res, min_scale=0.8, use_aspect_ratio_aug=False,
+                                   interpolation=interpolation, seed=0)
+        ds = TarImageDataset(shards, transform, resample=False, seed=0,
+                             num_decode_threads=threads, decode_backend=backend)
+        return batched(iter(ds), batch, drop_last=False)
+
+    rates = {}
+    runs = [("thread", 1), ("thread", 8), ("process", 8)]
+    if header:
+        runs += [("native", 1), ("native", 8)]
+    step = "" if stage2_step_s is None else (
+        f"; phase 6's Stage-II step ({stage2_step_s * 1e3:.1f} ms at batch 32) needs "
+        f"{32 / stage2_step_s:.1f} img/s")
+    for backend, threads in runs:
+        t0 = time.perf_counter()
+        n = sum(len(b["class_id"]) for b in stream(backend, threads))
+        dt = time.perf_counter() - t0
+        rates[f"{backend}_{threads}"] = n / dt
+        note = " (the pool's start-up included)" if backend == "process" else ""
+        log(f"[split] decode {backend:7s} x{threads}: {n} JPEGs of 500x375 -> {res} px "
+            f"{interpolation} in {dt:.3f} s{note} = {n / dt:.1f} img/s = "
+            f"{dt / n * batch * 1e3:.1f} ms a batch of {batch}{step}")
+    out = {"jpeglib": header, "build_s": build_s, "img_per_s": rates}
+    if header:  # native against PIL, JAX's tolerances (tests/test_native_decode.py)
+        mean_tol = 0.012 if interpolation == "bicubic" else 0.01
+        worst = 0.0
+        for a, b in zip(stream("thread", 8), stream("native", 8), strict=True):
+            if not np.array_equal(a["class_id"], b["class_id"]):
+                raise AssertionError("native decode: labels or order differ from the PIL path")
+            worst = max(worst, float(np.abs(a["image"] - b["image"]).mean(axis=(1, 2, 3)).max()))
+        log(f"[split] native vs PIL: largest per-image mean |diff| {worst:.5f} (limit "
+            f"{mean_tol}); build {build_s:.2f} s")
+        if worst >= mean_tol:
+            raise AssertionError(f"native decode strays from PIL: {worst} >= {mean_tol}")
+        out["worst_mean_diff"] = worst
+    return out
+
+
+def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None,
+                stage2_step_s=None) -> dict:
+    """Phase 13: one batch split over a process's devices
+    (`sampling/serve.py`), over two entries naming the one card, and the
+    native JPEG decoder. device="cpu" rehearses it with a tiny config."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli import eval_maskbit
+    from maskbit_tpu_torch.cli import serve as serve_cli
+    from maskbit_tpu_torch.cli.common import load_generation_models
+    from maskbit_tpu_torch.core.config import config_from_cli, load_config
+    from maskbit_tpu_torch.eval import inception as inc
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.sampling import serve as split
+    from maskbit_tpu_torch.sampling.sample import make_sampler
+
+    sizes = dict(SPLIT_SIZES, **(sizes or {}))
+    t_phase = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    devices = [dev, dev]
+    config = load_config(gen_config)
+    mlm = config.model.mlm_model
+    depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+    work = os.path.join(ROOT, "build", "chip_smoke_split")  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    real_local = split.local_devices
+    out = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def zero():
+        ab.launches = 0
+        for key in da.launches:
+            da.launches[key] = 0
+
+    try:
+        # a. the split sampler at serve batch 8, injected draws
+        tok, gen, cfg, _, _ = load_generation_models(
+            config_from_cli([f"config={gen_config}", "experiment.vqgan_checkpoint=",
+                             "experiment.generator_checkpoint="]),
+            logging.getLogger("chip_smoke.split"), dev, cast_weights=True)
+        b, half = sizes["batch"], sizes["batch"] // 2
+        n = cfg.patch_size ** 2
+        g = torch.Generator(device=dev).manual_seed(13)
+        draws = (torch.randint(0, cfg.mask_token, (cfg.num_steps, b, n, cfg.codebook_splits),
+                               generator=g, device=dev, dtype=torch.int32),
+                 -torch.log(torch.empty((cfg.num_steps, b, n, cfg.codebook_splits),
+                                        device=dev).exponential_(generator=g)))
+        labels = torch.arange(b, device=dev, dtype=torch.int64) * 97 % 1000
+        whole = make_sampler(gen, tok, cfg)
+        sharded = split.make_sharded_sampler(gen, tok, cfg, devices)
+        rows = [slice(0, half), slice(half, b)]
+        halves = [whole(labels[r], injected=tuple(d[:, r] for d in draws)) for r in rows]
+        whole(labels, injected=draws)  # warm-ups: the batch-8 shapes, the threads' handles
+        sharded(labels, injected=draws)
+        whole_s, split_s = [], []
+        for _ in range(2):
+            t0 = sync()
+            full = whole(labels, injected=draws)
+            whole_s.append(sync() - t0)
+            zero()
+            t0 = sync()
+            images, tokens = sharded(labels, injected=draws)
+            split_s.append(sync() - t0)
+            per_replica = list(sharded.shard_launches)
+            split_launches = {"attention_block": ab.launches,
+                              "fused_attention": da.launches["fused_attention"]}
+        want_images = torch.cat([h[0] for h in halves])
+        want_tokens = torch.cat([h[1] for h in halves])
+        gap = (images.float() - want_images.float()).abs().max().item()
+        differ = (tokens != want_tokens).nonzero().tolist()
+        whole_gap = (images.float() - full[0].float()).abs().max().item()
+        agree = (tokens == full[1]).float().mean().item()
+        log(f"[split] a. {len(devices)} replicas on {[str(d) for d in devices]} at batch {b} "
+            f"({half} rows each), depth {depth}, {steps} steps, injected draws: against two "
+            f"one-device calls at batch {half} on the same rows, largest image gap {gap:.3e}, "
+            f"{len(differ)} tokens differ; against the whole batch 8 (other GEMM shapes, no "
+            f"gate): token agreement {agree:.4f}, largest image gap {whole_gap:.3e}")
+        log(f"[split]    wall of two calls each: split {split_s[0]:.3f}, {split_s[1]:.3f} s; "
+            f"whole batch {whole_s[0]:.3f}, {whole_s[1]:.3f} s ({b / min(split_s):.3f} against "
+            f"{b / min(whole_s):.3f} img/s) [{device_info['card']}]; "
+            f"attention block launches per replica {per_replica} (depth x steps = "
+            f"{depth * steps}), in all {split_launches}")
+        if gap != 0.0 or differ:
+            raise AssertionError(f"the split differs from the half-batch calls: largest gap "
+                                 f"{gap}, tokens {differ[:20]}")
+        if not torch.isfinite(images.float()).all() or images.shape[0] != b:
+            raise AssertionError(f"split images {tuple(images.shape)} not finite")
+        if dev.type == "cuda" and per_replica != [depth * steps] * len(devices):
+            raise AssertionError(f"launches per replica {per_replica}, expected "
+                                 f"{depth * steps} each")
+        out["sampler"] = {"gap": gap, "tokens_differ": len(differ), "whole_token_agreement": agree,
+                          "whole_gap": whole_gap, "split_s": split_s, "whole_s": whole_s,
+                          "launches_per_replica": per_replica, "launches": split_launches}
+        del tok, gen, whole, sharded, halves, full, images, tokens
+
+        # b. the server over two entries: a seeded request twice
+        split.local_devices = lambda d: list(devices)
+        argv = [f"config={gen_config}", f"serve.batch_size={b}", "serve.port=0",
+                f"serve.device={device}", "experiment.vqgan_checkpoint=",
+                "experiment.generator_checkpoint="]
+        zero()
+        server, service = serve_cli.main(argv, serve_forever=False)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            labels = list(range(1, b + 1))
+            d1, t1 = _post(base, {"labels": labels, "seed": 7})
+            d2, t2 = _post(base, {"labels": labels, "seed": 7})
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+        served = _images(d1)
+        sharded_service = getattr(service._sampler, "devices", None) == devices
+        log(f"[split] b. cli.serve over {len(devices)} entries (split: {sharded_service}): "
+            f"seeded {b}-label requests {t1:.3f} s, {t2:.3f} s, bytes equal "
+            f"{d1 == d2}; block launches {ab.launches} over {service.device_calls} calls")
+        if d1 != d2 or not sharded_service or served.shape[0] != b:
+            raise AssertionError("the split server's seeded requests differ or did not split")
+        out["serve"] = {"request_s": [t1, t2], "launches": ab.launches,
+                        "device_calls": service.device_calls}
+        del server, service
+
+        # c. eval_maskbit in one process over two entries
+        weights = os.path.join(work, "pt_inception.pth")
+        torch.save(inc.random_inception_state(0), weights)
+        saved = os.environ.get("MASKBIT_INCEPTION_WEIGHTS")
+        os.environ["MASKBIT_INCEPTION_WEIGHTS"] = weights
+        zero()
+        try:
+            t0 = time.perf_counter()
+            ev = eval_maskbit.main([
+                f"config={gen_config}", f"eval.total_samples={sizes['eval_samples']}",
+                f"eval.batch_size={sizes['eval_batch']}", f"eval.device={device}",
+                "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
+                f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"])
+            wall = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("MASKBIT_INCEPTION_WEIGHTS", None)
+            else:
+                os.environ["MASKBIT_INCEPTION_WEIGHTS"] = saved
+        batches = -(-sizes["eval_samples"] // sizes["eval_batch"])
+        want = len(devices) * depth * steps * batches
+        log(f"[split] c. eval_maskbit over {len(devices)} entries: {ev['count']} of "
+            f"{sizes['eval_samples']} samples scored in {batches} batches of "
+            f"{sizes['eval_batch']}, IS {ev['results'].get('InceptionScore')}; wall {wall:.1f} s;"
+            f" block launches {ab.launches} (expected {want})")
+        if ev["count"] != sizes["eval_samples"] or ev["accumulator"].count != ev["count"]:
+            raise AssertionError(f"eval_maskbit scored {ev['count']}")
+        if dev.type == "cuda" and ab.launches != want:
+            raise AssertionError(f"eval_maskbit block launches {ab.launches}, expected {want}")
+        out["eval"] = {"count": ev["count"], "wall_s": wall, "launches": ab.launches}
+    finally:
+        split.local_devices = real_local
+
+    try:
+        # d. the native JPEG decoder
+        prep = config.dataset.preprocessing
+        out["decode"] = _decode_rates(work, sizes["decode_res"] or int(prep.get("resolution")),
+                                      prep.get("interpolation", "bilinear"), stage2_step_s,
+                                      sizes["photos"], sizes["decode_batch"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[split] phase time {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval", "tokenizer_train", "variants", "distributed", "sharded")
+          "eval", "tokenizer_train", "variants", "distributed", "sharded", "split")
 
 
 def _args(argv):
@@ -3082,13 +3387,16 @@ def main(argv=None) -> int:
     dp = phase_distributed(torch, device_info) if "distributed" in run else None
     sh = (phase_sharded(torch, device_info, data_parallel=dp and dp["ranks"])
           if "sharded" in run else None)
+    sp = (phase_split(torch, device_info, stage2_step_s=tr and tr["median_step_s"])
+          if "split" in run else None)
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
                        "train_data": data, "eval": ev, "tokenizer_train": tok,
-                       "variants": var, "distributed": dp, "sharded": sh}, f, indent=1)
+                       "variants": var, "distributed": dp, "sharded": sh, "split": sp}, f,
+                      indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3117,6 +3425,10 @@ def main(argv=None) -> int:
                 {"launches": r["sample_launches"][key], "heads": r["block_heads"]})}
             for mesh, m in sh["meshes"].items() for r in m["ranks"]
             if name.startswith("dropout") or "sample_launches" in r]
+        # phase 13: per replica of the split sampler, the block's chain
+        # (with its attention forward) on every layer of every step
+        if not name.startswith("dropout"):
+            per_rank["launches_split_per_replica"] = sp["sampler"]["launches_per_replica"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_train_data": data_launches, **bert, **per_rank,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3155,14 +3467,15 @@ def main(argv=None) -> int:
             or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0
             or min(k.get("launches_distributed_per_rank", [1])) <= 0
             or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0
-            or min(x["launches"] for x in k["launches_sharded_per_rank"]) <= 0]
+            or min(x["launches"] for x in k["launches_sharded_per_rank"]) <= 0
+            or min(k.get("launches_split_per_replica", [1])) <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
                    "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp,
-                   "sharded": sh}, f, indent=1)
+                   "sharded": sh, "split": sp}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

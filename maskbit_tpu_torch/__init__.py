@@ -15,7 +15,11 @@ evaluators; `cli/eval_maskbit`, `cli/eval_tokenizer`, `cli/make_stats`,
 `cli/train_tokenizer`: the LFQ and VQ training losses, the PatchGAN
 discriminators, the GAN, perceptual and LPIPS losses); the Bert generator
 and the taming VQGAN baselines; `cli/convert_checkpoint` between the
-original repo's `.bin` and the zoo's `.msgpack`.
+original repo's `.bin` and the zoo's `.msgpack`; the data, fsdp and tensor
+axes across processes (`parallel/`); one batch split over a process's
+cards (`sampling/serve.py`); the native JPEG decoder (`native/`). Every
+module of the JAX package has its counterpart except `gelu_erf`, whose
+polynomial only served XLA on the TPU: the port uses exact-erf GELU.
 """
 
 __version__ = "0.1.0"

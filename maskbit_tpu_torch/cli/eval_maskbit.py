@@ -1,5 +1,5 @@
-"""ADM-protocol generation evaluation, the headline gFID (PyTorch; one
-device, or one process per device under torchrun).
+"""ADM-protocol generation evaluation, the headline gFID (PyTorch; the
+process's cards, or one process per card under torchrun).
 
     python -m maskbit_tpu_torch.cli.eval_maskbit \\
         config=configs/generator/maskbit_generator_14bit.yaml \\
@@ -33,8 +33,12 @@ differs from the JAX package's. A config with `parallel.fsdp` or
 generates the same way: data-parallel over every process, each with whole
 weights. JAX's per-host clamp of those axes to its local devices (its
 sharded per-host sampler mesh) has no counterpart: the port's eval splits
-no weights. The sharded multi-device sampler of one process waits for a
-later PR (ROADMAP.md, Queue 1).
+no weights. One process that sees several local devices
+(`sampling.serve.local_devices`: every visible card for an unindexed
+`eval.device=cuda`; under torchrun each process keeps its one card)
+splits each batch over them (`sampling.serve.make_sharded_sampler`),
+with `eval.batch_size` rounded up to a multiple of their number, as JAX
+shards its per-host sampler; the padded rows are dropped as above.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from maskbit_tpu_torch.parallel.mesh import (
     process_count,
     process_index,
 )
+from maskbit_tpu_torch.sampling import serve as split
 from maskbit_tpu_torch.sampling.sample import make_sampler
 
 
@@ -97,8 +102,20 @@ def main(argv=None) -> dict:
     vq_cfg, mlm_cfg = config.model.vq_model, config.model.mlm_model
 
     tokenizer, generator, sampling_cfg, _, _ = load_generation_models(config, logger, device)
-    sampler = make_sampler(generator, tokenizer, sampling_cfg)
     batch_size = int(config.select("eval.batch_size", 100))
+    devices = [device] if process_count() > 1 else split.local_devices(device)
+    if len(devices) > 1:
+        # one process over several cards: each batch split over them, the
+        # batch rounded up to fill every shard (the pad rows are dropped)
+        rounded = -(-batch_size // len(devices)) * len(devices)
+        if rounded != batch_size:
+            logger.info(f"eval.batch_size {batch_size} rounded up to {rounded} "
+                        f"to fill {len(devices)} batch shards")
+            batch_size = rounded
+        logger.info(f"sharding generation batches over {len(devices)} devices")
+        sampler = split.make_sharded_sampler(generator, tokenizer, sampling_cfg, devices)
+    else:
+        sampler = make_sampler(generator, tokenizer, sampling_cfg)
     total_samples = int(config.select("eval.total_samples", 50_000))
     seed = ctx["seed"]
     p_idx, p_cnt = process_index(), process_count()

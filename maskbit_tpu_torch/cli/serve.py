@@ -1,6 +1,6 @@
 """Batch-inference HTTP server for class-conditional generation (PyTorch).
 
-Counterpart of `maskbit_tpu/cli/serve.py`, on one CUDA device:
+Counterpart of `maskbit_tpu/cli/serve.py`, on the process's CUDA cards:
 
     python -m maskbit_tpu_torch.cli.serve config=configs/generator/maskbit_generator_14bit.yaml \\
         experiment.vqgan_checkpoint=... experiment.generator_checkpoint=... \\
@@ -16,8 +16,14 @@ Counterpart of `maskbit_tpu/cli/serve.py`, on one CUDA device:
     `torch.Generator` seeded from (seed, chunk offset). Images for a seed
     differ from the JAX server's, whose random streams are other ones.
   * `serve.device` (default "cuda") names the device; CUDA requested and
-    absent is an error, there is no CPU fallback. The multi-device sharded
-    path of the JAX server is not ported yet.
+    absent is an error, there is no CPU fallback;
+  * with `serve.shard_local_devices` (default true), more than one local
+    device (`sampling.serve.local_devices`: every visible card for an
+    unindexed "cuda") and a batch that divides over them, each batch is
+    split over them (`sampling.serve.make_sharded_sampler`: a replica and a
+    thread per card), as the JAX server shards over its local chips;
+    otherwise one device runs the whole batch. A seeded request gives the
+    same bytes for a given number of devices.
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "warm": true, "batch_size": b}
@@ -43,11 +49,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-
-def _chunk_seed(seed: int, offset: int) -> int:
-    """A 63-bit generator seed from (seed, offset)."""
-    words = np.random.SeedSequence([int(seed) & (2**64 - 1), int(offset)]).generate_state(2)
-    return (int(words[0]) << 31) ^ int(words[1])
+from maskbit_tpu_torch.sampling.serve import derive_seed
 
 
 class _PendingRequest:
@@ -78,6 +80,7 @@ class GeneratorService:
 
     def __init__(self, config):
         from maskbit_tpu_torch.cli.common import load_generation_models, validate_generator_config
+        from maskbit_tpu_torch.sampling import serve as split
         from maskbit_tpu_torch.sampling.sample import make_sampler
 
         validate_generator_config(config)
@@ -87,8 +90,18 @@ class GeneratorService:
             raise RuntimeError("serve.device is cuda but no CUDA device is available")
         tokenizer, generator, sampling_cfg, _, _ = load_generation_models(
             config, self.logger, self.device, cast_weights=True)
-        self._sampler = make_sampler(generator, tokenizer, sampling_cfg)
         self.batch = int(config.select("serve.batch_size", 24))
+        devices = split.local_devices(self.device)
+        n_local = len(devices)
+        if n_local > 1 and self.batch % n_local == 0 and \
+                config.select("serve.shard_local_devices", True):
+            # several local cards: split each serving batch over them
+            # (weights replicated, a thread and a stream per card)
+            self.logger.info(f"sharding serving batch {self.batch} over {n_local} local devices")
+            self._sampler = split.make_sharded_sampler(generator, tokenizer, sampling_cfg,
+                                                       devices)
+        else:
+            self._sampler = make_sampler(generator, tokenizer, sampling_cfg)
         self.nclass = int(config.model.mlm_model.get("nclass", 1000))
         self.max_labels = int(config.select("serve.max_labels", 2048))
         self.max_body_bytes = int(config.select("serve.max_body_bytes", 1 << 20))
@@ -153,7 +166,7 @@ class GeneratorService:
                 chunk = labels[i0 : i0 + self.batch]
                 padded = np.zeros((self.batch,), np.int32)
                 padded[: len(chunk)] = chunk
-                out.append(self._run(padded, _chunk_seed(seed, i0), len(chunk)))
+                out.append(self._run(padded, derive_seed(seed, i0), len(chunk)))
         return np.concatenate(out, axis=0)
 
     def generate_batched(self, labels, timeout: float = 600.0) -> np.ndarray:
@@ -201,7 +214,7 @@ class GeneratorService:
                     padded[i] = lab
                 with self._lock:
                     self._batch_counter += 1
-                    arr8 = self._run(padded, _chunk_seed(self._default_seed, self._batch_counter),
+                    arr8 = self._run(padded, derive_seed(self._default_seed, self._batch_counter),
                                      len(units))
                 for i, (pending, j, _) in enumerate(units):
                     pending.result[j] = arr8[i]

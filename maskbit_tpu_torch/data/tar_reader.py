@@ -13,8 +13,10 @@ batches are NHWC float32 numpy arrays. Each sample's augmentation draws from
 `random.Random(f"{seed}-{process_index}-sample-{i}")`, i its place in the
 stream, so the decoded stream is the same across backends and runs.
 `process_index` and `process_count` come from the caller (default 0 and 1).
-The JAX package's native C++ decoder is not ported: `decode_backend=
-"native"` raises.
+`decode_backend="native"` decodes, crops, resizes and flips JPEG members in
+one C++ pass (`maskbit_tpu_torch/native`) on the thread pool, with the same
+crop and flip draws as the PIL path; PNG members, the `nearest` and
+`lanczos` filters and undecodable bytes take the PIL path, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 from maskbit_tpu_torch.data.transforms import EvalTransform, TrainTransform
 
 _BRACE_RE = re.compile(r"^(.*)\{(\d+)\.\.(\d+)\}(.*)$")
-DECODE_BACKENDS = ("thread", "process")
+DECODE_BACKENDS = ("thread", "process", "native")
 
 
 def expand_shard_pattern(pattern) -> List[str]:
@@ -93,6 +95,47 @@ def _decode_sample(sample: Dict[str, bytes], transform: Callable,
     return transform(img), label
 
 
+def _decode_sample_native(sample: Dict[str, bytes], transform: Callable,
+                          sample_seed: Optional[str] = None
+                          ) -> Optional[Tuple[np.ndarray, int]]:
+    """The C++ decoder: bytes -> crop -> resize -> flip in one pass. The crop
+    and flip draws are the PIL path's functions in the same order, so the
+    geometry is the same for a seed; only the resampling differs (about one
+    LSB against PIL's bilinear). Non-JPEG members, filters the decoder lacks
+    and undecodable bytes take the PIL path."""
+    from maskbit_tpu_torch import native
+    from maskbit_tpu_torch.data.transforms import random_resized_crop_params
+
+    img_bytes = next((sample[ext] for ext in ("jpg", "jpeg") if ext in sample), None)
+    interp = getattr(transform, "interpolation", "bilinear")
+    if img_bytes is None or interp not in native.FILTERS:
+        return _decode_sample(sample, transform, sample_seed)
+    label = int(sample["cls"].decode()) if "cls" in sample else -1
+    try:
+        w, h = native.decode_info(img_bytes)
+    except ValueError:
+        return _decode_sample(sample, transform, sample_seed)
+    if sample_seed is not None:
+        rng = random.Random(sample_seed)
+    else:
+        rng = getattr(transform, "rng", random.Random(0))
+    is_train = isinstance(transform, TrainTransform)
+    if is_train and transform.use_random_crop:
+        top, left, ch, cw = random_resized_crop_params(h, w, (transform.min_scale, 1.0),
+                                                       transform.ratio, rng)
+    else:
+        side = min(w, h)
+        top, left, ch, cw = (h - side) // 2, (w - side) // 2, side, side
+    flip = is_train and rng.random() < 0.5
+    res = transform.resolution
+    try:
+        out = native.decode_crop_resize(img_bytes, top, left, ch, cw, res, res, flip,
+                                        interpolation=interp)
+    except ValueError:
+        return _decode_sample(sample, transform, sample_seed)
+    return out.astype(np.float32) / 255.0, label
+
+
 # The process backend: each worker binds the transform once; a sample's
 # randomness travels with it as its seed, not with the worker.
 _WORKER_TRANSFORM: Optional[Callable] = None
@@ -139,13 +182,15 @@ class TarImageDataset:
         self.shards = expand_shard_pattern(shards)
         if not self.shards:
             raise ValueError(f"No shards matched {shards!r}")
-        if decode_backend == "native":
-            raise ValueError("decode_backend='native': the C++ JPEG decoder is not ported to "
-                             "maskbit_tpu_torch (ROADMAP.md, Queue 1: the native decoder); use "
-                             "'thread' or 'process'")
         if decode_backend not in DECODE_BACKENDS:
             raise ValueError(f"decode_backend must be one of {DECODE_BACKENDS}, "
                              f"got {decode_backend!r}")
+        if decode_backend == "native":
+            from maskbit_tpu_torch import native
+
+            if not native.is_available():
+                raise ValueError("decode_backend='native' but the C++ decoder could not be "
+                                 f"built: {native.build_error()}")
         self.transform = transform
         self.resample = resample
         self.shuffle_buffer_size = shuffle_buffer_size
@@ -172,9 +217,12 @@ class TarImageDataset:
         seed_base = f"{self.seed}-{self.process_index}-sample"
         indexed = ((s, f"{seed_base}-{i}") for i, s in enumerate(samples))
 
+        # "native" runs the C++ decoder on the thread pool: it releases the
+        # GIL for the whole decode, crop and resize
+        decode = _decode_sample_native if self.decode_backend == "native" else _decode_sample
         if self.num_decode_threads <= 1:
             for s, ss in indexed:
-                decoded = _decode_sample(s, self.transform, ss)
+                decoded = decode(s, self.transform, ss)
                 if decoded is not None:
                     yield decoded
             return
@@ -191,7 +239,7 @@ class TarImageDataset:
             submit = lambda item: pool.submit(_decode_in_worker, item)  # noqa: E731
         else:
             pool = ThreadPoolExecutor(self.num_decode_threads)
-            submit = lambda item: pool.submit(_decode_sample, item[0],  # noqa: E731
+            submit = lambda item: pool.submit(decode, item[0],  # noqa: E731
                                               self.transform, item[1])
 
         with pool:

@@ -18,18 +18,25 @@ The chain is the QKV projection, the attention forward of
 `nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, whose
 count in `dropout_attention.launches["fused_attention"]` it adds to), the
 out-projection with the residual (f32) and the LayerNorm. `launches`
-counts the chain's launches (one per call on a CUDA tensor).
+counts the chain's launches (one per call on a CUDA tensor), under a lock:
+the split sampler (`sampling/serve.py`) launches from one thread per
+shard, and `thread_launches()` is the calling thread's own count. The plan
+and SM caches take idempotent writes only, and the library is loaded under
+`cuda_build`'s per-library lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from maskbit_tpu_torch.nn import dropout_attention
 
 launches = 0
+_count_lock = threading.Lock()
+_thread = threading.local()
 
 HEAD_DIM = 64  # the attention kernel's head width
 MAX_E = 4096
@@ -98,10 +105,15 @@ def _lib():
     fn = load_library("attention_block").mb_attention_block
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.restype = i32
         fn.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 4 + [ctypes.c_float] + [i32] * 2 + [
             ptr]
-        fn.restype = i32
     return fn
+
+
+def thread_launches() -> int:
+    """The chain's launches from the calling thread."""
+    return getattr(_thread, "launches", 0)
 
 
 def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None):
@@ -153,8 +165,10 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     if err != 0:
         raise RuntimeError(f"attention_block launch failed: CUDA error {err}")
     global launches
-    launches += 1
-    dropout_attention.launches["fused_attention"] += 1
+    with _count_lock:
+        launches += 1
+    _thread.launches = thread_launches() + 1
+    dropout_attention.count("fused_attention")
     return out
 
 

@@ -15,8 +15,12 @@ memory) and NHWC at the public boundary, as the tokenizer:
     16x16 max pool; a 1x1 and a 5x5 conv to logits;
   * `OriginalNLayerDiscriminator`: the Pix2Pix PatchGAN with BatchNorm. Its
     BatchNorm normalises by the batch's statistics on every call, as the
-    JAX package's (torch's train mode), in float32; its running averages are
-    neither updated nor read.
+    JAX package's (torch's train mode), in float32. The batch is the batch
+    group's (`parallel.mesh.batch_group`, data x fsdp): under a split batch
+    the per-channel sums are all-reduced (`batch_norm_over_group`), as
+    JAX's BatchNorm takes the global batch's statistics. In train mode
+    each call also moves the running averages by torch's rule (momentum
+    0.1, flax's 0.9; the unbiased variance); they are never read.
 State dicts use the original repo's keys: `block_in.0`, `blocks.{i}.0`
 (conv), `blocks.{i}.1.kernel` (the blur, a buffer), `blocks.{i}.2`
 (GroupNorm), `to_logits.0|2`; `main.{i}` for the Pix2Pix Sequential.
@@ -33,6 +37,7 @@ from torch import nn
 
 from maskbit_tpu_torch.nn.blur import BLUR_KERNEL_MAP, blur_kernel
 from maskbit_tpu_torch.nn.conv import conv, group_norm_f32, init_flax_defaults_, same_pad
+from maskbit_tpu_torch.parallel.mesh import Group, _all_reduce_sum_, batch_group
 
 
 def blur_pool_2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -120,6 +125,79 @@ class NLayerDiscriminatorv2(nn.Module):
         return conv(self.to_logits[2], x).permute(0, 2, 3, 1)
 
 
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _BatchNormOverGroup(torch.autograd.Function):
+    """Train-mode BatchNorm of NCHW float32 x by the statistics of every
+    rank's rows: one all-reduce of the per-channel sum, sum of squares and
+    count forward, one of sum(dy) and sum(dy * x_hat) backward. The input's
+    gradient is that of the sum of every rank's loss (the trainers average
+    the parameters' gradients over the group, giving the global mean's);
+    the weight's and bias's are this rank's rows' sums, as every other
+    layer's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, group: Group, running):
+        c = x.shape[1]
+        stats = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
+                           x.new_full((1,), float(x.numel() // c))])
+        _all_reduce_sum_(stats, group)
+        count = stats[2 * c]
+        mean = stats[:c] / count
+        var = (stats[c:2 * c] / count - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        x_hat = (x - _channel(mean)) * _channel(invstd)
+        if running is not None:
+            running(mean, var, count)
+        ctx.save_for_backward(x_hat, weight, invstd, count)
+        ctx.group = group
+        return x_hat * _channel(weight) + _channel(bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_hat, weight, invstd, count = ctx.saved_tensors
+        c = x_hat.shape[1]
+        local = torch.cat([dy.sum((0, 2, 3)), (dy * x_hat).sum((0, 2, 3))])
+        sums = _all_reduce_sum_(local.clone(), ctx.group)
+        mean_dy, mean_dy_xhat = sums[:c] / count, sums[c:] / count
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy - _channel(mean_dy) - x_hat * _channel(mean_dy_xhat)) * _channel(
+                invstd * weight)
+        dw, db = ctx.needs_input_grad[1:3]
+        return dx, local[c:] if dw else None, local[:c] if db else None, None, None, None
+
+
+def batch_norm_over_group(x: torch.Tensor, norm: nn.BatchNorm2d) -> torch.Tensor:
+    """`norm` in train mode on NCHW x, in float32, by the statistics of the
+    rows of every rank of the batch group; with one rank, `F.batch_norm`.
+    In train mode the running averages move by the group's mean and
+    unbiased variance."""
+    group = batch_group()
+    x = x.float()
+    w, b = norm.weight.float(), norm.bias.float()
+    if group.size == 1:
+        train = norm.training
+        if train:
+            norm.num_batches_tracked.add_(1)
+        return F.batch_norm(x, norm.running_mean if train else None,
+                            norm.running_var if train else None, w, b, training=True,
+                            momentum=norm.momentum, eps=norm.eps)
+
+    running = None
+    if norm.training:
+        @torch.no_grad()
+        def running(mean, var, count):
+            m = norm.momentum
+            norm.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            norm.running_var.mul_(1 - m).add_(var * (count / (count - 1)), alpha=m)
+            norm.num_batches_tracked.add_(1)
+
+    return _BatchNormOverGroup.apply(x, w, b, norm.eps, group, running)
+
+
 class OriginalNLayerDiscriminator(nn.Module):
     def __init__(self, num_channels: int = 3, hidden_channels: int = 64, num_stages: int = 3,
                  dtype: torch.dtype = torch.float32):
@@ -143,8 +221,7 @@ class OriginalNLayerDiscriminator(nn.Module):
             if isinstance(layer, nn.Conv2d):
                 x = conv(layer, x)
             elif isinstance(layer, nn.BatchNorm2d):
-                x = F.batch_norm(x.float(), None, None, layer.weight.float(), layer.bias.float(),
-                                 training=True, eps=layer.eps).to(x.dtype)
+                x = batch_norm_over_group(x, layer).to(x.dtype)
             else:
                 x = F.leaky_relu(x, 0.2)
         return x.permute(0, 2, 3, 1)

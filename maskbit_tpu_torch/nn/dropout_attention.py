@@ -22,12 +22,14 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
-CUDA kernels) and "fused_attention".
+CUDA kernels) and "fused_attention"; `count` adds to it under a lock, as
+the wrappers may launch from several threads (the split sampler's shards).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -42,8 +44,15 @@ TILE = 64  # queries or keys per kernel tile
 # blocks launched before it.
 ROTATE_MAX_TILES = 64
 launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
+_count_lock = threading.Lock()
 
 _MASK32 = 0xFFFFFFFF
+
+
+def count(key: str) -> None:
+    """One launch more of `key` in `launches`."""
+    with _count_lock:
+        launches[key] += 1
 
 
 def keep_threshold(rate: float) -> int:
@@ -203,8 +212,9 @@ def _lib():
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     lib = load_library("dropout_attention")
-    if lib.mb_dropout_attention_fwd.argtypes is None:
-        bind(lib)
+    with _count_lock:  # bind once, before any thread calls
+        if lib.mb_dropout_attention_bwd.argtypes is None:
+            bind(lib)
     return lib
 
 
@@ -231,7 +241,7 @@ def launch_forward(q, k, v, seeds_i32, rate: float):
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention forward launch failed: CUDA error {err}")
-    launches["dropout_attention_fwd" if dropout else "fused_attention"] += 1
+    count("dropout_attention_fwd" if dropout else "fused_attention")
     return out, lse
 
 
@@ -243,7 +253,7 @@ def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
     if g.dtype != torch.bfloat16 or g.shape != out.shape:
         raise TypeError(f"the incoming gradient must be bf16 of shape {tuple(out.shape)}")
     grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
-    launches["dropout_attention_bwd"] += 1
+    count("dropout_attention_bwd")
     return grads
 
 

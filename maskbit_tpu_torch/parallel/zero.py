@@ -10,7 +10,10 @@ following `parallel.mesh.param_shardings` on the current mesh:
     reshard; here the split is head-wise so that each rank's attention
     runs on whole heads), `fc1` keeps its t-th chunk of rows, `out_proj`
     and `fc2` their t-th chunk of columns; the layers then sum their
-    partial outputs over the tensor group before the bias;
+    partial outputs over the tensor group before the bias; an attention
+    layer whose heads do not divide `tensor` is not cut (JAX runs such a
+    layer's kernel unpartitioned): it computes whole on every tensor rank,
+    its q|k|v and out-projection split over fsdp only, with a warning;
   * every other split (fsdp, and the tensor axis of a storage-only rule) is
     storage: `shards[name]` is this rank's slice, a float32 `nn.Parameter`
     of its own; a replicated parameter's "shard" is the module's parameter
@@ -42,11 +45,13 @@ method that gathers or reduces is collective.
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
+from maskbit_tpu_torch.nn.transformer import BertFeedForward, MultiHeadSelfAttention
 from maskbit_tpu_torch.parallel.mesh import (
     BUCKET_BYTES,
     ParamSplit,
@@ -66,10 +71,18 @@ from maskbit_tpu_torch.parallel.mesh import (
 )
 
 
-def _set_tensor_group(module: nn.Module, tensor_group) -> None:
-    for m in module.modules():
-        if hasattr(m, "tensor_group"):
-            m.tensor_group = tensor_group
+_logger = logging.getLogger("maskbit_tpu_torch")
+
+# a layer computes tensor-parallel when this parameter of it is a Megatron split
+_MEGATRON_KEY = ((MultiHeadSelfAttention, "in_proj_weight"), (BertFeedForward, "net.0.weight"))
+# an attention layer's parameters whose tensor split is Megatron's
+_ATTENTION_KEYS = ("in_proj_weight", "in_proj_bias", "out_proj.weight")
+
+
+def _without_tensor(split: ParamSplit) -> Optional[ParamSplit]:
+    """`split` with its tensor axis dropped (None when nothing is left)."""
+    spec = tuple(tuple(a for a in axes if a != "tensor") for axes in split.spec)
+    return ParamSplit(spec) if any(spec) else None
 
 
 def _buckets(names: Sequence[str], sizes: Mapping[str, int]) -> List[List[str]]:
@@ -97,19 +110,20 @@ class ShardedParams:
         self.names = list(params)
         self.global_shapes = {n: tuple(p.shape) for n, p in params.items()}
         self.tensor_group = group("tensor")
+        if not replicate and shape.tensor > 1:
+            self._replicate_undivided_heads(module, shape.tensor)
+        # the layers that compute on this rank's share under tensor
+        self._megatron_modules = [
+            m for prefix, m in module.named_modules() for cls, key in _MEGATRON_KEY
+            if isinstance(m, cls) and getattr(self.splits.get(f"{prefix}.{key}"), "megatron", None)]
         megatron = [n for n, s in self.splits.items() if s.megatron]
         if megatron:
-            heads = {m.num_heads for m in module.modules() if hasattr(m, "num_heads")}
-            if any(h % shape.tensor for h in heads):
-                raise ValueError(f"heads {sorted(heads)} do not divide over parallel.tensor="
-                                 f"{shape.tensor} (JAX replicates such a layer; the port "
-                                 "refuses it)")
             t = self.mesh.coord("tensor")
             with torch.no_grad():
                 for n in megatron:
                     params[n].data = tensor_local(params[n].data, self.splits[n], t,
                                                   shape.tensor).contiguous().clone()
-            _set_tensor_group(module, self.tensor_group)
+            self._set_tensor_group(self.tensor_group)
         self.params = params  # the module's parameters (tensor-local)
         self.local_shapes = {n: tuple(p.shape) for n, p in params.items()}
         self.shards: Dict[str, torch.Tensor] = {}
@@ -124,6 +138,33 @@ class ShardedParams:
                                                   requires_grad=p.requires_grad)
         self._name_of = {id(s): n for n, s in self.shards.items()}
         self.release()
+
+    def _replicate_undivided_heads(self, module: nn.Module, tensor: int) -> None:
+        """An attention layer whose heads do not divide `tensor` computes
+        whole on every tensor rank, as JAX's unpartitioned kernel does: its
+        q|k|v and out-projection leave the Megatron splits and keep their
+        fsdp slices (the head, `input_proj` and `last_dense` are routed so).
+        Both tensor ranks hold the same rows, so its gradients are equal
+        there and take no tensor all-reduce."""
+        for prefix, m in module.named_modules():
+            if not isinstance(m, MultiHeadSelfAttention) or m.num_heads % tensor == 0:
+                continue
+            _logger.warning(
+                "%s: heads=%d do not divide parallel.tensor=%d — falling back to the "
+                "unpartitioned kernel (the layer is replicated over the tensor axis)",
+                prefix, m.num_heads, tensor)
+            for key in _ATTENTION_KEYS:
+                name = f"{prefix}.{key}"
+                if name in self.splits and self.splits[name].megatron:
+                    split = _without_tensor(self.splits[name])
+                    if split is None:
+                        del self.splits[name]
+                    else:
+                        self.splits[name] = split
+
+    def _set_tensor_group(self, tensor_group) -> None:
+        for m in self._megatron_modules:
+            m.tensor_group = tensor_group
 
     @property
     def sharded(self) -> bool:
@@ -258,14 +299,13 @@ class ShardedParams:
         with torch.no_grad():
             for n, p in self.params.items():
                 p.data = wholes[n].detach()
-        _set_tensor_group(self.module, None)
+        self._set_tensor_group(None)
         try:
             yield self.module
         finally:
             for n, p in self.params.items():
                 p.data = kept[n]
-            if any(s.megatron for s in self.splits.values()):
-                _set_tensor_group(self.module, self.tensor_group)
+            self._set_tensor_group(self.tensor_group)
 
     # ----------------------------------------------------------- reduce
     @torch.no_grad()

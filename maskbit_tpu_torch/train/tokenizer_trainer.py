@@ -42,9 +42,9 @@ over `tensor` by the rules: the tensor axis only splits storage, and the
 ranks of a tensor group step on the same rows. The entropy, LeCam and
 adaptive-weight terms are the global batch's (`ops/entropy.py`,
 `losses/vqgan.py`), and the metrics are averaged over the batch group, so
-they are the global batch's too. The Pix2Pix discriminator's BatchNorm
-would need the global batch's statistics: it is refused when the batch is
-split. The phases run inside
+they are the global batch's too, and so are the Pix2Pix discriminator's
+BatchNorm statistics (`nn/discriminator.batch_norm_over_group`). The
+phases run inside
 `torch.profiler.record_function` ranges ("tokenizer/generator",
 "tokenizer/gather", "tokenizer/adaptive_weight", "tokenizer/backward",
 "tokenizer/all_reduce", "tokenizer/optimizer",
@@ -69,10 +69,9 @@ from maskbit_tpu_torch.losses.vqgan import (
     generator_loss,
     nll_loss_only,
 )
-from maskbit_tpu_torch.nn.discriminator import NLayerDiscriminatorv2, OriginalNLayerDiscriminator
+from maskbit_tpu_torch.nn.discriminator import NLayerDiscriminatorv2
 from maskbit_tpu_torch.parallel.mesh import (
     batch_group,
-    batch_shard_count,
     mean_across_processes,
     shard_train_state,
 )
@@ -159,10 +158,6 @@ def make_tokenizer_train_step(model: nn.Module, discriminator: nn.Module,
     """Build train_step(state, images) -> (state, metrics). Images are NHWC
     in [0, 1]; `perceptual_fn(a, b)` is the perceptual loss (a module such as
     `PerceptualLoss` or `LPIPS`, frozen) or None (zero)."""
-    if isinstance(discriminator, OriginalNLayerDiscriminator) and batch_shard_count() > 1:
-        raise NotImplementedError(
-            "the Pix2Pix discriminator's BatchNorm takes the global batch's statistics under "
-            "data parallelism, which maskbit_tpu_torch does not port; use VQGAN+Discriminator")
     ema_kwargs = dict(ema_kwargs or {})
     use_adaptive = loss_cfg.discriminator_gradient_penalty == "adopt_weight"
     batch_disc_passes = isinstance(discriminator, NLayerDiscriminatorv2)

@@ -10,11 +10,14 @@ Same inputs, made from a seed with numpy, through both packages:
   (sequential) modes with the thread and process decode backends, and
   `SimpleImagenet`: the same `image` and `class_id` batches in the same
   order, exactly;
+* the native decode backend: the same stream as JAX's native backend,
+  exactly, and refused when its library cannot be built;
 * token shards written by either package: the same batches read back by
   both, with resample on and off, exactly.
 """
 
 import io
+import itertools
 import os
 
 import numpy as np
@@ -182,8 +185,31 @@ def test_simple_imagenet_matches_jax(shards):
         np.testing.assert_array_equal(g["image"], w["image"])
 
 
-def test_tar_reader_refuses_the_native_decoder(shards):
-    with pytest.raises(ValueError, match="native decoder"):
+def test_tar_reader_refuses_the_native_decoder(shards, tmp_path, monkeypatch):
+    """`decode_backend="native"` runs (the port's C++ decoder, the same
+    stream as JAX's "native", exactly) and is refused only when the library
+    cannot be built; unknown backends and empty shard lists are refused."""
+    from maskbit_tpu import native as jax_native
+    from maskbit_tpu_torch import native
+
+    transform = lambda tf: tf.TrainTransform(resolution=16, seed=3)  # noqa: E731
+    common = dict(shuffle_buffer_size=4, seed=2, num_decode_threads=2, decode_backend="native")
+    got = list(itertools.islice(iter(port_tar.TarImageDataset(shards, transform(port_tf),
+                                                              **common)), 12))
+    if jax_native.is_available():
+        want = list(itertools.islice(iter(jax_tar.TarImageDataset(shards, transform(jax_tf),
+                                                                  **common)), 12))
+        for (g, gl), (w, wl) in zip(got, want, strict=True):
+            assert gl == wl
+            np.testing.assert_array_equal(g, w)
+    assert len(got) == 12 and got[0][0].shape == (16, 16, 3)
+    # a library that cannot be built: "native" raises, as in JAX
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "nowhere")
+    monkeypatch.setattr(native, "GXX_FLAGS", native.GXX_FLAGS + ["-DMB_FORCED_ERROR", "-include",
+                                                                 "/nonexistent/forced.h"])
+    with pytest.raises(ValueError, match="could not be built"):
         port_tar.TarImageDataset(shards, port_tf.EvalTransform(16), decode_backend="native")
     with pytest.raises(ValueError, match="decode_backend"):
         port_tar.TarImageDataset(shards, port_tf.EvalTransform(16), decode_backend="fork")

@@ -8,7 +8,9 @@
   (`discriminator_from_flax`, strict: the original repo's keys, the blur a
   buffer); `blur_pool_2d` alone for odd and even sizes (atol 1e-6).
 * `OriginalNLayerDiscriminator`: BatchNorm by the batch's statistics, as
-  the JAX step applies it; logits and input gradient likewise.
+  the JAX step applies it; logits and input gradient likewise; the running
+  averages moved once as flax's `batch_stats` are (atol 1e-6, rtol 1e-5),
+  the variance made unbiased as torch keeps it.
 * One pass over real and fake concatenated equals two passes for the v2
   discriminator (GroupNorm is per sample), within float32 rounding (atol
   1e-5: the CPU's convolutions sum in another order at another batch).
@@ -86,6 +88,9 @@ def test_original_discriminator_matches_jax():
 
     want, want_grad = jax.jit(lambda x: (apply(x), jax.grad(
         lambda x: jnp.sum(jnp.tanh(apply(x))))(x)))(jnp.asarray(x))
+    # flax's running averages after one call from (mean 0, var 1), momentum 0.9
+    stats = jax.jit(lambda x: jm.apply(params, x, train=True, mutable=["batch_stats"])[1])(
+        jnp.asarray(x))["batch_stats"]
     tm = td.OriginalNLayerDiscriminator(hidden_channels=16, num_stages=3)
     discriminator_from_flax(jax.tree.map(np.asarray, params), tm)
     xt = torch.from_numpy(x).requires_grad_()
@@ -93,7 +98,15 @@ def test_original_discriminator_matches_jax():
     torch.tanh(got).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4, rtol=0)
     _grad_close(xt.grad.numpy(), want_grad, 1e-4)
-    assert not tm.main[3].running_mean.any()  # running statistics neither updated nor read
+    # the running statistics moved once, by torch's rule: momentum 0.1 (flax's
+    # 0.9) and the unbiased variance where flax keeps the biased one
+    for n, idx, side in ((1, 3, 16), (2, 6, 8), (3, 9, 7)):  # 64 px in: 16, 8, 7 px there
+        bn, flax_bn, count = tm.main[idx], stats[f"bn_{n}"], 2 * side * side
+        np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(flax_bn["mean"]),
+                                   atol=1e-6, rtol=1e-5)
+        unbiased = 0.9 + (np.asarray(flax_bn["var"], np.float64) - 0.9) * count / (count - 1)
+        np.testing.assert_allclose(bn.running_var.numpy(), unbiased, atol=1e-6, rtol=1e-5)
+        assert int(bn.num_batches_tracked) == 1
 
 
 def test_concatenated_pass_equals_two_passes():

@@ -360,6 +360,7 @@ STEPS1, BATCH1, RES1 = 4, 4, 32  # 16x16 tokens: the discriminator's pool needs 
 LFQ = dict(VQ, entropy_loss_weight=0.01, entropy_loss_temperature=0.1)
 V2 = {"name": "VQGAN+Discriminator", "num_channels": 3, "num_stages": 1,
       "hidden_channels": 32, "blur_resample": True, "blur_kernel_size": 4}
+PIX2PIX = {"name": "Original", "num_channels": 3, "num_stages": 2, "hidden_channels": 16}
 LOSSES = dict(perceptual_loss="none", perceptual_weight=0.0, reconstruction_weight=1.0,
               discriminator_weight=0.1, discriminator_start=2,
               discriminator_gradient_penalty="adopt_weight", lecam_regularization_weight=0.1,
@@ -381,10 +382,36 @@ def _stage1_images():
     return out
 
 
-def _stage1_jax(images):
+def _bn_batch_stats(disc, disc_params, x):
+    """Each BatchNorm's (mean, biased variance) of one train-mode call of
+    the Pix2Pix discriminator on x, read off flax's updated `batch_stats`
+    from zeros (the update is 0.1 x the batch's)."""
+    init = disc.init(jax.random.key(0), x)["batch_stats"]
+    zeros = jax.tree.map(jnp.zeros_like, init)
+    _, upd = disc.apply({"params": disc_params, "batch_stats": zeros}, x, train=True,
+                        mutable=["batch_stats"])
+    stages, side = PIX2PIX["num_stages"], x.shape[1]
+    # the rows each BatchNorm sees per channel: bn_n after n + 1 stride-2
+    # convolutions, the last after a stride-1 4x4 one (one pixel less)
+    sides = {f"bn_{n}": side // 2 ** (n + 1) for n in range(1, stages)}
+    sides[f"bn_{stages}"] = side // 2 ** stages - 1
+    return {name: (np.asarray(v["mean"], np.float64) / (1 - 0.9),
+                   np.asarray(v["var"], np.float64) / (1 - 0.9), x.shape[0] * sides[name] ** 2)
+            for name, v in upd["batch_stats"].items()}
+
+
+def _stage1_jax(images, disc_cfg=None):
+    """JAX's Stage-I steps on the global batch. With the Pix2Pix
+    discriminator, the running averages torch's BatchNorm would hold after
+    the same calls (each step: the reconstructions in the generator pass,
+    then, from `discriminator_start` on, the real images and the
+    reconstructions), from JAX's batch statistics: momentum 0.1, the
+    unbiased variance."""
     name, lr, kw = SCHEDULE1
+    disc_cfg = V2 if disc_cfg is None else disc_cfg
     model = JaxConvVQModel.from_config(LFQ)
-    disc = jax_disc.create_discriminator(V2)
+    disc = jax_disc.create_discriminator(disc_cfg)
+    pix2pix = disc_cfg["name"] == "Original"
     gen_tx = jax_tok_trainer.make_optimizer(jax_get_schedule(name, lr, **kw), epsilon=EPS)
     disc_tx = jax_tok_trainer.make_optimizer(jax_get_schedule(name, lr, **kw), epsilon=EPS)
     state = jax.jit(lambda key: jax_tok_trainer.init_tokenizer_train_state(
@@ -393,18 +420,32 @@ def _stage1_jax(images):
                                                                       state.disc_params))
     step = jax.jit(jax_tok_trainer.make_tokenizer_train_step(
         model, disc, gen_tx, disc_tx, JaxLossConfig(**LOSSES), ema_kwargs={"decay": 0.999}))
-    history = []
+    history, running = [], {}
     for i, x in enumerate(images):
+        if pix2pix:
+            recon = model.apply({"params": state.gen_params}, jnp.asarray(x), train=True)[0]
+            calls = [recon] + ([jnp.asarray(x), recon] if i >= LOSSES["discriminator_start"]
+                               else [])
+            for u in calls:
+                for bn, (mean, var, n) in _bn_batch_stats(disc, state.disc_params, u).items():
+                    rm, rv, seen = running.get(bn, (0.0, 1.0, 0))
+                    running[bn] = (0.9 * rm + 0.1 * mean, 0.9 * rv + 0.1 * var * n / (n - 1),
+                                   seen + 1)
         state, m = step(state, jnp.asarray(x), None, jax.random.key(i))
         history.append({k: float(v) for k, v in m.items()})
-    taps = V2["blur_kernel_size"]
+    taps = disc_cfg.get("blur_kernel_size")
+    want_disc = export_discriminator_state(jax.tree.map(np.asarray, state.disc_params), taps)
+    for bn, (rm, rv, seen) in running.items():  # bn_{n} is main.{3n}
+        key = f"main.{3 * int(bn.split('_')[1])}"
+        want_disc.update({f"{key}.running_mean": rm, f"{key}.running_var": rv,
+                          f"{key}.num_batches_tracked": np.asarray(seen)})
     return start, {
         "history": history,
         "gen": export_tokenizer_state(jax.tree.map(np.asarray, state.gen_params),
                                       VQ["codebook_size"]),
         "ema": export_tokenizer_state(jax.tree.map(np.asarray, state.ema.params),
                                       VQ["codebook_size"]),
-        "disc": export_discriminator_state(jax.tree.map(np.asarray, state.disc_params), taps),
+        "disc": want_disc,
         "lecam": [float(x) for x in state.lecam]}
 
 
@@ -424,39 +465,75 @@ def _stage1_miss(got, want) -> float:
     return worst
 
 
-@pytest.fixture(scope="module")
-def stage1_reference():
+def _stage1_reference(disc_cfg):
     """JAX's Stage-I steps and the inputs the ranks load."""
     images = _stage1_images()
-    (gen_params, disc_params), want = _stage1_jax(images)
+    (gen_params, disc_params), want = _stage1_jax(images, disc_cfg)
     model = tokenizer_from_flax(gen_params, ConvVQModel.from_config(LFQ), VQ["codebook_size"])
-    disc = discriminator_from_flax(disc_params, create_discriminator(V2))
-    inp = {"vq": LFQ, "disc": V2, "losses": LOSSES, "schedule": SCHEDULE1, "eps": EPS,
+    disc = discriminator_from_flax(disc_params, create_discriminator(disc_cfg))
+    inp = {"vq": LFQ, "disc": disc_cfg, "losses": LOSSES, "schedule": SCHEDULE1, "eps": EPS,
            "images": images, "gen_state": model.state_dict(), "disc_state": disc.state_dict()}
     return inp, want
 
 
-def test_stage1_two_ranks_match_jax_and_rank_local_means_do_not(tmp_path, stage1_reference):
-    inp, want = stage1_reference
-    torch.save(inp, tmp_path / "stage1_in.pt")
-    procs = {mode: _launch(tmp_path, 2, "stage1", mode) for mode in ("global", "local")}
-    for mode, p in procs.items():
-        _wait(p, tmp_path, "stage1", 150)
-    got = {mode: [_load(tmp_path, f"stage1_{mode}", r) for r in range(2)] for mode in procs}
-    for rank in got["global"]:
+@pytest.fixture(scope="module")
+def stage1_reference():
+    return _stage1_reference(V2)
+
+
+@pytest.fixture(scope="module")
+def stage1_pix2pix_reference():
+    return _stage1_reference(PIX2PIX)
+
+
+@pytest.fixture(scope="module")
+def stage1_runs(tmp_path_factory, stage1_reference, stage1_pix2pix_reference):
+    """One launch of 2 ranks per mode: "global" (the v2 discriminator, then
+    the Pix2Pix one) and "local"."""
+    workdir = tmp_path_factory.mktemp("stage1")
+    torch.save(stage1_reference[0], workdir / "stage1_in.pt")
+    torch.save(stage1_pix2pix_reference[0], workdir / "stage1_pix2pix_in.pt")
+    procs = {mode: _launch(workdir, 2, "stage1", mode) for mode in ("global", "local")}
+    for p in procs.values():
+        _wait(p, workdir, "stage1", 150)
+    return {name: [_load(workdir, name, r) for r in range(2)]
+            for name in ("stage1_global", "stage1_local", "stage1_pix2pix")}
+
+
+def _assert_stage1_ranks(got, want, gate):
+    for rank in got:
         assert all(rank["agree"]), rank["agree"]  # parameters, EMA, LeCam after every step
-        assert [h["discriminator_factor"] for h in rank["history"]] == [0.0, 0.0, 1.0, 1.0]
+        assert [h["discriminator_factor"] for h in rank["history"]] == gate
         for key in ("gen", "disc", "ema"):
             for name, value in rank[key].items():
-                assert torch.equal(value, got["global"][0][key][name]), (key, name)
-    for step, (g, w) in enumerate(zip(got["global"][0]["history"], want["history"])):
+                assert torch.equal(value, got[0][key][name]), (key, name)
+    for step, (g, w) in enumerate(zip(got[0]["history"], want["history"])):
         assert set(g) == set(w), set(g) ^ set(w)
         for key in w:
             np.testing.assert_allclose(g[key], w[key], rtol=METRIC_RTOL, atol=METRIC_ATOL,
                                        err_msg=f"step {step} {key}")
-    assert _stage1_miss(got["global"][0], want) <= 1.0
+    assert _stage1_miss(got[0], want) <= 1.0
+
+
+def test_stage1_two_ranks_match_jax_and_rank_local_means_do_not(stage1_reference, stage1_runs):
+    _, want = stage1_reference
+    _assert_stage1_ranks(stage1_runs["stage1_global"], want, [0.0, 0.0, 1.0, 1.0])
     # the means taken over each rank's own rows miss JAX's global batch by far
-    assert _stage1_miss(got["local"][0], want) >= 10.0
+    assert _stage1_miss(stage1_runs["stage1_local"][0], want) >= 10.0
+
+
+def test_stage1_pix2pix_batchnorm_over_two_ranks_matches_jax(stage1_pix2pix_reference,
+                                                            stage1_runs):
+    """The Pix2Pix discriminator at data=2: its BatchNorm takes the
+    statistics of both ranks' rows (one dark, one bright), so the step and
+    the running averages (in `_stage1_miss`, with every buffer) equal JAX's
+    one process on the global batch."""
+    _, want = stage1_pix2pix_reference
+    got = stage1_runs["stage1_pix2pix"]
+    _assert_stage1_ranks(got, want, [0.0, 0.0, 1.0, 1.0])
+    assert int(got[0]["disc"]["main.3.num_batches_tracked"]) == 1 + 1 + 3 + 3
+    assert not torch.equal(got[0]["disc"]["main.3.running_var"],
+                           torch.ones_like(got[0]["disc"]["main.3.running_var"]))
 
 
 # ------------------------------------------------------------- train CLI
@@ -632,6 +709,7 @@ def test_eval_tokenizer_two_ranks_split_the_shards_and_merge(tmp_path):
 # -------------------------------------------------- the fsdp and tensor axes
 
 MLM_TP = dict(MLM, heads=2)  # 2 heads of 32: one a rank under tensor=2
+MLM_HEADS3 = dict(MLM, heads=3, hidden_dim=48)  # 3 heads of 16: they do not divide tensor=2
 
 
 @pytest.fixture(scope="module")
@@ -640,14 +718,40 @@ def stage2_tp_reference():
         return _stage2_jax(mp, MLM_TP)
 
 
+@pytest.fixture(scope="module")
+def stage2_heads3_reference():
+    with pytest.MonkeyPatch.context() as mp:
+        return _stage2_jax(mp, MLM_HEADS3)
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory, stage2_tp_reference, stage2_heads3_reference):
+    """`run(fsdp, tensor)`: each rank's results of one launch on that mesh,
+    by input name; the tensor=2 launch also steps the 3-head model."""
+    done = {}
+
+    def run(fsdp, tensor):
+        if (fsdp, tensor) not in done:
+            workdir = tmp_path_factory.mktemp(f"sharded_{fsdp}_{tensor}")
+            names = {"stage2_sharded": stage2_tp_reference[0]}
+            if (fsdp, tensor) == (1, 2):
+                names["stage2_heads3"] = stage2_heads3_reference[0]
+            for name, inp in names.items():
+                torch.save(inp, workdir / f"{name}_in.pt")
+            world = fsdp * tensor
+            _run(workdir, world, "stage2_sharded", fsdp, tensor, *names, timeout=150)
+            done[fsdp, tensor] = {name: [_load(workdir, f"{name}_{fsdp}_{tensor}", r)
+                                         for r in range(world)] for name in names}
+        return done[fsdp, tensor]
+
+    return run
+
+
 @pytest.mark.parametrize("fsdp,tensor", [(2, 1), (1, 2), (2, 2)],
                          ids=["fsdp2", "tensor2", "fsdp2-tensor2"])
-def test_stage2_sharded_ranks_match_jax(tmp_path, stage2_tp_reference, fsdp, tensor):
-    inp, want = stage2_tp_reference
-    world = fsdp * tensor
-    torch.save(inp, tmp_path / "stage2_sharded_in.pt")
-    _run(tmp_path, world, "stage2_sharded", fsdp, tensor, timeout=150)
-    ranks = [_load(tmp_path, f"stage2_sharded_{fsdp}_{tensor}", r) for r in range(world)]
+def test_stage2_sharded_ranks_match_jax(stage2_tp_reference, sharded_runs, fsdp, tensor):
+    _, want = stage2_tp_reference
+    ranks = sharded_runs(fsdp, tensor)["stage2_sharded"]
     got = ranks[0]
     _assert_stage2_close(got, want, f"fsdp={fsdp} tensor={tensor} vs JAX")
     calls = STEPS2 * MLM_TP["depth"]
@@ -658,6 +762,34 @@ def test_stage2_sharded_ranks_match_jax(tmp_path, stage2_tp_reference, fsdp, ten
         assert r["masks_equal"] == [True] * calls
         assert r["split"] > 0 and r["whole_bytes"] / (fsdp * tensor) <= r["stored_bytes"]
         assert r["stored_bytes"] < 0.6 * r["whole_bytes"], (r["stored_bytes"], r["whole_bytes"])
+        assert not r["warnings"]
+
+
+def test_stage2_heads_not_dividing_tensor_replicate_the_layer(stage2_heads3_reference,
+                                                              sharded_runs):
+    """3 heads at parallel.tensor=2 (2 ranks): each attention layer runs
+    whole on both ranks, as JAX runs its unpartitioned kernel, with one
+    warning per layer; the feed-forward layers still split (mlp_dim 128).
+    The step equals JAX's one process on the global batch with the
+    tolerances of `test_stage2_sharded_ranks_match_jax`."""
+    _, want = stage2_heads3_reference
+    ranks = sharded_runs(1, 2)["stage2_heads3"]
+    got = ranks[0]
+    _assert_stage2_close(got, want, "heads=3 tensor=2 vs JAX")
+    depth = MLM_HEADS3["depth"]
+    calls = STEPS2 * depth
+    ffn = sorted(f"transformer.layers.{i}.1.net.{k}" for i in range(depth)
+                 for k in ("0.weight", "0.bias", "2.weight"))
+    for r in ranks:
+        assert (r["digests"] == r["digests"][0]).all(), "the ranks' gathered states differ"
+        assert r["history"] == got["history"]
+        assert r["heads_seen"] == [MLM_HEADS3["heads"]] * calls  # every head on every rank
+        assert r["masks_equal"] == [True] * calls
+        assert r["megatron"] == ffn
+        for i in range(depth):  # q|k|v and out-projection: not split at fsdp=1
+            for key in ("in_proj_weight", "in_proj_bias", "out_proj.weight"):
+                assert f"transformer.layers.{i}.0.mha.{key}" not in r["splits"]
+        assert len([w for w in r["warnings"] if "do not divide parallel.tensor=2" in w]) == depth
 
 
 def test_stage1_fsdp_ranks_match_jax(tmp_path, stage1_reference):

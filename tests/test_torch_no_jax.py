@@ -2,8 +2,10 @@
 
 * At run time: a fresh interpreter imports every module of
   `maskbit_tpu_torch`, reads a tiny config through the port's own
-  `load_config`, serves a tiny model, takes one tiny train step on the
-  CPU, writes image shards and pretokenizes them, resumes the train run
+  `load_config`, serves a tiny model (on one device, then split over two
+  CPU "devices" by `sampling/serve.py`), takes one tiny train step on the
+  CPU, writes image shards, reads them through the native JPEG decoder
+  (`native/`, where it builds) and pretokenizes them, resumes the train run
   from its checkpoint for one step from those token shards, trains the
   tiny tokenizer two steps (`cli.train_tokenizer`, the discriminator live
   from the second, LPIPS with the shipped lin heads and random VGG16
@@ -48,6 +50,11 @@ from maskbit_tpu_torch.cli.train_maskbit import main as train
 service = GeneratorService(load_config(sys.argv[1]))
 images = service.generate([1, 2, 3], seed=4)
 assert images.shape == (3, 32, 32, 3), images.shape
+from maskbit_tpu_torch.sampling import serve as split
+split.local_devices = lambda device: [torch.device("cpu")] * 2
+service = GeneratorService(load_config(sys.argv[1]))
+assert service._sampler.devices == [torch.device("cpu")] * 2
+assert service.generate([1, 2, 3], seed=4).shape == (3, 32, 32, 3)
 result = train([f"config={sys.argv[1]}"])
 assert result["steps"] == 1, result
 import io, os
@@ -62,6 +69,15 @@ for i in range(4):
     Image.fromarray(np.full((40, 40, 3), 60 * i, np.uint8)).save(buf, "JPEG")
     writer.write(str(i), buf.getvalue(), i)
 writer.close()
+from maskbit_tpu_torch import native
+from maskbit_tpu_torch.data.tar_reader import TarImageDataset
+from maskbit_tpu_torch.data.transforms import EvalTransform
+from maskbit_tpu_torch.utils.paths import user_cache_dir
+assert user_cache_dir().endswith("maskbit_tpu_torch")
+if native.is_available():
+    decoded = list(TarImageDataset(f"{work}/img-0000.tar", EvalTransform(32), resample=False,
+                                   decode_backend="native"))
+    assert len(decoded) == 4 and decoded[0][0].shape == (32, 32, 3)
 tokens = os.path.join(work, "tok-%%04d.npz")
 assert pretokenize([f"config={sys.argv[1]}", f"pretokenize.shards={work}/img-0000.tar",
                     f"pretokenize.output={tokens}", "pretokenize.device=cpu"]) == 4

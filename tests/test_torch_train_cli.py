@@ -13,7 +13,8 @@ Through `maskbit_tpu_torch.cli.train_maskbit.main` with
   within atol 2e-6, that test's tolerances;
 * two steps of a tiny `model_cls: bert` config, whose saved weights give
   the JAX package's Bert the same logits;
-* two steps from tar shards;
+* two steps from tar shards, and two through the native JPEG decoder
+  (`MASKBIT_DECODE_BACKEND=native`);
 * resume from a `save_every` checkpoint, and a run stopped by SIGTERM that
   saves and from which the next run resumes (as `tests/test_preemption.py`
   does for the JAX tokenizer CLI);
@@ -118,14 +119,32 @@ def _image_shards(tmp_path, n=8):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """CUDA asked for without a card is refused; the native JPEG decoder,
+    once refused, now trains: `MASKBIT_DECODE_BACKEND=native` takes two
+    steps from JPEG shards with every image through the C++ decoder."""
+    from maskbit_tpu_torch.data import tar_reader
+
     cfg = _config(tmp_path)
-    monkeypatch.setenv("MASKBIT_DECODE_BACKEND", "native")
-    with pytest.raises(ValueError, match="native decoder"):
-        main([f"config={cfg}", f"dataset.params.train_shards_path_or_url={_image_shards(tmp_path)}"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([f"config={cfg}", "training.device=cuda"])
-    assert not os.path.exists(tmp_path / "out" / "model-2.bin")
+        assert not os.path.exists(tmp_path / "out" / "model-2.bin")
+    decoded = []
+    real = tar_reader._decode_sample_native
+
+    def counted(sample, transform, seed=None):
+        out = real(sample, transform, seed)
+        decoded.append(sample["__key__"])
+        return out
+
+    monkeypatch.setattr(tar_reader, "_decode_sample_native", counted)
+    monkeypatch.setenv("MASKBIT_DECODE_BACKEND", "native")
+    result = main([f"config={cfg}",
+                   f"dataset.params.train_shards_path_or_url={_image_shards(tmp_path)}"])
+    assert result["steps"] == 2
+    assert all(math.isfinite(h["mlm_loss"]) for h in result["history"])
+    assert len(decoded) >= 2 * 2  # two steps of batch 2, each image decoded natively
+    assert os.path.exists(tmp_path / "out" / "model-2.bin")
 
 
 def test_train_cli_trains_bert_on_cpu(tmp_path):

@@ -13,11 +13,15 @@ Scenarios:
   stage1 MODE     Stage-I steps; MODE "global", "fsdp" (the tokenizer's and
                   the discriminator's state split over parallel.fsdp=2), or
                   "local" with the entropy and LeCam means left rank-local
-                  (the defect the test must catch);
-  stage2_sharded FSDP TENSOR  Stage-II steps on the mesh (data, FSDP,
-                  TENSOR), the state in slices, with injected global draws;
-                  the whole state gathered, the dropout seeds and heads each
-                  rank's kernels saw, and each rank's stored bytes;
+                  (the defect the test must catch); "global" also runs the
+                  inputs of `stage1_pix2pix_in.pt` when it exists (the
+                  Pix2Pix discriminator, its BatchNorm over both ranks);
+  stage2_sharded FSDP TENSOR [NAME...]  Stage-II steps on the mesh (data,
+                  FSDP, TENSOR), the state in slices, with injected global
+                  draws, for each NAME's inputs in turn (the models of one
+                  launch may differ in heads); the whole state gathered, the
+                  dropout seeds and heads each rank's kernels saw, the
+                  splits, the warnings logged and each rank's stored bytes;
   stage2_stream TENSOR FUSED  Stage-II steps on parallel.tensor=TENSOR
                   drawing from the step stream (no injected draws), hidden
                   dropout on, attention dropout through the kernels' plain
@@ -126,45 +130,65 @@ def _step_rows(state, step, inp, i):
     return step(state, rows(inp["tokens"][i]), rows(inp["labels"][i]), injected=inp["injected"][i])
 
 
-def stage2_sharded(workdir, fsdp, tensor):
+def stage2_sharded(workdir, fsdp, tensor, *names):
+    """Each NAME's Stage-II run on the mesh, from `{NAME}_in.pt` (default
+    "stage2_sharded"), to `{NAME}_{FSDP}_{TENSOR}_rank{r}.pt`."""
+    import logging
+
     import maskbit_tpu_torch.nn.transformer as transformer
     from maskbit_tpu_torch.nn.dropout_attention import hash_keep_mask
 
-    inp = torch.load(os.path.join(workdir, "stage2_sharded_in.pt"), weights_only=False)
-    seen = []
+    seen, warnings = [], []
     real = transformer.dropout_attention
 
     def recording(q, k, v, seeds, rate):
         seen.append((q.shape[2], seeds.clone(), rate))
         return real(q, k, v, seeds, rate)
 
+    class Warnings(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    logging.getLogger("maskbit_tpu_torch").addHandler(Warnings(logging.WARNING))
     transformer.dropout_attention = recording
-    model, state, step = _sharded_stage2(inp, fsdp, tensor)
-    history = []
-    for i in range(len(inp["tokens"])):
-        state, metrics = _step_rows(state, step, inp, i)
-        history.append({k: float(v) for k, v in metrics.items() if not k.startswith("_")})
-    # each call's keep masks against the one-process masks' rows and heads
-    tables = [t for inj in inp["injected"] for t in inj["attention_seeds"]]
-    b = inp["tokens"][0].shape[0] // mesh.batch_shard_count()
-    n = model.seq_len + 1
-    heads_seen, masks_equal = [], []
-    h_local = inp["mlm"]["heads"] // int(tensor)
-    t, r = mesh.current_mesh().coord("tensor"), mesh.batch_shard_index()
-    for (h, seeds, rate), table in zip(seen, tables):
-        want = torch.as_tensor(table)[r * b:(r + 1) * b, t * h_local:(t + 1) * h_local]
-        heads_seen.append(h)
-        masks_equal.append(bool(torch.equal(hash_keep_mask(seeds, n, rate),
-                                            hash_keep_mask(want, n, rate))))
-    whole = state.state_dict()
-    stored = _resident_bytes(list(state.store.shards.values()) + list(model.parameters()))
-    torch.save({"history": history, "params": whole["params"], "ema": whole["ema"]["params"],
-                "heads_seen": heads_seen, "masks_equal": masks_equal, "stored_bytes": stored,
-                "whole_bytes": sum(v.numel() * v.element_size() for v in whole["params"].values()),
-                "split": len(state.store.splits),
-                "digests": mesh.process_allgather_f64(_param_digest(
-                    list(whole["params"].values()) + list(whole["ema"]["params"].values())))},
-               _out(workdir, f"stage2_sharded_{fsdp}_{tensor}") + ".pt")
+    for name in names or ("stage2_sharded",):
+        seen.clear()
+        warnings.clear()
+        inp = torch.load(os.path.join(workdir, f"{name}_in.pt"), weights_only=False)
+        model, state, step = _sharded_stage2(inp, fsdp, tensor)
+        history = []
+        for i in range(len(inp["tokens"])):
+            state, metrics = _step_rows(state, step, inp, i)
+            history.append({k: float(v) for k, v in metrics.items() if not k.startswith("_")})
+        # each call's keep masks against the one-process masks' rows and heads:
+        # a layer whose heads divide the tensor size runs this rank's share,
+        # any other all its heads
+        tables = [t for inj in inp["injected"] for t in inj["attention_seeds"]]
+        b = inp["tokens"][0].shape[0] // mesh.batch_shard_count()
+        n = model.seq_len + 1
+        heads_seen, masks_equal = [], []
+        heads, t = inp["mlm"]["heads"], mesh.current_mesh().coord("tensor")
+        h_local = heads // int(tensor) if heads % int(tensor) == 0 else heads
+        first = t * h_local if h_local < heads else 0
+        r = mesh.batch_shard_index()
+        for (h, seeds, rate), table in zip(seen, tables):
+            want = torch.as_tensor(table)[r * b:(r + 1) * b, first:first + h_local]
+            heads_seen.append(h)
+            masks_equal.append(bool(torch.equal(hash_keep_mask(seeds, n, rate),
+                                                hash_keep_mask(want, n, rate))))
+        whole = state.state_dict()
+        stored = _resident_bytes(list(state.store.shards.values()) + list(model.parameters()))
+        torch.save({"history": history, "params": whole["params"], "ema": whole["ema"]["params"],
+                    "heads_seen": heads_seen, "masks_equal": masks_equal, "stored_bytes": stored,
+                    "whole_bytes": sum(v.numel() * v.element_size()
+                                       for v in whole["params"].values()),
+                    "split": len(state.store.splits),
+                    "megatron": sorted(k for k, s in state.store.splits.items() if s.megatron),
+                    "splits": {k: s.spec for k, s in state.store.splits.items()},
+                    "warnings": list(warnings),
+                    "digests": mesh.process_allgather_f64(_param_digest(
+                        list(whole["params"].values()) + list(whole["ema"]["params"].values())))},
+                   _out(workdir, f"{name}_{fsdp}_{tensor}") + ".pt")
 
 
 def stage2_stream(workdir, tensor, fused):
@@ -249,6 +273,22 @@ def stage2_draws(workdir, config):
 def stage1(workdir, mode):
     import maskbit_tpu_torch.losses.vqgan as vqgan
     import maskbit_tpu_torch.ops.entropy as entropy
+
+    if mode == "local":  # each rank's own batch in the entropy and LeCam means
+        entropy.all_reduce_mean_ = lambda tensors, group=None: list(tensors)
+        entropy.global_mean = vqgan.global_mean = lambda x, group=None: x
+    mesh.maybe_init_distributed(torch.device("cpu"))
+    if mode == "fsdp":
+        mesh.init_mesh(mesh.MeshConfig(fsdp=mesh.process_count()))
+    runs = [("stage1_in.pt", f"stage1_{mode}")]
+    if mode == "global" and os.path.exists(os.path.join(workdir, "stage1_pix2pix_in.pt")):
+        runs.append(("stage1_pix2pix_in.pt", "stage1_pix2pix"))
+    for source, name in runs:
+        inp = torch.load(os.path.join(workdir, source), weights_only=False)
+        torch.save(_stage1_run(inp, mode), _out(workdir, name) + ".pt")
+
+
+def _stage1_run(inp, mode):
     from maskbit_tpu_torch.losses.vqgan import VQGANLossConfig
     from maskbit_tpu_torch.models.tokenizer import ConvVQModel
     from maskbit_tpu_torch.nn.discriminator import create_discriminator
@@ -259,13 +299,6 @@ def stage1(workdir, mode):
     )
     from maskbit_tpu_torch.utils.lr_schedules import get_schedule
 
-    if mode == "local":  # each rank's own batch in the entropy and LeCam means
-        entropy.all_reduce_mean_ = lambda tensors, group=None: list(tensors)
-        entropy.global_mean = vqgan.global_mean = lambda x, group=None: x
-    mesh.maybe_init_distributed(torch.device("cpu"))
-    if mode == "fsdp":
-        mesh.init_mesh(mesh.MeshConfig(fsdp=mesh.process_count()))
-    inp = torch.load(os.path.join(workdir, "stage1_in.pt"), weights_only=False)
     model = ConvVQModel.from_config(inp["vq"])
     model.load_state_dict(inp["gen_state"], strict=True)
     disc = create_discriminator(inp["disc"])
@@ -296,19 +329,19 @@ def stage1(workdir, mode):
         history.append({k: float(v) for k, v in metrics.items()})
         whole = state.state_dict()  # gathered from the slices under fsdp
         digest = _param_digest(whole["gen_params"].values(), whole["disc_params"].values(),
-                               whole["ema"]["params"].values(), state.lecam)
+                               whole["ema"]["params"].values(), state.lecam,
+                               [t.float() for t in disc.buffers()])
         gathered = mesh.process_allgather_f64(digest)
         agree.append(bool((gathered == gathered[0]).all()))
     buffers = lambda m: {k: v for k, v in m.state_dict().items()  # noqa: E731
                          if k not in dict(m.named_parameters())}
     stored = _resident_bytes([t for store in stores.values()
                               for t in list(store.shards.values()) + list(store.params.values())])
-    torch.save({"history": history, "agree": agree,
-                "gen": {**buffers(model), **{k: v.clone() for k, v in whole["gen_params"].items()}},
-                "disc": {**buffers(disc), **{k: v.clone() for k, v in whole["disc_params"].items()}},
-                "ema": {k: v.clone() for k, v in whole["ema"]["params"].items()},
-                "lecam": [t.item() for t in state.lecam], "stored_bytes": stored},
-               _out(workdir, f"stage1_{mode}") + ".pt")
+    return {"history": history, "agree": agree,
+            "gen": {**buffers(model), **{k: v.clone() for k, v in whole["gen_params"].items()}},
+            "disc": {**buffers(disc), **{k: v.clone() for k, v in whole["disc_params"].items()}},
+            "ema": {k: v.clone() for k, v in whole["ema"]["params"].items()},
+            "lecam": [t.item() for t in state.lecam], "stored_bytes": stored}
 
 
 def train_cli(workdir, argv):

@@ -10,7 +10,9 @@ Phases, each of which fails the run if it fails:
      one nvcc per source, all started together.
   3. kernels: the attention block's chain of kernels against its plain
      PyTorch version at the serving shapes (16, 257, 1024) and (2, 1025,
-     1024) and the eval shape (200, 257, 1024), 16 heads, bf16 vectors as
+     1024), the eval shape (200, 257, 1024) and a split replica's share of
+     the serve and the eval batch, (8, 257, 1024) and (100, 257, 1024)
+     (phase 13), 16 heads, bf16 vectors as
      the serving generator stores them,
      timed kernel by kernel beside the plain version, the port's bf16 einsum
      path and the library chain (cuBLAS QKV projection,
@@ -201,9 +203,11 @@ Phases, each of which fails the run if it fails:
         the token agreement and the largest image gap (no gate: other GEMM
         shapes); the split's and the whole call's wall times; the attention
         block's launches per replica, depth x steps each;
-     b. `cli.serve` with `local_devices` patched to those two entries: a
-        seeded 8-label request twice, the same bytes, through the split;
-     c. `cli.eval_maskbit` in this process over the two entries, 200
+     b. `cli.serve` with `local_devices` patched to those two entries and
+        `serve.shard_local_devices=true`: a seeded 8-label request twice,
+        the same bytes, through the split;
+     c. `cli.eval_maskbit` in this process over the two entries
+        (`eval.shard_local_devices=true`), 200
         samples at batch 100 (random Inception weights): 200 scored, and
         2 x depth x steps x 2 batches block launches;
      d. when g++ finds `jpeglib.h`: the native decoder built, 256 synthetic
@@ -214,6 +218,13 @@ Phases, each of which fails the run if it fails:
         tolerances (per image mean gap under 0.01, 0.012 bicubic), labels
         and order equal. Without the header: one line, and the run goes on.
      The kernels line gains `launches_split_per_replica`.
+ 14. split_scale (`--phases split_scale`, on a host with several cards):
+     the flagship's sampler at the serve batch 8 and the eval batch 100
+     split over 2, 4, ... distinct cards (`make_sharded_sampler` over
+     cuda:0..n-1), the wall time of a call beside the whole batch's on
+     cuda:0 and one call on cuda:0 at a replica's rows (injected draws);
+     the first replica bit for bit against that call. With one card (the
+     default run) it prints that it was not timed.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -294,6 +305,9 @@ DP_GRAD_TOL_CPU = {"grad_rel_l2": 1e-5, "update_same_sign": 0.999}
 # synthetic 500 x 375 JPEGs, the reader's batch and output size
 SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "photos": 256,
                "decode_batch": 32, "decode_res": None}  # None: the config's resolution
+# phase 14: the serve and the eval batch split over the visible cards, and
+# the timed calls of each setting (after one warm-up)
+SCALE_SIZES = {"batches": (SERVE_BATCH, EVAL_BATCH), "calls": 2}
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -495,7 +509,10 @@ def phase_kernels(torch) -> dict:
     # wrapper (--tree) takes f32 ones only
     vectors = torch.bfloat16 if hasattr(ab, "VECTOR_DTYPES") else torch.float32
     rows, worst = [], 0.0
-    for b, n in ((2 * SERVE_BATCH, 257), (2, 1025), (2 * EVAL_BATCH, 257)):
+    # the serve batch with CFG, the 512 px sequence, the eval batch with CFG,
+    # and each of those two batches split in two (phase 13's replicas)
+    for b, n in ((2 * SERVE_BATCH, 257), (2, 1025), (2 * EVAL_BATCH, 257), (SERVE_BATCH, 257),
+                 (EVAL_BATCH, 257)):
         e = 1024
         inp = _block_inputs(torch, b, n, e, seed=b * n, vectors=vectors)
         got = ab.fused_attention_block(**inp, num_heads=HEADS)
@@ -3194,7 +3211,20 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
         ab.launches = 0
         for key in da.launches:
             da.launches[key] = 0
+        per_stream.clear()
 
+    # the block's launches per replica: each shard launches on a stream of its own
+    per_stream, count_lock = {}, threading.Lock()
+    real_launch = ab._launch
+
+    def counted_launch(x, *args, **kwargs):
+        got = real_launch(x, *args, **kwargs)
+        key = torch.cuda.current_stream(x.device).cuda_stream
+        with count_lock:
+            per_stream[key] = per_stream.get(key, 0) + 1
+        return got
+
+    ab._launch = counted_launch
     try:
         # a. the split sampler at serve batch 8, injected draws
         tok, gen, cfg, _, _ = load_generation_models(
@@ -3224,7 +3254,7 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             t0 = sync()
             images, tokens = sharded(labels, injected=draws)
             split_s.append(sync() - t0)
-            per_replica = list(sharded.shard_launches)
+            per_replica = list(per_stream.values())
             split_launches = {"attention_block": ab.launches,
                               "fused_attention": da.launches["fused_attention"]}
         want_images = torch.cat([h[0] for h in halves])
@@ -3259,8 +3289,8 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
         # b. the server over two entries: a seeded request twice
         split.local_devices = lambda d: list(devices)
         argv = [f"config={gen_config}", f"serve.batch_size={b}", "serve.port=0",
-                f"serve.device={device}", "experiment.vqgan_checkpoint=",
-                "experiment.generator_checkpoint="]
+                f"serve.device={device}", "serve.shard_local_devices=true",
+                "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
         zero()
         server, service = serve_cli.main(argv, serve_forever=False)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3296,6 +3326,7 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             ev = eval_maskbit.main([
                 f"config={gen_config}", f"eval.total_samples={sizes['eval_samples']}",
                 f"eval.batch_size={sizes['eval_batch']}", f"eval.device={device}",
+                "eval.shard_local_devices=true",
                 "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
                 f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"])
             wall = time.perf_counter() - t0
@@ -3317,6 +3348,7 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
         out["eval"] = {"count": ev["count"], "wall_s": wall, "launches": ab.launches}
     finally:
         split.local_devices = real_local
+        ab._launch = real_launch
 
     try:
         # d. the native JPEG decoder
@@ -3331,8 +3363,100 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
     return out
 
 
+def phase_split_scale(torch, device_info, gen_config=CONFIG, devices=None, sizes=None):
+    """Phase 14: one sampler call split over 2, 4, ... distinct cards against
+    the whole call on the first card, and against one call on the first card
+    at a replica's share of the batch (the time a split would take were the
+    replicas independent). Needs two visible cards or more; with one it says
+    so and returns None."""
+    from maskbit_tpu_torch.cli.common import load_generation_models
+    from maskbit_tpu_torch.core.config import config_from_cli
+    from maskbit_tpu_torch.sampling import serve as split
+    from maskbit_tpu_torch.sampling.sample import make_sampler
+
+    sizes = dict(SCALE_SIZES, **(sizes or {}))
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if len(devices) < 2:
+        log("[scale] one card visible: the split over distinct cards is not timed here "
+            "(`--phases split_scale` on a host with several cards)")
+        return None
+    t_phase = time.perf_counter()
+    dev = devices[0]
+    counts = [n for n in (2, 4, 8) if n < len(devices)] + [len(devices)]
+    if dev.type == "cuda":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        log(f"[scale] cards: {'; '.join(smi.stdout.strip().splitlines())}")
+    tok, gen, cfg, _, _ = load_generation_models(
+        config_from_cli([f"config={gen_config}", "experiment.vqgan_checkpoint=",
+                         "experiment.generator_checkpoint="]),
+        logging.getLogger("chip_smoke.scale"), dev, cast_weights=True)
+    n_tok = cfg.patch_size ** 2
+    whole = make_sampler(gen, tok, cfg)
+    samplers = {n: split.make_sharded_sampler(gen, tok, cfg, devices[:n]) for n in counts}
+
+    def timed(fn):
+        """The call's output and its wall seconds, once warm, `calls` times."""
+        got, walls = fn(), []
+        for _ in range(sizes["calls"]):
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            got = fn()
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            walls.append(time.perf_counter() - t0)
+        return got, walls
+
+    out = {"cards": len(devices), "card": device_info["card"], "rows": []}
+    for b in sizes["batches"]:
+        g = torch.Generator(device=dev).manual_seed(b)
+        shape = (cfg.num_steps, b, n_tok, cfg.codebook_splits)
+        draws = (torch.randint(0, cfg.mask_token, shape, generator=g, device=dev,
+                               dtype=torch.int32),
+                 -torch.log(torch.empty(shape, device=dev).exponential_(generator=g)))
+        labels = torch.arange(b, device=dev, dtype=torch.int64) * 97 % 1000
+        full, whole_s = timed(lambda: whole(labels, injected=draws))
+        row = {"batch": b, "whole_s": whole_s, "splits": []}
+        for n in counts:
+            if b % n:
+                continue
+            per = b // n
+            share, share_s = timed(lambda: whole(labels[:per],
+                                                 injected=tuple(d[:, :per] for d in draws)))
+            (images, tokens), split_s = timed(lambda: samplers[n](labels, injected=draws))
+            gap = (images[:per].float() - share[0].float()).abs().max().item()
+            differ = int((tokens[:per] != share[1]).sum())
+            agree = (tokens == full[1]).float().mean().item()
+            log(f"[scale] batch {b} over {n} cards ({per} rows each): split {min(split_s):.3f} s "
+                f"({b / min(split_s):.3f} img/s), whole batch on one card {min(whole_s):.3f} s "
+                f"({b / min(whole_s):.3f} img/s), one card at {per} rows {min(share_s):.3f} s; "
+                f"speed-up {min(whole_s) / min(split_s):.3f} of {n}; first replica against the "
+                f"{per}-row call on {dev}: largest image gap {gap:.3e}, {differ} tokens differ; "
+                f"token agreement with the whole batch {agree:.4f} (no gate) "
+                f"[{device_info['card']}]")
+            if gap != 0.0 or differ:
+                raise AssertionError(f"the first replica differs from the {per}-row call on "
+                                     f"{dev}: gap {gap}, {differ} tokens")
+            if not torch.isfinite(images.float()).all() or images.shape[0] != b:
+                raise AssertionError(f"split images {tuple(images.shape)} not finite")
+            row["splits"].append({"cards": n, "split_s": split_s, "share_s": share_s,
+                                  "speedup": min(whole_s) / min(split_s),
+                                  "whole_token_agreement": agree})
+        out["rows"].append(row)
+        del draws, full
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[scale] phase time {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
-          "eval", "tokenizer_train", "variants", "distributed", "sharded", "split")
+          "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
+          "split_scale")
 
 
 def _args(argv):
@@ -3389,14 +3513,15 @@ def main(argv=None) -> int:
           if "sharded" in run else None)
     sp = (phase_split(torch, device_info, stage2_step_s=tr and tr["median_step_s"])
           if "split" in run else None)
+    sc = phase_split_scale(torch, device_info) if "split_scale" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
                        "train_data": data, "eval": ev, "tokenizer_train": tok,
-                       "variants": var, "distributed": dp, "sharded": sh, "split": sp}, f,
-                      indent=1)
+                       "variants": var, "distributed": dp, "sharded": sh, "split": sp,
+                       "split_scale": sc}, f, indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3438,15 +3563,19 @@ def main(argv=None) -> int:
 
     src = "maskbit_tpu_torch/csrc/dropout_attention.cu"
     pa = "maskbit_tpu/nn/pallas_attention.py"
-    eval_row = kern["rows"][-1]  # the block at the eval shape (200, 257, 1024)
+    shape_row = {tuple(r["shape"][:2]): r for r in kern["rows"]}
+    eval_row = shape_row[(2 * EVAL_BATCH, 257)]  # the block at the eval shape (200, 257, 1024)
+    row_keys = ("shape", "ms", "library_chain_ms", "plain_ms", "bound_ms", "max_abs_err", "plan")
     record = {"kernels": [
         # no one PyTorch call computes the block: library_ms stays null, and
         # library_chain_ms is the chain of library calls
         row("fused_attention_block", "maskbit_tpu_torch/csrc/attention_block.cu", f"{pa}:532",
             sl["launches"], kern["rows"], library_chain_ms=kern["rows"][0]["library_chain_ms"],
             launches_eval=ev["launches"]["attention_block"],
-            eval_shape={k: eval_row[k] for k in ("shape", "ms", "library_chain_ms", "plain_ms",
-                                                 "bound_ms", "max_abs_err", "plan")}),
+            eval_shape={k: eval_row[k] for k in row_keys},
+            # a replica's share of the serve and the eval batch in phase 13
+            split_shapes=[{k: shape_row[(b, 257)][k] for k in row_keys}
+                          for b in (SERVE_BATCH, EVAL_BATCH)]),
         row("dropout_attention_fwd", "maskbit_tpu_torch/csrc/attention_fwd.cuh", f"{pa}:232",
             tr["launches"]["dropout_attention_fwd"],
             drop["dropout_attention_fwd"]),
@@ -3475,7 +3604,7 @@ def main(argv=None) -> int:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
                    "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp,
-                   "sharded": sh, "split": sp}, f, indent=1)
+                   "sharded": sh, "split": sp, "split_scale": sc}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

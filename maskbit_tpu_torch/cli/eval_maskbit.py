@@ -33,12 +33,17 @@ differs from the JAX package's. A config with `parallel.fsdp` or
 generates the same way: data-parallel over every process, each with whole
 weights. JAX's per-host clamp of those axes to its local devices (its
 sharded per-host sampler mesh) has no counterpart: the port's eval splits
-no weights. One process that sees several local devices
-(`sampling.serve.local_devices`: every visible card for an unindexed
-`eval.device=cuda`; under torchrun each process keeps its one card)
-splits each batch over them (`sampling.serve.make_sharded_sampler`),
-with `eval.batch_size` rounded up to a multiple of their number, as JAX
-shards its per-host sampler; the padded rows are dropped as above.
+no weights. With `eval.shard_local_devices=true`, one process that sees
+several local devices (`sampling.serve.local_devices`: every visible card
+for an unindexed `eval.device=cuda`; under torchrun each process keeps its
+one card) splits each batch over them
+(`sampling.serve.make_sharded_sampler`), with `eval.batch_size` rounded up
+to a multiple of their number, as JAX shards its per-host sampler; the
+padded rows are dropped as above. The default is false, unlike JAX's: the
+split's threads make every kernel launch from Python, so on H100s a
+batch of 100 takes 0.53x one card's time over 2 cards but 1.8x over 4
+(PERF.md); one process per card under torchrun is the way to use a host's
+cards.
 """
 
 from __future__ import annotations
@@ -103,7 +108,8 @@ def main(argv=None) -> dict:
 
     tokenizer, generator, sampling_cfg, _, _ = load_generation_models(config, logger, device)
     batch_size = int(config.select("eval.batch_size", 100))
-    devices = [device] if process_count() > 1 else split.local_devices(device)
+    shard = process_count() == 1 and config.select("eval.shard_local_devices", False)
+    devices = split.local_devices(device) if shard else [device]
     if len(devices) > 1:
         # one process over several cards: each batch split over them, the
         # batch rounded up to fill every shard (the pad rows are dropped)

@@ -17,13 +17,16 @@ Counterpart of `maskbit_tpu/cli/serve.py`, on the process's CUDA cards:
     differ from the JAX server's, whose random streams are other ones.
   * `serve.device` (default "cuda") names the device; CUDA requested and
     absent is an error, there is no CPU fallback;
-  * with `serve.shard_local_devices` (default true), more than one local
-    device (`sampling.serve.local_devices`: every visible card for an
-    unindexed "cuda") and a batch that divides over them, each batch is
-    split over them (`sampling.serve.make_sharded_sampler`: a replica and a
-    thread per card), as the JAX server shards over its local chips;
-    otherwise one device runs the whole batch. A seeded request gives the
-    same bytes for a given number of devices.
+  * with `serve.shard_local_devices=true`, more than one local device
+    (`sampling.serve.local_devices`: every visible card for an unindexed
+    "cuda") and a batch that divides over them, each batch is split over
+    them (`sampling.serve.make_sharded_sampler`: a replica and a thread per
+    card), as the JAX server shards over its local chips; otherwise one
+    device runs the whole batch. The default is false, unlike JAX's: every
+    thread makes a whole call's kernel launches from Python, and serving
+    is bound by those launches, so on H100s a split call of 8 images takes
+    3.9x one card's time over 2 cards and 15.6x over 4 (PERF.md). A seeded
+    request gives the same bytes for a given number of devices.
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "warm": true, "batch_size": b}
@@ -94,7 +97,7 @@ class GeneratorService:
         devices = split.local_devices(self.device)
         n_local = len(devices)
         if n_local > 1 and self.batch % n_local == 0 and \
-                config.select("serve.shard_local_devices", True):
+                config.select("serve.shard_local_devices", False):
             # several local cards: split each serving batch over them
             # (weights replicated, a thread and a stream per card)
             self.logger.info(f"sharding serving batch {self.batch} over {n_local} local devices")

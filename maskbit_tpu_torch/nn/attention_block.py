@@ -20,8 +20,7 @@ count in `dropout_attention.launches["fused_attention"]` it adds to), the
 out-projection with the residual (f32) and the LayerNorm. `launches`
 counts the chain's launches (one per call on a CUDA tensor), under a lock:
 the split sampler (`sampling/serve.py`) launches from one thread per
-shard, and `thread_launches()` is the calling thread's own count. The plan
-and SM caches take idempotent writes only, and the library is loaded under
+shard. The plan and SM caches take idempotent writes only, and the library is loaded under
 `cuda_build`'s per-library lock.
 """
 
@@ -36,7 +35,6 @@ from maskbit_tpu_torch.nn import dropout_attention
 
 launches = 0
 _count_lock = threading.Lock()
-_thread = threading.local()
 
 HEAD_DIM = 64  # the attention kernel's head width
 MAX_E = 4096
@@ -111,11 +109,6 @@ def _lib():
     return fn
 
 
-def thread_launches() -> int:
-    """The chain's launches from the calling thread."""
-    return getattr(_thread, "launches", 0)
-
-
 def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None):
     """The chain on CUDA tensors. `tiles`: `plan`'s (rows of a QKV block,
     rows of an out-projection block) to use instead of the plan for this
@@ -167,7 +160,6 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     global launches
     with _count_lock:
         launches += 1
-    _thread.launches = thread_launches() + 1
     dropout_attention.count("fused_attention")
     return out
 

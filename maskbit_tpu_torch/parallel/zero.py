@@ -51,7 +51,6 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from maskbit_tpu_torch.nn.transformer import BertFeedForward, MultiHeadSelfAttention
 from maskbit_tpu_torch.parallel.mesh import (
     BUCKET_BYTES,
     ParamSplit,
@@ -73,10 +72,9 @@ from maskbit_tpu_torch.parallel.mesh import (
 
 _logger = logging.getLogger("maskbit_tpu_torch")
 
-# a layer computes tensor-parallel when this parameter of it is a Megatron split
-_MEGATRON_KEY = ((MultiHeadSelfAttention, "in_proj_weight"), (BertFeedForward, "net.0.weight"))
-# an attention layer's parameters whose tensor split is Megatron's
-_ATTENTION_KEYS = ("in_proj_weight", "in_proj_bias", "out_proj.weight")
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
 
 
 def _without_tensor(split: ParamSplit) -> Optional[ParamSplit]:
@@ -112,10 +110,12 @@ class ShardedParams:
         self.tensor_group = group("tensor")
         if not replicate and shape.tensor > 1:
             self._replicate_undivided_heads(module, shape.tensor)
-        # the layers that compute on this rank's share under tensor
+        # the layers that compute on this rank's share under tensor: those
+        # with a `tensor_group` whose parameters hold a Megatron split
         self._megatron_modules = [
-            m for prefix, m in module.named_modules() for cls, key in _MEGATRON_KEY
-            if isinstance(m, cls) and getattr(self.splits.get(f"{prefix}.{key}"), "megatron", None)]
+            m for prefix, m in module.named_modules() if hasattr(m, "tensor_group") and any(
+                getattr(self.splits.get(_join(prefix, n)), "megatron", False)
+                for n, _ in m.named_parameters())]
         megatron = [n for n, s in self.splits.items() if s.megatron]
         if megatron:
             t = self.mesh.coord("tensor")
@@ -147,14 +147,14 @@ class ShardedParams:
         Both tensor ranks hold the same rows, so its gradients are equal
         there and take no tensor all-reduce."""
         for prefix, m in module.named_modules():
-            if not isinstance(m, MultiHeadSelfAttention) or m.num_heads % tensor == 0:
+            if getattr(m, "num_heads", tensor) % tensor == 0:
                 continue
             _logger.warning(
                 "%s: heads=%d do not divide parallel.tensor=%d — falling back to the "
                 "unpartitioned kernel (the layer is replicated over the tensor axis)",
                 prefix, m.num_heads, tensor)
-            for key in _ATTENTION_KEYS:
-                name = f"{prefix}.{key}"
+            for n, _ in m.named_parameters():
+                name = _join(prefix, n)
                 if name in self.splits and self.splits[name].megatron:
                     split = _without_tensor(self.splits[name])
                     if split is None:

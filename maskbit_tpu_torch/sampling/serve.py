@@ -65,9 +65,7 @@ def make_sharded_sampler(generator_model, tokenizer, cfg: SamplingConfig,
                          devices: Sequence) -> Callable:
     """(images, tokens) = f(labels, generator=None, injected=None), with the
     contract of `sampling.sample.make_sampler`, the batch split over
-    `devices` (see the module docstring); `labels` must divide over them.
-    `f.shard_launches` holds, after each call, the attention block's
-    launches on each shard's thread."""
+    `devices` (see the module docstring); `labels` must divide over them."""
     devices = [_canonical(d) for d in devices]
     if not devices:
         raise ValueError("make_sharded_sampler needs at least one device")
@@ -81,20 +79,18 @@ def make_sharded_sampler(generator_model, tokenizer, cfg: SamplingConfig,
     n = len(devices)
 
     def run_shard(i: int, labels: torch.Tensor, generator, injected, waits, out: list) -> None:
-        from maskbit_tpu_torch.nn import attention_block
-
         dev = devices[i]
-        before = attention_block.thread_launches()
         if dev.type != "cuda":
             out[i] = samplers[dev](labels.to(dev), generator, injected)
         else:
             stream = streams[i]
             with torch.cuda.device(dev), torch.cuda.stream(stream):
-                for w in waits:  # the caller's work on the labels and weights
+                for w in waits:  # the caller's work on the labels, weights and draws
                     stream.wait_stream(w)
+                if injected is not None:  # one copy to the shard's card, not one per step
+                    injected = tuple(x.to(dev) for x in injected)
                 out[i] = samplers[dev](labels.to(dev), generator, injected)
             stream.synchronize()
-        shard_launches[i] = attention_block.thread_launches() - before
 
     def sample(labels: torch.Tensor, generator: Optional[torch.Generator] = None,
                injected: Optional[Tuple] = None):
@@ -144,7 +140,5 @@ def make_sharded_sampler(generator_model, tokenizer, cfg: SamplingConfig,
         tokens = torch.cat([o[1].to(devices[0]) for o in out])
         return images, tokens
 
-    shard_launches = [0] * n
-    sample.shard_launches = shard_launches
     sample.devices = devices
     return sample

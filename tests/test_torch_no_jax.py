@@ -52,7 +52,9 @@ images = service.generate([1, 2, 3], seed=4)
 assert images.shape == (3, 32, 32, 3), images.shape
 from maskbit_tpu_torch.sampling import serve as split
 split.local_devices = lambda device: [torch.device("cpu")] * 2
-service = GeneratorService(load_config(sys.argv[1]))
+from maskbit_tpu_torch.core.config import config_from_cli
+service = GeneratorService(config_from_cli([f"config={sys.argv[1]}",
+                                            "serve.shard_local_devices=true"]))
 assert service._sampler.devices == [torch.device("cpu")] * 2
 assert service.generate([1, 2, 3], seed=4).shape == (3, 32, 32, 3)
 result = train([f"config={sys.argv[1]}"])

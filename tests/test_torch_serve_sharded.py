@@ -13,13 +13,15 @@ the serving and eval CLIs, on the CPU at the tiny sizes of
 * Without injected draws, a seeded split run repeats itself; shard i draws
   from its own generator, so rows differ from the one-device run's.
 * `cli.serve` with `sampling.serve.local_devices` patched to 2 CPU
-  "cards": a batch that divides is split (a seeded /generate returns the
-  same bytes twice, through the split sampler), one that does not keeps
-  one device, as the JAX server does; `serve.shard_local_devices=false`
-  keeps one device too.
-* `cli.eval_maskbit` on 2 and 4 "cards": `eval.batch_size` 7 and 6 are
-  rounded up to 8 and exactly `eval.total_samples` are scored, each label
-  once.
+  "cards" and `serve.shard_local_devices=true`: a batch that divides is
+  split (a seeded /generate returns the same bytes twice, through the
+  split sampler), one that does not keeps one device, as the JAX server
+  does; `serve.shard_local_devices=false`, the port's default, keeps one
+  device too.
+* `cli.eval_maskbit` on 2 and 4 "cards" with `eval.shard_local_devices=true`:
+  `eval.batch_size` 7 and 6 are rounded up to 8 and exactly
+  `eval.total_samples` are scored, each label once; by default it keeps
+  one device and the batch as given.
 """
 
 import io
@@ -156,10 +158,13 @@ def _generate(base, body):
         return r.read()
 
 
-@pytest.mark.parametrize("batch,shard", [(2, {}), (4, {}), (3, {}),
-                                         (2, {"shard_local_devices": False})],
+ON = {"shard_local_devices": True}
+
+
+@pytest.mark.parametrize("batch,shard", [(2, ON), (4, ON), (3, ON),
+                                         (2, {"shard_local_devices": False}), (2, {})],
                          ids=["batch2-split", "batch4-split", "batch3-one-device",
-                              "switched-off"])
+                              "switched-off", "default-one-device"])
 def test_serve_splits_a_dividing_batch_over_local_devices(tmp_path, monkeypatch, batch, shard):
     _cards(monkeypatch)
     made = []
@@ -168,7 +173,7 @@ def test_serve_splits_a_dividing_batch_over_local_devices(tmp_path, monkeypatch,
                         lambda *a, **k: made.append(real(*a, **k)) or made[-1])
     server, service, base = _serve(tmp_path, batch_size=batch, **shard)
     try:
-        splits = batch % 2 == 0 and not shard
+        splits = batch % 2 == 0 and shard.get("shard_local_devices", False)
         assert len(made) == int(splits)
         assert (service._sampler is made[0]) if splits else not made
         first = _generate(base, {"labels": [1, 7, 282], "seed": 5})
@@ -184,22 +189,27 @@ def test_serve_splits_a_dividing_batch_over_local_devices(tmp_path, monkeypatch,
         service.close()
 
 
-@pytest.mark.parametrize("cards,batch", [(2, 7), (4, 6)], ids=["7-over-2", "6-over-4"])
-def test_eval_maskbit_rounds_the_batch_up_over_two_devices(tmp_path, monkeypatch, cards, batch):
+@pytest.mark.parametrize("cards,batch,shard", [(2, 7, True), (4, 6, True), (2, 7, None)],
+                         ids=["7-over-2", "6-over-4", "default-one-device"])
+def test_eval_maskbit_rounds_the_batch_up_over_two_devices(tmp_path, monkeypatch, cards, batch,
+                                                           shard):
     from maskbit_tpu_torch.cli import eval_maskbit as em
 
     _cards(monkeypatch, cards)
-    batches = []
-    real = split.make_sharded_sampler
+    batches, made = [], []
 
-    def recording(*args, **kwargs):
-        sampler = real(*args, **kwargs)
+    def recording(make):
+        def build(*args, **kwargs):
+            sampler = make(*args, **kwargs)
+            made.append(make)
 
-        def run(labels, rng):
-            batches.append(labels.clone())
-            return sampler(labels, rng)
+            def run(labels, rng):
+                batches.append(labels.clone())
+                return sampler(labels, rng)
 
-        return run
+            return run
+
+        return build
 
     def stub_inception(images_255):
         x = images_255.double().reshape(images_255.shape[0], -1) / 255.0
@@ -208,17 +218,26 @@ def test_eval_maskbit_rounds_the_batch_up_over_two_devices(tmp_path, monkeypatch
         y = x @ w
         return {"2048": torch.tanh(y[:, :2048]), "logits_unbiased": y[:, 2048:]}
 
-    monkeypatch.setattr(split, "make_sharded_sampler", recording)
+    sharded, one = split.make_sharded_sampler, em.make_sampler
+    monkeypatch.setattr(split, "make_sharded_sampler", recording(sharded))
+    monkeypatch.setattr(em, "make_sampler", recording(one))
     monkeypatch.setattr(em, "make_inception_fn", lambda device: stub_inception)
     cfg = {"experiment": {"name": "split_eval", "vqgan_checkpoint": "",
                           "generator_checkpoint": "", "output_dir": str(tmp_path / "out")},
            "model": {"vq_model": TINY_VQ, "mlm_model": dict(TINY_MLM, attention_impl="fused")},
            "dataset": DATASET, "training": {"mixed_precision": "no", "seed": 0},
            "eval": {"device": "cpu", "total_samples": 10, "batch_size": batch}}
+    if shard is not None:
+        cfg["eval"]["shard_local_devices"] = shard
     path = tmp_path / "eval.yaml"
     path.write_text(yaml.safe_dump(cfg))
     result = em.main([f"config={path}"])
-    assert [len(b) for b in batches] == [8, 8]  # rounded up to 8 to fill every shard
+    if shard:
+        assert made == [sharded]
+        assert [len(b) for b in batches] == [8, 8]  # rounded up to 8 to fill every shard
+    else:  # one device, the batch as given
+        assert made == [one]
+        assert [len(b) for b in batches] == [batch, batch]
     assert result["count"] == 10 and result["accumulator"].count == 10
     labels = em.class_balanced_labels(10, 0)
     np.testing.assert_array_equal(torch.cat(batches)[:10].numpy(), labels)

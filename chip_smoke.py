@@ -191,25 +191,28 @@ Phases, each of which fails the run if it fails:
      on every layer), the layers tensor-parallel again afterwards. The
      kernels line gains `launches_sharded_per_rank`. Its files (about 5 GB)
      live under build/chip_smoke_sharded/ and are deleted.
- 13. split (`--phases split`): one batch split over a process's devices
-     (`sampling/serve.py`), over two entries that name the one card, and
-     the native JPEG decoder:
-     a. `make_sharded_sampler` on [cuda:0, cuda:0] (one shared replica,
-        two threads, a stream each) with the flagship at full width
-        (depth 24, hidden 1024, 64 steps, bf16, random weights) at serve
-        batch 8 with injected draws: equal bit for bit to two one-device
-        calls at batch 4 on the same rows (else the largest gap and the
-        tokens that differ, and a failure); beside the whole batch's call,
-        the token agreement and the largest image gap (no gate: other GEMM
-        shapes); the split's and the whole call's wall times; the attention
-        block's launches per replica, depth x steps each;
+ 13. split (`--phases split`): one batch split over a host's devices
+     (`sampling/serve.py`, a worker process per entry), over two entries
+     that name the one card, and the native JPEG decoder:
+     a. `make_sharded_sampler` on [cuda:0, cuda:0] (two worker processes,
+        each with its own replica) with the flagship at full width (depth
+        24, hidden 1024, 64 steps, bf16, random weights) at serve batch 8
+        with injected draws: each replica's weights equal this process's
+        bit for bit; the split equal bit for bit to two one-device calls at
+        batch 4 on the same rows (else the largest gap and the tokens that
+        differ, and a failure); beside the whole batch's call, the token
+        agreement and the largest image gap (no gate: other GEMM shapes);
+        the split's and the whole call's wall times; the workers' start-up;
+        the kernels' launches counted in each worker, depth x steps each;
+        no worker left once it is closed;
      b. `cli.serve` with `local_devices` patched to those two entries and
         `serve.shard_local_devices=true`: a seeded 8-label request twice,
-        the same bytes, through the split;
+        the same bytes, through the split, its workers' launches, and no
+        worker left after the server's shutdown;
      c. `cli.eval_maskbit` in this process over the two entries
         (`eval.shard_local_devices=true`), 200
         samples at batch 100 (random Inception weights): 200 scored, and
-        2 x depth x steps x 2 batches block launches;
+        depth x steps x 2 batches block launches in each worker;
      d. when g++ finds `jpeglib.h`: the native decoder built, 256 synthetic
         500 x 375 JPEGs written with `data/shard_writer`, img/s of the
         `thread` (PIL) and `native` backends at batch 32 with 1 and 8
@@ -217,14 +220,44 @@ Phases, each of which fails the run if it fails:
         6's Stage-II step when it ran; native against PIL within JAX's
         tolerances (per image mean gap under 0.01, 0.012 bicubic), labels
         and order equal. Without the header: one line, and the run goes on.
-     The kernels line gains `launches_split_per_replica`.
+     The kernels line gains `launches_split_per_replica` (per worker).
  14. split_scale (`--phases split_scale`, on a host with several cards):
      the flagship's sampler at the serve batch 8 and the eval batch 100
      split over 2, 4, ... distinct cards (`make_sharded_sampler` over
-     cuda:0..n-1), the wall time of a call beside the whole batch's on
-     cuda:0 and one call on cuda:0 at a replica's rows (injected draws);
-     the first replica bit for bit against that call. With one card (the
-     default run) it prints that it was not timed.
+     cuda:0..n-1, a worker process a card), the wall time of a call beside
+     the whole batch's on cuda:0 and one call on cuda:0 at a replica's rows
+     (injected draws); the first replica bit for bit against that call;
+     the workers' start-up and launches. With one card (the default run)
+     it prints that it was not timed. The kernels line gains
+     `launches_split_scale_per_worker` (null with one card).
+ 15. multicard (`--phases multicard`, on a host with four cards): one
+     rank a card, NCCL between them (`MC_SIZES`); the ranks are this script
+     in `--worker` mode, as phase 11's, and every launch has a deadline
+     after which, or after one rank fails, every rank is killed:
+     a. `cli.train_maskbit` at data=4, the flagship at full width and depth
+        from random token shards, batch 32 a rank: SIGTERM to rank 3 once
+        step 4 is logged, every rank stops on step 8 with its save the
+        newest committed; four ranks resume for one step. Per rank the
+        backend, the step and the gradient all-reduce's seconds, peak
+        memory and the dropout kernels' launches;
+     c. four ranks at data=4: one step at depth 24 with injected global
+        draws, 16 rows a rank, against one process at batch 64 (this
+        process, meanwhile; `DP_GRAD_TOL`); the 14-bit tokenizer at batch
+        16 a rank across `discriminator_start=2` (every rank's state equal
+        after every step); `cli.eval_maskbit` on 1000 samples at batch 100
+        over the four ranks: the merged moments and Inception Score against
+        one accumulator fed every rank's features and logits at their
+        global indices, img/s, and the block's launches per rank;
+     b. fsdp=2 x tensor=2 on the four ranks, depth 24, 16 rows a batch
+        shard (8 heads a rank): the first update against one process at
+        batch 32 (`DP_GRAD_TOL`), the all-gather, reduce-scatter and
+        all-reduces of steps 2 to 6 timed apart, those of steps 3 and 5
+        with half types left in half precision (the staging's cost); per rank
+        train-state bytes and peak memory beside c's data=4; 2 labels
+        sampled with the whole EMA weights through the attention block.
+     Each part runs even when another failed; every rank must report NCCL.
+     With fewer than four cards it prints that it was not run. The
+     kernels line gains `launches_multicard_per_rank` (null then).
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -765,7 +798,8 @@ def phase_slice(torch, device_info) -> dict:
     mlm = _flagship()["mlm_model"]
     depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
     argv = [f"config={CONFIG}", f"serve.batch_size={SERVE_BATCH}", "serve.port=0",
-            "serve.device=cuda", "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
+            "serve.device=cuda", "serve.shard_local_devices=false",  # one card on any host
+            "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
     ab.launches = 0
     for key in da.launches:
         da.launches[key] = 0
@@ -1353,7 +1387,7 @@ def phase_eval(torch, device_info, device="cuda") -> dict:
         depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
         argv = [f"config={CONFIG}", f"eval.total_samples={EVAL_SAMPLES}",
                 f"eval.batch_size={EVAL_BATCH}", f"eval.stats_path={stats}",
-                f"eval.device={device}",
+                f"eval.device={device}", "eval.shard_local_devices=false",  # one card
                 "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
                 f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"]
         for key in da.launches:
@@ -1894,8 +1928,8 @@ def _serve_12bit(torch, device_info, model_cls: str) -> dict:
     depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
     argv = [f"config={BERT_CONFIG}", f"model.mlm_model.model_cls={model_cls}",
             f"serve.batch_size={SERVE_BATCH}",
-            "serve.port=0", "serve.device=cuda", "experiment.vqgan_checkpoint=",
-            "experiment.generator_checkpoint="]
+            "serve.port=0", "serve.device=cuda", "serve.shard_local_devices=false",
+            "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
     ab.launches = 0
     for key in da.launches:
         da.launches[key] = 0
@@ -2176,14 +2210,18 @@ def _spawn_ranks(spec: dict, world: int, env: dict = None) -> list:
 
 
 def _wait_ranks(procs: list, tag: str, timeout: float) -> None:
-    """Every rank exits 0 within `timeout` seconds; otherwise every rank is
-    killed and the run fails with the end of the first failing log."""
+    """Every rank exits 0 within `timeout` seconds; otherwise, as soon as
+    one rank fails or the time is up, every rank is killed (the others
+    would wait in a collective until NCCL's own timeout) and the run fails
+    with the end of the first failing log."""
     deadline = time.time() + timeout
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.time()))
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"[distributed] {tag}: ranks still running after {timeout} s")
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"[distributed] {tag}: ranks still running after {timeout} s")
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2210,8 +2248,9 @@ def _rank_write(spec: dict, rank: int, result: dict) -> None:
 
 
 def _sync(torch, device) -> float:
+    """The host clock once `device`'s work, NCCL's streams included, is done."""
     if str(device).startswith("cuda"):
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
     return time.perf_counter()
 
 
@@ -2254,11 +2293,14 @@ def _rank_train_cli(torch, spec) -> None:
         da.launches[key] = 0
     result = train_maskbit.main(spec["argv"])
     hist = result["history"]
+    cuda = spec["device"] == "cuda"
     _rank_write(spec, process_index(), {
         "world": process_count(), "backend": dist.get_backend(), "steps": result["steps"],
         "resumed_from": result["resumed_from"], "launches": dict(da.launches),
         "losses": [h["mlm_loss"] for h in hist], "step_s": [h["perf/step_seconds"] for h in hist],
-        "all_reduce_s": reduce_s, "save_s": result["save_seconds"]})
+        "all_reduce_s": reduce_s, "save_s": result["save_seconds"],
+        "card": torch.cuda.current_device() if cuda else None,
+        "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None})
 
 
 def _grad_step_inputs(torch, spec):
@@ -2444,7 +2486,7 @@ def _rank_combined(torch, spec) -> None:
         torch.cuda.empty_cache()
 
     # e. eval_maskbit, its samples split over the ranks
-    feats = []
+    feats, logits = [], []
     real_make = eval_maskbit.make_inception_fn
 
     def make_inception_fn(dev):
@@ -2453,6 +2495,7 @@ def _rank_combined(torch, spec) -> None:
         def recording(images):
             result = fn(images)
             feats.append(result["2048"].double().cpu())
+            logits.append(result["logits_unbiased"].double().cpu())
             return result
 
         return recording
@@ -2470,10 +2513,32 @@ def _rank_combined(torch, spec) -> None:
     out["eval_local_samples"] = gen["local_samples"]
     acc = gen["accumulator"]
     torch.save({"features": torch.cat(feats)[:gen["local_samples"]].numpy(),
+                "logits": torch.cat(logits)[:gen["local_samples"]].numpy(),
                 "act_sum": acc.act_sum, "act_outer": acc.act_outer,
                 "results": gen["results"]},
                os.path.join(spec["work"], f"dp_eval_rank{rank}.pt"))
+    out["backend"] = torch.distributed.get_backend()
     _rank_write(spec, rank, out)
+
+
+def _rank_handshake(torch, spec) -> None:
+    """Join the group and time `all_reduce_mean_` of one full gradient bucket
+    (`parallel/mesh.BUCKET_BYTES` of float32) a few times: phase 15's first
+    launch, short, so that a group that cannot form fails the phase early."""
+    import torch.distributed as dist
+
+    from maskbit_tpu_torch.parallel import mesh as pm
+
+    device = pm.maybe_init_distributed(torch.device(spec["device"]))
+    bucket = torch.ones(pm.BUCKET_BYTES // 4, device=device)
+    seconds = []
+    for _ in range(6):
+        t0 = _sync(torch, device)
+        pm.all_reduce_mean_([bucket])
+        seconds.append(_sync(torch, device) - t0)
+    _rank_write(spec, pm.process_index(), {
+        "backend": dist.get_backend(), "card": str(device), "bucket_s": seconds,
+        "mean_ok": bool((bucket == 1).all())})
 
 
 def _rank_main(spec: dict) -> int:
@@ -2483,8 +2548,8 @@ def _rank_main(spec: dict) -> int:
 
     if spec["device"] == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    {"train_cli": _rank_train_cli, "combined": _rank_combined,
-     "sharded": _rank_sharded}[spec["task"]](torch, spec)
+    {"train_cli": _rank_train_cli, "combined": _rank_combined, "sharded": _rank_sharded,
+     "handshake": _rank_handshake}[spec["task"]](torch, spec)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return 0
@@ -2526,16 +2591,202 @@ def _check_grads(torch, ranks_file: str, grads_1, params_0, params_1) -> dict:
             "update_rel_l2": (up_diff / up_ref) ** 0.5, "update_same_sign": same_sign / total}
 
 
+def _token_shards(work: str, gen_config: str, n: int) -> str:
+    """`n` random samples of the generator's tokens in shards of 256; their
+    pattern."""
+    import numpy as np
+
+    from maskbit_tpu_torch.data.token_shards import TokenShardWriter
+
+    mlm, vq = (_model_node(gen_config)[k] for k in ("mlm_model", "vq_model"))
+    seq = (int(mlm.get("img_size", 256)) // int(mlm.get("input_stride", 16))) ** 2
+    rng = np.random.default_rng(0)
+    writer = TokenShardWriter(os.path.join(work, "tokens", "train-%04d.npz"), maxcount=256)
+    writer.write_batch(rng.integers(0, vq["codebook_size"], size=(n, seq)),
+                       rng.integers(0, 1000, size=(n,)))
+    writer.close()
+    return os.path.join(work, "tokens", "*.npz")
+
+
+def _stop_and_resume(base: dict, common: list, world: int, batch: int, depth: int,
+                     out_dir: str, timeout: float, cuda: bool, card: str, tag: str,
+                     label: str) -> dict:
+    """`world` ranks of `cli.train_maskbit` at `batch` a rank and `depth`;
+    SIGTERM to the last rank once step SAVE_EVERY + 1 is logged: every rank
+    stops on the same step, a multiple of DP_CHECK_EVERY, whose save is the
+    newest committed step; then `world` ranks resume from it for one step.
+    Per rank the dropout kernels' launches (depth x steps each)."""
+    argv = common + [f"training.per_device_batch_size={batch}", f"model.mlm_model.depth={depth}",
+                     f"experiment.save_every={SAVE_EVERY}", f"experiment.output_dir={out_dir}"]
+    procs = _spawn_ranks(dict(base, task="train_cli", tag=f"{tag}_stop",
+                              argv=argv + ["training.max_train_steps=100000"]), world)
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    try:
+        deadline = time.time() + timeout
+        while len(_logged_steps(metrics)) < SAVE_EVERY + 1:
+            if any(p.poll() is not None for p in procs) or time.time() > deadline:
+                break  # _wait_ranks reports it
+            time.sleep(0.2)
+        procs[-1].send_signal(signal.SIGTERM)
+        t_signal = _logged_steps(metrics)
+    finally:
+        _wait_ranks(procs, f"{tag}_stop", timeout)
+    first = _rank_results(base["work"], f"{tag}_stop", world)
+    stopped = first[0]["steps"]
+    committed = sorted(int(n) for n in os.listdir(os.path.join(out_dir, "checkpoints"))
+                       if n.isdigit())
+    for r in first:
+        log(f"[{label}] rank of {r['world']} ({r['backend']}, card {r['card']}): stopped at step "
+            f"{r['steps']} (SIGTERM to rank {world - 1} after step "
+            f"{t_signal[-1] if t_signal else None}); launches {r['launches']}; median step "
+            f"{statistics.median(r['step_s'][1:]):.3f} s; gradient all-reduce median "
+            f"{statistics.median(r['all_reduce_s'][1:]):.3f} s of {len(r['all_reduce_s'])}; "
+            f"peak {r['peak_bytes']} B; saves in the loop "
+            f"{', '.join(f'{x:.2f}' for x in r['save_s'])} s [{card}]")
+    if [r["steps"] for r in first] != [stopped] * world or stopped % DP_CHECK_EVERY:
+        raise AssertionError(f"the ranks stopped at {[r['steps'] for r in first]}")
+    if committed[-1] != stopped or not os.path.exists(os.path.join(out_dir,
+                                                                   f"model-{stopped}.bin")):
+        raise AssertionError(f"committed steps {committed}, stopped at {stopped}")
+    for r in first:
+        want = depth * stopped
+        if cuda and (r["launches"]["dropout_attention_fwd"] != want
+                     or r["launches"]["dropout_attention_bwd"] != want):
+            raise AssertionError(f"launches {r['launches']}, expected {want} of each")
+    procs = _spawn_ranks(dict(base, task="train_cli", tag=f"{tag}_resume",
+                              argv=argv + [f"training.max_train_steps={stopped + 1}"]), world)
+    _wait_ranks(procs, f"{tag}_resume", timeout)
+    second = _rank_results(base["work"], f"{tag}_resume", world)
+    log(f"[{label}] resume: {[(r['resumed_from'], r['steps']) for r in second]} "
+        f"(resumed from, steps); losses {[r['losses'] for r in second]}")
+    if any((r["resumed_from"], r["steps"]) != (stopped, stopped + 1) for r in second):
+        raise AssertionError(f"resume: {second}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"stopped": stopped, "committed": committed, "ranks": first, "resume": second}
+
+
+def _combined_spec(base: dict, work: str, gen_config: str, tok_config: str, device: str,
+                   s: dict, world: int) -> dict:
+    """The spec of `_rank_combined`'s ranks: the gradient check at
+    `s["batch"]` a rank, Stage I at `s["tok_batch"]` across
+    `s["tok_gate"]`, `eval_maskbit` on `s["eval_samples"]` at
+    `s["eval_batch"]`."""
+    return dict(base, task="combined", tag="combined", gen_config=gen_config,
+                grad_depth=s["grad_depth"], global_batch=world * s["batch"],
+                tok_batch=s["tok_batch"], tok_res=int(s.get("tok_res", 256)),
+                tok_steps=s["tok_steps"],
+                tok_argv=[f"config={tok_config}", f"training.device={device}",
+                          f"training.per_device_batch_size={s['tok_batch']}",
+                          f"losses.discriminator_start={s['tok_gate']}",
+                          f"training.max_train_steps={s['tok_steps']}",
+                          f"experiment.output_dir={os.path.join(work, 'dp_tok')}"],
+                eval_argv=[f"config={gen_config}", f"eval.device={device}",
+                           f"eval.total_samples={s['eval_samples']}",
+                           f"eval.batch_size={s['eval_batch']}", "eval.stats_path=",
+                           "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
+                           f"experiment.output_dir={os.path.join(work, 'dp_eval')}"])
+
+
+def _reference_step(torch, spec: dict, cuda: bool) -> tuple:
+    """One process's step at the global batch (`_grad_step`): (parameters
+    before, reduced gradients, parameters after, metrics)."""
+    model, vq_node, data = _grad_step_inputs(torch, spec)
+    params_0 = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+    grads_1, reduce_1 = [], []
+    params_1, metrics_1 = _grad_step(torch, spec, model, vq_node, data, grads_1, reduce_1)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return params_0, grads_1, params_1, metrics_1
+
+
+def _check_combined(torch, spec: dict, s: dict, world: int, reference: tuple, cuda: bool,
+                    card: str, tag: str) -> dict:
+    """`_rank_combined`'s results against one process: b, the reduced
+    gradients and updates (`DP_GRAD_TOL`); d, every rank's Stage-I state
+    equal after every step; e, the merged eval moments against one
+    accumulator fed every rank's features and logits at their global
+    indices (float64; the Inception Score too), and the block's launches
+    per rank."""
+    import numpy as np
+
+    from maskbit_tpu_torch.eval.adm import AdmMomentAccumulator
+
+    work = spec["work"]
+    ranks = _rank_results(work, "combined", world)
+    params_0, grads_1, params_1, metrics_1 = reference
+    out = {"ranks": ranks}
+    # b. the reduced gradients against one process
+    gap = _check_grads(torch, os.path.join(work, "dp_grads.pt"), grads_1, params_0, params_1)
+    tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
+    log(f"[{tag}] b. one step, depth {s['grad_depth']}, {world} ranks x batch {s['batch']} vs 1 "
+        f"process x batch {world * s['batch']} ({'bf16' if cuda else 'float32'}): reduced "
+        f"gradients relative L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst "
+        f"tensor {gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
+        f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol "
+        f">= {tol['update_same_sign']}); ranks equal {[r['grad_ranks_agree'] for r in ranks]}; "
+        f"loss per rank {[r['grad_loss'] for r in ranks]} vs {float(metrics_1['mlm_loss'])}; "
+        f"all-reduce {[r['grad_all_reduce_s'] for r in ranks]} s; step "
+        f"{[round(r['grad_step_s'], 3) for r in ranks]} s; train-state bytes per rank "
+        f"{[r['state_bytes'] for r in ranks]}, peak {[r['peak_bytes'] for r in ranks]}; backend "
+        f"{[r['backend'] for r in ranks]} [{card}]")
+    if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
+            or gap["update_same_sign"] < tol["update_same_sign"]
+            or not all(r["grad_ranks_agree"] for r in ranks)):
+        raise AssertionError(f"reduced gradients disagree: {gap}")
+    out["grads"] = dict(gap, tol=tol, depth=s["grad_depth"])
+
+    # d. Stage I: every rank's state equal after every step
+    for r in ranks:
+        tok = r["tokenizer"]
+        log(f"[{tag}] d. Stage I, rank: ranks equal after each step {tok['agree']}; "
+            f"LeCam {tok['lecam']}; total loss {tok['total_loss']}; discriminator factor "
+            f"{tok['d_factor']}; step s {[round(x, 3) for x in tok['step_s']]} [{card}]")
+        if not all(tok["agree"]) or tok["d_factor"] != [0.0] * s["tok_gate"] + [1.0] * (
+                s["tok_steps"] - s["tok_gate"]) or not np.isfinite(tok["total_loss"]).all():
+            raise AssertionError(f"Stage I across ranks: {tok}")
+    out["tokenizer"] = [r["tokenizer"] for r in ranks]
+
+    # e. eval_maskbit: the merged moments against one accumulator of every sample
+    evals = [torch.load(os.path.join(work, f"dp_eval_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    one = AdmMomentAccumulator(total_samples=s["eval_samples"])
+    for r, e in enumerate(evals):  # rank r's sample j is global sample j * world + r
+        one.update(e["features"], e["logits"], np.arange(len(e["features"])) * world + r)
+    eval_gap = max(float(np.abs(e[k] - getattr(one, k)).max() / np.abs(getattr(one, k)).max())
+                   for e in evals for k in ("act_sum", "act_outer"))
+    is_merged, is_one = evals[0]["results"]["InceptionScore"], one.inception_score()
+    per_rank = -(-s["eval_samples"] // world)
+    batches = -(-per_rank // s["eval_batch"])
+    mlm = _model_node(spec["gen_config"])["mlm_model"]
+    want = int(mlm["depth"]) * int(mlm["num_steps"]) * batches
+    wall = max(r["eval_s"] for r in ranks)
+    for r in ranks:
+        log(f"[{tag}] e. eval_maskbit rank: {r['eval_local_samples']} of {r['eval_count']} "
+            f"samples, launches {r['eval_launches']} (expected {want} each); {r['eval_s']:.1f} s "
+            f"[{card}]")
+    log(f"[{tag}] e. merged moments vs one accumulator of the {one.count} samples: max relative "
+        f"gap {eval_gap:.3e} (tol 1e-12); IS merged {is_merged!r}, one {is_one!r}; "
+        f"{s['eval_samples']} samples in {wall:.1f} s = {s['eval_samples'] / wall:.3f} img/s "
+        f"over {world} processes [{card}]")
+    if (eval_gap > 1e-12 or abs(is_merged - is_one) > 1e-9 * abs(is_one)
+            or any(r["eval_count"] != s["eval_samples"] for r in ranks)
+            or one.count != s["eval_samples"]
+            or (cuda and any(v != want for r in ranks for v in r["eval_launches"].values()))):
+        raise AssertionError(f"the sharded eval: gap {eval_gap}, IS {is_merged} vs {is_one}, "
+                             f"{ranks}")
+    out.update(eval_gap=eval_gap, eval_is=[is_merged, is_one], eval_wall_s=wall,
+               eval_img_s=s["eval_samples"] / wall)
+    return out
+
+
 def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
                       tok_config=TOKENIZER_CONFIGS[0], sizes=None) -> dict:
     """Data-parallel runs across processes (phase 11): two ranks share the
     card (gloo over CUDA tensors; NCCL refuses two ranks on one device).
     device="cpu" with tiny configs and `sizes` rehearses the phase (launches
     are then not checked)."""
-    import numpy as np
-
     import maskbit_tpu_torch
-    from maskbit_tpu_torch.data.token_shards import TokenShardWriter
     from maskbit_tpu_torch.eval import inception as inc
 
     s = dict(DP_SIZES, **(sizes or {}))
@@ -2548,72 +2799,16 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
         torch.cuda.empty_cache()
     tree = os.path.dirname(os.path.dirname(os.path.abspath(maskbit_tpu_torch.__file__)))
     base = {"tree": tree, "device": device, "work": work}
-    model_cfg = _model_node(gen_config)
-    mlm, vq = model_cfg["mlm_model"], model_cfg["vq_model"]
-    depth, sampling_steps = int(mlm["depth"]), int(mlm["num_steps"])
-    seq = (int(mlm.get("img_size", 256)) // int(mlm.get("input_stride", 16))) ** 2
-    rng = np.random.default_rng(0)
-    writer = TokenShardWriter(os.path.join(work, "tokens", "train-%04d.npz"), maxcount=256)
-    writer.write_batch(rng.integers(0, vq["codebook_size"], size=(512, seq)),
-                       rng.integers(0, 1000, size=(512,)))
-    writer.close()
     common = [f"config={gen_config}", f"training.device={device}",
-              f"dataset.params.token_shards_path_or_url={os.path.join(work, 'tokens', '*.npz')}",
+              f"dataset.params.token_shards_path_or_url={_token_shards(work, gen_config, 512)}",
               "experiment.vqgan_checkpoint=", "experiment.log_every=1",
               "experiment.generate_every=100000", "experiment.eval_every=100000"]
     out = {}
     try:
         # a. two ranks of train_maskbit; SIGTERM to rank 1; a resume
-        out_a = os.path.join(work, "dp_train")
-        argv = common + [f"training.per_device_batch_size={s['batch']}",
-                         f"model.mlm_model.depth={s['stop_depth']}",
-                         "training.max_train_steps=100000", f"experiment.save_every={SAVE_EVERY}",
-                         f"experiment.output_dir={out_a}"]
-        procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_stop", argv=argv), 2)
-        try:
-            deadline = time.time() + s["timeout"]
-            while len(_logged_steps(os.path.join(out_a, "metrics.jsonl"))) < SAVE_EVERY + 1:
-                if any(p.poll() is not None for p in procs) or time.time() > deadline:
-                    break  # _wait_ranks reports it
-                time.sleep(0.2)
-            procs[1].send_signal(signal.SIGTERM)
-            t_signal = _logged_steps(os.path.join(out_a, "metrics.jsonl"))
-        finally:
-            _wait_ranks(procs, "stage2_stop", s["timeout"])
-        first = _rank_results(work, "stage2_stop", 2)
-        stopped = first[0]["steps"]
-        ckpt_dir = os.path.join(out_a, "checkpoints")
-        committed = sorted(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
-        for r in first:
-            log(f"[distributed] a. rank of {r['world']} ({r['backend']}): stopped at step "
-                f"{r['steps']} (SIGTERM to rank 1 after step {t_signal[-1] if t_signal else None}"
-                f"); launches {r['launches']}; median step {statistics.median(r['step_s'][1:]):.3f}"
-                f" s; gradient all-reduce median {statistics.median(r['all_reduce_s'][1:]):.3f} s "
-                f"of {len(r['all_reduce_s'])}; saves in the loop "
-                f"{', '.join(f'{x:.2f}' for x in r['save_s'])} s [{device_info['card']}]")
-        if [r["steps"] for r in first] != [stopped] * 2 or stopped % DP_CHECK_EVERY:
-            raise AssertionError(f"the ranks stopped at {[r['steps'] for r in first]}")
-        if committed[-1] != stopped or not os.path.exists(os.path.join(out_a, f"model-{stopped}.bin")):
-            raise AssertionError(f"committed steps {committed}, stopped at {stopped}")
-        for r in first:
-            want = s["stop_depth"] * stopped
-            if cuda and (r["launches"]["dropout_attention_fwd"] != want
-                         or r["launches"]["dropout_attention_bwd"] != want):
-                raise AssertionError(f"launches {r['launches']}, expected {want} of each")
-        argv = common + [f"training.per_device_batch_size={s['batch']}",
-                         f"model.mlm_model.depth={s['stop_depth']}",
-                         f"training.max_train_steps={stopped + 1}",
-                         f"experiment.save_every={SAVE_EVERY}", f"experiment.output_dir={out_a}"]
-        procs = _spawn_ranks(dict(base, task="train_cli", tag="stage2_resume", argv=argv), 2)
-        _wait_ranks(procs, "stage2_resume", s["timeout"])
-        second = _rank_results(work, "stage2_resume", 2)
-        log(f"[distributed] a. resume: {[(r['resumed_from'], r['steps']) for r in second]} "
-            f"(resumed from, steps); losses {[r['losses'] for r in second]}")
-        if any((r["resumed_from"], r["steps"]) != (stopped, stopped + 1) for r in second):
-            raise AssertionError(f"resume: {second}")
-        out["stage2"] = {"stopped": stopped, "committed": committed, "ranks": first,
-                         "resume": second}
-        shutil.rmtree(out_a, ignore_errors=True)
+        out["stage2"] = _stop_and_resume(base, common, 2, s["batch"], s["stop_depth"],
+                                         os.path.join(work, "dp_train"), s["timeout"], cuda,
+                                         device_info["card"], "stage2", "distributed a.")
 
         # c. one NCCL rank, and b, d, e in a second pair of ranks, at once
         weights = os.path.join(work, "pt_inception.pth")
@@ -2625,31 +2820,11 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
             f"model.mlm_model.depth={s['nccl_depth']}", f"training.per_device_batch_size={s['batch']}",
             f"training.max_train_steps={s['nccl_steps']}", f"experiment.output_dir={out_c}"]),
             1, env={"MASKBIT_DISTRIBUTED": "1"})
-        tok_res = int(s.get("tok_res", 256))
-        spec = dict(base, task="combined", tag="combined", gen_config=gen_config,
-                    grad_depth=s["grad_depth"], global_batch=2 * s["batch"],
-                    tok_batch=s["tok_batch"], tok_res=tok_res, tok_steps=s["tok_steps"],
-                    tok_argv=[f"config={tok_config}", f"training.device={device}",
-                              f"training.per_device_batch_size={s['tok_batch']}",
-                              f"losses.discriminator_start={s['tok_gate']}",
-                              f"training.max_train_steps={s['tok_steps']}",
-                              f"experiment.output_dir={os.path.join(work, 'dp_tok')}"],
-                    eval_argv=[f"config={gen_config}", f"eval.device={device}",
-                               f"eval.total_samples={s['eval_samples']}",
-                               f"eval.batch_size={s['eval_batch']}", "eval.stats_path=",
-                               "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
-                               f"experiment.output_dir={os.path.join(work, 'dp_eval')}"])
+        spec = _combined_spec(base, work, gen_config, tok_config, device, s, 2)
         combined = _spawn_ranks(spec, 2, env={"MASKBIT_INCEPTION_WEIGHTS": weights,
                                              "MASKBIT_ADM_PB": "", "MASKBIT_RESNET50_WEIGHTS": resnet})
         try:
-            # b's one-process reference at the global batch, here, meanwhile
-            model, vq_node, data = _grad_step_inputs(torch, dict(spec, global_batch=2 * s["batch"]))
-            params_0 = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
-            grads_1, reduce_1 = [], []
-            params_1, metrics_1 = _grad_step(torch, spec, model, vq_node, data, grads_1, reduce_1)
-            del model
-            if cuda:
-                torch.cuda.empty_cache()
+            reference = _reference_step(torch, spec, cuda)  # b's one process, meanwhile
         finally:
             _wait_ranks(nccl, "nccl", s["timeout"])
             _wait_ranks(combined, "combined", s["timeout"])
@@ -2663,61 +2838,9 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
         if cuda and nccl_result["launches"]["dropout_attention_fwd"] != s["nccl_depth"] * s[
                 "nccl_steps"]:
             raise AssertionError(f"the NCCL rank's launches {nccl_result['launches']}")
-        ranks = _rank_results(work, "combined", 2)
-
-        # b. the reduced gradients against one process
-        gap = _check_grads(torch, os.path.join(work, "dp_grads.pt"), grads_1, params_0, params_1)
-        tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
-        log(f"[distributed] b. one step, depth {s['grad_depth']}, 2 ranks x batch {s['batch']} vs 1 "
-            f"process x batch {2 * s['batch']} ({'bf16' if cuda else 'float32'}): reduced "
-            f"gradients relative L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst "
-            f"tensor {gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
-            f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol "
-            f">= {tol['update_same_sign']}); ranks equal {[r['grad_ranks_agree'] for r in ranks]}; "
-            f"loss per rank {[r['grad_loss'] for r in ranks]} vs {float(metrics_1['mlm_loss'])}; "
-            f"all-reduce {[r['grad_all_reduce_s'] for r in ranks]} s; step "
-            f"{[round(r['grad_step_s'], 3) for r in ranks]} s; train-state bytes per rank "
-            f"{[r['state_bytes'] for r in ranks]}, peak {[r['peak_bytes'] for r in ranks]} "
-            f"[{device_info['card']}]")
-        if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
-                or gap["update_same_sign"] < tol["update_same_sign"]
-                or not all(r["grad_ranks_agree"] for r in ranks)):
-            raise AssertionError(f"reduced gradients disagree: {gap}")
-        out["grads"] = dict(gap, tol=tol, depth=s["grad_depth"])
-
-        # d. Stage I: every rank's state equal after every step
-        for r in ranks:
-            tok = r["tokenizer"]
-            log(f"[distributed] d. Stage I, rank: ranks equal after each step {tok['agree']}; "
-                f"LeCam {tok['lecam']}; total loss {tok['total_loss']}; discriminator factor "
-                f"{tok['d_factor']}; step s {[round(x, 3) for x in tok['step_s']]} "
-                f"[{device_info['card']}]")
-            if not all(tok["agree"]) or tok["d_factor"] != [0.0] * s["tok_gate"] + [1.0] * (
-                    s["tok_steps"] - s["tok_gate"]) or not np.isfinite(tok["total_loss"]).all():
-                raise AssertionError(f"Stage I across ranks: {tok}")
-        out["tokenizer"] = [r["tokenizer"] for r in ranks]
-
-        # e. eval_maskbit: merged moments against the concatenated features
-        evals = [torch.load(os.path.join(work, f"dp_eval_rank{r}.pt"), weights_only=False)
-                 for r in range(2)]
-        feats = np.concatenate([e["features"] for e in evals])
-        want_sum, want_outer = feats.sum(0), feats.T @ feats
-        eval_gap = max(float(np.abs(e[k] - w).max() / np.abs(w).max())
-                       for e in evals for k, w in (("act_sum", want_sum), ("act_outer", want_outer)))
-        per_rank = -(-s["eval_samples"] // 2)
-        batches = -(-per_rank // s["eval_batch"])
-        want = depth * sampling_steps * batches
-        for r in ranks:
-            log(f"[distributed] e. eval_maskbit rank: {r['eval_local_samples']} of "
-                f"{r['eval_count']} samples, launches {r['eval_launches']} (expected {want} each); "
-                f"{r['eval_s']:.1f} s [{device_info['card']}]")
-        log(f"[distributed] e. merged moments vs the concatenated features: max relative gap "
-            f"{eval_gap:.3e} (tol 1e-12); IS {[e['results'] for e in evals]}")
-        if (eval_gap > 1e-12 or any(r["eval_count"] != s["eval_samples"] for r in ranks)
-                or len(feats) != s["eval_samples"]
-                or (cuda and any(v != want for r in ranks for v in r["eval_launches"].values()))):
-            raise AssertionError(f"the sharded eval: gap {eval_gap}, {ranks}")
-        out.update(nccl=nccl_result, eval_gap=eval_gap, ranks=ranks)
+        out["nccl"] = nccl_result
+        out.update(_check_combined(torch, spec, s, 2, reference, cuda, device_info["card"],
+                                   "distributed"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
@@ -2747,6 +2870,7 @@ def _rank_sharded(torch, spec) -> None:
     tokenizer's steps, under tensor=2 a few samples with the whole EMA
     weights through the attention block."""
     import numpy as np
+    import torch.distributed as dist
 
     import maskbit_tpu_torch.nn.transformer as transformer
     from maskbit_tpu_torch.cli import train_tokenizer
@@ -2794,17 +2918,28 @@ def _rank_sharded(torch, spec) -> None:
     transformer.dropout_attention = counted
     for key in da.launches:
         da.launches[key] = 0
-    captured, reduce_s, step_s, comm = [], [], [], {}
+    captured, reduce_s, step_s, comm_by_step = [], [], [], {}
+    real_staged = pm._staged
+    half_steps = spec.get("half_steps", ())
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     for i in range(spec["steps"]):
         real_reduce = _timed_all_reduce(torch, device, reduce_s, captured) if i == 0 else None
-        untime = _timed_collectives(torch, device, comm) if i == 1 else None
+        # the collectives of step 2 on (of step 2 only without `half_steps`)
+        # timed; on `half_steps` with half types left in half precision, as
+        # the staging left them under NCCL before it widened them
+        untime = None
+        if i == 1 or (half_steps and i >= 1):
+            comm_by_step[i] = {"half": i in half_steps}
+            untime = _timed_collectives(torch, device, comm_by_step[i])
+        if i in half_steps:
+            pm._staged = lambda t: t.to(pm._comm_device())
         t0 = _sync(torch, device)
         try:
             state, metrics = step(state, rows(data["tokens"]), rows(data["labels"]),
                                   injected=data["injected"])
         finally:
+            pm._staged = real_staged
             if real_reduce is not None:
                 zero.ShardedParams.reduce_scatter_grads = real_reduce
             if untime is not None:
@@ -2813,17 +2948,19 @@ def _rank_sharded(torch, spec) -> None:
         if i == 0:
             whole = {n: t.float().cpu().clone() for n, t in store.whole_params().items()}
             out["loss"] = float(metrics["mlm_loss"])
-            if rank == 0:
-                torch.save({"grads": captured, "params": whole},
-                           os.path.join(spec["work"], f"sh_{spec['tag']}_grads.pt"))
-            del whole, captured
+    if rank == 0:  # after the steps, which the other ranks would wait for
+        torch.save({"grads": captured, "params": whole},
+                   os.path.join(spec["work"], f"sh_{spec['tag']}_grads.pt"))
+    del whole, captured
     transformer.dropout_attention = real_attention
-    out.update(step_s=step_s, comm_s=comm, reduce_s=reduce_s, launches=dict(da.launches),
+    comm = {k: v for k, v in comm_by_step.pop(1).items() if k != "half"}
+    out.update(step_s=step_s, comm_s=comm, comm_by_step=comm_by_step, reduce_s=reduce_s,
+               backend=dist.get_backend(), launches=dict(da.launches),
                heads=sorted(set(heads)), state_bytes=_state_bytes(state),
                whole_state_bytes=4 * sum(4 * int(np.prod(s)) for s in store.global_shapes.values()),
                peak_bytes=torch.cuda.max_memory_allocated() if cuda else None,
                split=len(store.splits), params=len(store.names))
-    if spec["mesh"]["fsdp"] > 1:
+    if spec.get("save", spec["mesh"]["fsdp"] > 1):
         # the state saved from the slices, for the one-process resume
         t0 = time.perf_counter()
         ckpt = CheckpointManager(os.path.join(spec["work"], "sh_ckpt"))
@@ -2873,7 +3010,7 @@ def _rank_sharded(torch, spec) -> None:
     if cuda:
         torch.cuda.empty_cache()
 
-    if spec["mesh"]["fsdp"] > 1 and spec.get("tok_argv"):
+    if spec.get("tok_argv"):
         # Stage I at fsdp=2: the gathered state equal on both ranks after every step
         run = train_tokenizer.build_training(config_from_cli(spec["tok_argv"]),
                                              train_tokenizer._logger())
@@ -2902,6 +3039,48 @@ def _rank_sharded(torch, spec) -> None:
         tok["split"] = [len(gs.splits), len(gs.names), len(ds.splits), len(ds.names)]
         out["tokenizer"] = tok
     _rank_write(spec, rank, out)
+
+
+def _check_sharded_steps(torch, spec: dict, ranks: list, reference: tuple, steps: int,
+                         heads: int, cuda: bool, card: str, label: str) -> dict:
+    """`_rank_sharded`'s first update against one process's step on the
+    global batch (`DP_GRAD_TOL`), and per rank the heads and the dropout
+    kernels' launches (depth x steps each)."""
+    params_0, grads_1, params_1, metrics_1 = reference
+    depth, tensor = spec["grad_depth"], spec["mesh"]["tensor"]
+    gap = _check_grads(torch, os.path.join(spec["work"], f"sh_{spec['tag']}_grads.pt"), grads_1,
+                       params_0, params_1)
+    tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
+    log(f"[{label}] first update, depth {depth}, {len(ranks)} ranks vs 1 process x batch "
+        f"{spec['global_batch']} ({'bf16' if cuda else 'float32'}): reduced gradients relative "
+        f"L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst tensor "
+        f"{gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
+        f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol >= "
+        f"{tol['update_same_sign']}); loss per rank {[r['loss'] for r in ranks]} vs "
+        f"{float(metrics_1['mlm_loss'])} [{card}]")
+    for r in ranks:
+        comm = ", ".join(f"{k} {v:.4f}" for k, v in sorted(r["comm_s"].items()))
+        later = "; ".join(
+            f"step {int(i) + 1}{' (half types left in half)' if c['half'] else ''}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(c.items()) if k != "half")
+            for i, c in sorted(r["comm_by_step"].items(), key=lambda kv: int(kv[0])))
+        log(f"[{label}] rank {r['coords']} ({r['backend']}): {r['split']} of {r['params']} "
+            f"parameters split; state {r['state_bytes'] / 2**30:.3f} GiB of "
+            f"{r['whole_state_bytes'] / 2**30:.3f} whole; peak "
+            f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB; steps "
+            f"{[round(x, 3) for x in r['step_s']]} s; collectives of step 2: {comm} s"
+            + (f"; {later} s" if later else "") + f"; dropout launches {r['launches']} at "
+            f"{r['heads']} heads [{card}]")
+    if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
+            or gap["update_same_sign"] < tol["update_same_sign"]):
+        raise AssertionError(f"{label}: the first update disagrees with one process: {gap}")
+    for r in ranks:
+        if r["heads"] != [heads // tensor]:
+            raise AssertionError(f"{label}: the kernels saw heads {r['heads']}")
+        if cuda and (r["launches"]["dropout_attention_fwd"] != depth * steps
+                     or r["launches"]["dropout_attention_bwd"] != depth * steps):
+            raise AssertionError(f"{label}: launches {r['launches']}")
+    return {"grads": dict(gap, tol=tol), "ranks": ranks}
 
 
 def phase_sharded(torch, device_info, device="cuda", gen_config=CONFIG,
@@ -2948,50 +3127,13 @@ def phase_sharded(torch, device_info, device="cuda", gen_config=CONFIG,
                                     f"experiment.output_dir={os.path.join(work, 'tok')}"]
             procs = _spawn_ranks(spec, 2, env={"MASKBIT_RESNET50_WEIGHTS": resnet})
             try:
-                if name == "fsdp2":
-                    # one process at the global batch, meanwhile: the reference step
-                    model, vq, data = _grad_step_inputs(torch, spec)
-                    params_0 = {n: p.detach().float().cpu().clone()
-                                for n, p in model.named_parameters()}
-                    grads_1, reduce_1 = [], []
-                    params_1, metrics_1 = _grad_step(torch, spec, model, vq, data, grads_1,
-                                                     reduce_1)
-                    del model
-                    if cuda:
-                        torch.cuda.empty_cache()
+                if name == "fsdp2":  # one process at the global batch, meanwhile
+                    reference = _reference_step(torch, spec, cuda)
             finally:
                 _wait_ranks(procs, spec["tag"], s["timeout"])
             ranks = _rank_results(work, spec["tag"], 2)
-            gap = _check_grads(torch, os.path.join(work, f"sh_{spec['tag']}_grads.pt"), grads_1,
-                               params_0, params_1)
-            tol = DP_GRAD_TOL if cuda else DP_GRAD_TOL_CPU
-            log(f"[sharded] {name}: first update, depth {depth}, 2 ranks vs 1 process x batch "
-                f"{2 * s['batch']} ({'bf16' if cuda else 'float32'}): reduced gradients relative "
-                f"L2 {gap['grad_rel_l2']:.3e} (tol {tol['grad_rel_l2']:g}), worst tensor "
-                f"{gap['grad_worst_tensor_rel_l2']:.3e}; updates relative L2 "
-                f"{gap['update_rel_l2']:.3e}, same sign {gap['update_same_sign']:.6f} (tol >= "
-                f"{tol['update_same_sign']}); loss per rank {[r['loss'] for r in ranks]} vs "
-                f"{float(metrics_1['mlm_loss'])} [{device_info['card']}]")
-            for r in ranks:
-                comm = ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["comm_s"].items()))
-                log(f"[sharded] {name} rank {r['coords']}: {r['split']} of {r['params']} "
-                    f"parameters split; state {r['state_bytes'] / 2**30:.3f} GiB of "
-                    f"{r['whole_state_bytes'] / 2**30:.3f} whole; peak "
-                    f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB; steps "
-                    f"{[round(x, 3) for x in r['step_s']]} s; collectives of step 2: {comm} s; "
-                    f"dropout launches {r['launches']} at {r['heads']} heads "
-                    f"[{device_info['card']}]")
-            if (gap["grad_rel_l2"] > tol["grad_rel_l2"]
-                    or gap["update_same_sign"] < tol["update_same_sign"]):
-                raise AssertionError(f"{name}: the first update disagrees with one process: {gap}")
-            want_heads = [heads // axes["tensor"]]
-            for r in ranks:
-                if r["heads"] != want_heads:
-                    raise AssertionError(f"{name}: the kernels saw heads {r['heads']}")
-                if cuda and (r["launches"]["dropout_attention_fwd"] != depth * s["steps"]
-                             or r["launches"]["dropout_attention_bwd"] != depth * s["steps"]):
-                    raise AssertionError(f"{name}: launches {r['launches']}")
-            mesh_out = {"grads": dict(gap, tol=tol), "ranks": ranks}
+            mesh_out = _check_sharded_steps(torch, spec, ranks, reference, s["steps"], heads, cuda,
+                                            device_info["card"], f"sharded {name}")
             if name == "fsdp2":
                 dp_state = ([r["state_bytes"] for r in data_parallel] if data_parallel
                             else [r["whole_state_bytes"] for r in ranks])
@@ -3172,20 +3314,21 @@ def _decode_rates(work: str, res: int, interpolation: str, stage2_step_s, photos
     return out
 
 
+def _stopped(sampler) -> bool:
+    """No worker process of a split sampler is left running."""
+    return all(not p.is_alive() for p in sampler._procs)
+
+
 def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None,
                 stage2_step_s=None) -> dict:
-    """Phase 13: one batch split over a process's devices
-    (`sampling/serve.py`), over two entries naming the one card, and the
-    native JPEG decoder. device="cpu" rehearses it with a tiny config."""
-    import numpy as np
-
+    """Phase 13: one batch split over a host's devices (`sampling/serve.py`,
+    a worker process per entry), over two entries naming the one card, and
+    the native JPEG decoder. device="cpu" rehearses it with a tiny config."""
     from maskbit_tpu_torch.cli import eval_maskbit
     from maskbit_tpu_torch.cli import serve as serve_cli
     from maskbit_tpu_torch.cli.common import load_generation_models
     from maskbit_tpu_torch.core.config import config_from_cli, load_config
     from maskbit_tpu_torch.eval import inception as inc
-    from maskbit_tpu_torch.nn import attention_block as ab
-    from maskbit_tpu_torch.nn import dropout_attention as da
     from maskbit_tpu_torch.sampling import serve as split
     from maskbit_tpu_torch.sampling.sample import make_sampler
 
@@ -3199,7 +3342,8 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
     work = os.path.join(ROOT, "build", "chip_smoke_split")  # git-ignored
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    real_local = split.local_devices
+    real_local, real_make = split.local_devices, split.make_sharded_sampler
+    made = []
     out = {}
 
     def sync():
@@ -3207,24 +3351,9 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    def zero():
-        ab.launches = 0
-        for key in da.launches:
-            da.launches[key] = 0
-        per_stream.clear()
+    def block_launches(counts):
+        return [c["attention_block"] for c in counts]
 
-    # the block's launches per replica: each shard launches on a stream of its own
-    per_stream, count_lock = {}, threading.Lock()
-    real_launch = ab._launch
-
-    def counted_launch(x, *args, **kwargs):
-        got = real_launch(x, *args, **kwargs)
-        key = torch.cuda.current_stream(x.device).cuda_stream
-        with count_lock:
-            per_stream[key] = per_stream.get(key, 0) + 1
-        return got
-
-    ab._launch = counted_launch
     try:
         # a. the split sampler at serve batch 8, injected draws
         tok, gen, cfg, _, _ = load_generation_models(
@@ -3240,58 +3369,73 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
                                         device=dev).exponential_(generator=g)))
         labels = torch.arange(b, device=dev, dtype=torch.int64) * 97 % 1000
         whole = make_sampler(gen, tok, cfg)
+        t0 = time.perf_counter()
         sharded = split.make_sharded_sampler(gen, tok, cfg, devices)
+        start_s = time.perf_counter() - t0
+        # each replica holds this process's weights, bit for bit
+        want_state = [{k: v.cpu() for k, v in m.state_dict().items()} for m in (gen, tok)]
+        same_weights = all(st.keys() == want.keys() and all(torch.equal(st[k], v)
+                                                            for k, v in want.items())
+                           for pair in sharded.replica_states() for st, want in zip(pair, want_state))
+        del want_state
         rows = [slice(0, half), slice(half, b)]
         halves = [whole(labels[r], injected=tuple(d[:, r] for d in draws)) for r in rows]
-        whole(labels, injected=draws)  # warm-ups: the batch-8 shapes, the threads' handles
+        whole(labels, injected=draws)  # warm-ups: the batch-8 shapes, the workers' first call
         sharded(labels, injected=draws)
         whole_s, split_s = [], []
         for _ in range(2):
             t0 = sync()
             full = whole(labels, injected=draws)
             whole_s.append(sync() - t0)
-            zero()
+            sharded.launch_counts(reset=True)
             t0 = sync()
             images, tokens = sharded(labels, injected=draws)
             split_s.append(sync() - t0)
-            per_replica = list(per_stream.values())
-            split_launches = {"attention_block": ab.launches,
-                              "fused_attention": da.launches["fused_attention"]}
+            counts = sharded.launch_counts()
+        per_replica = block_launches(counts)
+        pids = sharded.pids
+        sharded.close()
         want_images = torch.cat([h[0] for h in halves])
         want_tokens = torch.cat([h[1] for h in halves])
         gap = (images.float() - want_images.float()).abs().max().item()
         differ = (tokens != want_tokens).nonzero().tolist()
         whole_gap = (images.float() - full[0].float()).abs().max().item()
         agree = (tokens == full[1]).float().mean().item()
-        log(f"[split] a. {len(devices)} replicas on {[str(d) for d in devices]} at batch {b} "
-            f"({half} rows each), depth {depth}, {steps} steps, injected draws: against two "
-            f"one-device calls at batch {half} on the same rows, largest image gap {gap:.3e}, "
-            f"{len(differ)} tokens differ; against the whole batch 8 (other GEMM shapes, no "
-            f"gate): token agreement {agree:.4f}, largest image gap {whole_gap:.3e}")
+        log(f"[split] a. {len(devices)} worker processes {pids} on {[str(d) for d in devices]} "
+            f"(started in {start_s:.2f} s, weights equal to this process's bit for bit: "
+            f"{same_weights}) at batch {b} ({half} rows each), depth {depth}, {steps} steps, "
+            f"injected draws: against two one-device calls at batch {half} on the same rows, "
+            f"largest image gap {gap:.3e}, {len(differ)} tokens differ; against the whole batch "
+            f"8 (other GEMM shapes, no gate): token agreement {agree:.4f}, largest image gap "
+            f"{whole_gap:.3e}")
         log(f"[split]    wall of two calls each: split {split_s[0]:.3f}, {split_s[1]:.3f} s; "
             f"whole batch {whole_s[0]:.3f}, {whole_s[1]:.3f} s ({b / min(split_s):.3f} against "
-            f"{b / min(whole_s):.3f} img/s) [{device_info['card']}]; "
-            f"attention block launches per replica {per_replica} (depth x steps = "
-            f"{depth * steps}), in all {split_launches}")
+            f"{b / min(whole_s):.3f} img/s) [{device_info['card']}]; launches per worker "
+            f"{counts} (block: depth x steps = {depth * steps}); workers stopped "
+            f"{_stopped(sharded)}")
         if gap != 0.0 or differ:
             raise AssertionError(f"the split differs from the half-batch calls: largest gap "
                                  f"{gap}, tokens {differ[:20]}")
         if not torch.isfinite(images.float()).all() or images.shape[0] != b:
             raise AssertionError(f"split images {tuple(images.shape)} not finite")
+        if not same_weights or not _stopped(sharded):
+            raise AssertionError(f"replica weights equal {same_weights}, workers stopped "
+                                 f"{_stopped(sharded)}")
         if dev.type == "cuda" and per_replica != [depth * steps] * len(devices):
             raise AssertionError(f"launches per replica {per_replica}, expected "
                                  f"{depth * steps} each")
         out["sampler"] = {"gap": gap, "tokens_differ": len(differ), "whole_token_agreement": agree,
                           "whole_gap": whole_gap, "split_s": split_s, "whole_s": whole_s,
-                          "launches_per_replica": per_replica, "launches": split_launches}
+                          "start_s": start_s, "launches_per_replica": per_replica,
+                          "launches": counts}
         del tok, gen, whole, sharded, halves, full, images, tokens
 
         # b. the server over two entries: a seeded request twice
         split.local_devices = lambda d: list(devices)
+        split.make_sharded_sampler = lambda *a, **k: made.append(real_make(*a, **k)) or made[-1]
         argv = [f"config={gen_config}", f"serve.batch_size={b}", "serve.port=0",
                 f"serve.device={device}", "serve.shard_local_devices=true",
                 "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
-        zero()
         server, service = serve_cli.main(argv, serve_forever=False)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -3305,13 +3449,18 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             server.server_close()
             service.close()
         served = _images(d1)
-        sharded_service = getattr(service._sampler, "devices", None) == devices
+        sharded_service = bool(made) and service._sampler is made[-1] and made[-1].devices == devices
+        counts = made[-1].launch_counts() if made else []
         log(f"[split] b. cli.serve over {len(devices)} entries (split: {sharded_service}): "
-            f"seeded {b}-label requests {t1:.3f} s, {t2:.3f} s, bytes equal "
-            f"{d1 == d2}; block launches {ab.launches} over {service.device_calls} calls")
-        if d1 != d2 or not sharded_service or served.shape[0] != b:
-            raise AssertionError("the split server's seeded requests differ or did not split")
-        out["serve"] = {"request_s": [t1, t2], "launches": ab.launches,
+            f"seeded {b}-label requests {t1:.3f} s, {t2:.3f} s, bytes equal {d1 == d2}; block "
+            f"launches per worker {block_launches(counts)} over {service.device_calls} calls; "
+            f"workers stopped with the server {bool(made) and _stopped(made[-1])}")
+        if d1 != d2 or not sharded_service or served.shape[0] != b or not _stopped(made[-1]):
+            raise AssertionError("the split server's seeded requests differ, or it did not "
+                                 "split, or its workers outlived it")
+        if dev.type == "cuda" and block_launches(counts) != [depth * steps * service.device_calls] * 2:
+            raise AssertionError(f"the split server's launches {counts}")
+        out["serve"] = {"request_s": [t1, t2], "launches_per_replica": block_launches(counts),
                         "device_calls": service.device_calls}
         del server, service
 
@@ -3320,7 +3469,7 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
         torch.save(inc.random_inception_state(0), weights)
         saved = os.environ.get("MASKBIT_INCEPTION_WEIGHTS")
         os.environ["MASKBIT_INCEPTION_WEIGHTS"] = weights
-        zero()
+        made.clear()
         try:
             t0 = time.perf_counter()
             ev = eval_maskbit.main([
@@ -3336,19 +3485,24 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             else:
                 os.environ["MASKBIT_INCEPTION_WEIGHTS"] = saved
         batches = -(-sizes["eval_samples"] // sizes["eval_batch"])
-        want = len(devices) * depth * steps * batches
+        want = depth * steps * batches
+        counts = block_launches(made[-1].launch_counts()) if made else []
         log(f"[split] c. eval_maskbit over {len(devices)} entries: {ev['count']} of "
             f"{sizes['eval_samples']} samples scored in {batches} batches of "
             f"{sizes['eval_batch']}, IS {ev['results'].get('InceptionScore')}; wall {wall:.1f} s;"
-            f" block launches {ab.launches} (expected {want})")
+            f" block launches per worker {counts} (expected {want} each); workers stopped "
+            f"{bool(made) and _stopped(made[-1])}")
         if ev["count"] != sizes["eval_samples"] or ev["accumulator"].count != ev["count"]:
             raise AssertionError(f"eval_maskbit scored {ev['count']}")
-        if dev.type == "cuda" and ab.launches != want:
-            raise AssertionError(f"eval_maskbit block launches {ab.launches}, expected {want}")
-        out["eval"] = {"count": ev["count"], "wall_s": wall, "launches": ab.launches}
+        if len(made) != 1 or not _stopped(made[-1]) or (
+                dev.type == "cuda" and counts != [want] * len(devices)):
+            raise AssertionError(f"eval_maskbit's split: {len(made)} samplers, launches "
+                                 f"{counts}, expected {want} each")
+        out["eval"] = {"count": ev["count"], "wall_s": wall, "launches_per_replica": counts}
     finally:
-        split.local_devices = real_local
-        ab._launch = real_launch
+        split.local_devices, split.make_sharded_sampler = real_local, real_make
+        for sampler in made:
+            sampler.close()
 
     try:
         # d. the native JPEG decoder
@@ -3364,11 +3518,12 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
 
 
 def phase_split_scale(torch, device_info, gen_config=CONFIG, devices=None, sizes=None):
-    """Phase 14: one sampler call split over 2, 4, ... distinct cards against
-    the whole call on the first card, and against one call on the first card
-    at a replica's share of the batch (the time a split would take were the
-    replicas independent). Needs two visible cards or more; with one it says
-    so and returns None."""
+    """Phase 14: one sampler call split over 2, 4, ... distinct cards (a
+    worker process a card) against the whole call on the first card, and
+    against one call on the first card at a replica's share of the batch
+    (the time a split would take were the replicas free of each other and
+    of the transfers). Needs two visible cards or more; with one it says so
+    and returns None."""
     from maskbit_tpu_torch.cli.common import load_generation_models
     from maskbit_tpu_torch.core.config import config_from_cli
     from maskbit_tpu_torch.sampling import serve as split
@@ -3395,7 +3550,6 @@ def phase_split_scale(torch, device_info, gen_config=CONFIG, devices=None, sizes
         logging.getLogger("chip_smoke.scale"), dev, cast_weights=True)
     n_tok = cfg.patch_size ** 2
     whole = make_sampler(gen, tok, cfg)
-    samplers = {n: split.make_sharded_sampler(gen, tok, cfg, devices[:n]) for n in counts}
 
     def timed(fn):
         """The call's output and its wall seconds, once warm, `calls` times."""
@@ -3413,50 +3567,257 @@ def phase_split_scale(torch, device_info, gen_config=CONFIG, devices=None, sizes
         return got, walls
 
     out = {"cards": len(devices), "card": device_info["card"], "rows": []}
+    inputs = {}
     for b in sizes["batches"]:
         g = torch.Generator(device=dev).manual_seed(b)
         shape = (cfg.num_steps, b, n_tok, cfg.codebook_splits)
-        draws = (torch.randint(0, cfg.mask_token, shape, generator=g, device=dev,
-                               dtype=torch.int32),
-                 -torch.log(torch.empty(shape, device=dev).exponential_(generator=g)))
-        labels = torch.arange(b, device=dev, dtype=torch.int64) * 97 % 1000
-        full, whole_s = timed(lambda: whole(labels, injected=draws))
-        row = {"batch": b, "whole_s": whole_s, "splits": []}
-        for n in counts:
-            if b % n:
-                continue
-            per = b // n
-            share, share_s = timed(lambda: whole(labels[:per],
-                                                 injected=tuple(d[:, :per] for d in draws)))
-            (images, tokens), split_s = timed(lambda: samplers[n](labels, injected=draws))
-            gap = (images[:per].float() - share[0].float()).abs().max().item()
-            differ = int((tokens[:per] != share[1]).sum())
-            agree = (tokens == full[1]).float().mean().item()
-            log(f"[scale] batch {b} over {n} cards ({per} rows each): split {min(split_s):.3f} s "
-                f"({b / min(split_s):.3f} img/s), whole batch on one card {min(whole_s):.3f} s "
-                f"({b / min(whole_s):.3f} img/s), one card at {per} rows {min(share_s):.3f} s; "
-                f"speed-up {min(whole_s) / min(split_s):.3f} of {n}; first replica against the "
-                f"{per}-row call on {dev}: largest image gap {gap:.3e}, {differ} tokens differ; "
-                f"token agreement with the whole batch {agree:.4f} (no gate) "
-                f"[{device_info['card']}]")
-            if gap != 0.0 or differ:
-                raise AssertionError(f"the first replica differs from the {per}-row call on "
-                                     f"{dev}: gap {gap}, {differ} tokens")
-            if not torch.isfinite(images.float()).all() or images.shape[0] != b:
-                raise AssertionError(f"split images {tuple(images.shape)} not finite")
-            row["splits"].append({"cards": n, "split_s": split_s, "share_s": share_s,
-                                  "speedup": min(whole_s) / min(split_s),
-                                  "whole_token_agreement": agree})
-        out["rows"].append(row)
-        del draws, full
+        inputs[b] = (torch.arange(b, device=dev, dtype=torch.int64) * 97 % 1000,
+                     (torch.randint(0, cfg.mask_token, shape, generator=g, device=dev,
+                                    dtype=torch.int32),
+                      -torch.log(torch.empty(shape, device=dev).exponential_(generator=g))))
+    rows = {b: {"batch": b, "whole_s": None, "splits": []} for b in sizes["batches"]}
+    for n in counts:
+        t0 = time.perf_counter()
+        with split.make_sharded_sampler(gen, tok, cfg, devices[:n]) as sampler:
+            start_s = time.perf_counter() - t0
+            for b in sizes["batches"]:
+                if b % n:
+                    continue
+                labels, draws = inputs[b]
+                per = b // n
+                row = rows[b]
+                if row["whole_s"] is None:
+                    row["full"], row["whole_s"] = timed(lambda: whole(labels, injected=draws))
+                share, share_s = timed(lambda: whole(labels[:per],
+                                                     injected=tuple(d[:, :per] for d in draws)))
+                sampler.launch_counts(reset=True)
+                (images, tokens), split_s = timed(lambda: sampler(labels, injected=draws))
+                launches = sampler.launch_counts()
+                gap = (images[:per].float() - share[0].float()).abs().max().item()
+                differ = int((tokens[:per] != share[1]).sum())
+                agree = (tokens == row["full"][1]).float().mean().item()
+                whole_s = row["whole_s"]
+                log(f"[scale] batch {b} over {n} cards ({per} rows each, {n} worker processes "
+                    f"started in {start_s:.2f} s): split {min(split_s):.3f} s "
+                    f"({b / min(split_s):.3f} img/s), whole batch on one card {min(whole_s):.3f} s "
+                    f"({b / min(whole_s):.3f} img/s), one card at {per} rows {min(share_s):.3f} s; "
+                    f"speed-up {min(whole_s) / min(split_s):.3f} of {n} (ceiling "
+                    f"{min(whole_s) / min(share_s):.3f}); first replica against the {per}-row "
+                    f"call on {dev}: largest image gap {gap:.3e}, {differ} tokens differ; token "
+                    f"agreement with the whole batch {agree:.4f} (no gate); block launches per "
+                    f"worker over {1 + sizes['calls']} calls "
+                    f"{[c['attention_block'] for c in launches]} [{device_info['card']}]")
+                if gap != 0.0 or differ:
+                    raise AssertionError(f"the first replica differs from the {per}-row call on "
+                                         f"{dev}: gap {gap}, {differ} tokens")
+                if not torch.isfinite(images.float()).all() or images.shape[0] != b:
+                    raise AssertionError(f"split images {tuple(images.shape)} not finite")
+                row["splits"].append({"cards": n, "split_s": split_s, "share_s": share_s,
+                                      "start_s": start_s, "launches_per_worker": launches,
+                                      "speedup": min(whole_s) / min(split_s),
+                                      "ceiling": min(whole_s) / min(share_s),
+                                      "whole_token_agreement": agree})
+        if not _stopped(sampler):
+            raise AssertionError(f"the {n}-card split's workers outlived it")
+    for b in sizes["batches"]:
+        rows[b].pop("full", None)
+        out["rows"].append(rows[b])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[scale] phase time {out['seconds']:.1f} s")
     return out
 
 
+# phase 15: four ranks, a card each, over NCCL. Stage II's stop run (per-rank
+# batch 32, full depth, from 2048 random token shards' tokens); fsdp=2 x
+# tensor=2 at 16 rows a batch shard (global 32, the same rows on the two
+# ranks of a tensor pair, 8 heads each) for `sh_steps` injected steps, then
+# `sample` labels sampled with the whole EMA weights; the combined ranks'
+# data=4 gradient check at 16 a rank (global 64), Stage I at 16 a rank
+# across the gate, `eval_maskbit` on 1000 samples at batch 100; each
+# launch's limit (s). The fsdp x tensor first update is held to
+# DP_GRAD_TOL: as at data=2, the ranks' GEMMs see other shapes than one
+# process's (bf16 tiles, other summation orders), and a tensor rank rounds
+# its partial out-projection and fc2 products to bf16 before their sum,
+# which `parallel/mesh._staged` then takes in float32 under NCCL as under
+# gloo: a few 1e-3 are expected (tensor=2 on two gloo ranks of one card:
+# 3.701e-03, PERF.md).
+MC_WORLD = 4
+MC_SIZES = {"batch": 32, "depth": 24, "tokens": 2048, "sh_batch": 16, "sh_steps": 6,
+            "sample": 2, "grad_batch": 16, "tok_batch": 16, "tok_steps": 4, "tok_gate": 2,
+            "eval_samples": 1000, "eval_batch": 100, "timeout": 420}
+
+
+def phase_multicard(torch, device_info, device="cuda", gen_config=CONFIG,
+                    tok_config=TOKENIZER_CONFIGS[0], sizes=None) -> dict:
+    """Phase 15: the port over four cards of one host, one process (rank)
+    a card, NCCL between them: Stage II at data=4 through `cli.train_maskbit`
+    (a SIGTERM stop and a resume), at fsdp=2 x tensor=2 (the first update
+    against one process, the collectives timed, with and without half types
+    widened), Stage I at data=4 across the gate, and `cli.eval_maskbit`
+    over the four ranks. Each part runs even when another failed; the phase
+    fails if any did. Needs four visible cards (with fewer it says so and
+    returns None); device="cpu" with tiny configs and `sizes` rehearses it
+    on four gloo ranks (launches and backends are then not checked), e.g.
+    a 16 px generator with 2 heads, `attention_dropout: 0.1` and
+    `fused_attention_dropout: true`, a 32 px tokenizer with a
+    discriminator node, and sizes={"batch": 2, "depth": 2, "tokens": 256,
+    "sh_batch": 2, "sh_steps": 4, "sample": 2, "grad_batch": 2,
+    "tok_batch": 2, "tok_steps": 3, "tok_gate": 1, "eval_samples": 8,
+    "eval_batch": 2, "tok_res": 32, "timeout": 300} (about 145 s on 8
+    cores)."""
+    import traceback
+
+    import maskbit_tpu_torch
+    from maskbit_tpu_torch.eval import inception as inc
+    from maskbit_tpu_torch.parallel.mesh import BUCKET_BYTES
+
+    s = dict(MC_SIZES, **(sizes or {}))
+    cuda = device == "cuda"
+    world = MC_WORLD
+    if cuda and torch.cuda.device_count() < world:
+        log(f"[multicard] {torch.cuda.device_count()} card(s) visible: not run "
+            f"(`--phases multicard` on a host with {world} cards)")
+        return None
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_multicard")  # git-ignored; ~10 GB
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if cuda:
+        torch.cuda.empty_cache()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        log(f"[multicard] cards: {'; '.join(smi.stdout.strip().splitlines())}")
+    card = device_info["card"]
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(maskbit_tpu_torch.__file__)))
+    base = {"tree": tree, "device": device, "work": work}
+    mlm = _model_node(gen_config)["mlm_model"]
+    heads, sampling_steps = int(mlm["heads"]), int(mlm["num_steps"])
+    out, failed = {}, {}
+
+    def backends(ranks, what):
+        got = [r["backend"] for r in ranks]
+        log(f"[multicard] {what}: backend per rank {got}")
+        if cuda and set(got) != {"nccl"}:
+            raise AssertionError(f"{what} ran on {got}, not NCCL")
+
+    def part(name, fn):
+        try:
+            out[name] = fn()
+        except Exception as e:  # noqa: BLE001 — every part runs; the phase fails below
+            failed[name] = f"{e!r}"
+            log(f"[multicard] {name} FAILED:\n{traceback.format_exc()}")
+
+    try:
+        # the group forms, and one gradient bucket's all-reduce, before the rest
+        procs = _spawn_ranks(dict(base, task="handshake", tag="mc_handshake"), world)
+        _wait_ranks(procs, "mc_handshake", min(s["timeout"], 180))
+        shake = _rank_results(work, "mc_handshake", world)
+        mb = BUCKET_BYTES / 2**20
+        for r in shake:
+            log(f"[multicard] rank on {r['card']} ({r['backend']}): all-reduce mean of a "
+                f"{mb:.0f} MiB float32 bucket {[round(x, 5) for x in r['bucket_s']]} s, mean "
+                f"right {r['mean_ok']} [{card}]")
+        backends(shake, "the group")
+        if not all(r["mean_ok"] for r in shake):
+            raise AssertionError(f"the bucket's mean is wrong: {shake}")
+        out["handshake"] = shake
+
+        # a. Stage II at data=4 through the CLI: a SIGTERM stop, a resume
+        common = [f"config={gen_config}", f"training.device={device}",
+                  "dataset.params.token_shards_path_or_url="
+                  + _token_shards(work, gen_config, s["tokens"]),
+                  "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+                  "experiment.generate_every=100000", "experiment.eval_every=100000"]
+
+        def stage2():
+            got = _stop_and_resume(base, common, world, s["batch"], s["depth"],
+                                   os.path.join(work, "train"), s["timeout"], cuda, card,
+                                   "mc_stage2", "multicard a.")
+            backends(got["ranks"] + got["resume"], "a. Stage II at data=4")
+            return got
+
+        part("stage2", stage2)
+
+        # c. data=4: the gradient check, Stage I across the gate, eval_maskbit
+        weights = os.path.join(work, "pt_inception.pth")
+        torch.save(inc.random_inception_state(0), weights)
+        resnet = os.path.join(work, "resnet50.pth")
+        _random_resnet50(torch, resnet)
+        sc = dict(s, batch=s["grad_batch"], grad_depth=s["depth"])
+        spec_c = _combined_spec(base, work, gen_config, tok_config, device, sc, world)
+
+        def combined():
+            procs = _spawn_ranks(spec_c, world, env={
+                "MASKBIT_INCEPTION_WEIGHTS": weights, "MASKBIT_ADM_PB": "",
+                "MASKBIT_RESNET50_WEIGHTS": resnet})
+            try:
+                reference = _reference_step(torch, spec_c, cuda)  # one process, meanwhile
+            finally:
+                _wait_ranks(procs, "combined", s["timeout"])
+            got = _check_combined(torch, spec_c, sc, world, reference, cuda, card,
+                                  "multicard c.")
+            backends(got["ranks"], "c. data=4 gradients, Stage I, eval_maskbit")
+            return got
+
+        part("combined", combined)
+
+        # b. fsdp=2 x tensor=2: the first update against one process
+        spec_b = dict(base, task="sharded", tag="mc_sharded", mesh={"fsdp": 2, "tensor": 2},
+                      gen_config=gen_config, grad_depth=s["depth"],
+                      global_batch=2 * s["sh_batch"], steps=s["sh_steps"], sample=s["sample"],
+                      res=int(mlm.get("img_size", 256)), save=False, half_steps=(2, 4))
+
+        def sharded():
+            procs = _spawn_ranks(spec_b, world)
+            try:
+                reference = _reference_step(torch, spec_b, cuda)  # one process, meanwhile
+            finally:
+                _wait_ranks(procs, spec_b["tag"], s["timeout"])
+            ranks = _rank_results(work, spec_b["tag"], world)
+            got = _check_sharded_steps(torch, spec_b, ranks, reference, s["sh_steps"], heads,
+                                       cuda, card, "multicard b. fsdp=2 x tensor=2")
+            backends(ranks, "b. fsdp=2 x tensor=2")
+            want = s["depth"] * sampling_steps
+            for r in ranks:
+                log(f"[multicard] b. rank {r['coords']}: {s['sample']} samples with the whole "
+                    f"EMA weights in {r['sample_s']:.2f} s, launches {r['sample_launches']} at "
+                    f"{r['block_heads']} heads; finite {r['sample_finite']}; tensor-local again "
+                    f"{r['restored_tensor_local']}")
+                if not (r["sample_finite"] and r["restored_tensor_local"]) or (
+                        r["block_heads"] != [heads]) or (
+                        cuda and any(v != want for v in r["sample_launches"].values())):
+                    raise AssertionError(f"fsdp=2 x tensor=2 generation: {r}")
+            dp = out.get("combined", {}).get("ranks")
+            if dp:
+                log(f"[multicard] b. state per rank {[r['state_bytes'] for r in ranks]} B, peak "
+                    f"{[r['peak_bytes'] for r in ranks]} B; data=4 at the same rows a rank "
+                    f"(c.): state {[r['state_bytes'] for r in dp]} B, peak "
+                    f"{[r['peak_bytes'] for r in dp]} B [{card}]")
+            for r in ranks:  # step 2 and the later steps not in half_steps: widened
+                steps = [dict(r["comm_s"], half=False)] + list(r["comm_by_step"].values())
+                mean = {h: statistics.mean(c.get("tensor_all_reduce", 0.0) for c in steps
+                                           if c["half"] == h) for h in (False, True)}
+                log(f"[multicard] b. rank {r['coords']}: the tensor all-reduces of a step, "
+                    f"mean over {sum(not c['half'] for c in steps)} steps with half types in "
+                    f"float32 {mean[False]:.4f} s, over {sum(c['half'] for c in steps)} left "
+                    f"in half {mean[True]:.4f} s [{card}]")
+                r["tensor_all_reduce_mean_s"] = {"float32": mean[False], "half": mean[True]}
+            return got
+
+        part("sharded", sharded)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[multicard] phase time {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError(f"[multicard] parts failed: {failed}")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
           "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
-          "split_scale")
+          "split_scale", "multicard")
 
 
 def _args(argv):
@@ -3514,6 +3875,7 @@ def main(argv=None) -> int:
     sp = (phase_split(torch, device_info, stage2_step_s=tr and tr["median_step_s"])
           if "split" in run else None)
     sc = phase_split_scale(torch, device_info) if "split_scale" in run else None
+    mc = phase_multicard(torch, device_info) if "multicard" in run else None
     os.makedirs(OUT_DIR, exist_ok=True)
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
@@ -3521,7 +3883,7 @@ def main(argv=None) -> int:
                        "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
                        "train_data": data, "eval": ev, "tokenizer_train": tok,
                        "variants": var, "distributed": dp, "sharded": sh, "split": sp,
-                       "split_scale": sc}, f, indent=1)
+                       "split_scale": sc, "multicard": mc}, f, indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3550,10 +3912,33 @@ def main(argv=None) -> int:
                 {"launches": r["sample_launches"][key], "heads": r["block_heads"]})}
             for mesh, m in sh["meshes"].items() for r in m["ranks"]
             if name.startswith("dropout") or "sample_launches" in r]
-        # phase 13: per replica of the split sampler, the block's chain
-        # (with its attention forward) on every layer of every step
+        # phases 13 and 14: per worker process of the split sampler, the
+        # block's chain (with its attention forward) on every layer of every
+        # step; 14 only on a host with several cards (else null)
         if not name.startswith("dropout"):
-            per_rank["launches_split_per_replica"] = sp["sampler"]["launches_per_replica"]
+            per_rank["launches_split_per_replica"] = [c[key] for c in sp["sampler"]["launches"]]
+            per_rank["launches_split_scale_per_worker"] = sc and [
+                {"batch": r["batch"], "cards": x["cards"],
+                 "launches": [c[key] for c in x["launches_per_worker"]]}
+                for r in sc["rows"] for x in r["splits"]]
+        # phase 15 (four cards, else null): per rank, the dropout kernels in
+        # Stage II's data=4 stop run and at fsdp=2 x tensor=2 (their heads),
+        # or the block in the fsdp x tensor ranks' sampling and in eval_maskbit
+        if mc is None:
+            per_rank["launches_multicard_per_rank"] = None
+        elif name.startswith("dropout"):
+            per_rank["launches_multicard_per_rank"] = [
+                {"run": "data=4", "launches": [r["launches"][name]
+                                               for r in mc["stage2"]["ranks"]]},
+                {"run": "fsdp=2 x tensor=2", "launches": [r["launches"][name]
+                                                          for r in mc["sharded"]["ranks"]],
+                 "heads": mc["sharded"]["ranks"][0]["heads"]}]
+        else:
+            per_rank["launches_multicard_per_rank"] = [
+                {"run": "fsdp=2 x tensor=2 sampling",
+                 "launches": [r["sample_launches"][key] for r in mc["sharded"]["ranks"]]},
+                {"run": "eval_maskbit", "launches": [r["eval_launches"][key]
+                                                     for r in mc["combined"]["ranks"]]}]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_train_data": data_launches, **bert, **per_rank,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3597,14 +3982,18 @@ def main(argv=None) -> int:
             or min(k.get("launches_distributed_per_rank", [1])) <= 0
             or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0
             or min(x["launches"] for x in k["launches_sharded_per_rank"]) <= 0
-            or min(k.get("launches_split_per_replica", [1])) <= 0]
+            or min(k.get("launches_split_per_replica", [1])) <= 0
+            or min([n for x in k.get("launches_split_scale_per_worker") or []
+                    for n in x["launches"]] or [1]) <= 0
+            or min([n for x in k["launches_multicard_per_rank"] or [] for n in x["launches"]]
+                   or [1]) <= 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
                    "slice": sl, "train_check": check, "train": tr, "train_data": data,
                    "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp,
-                   "sharded": sh, "split": sp, "split_scale": sc}, f, indent=1)
+                   "sharded": sh, "split": sp, "split_scale": sc, "multicard": mc}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,17 +33,16 @@ differs from the JAX package's. A config with `parallel.fsdp` or
 generates the same way: data-parallel over every process, each with whole
 weights. JAX's per-host clamp of those axes to its local devices (its
 sharded per-host sampler mesh) has no counterpart: the port's eval splits
-no weights. With `eval.shard_local_devices=true`, one process that sees
-several local devices (`sampling.serve.local_devices`: every visible card
-for an unindexed `eval.device=cuda`; under torchrun each process keeps its
-one card) splits each batch over them
-(`sampling.serve.make_sharded_sampler`), with `eval.batch_size` rounded up
-to a multiple of their number, as JAX shards its per-host sampler; the
-padded rows are dropped as above. The default is false, unlike JAX's: the
-split's threads make every kernel launch from Python, so on H100s a
-batch of 100 takes 0.53x one card's time over 2 cards but 1.8x over 4
-(PERF.md); one process per card under torchrun is the way to use a host's
-cards.
+no weights. One process that sees several local devices
+(`sampling.serve.local_devices`: every visible card for an unindexed
+`eval.device=cuda`; under torchrun each process keeps its one card) splits
+each batch over them (`sampling.serve.make_sharded_sampler`, a worker
+process per card holding this process's weights, stopped when the run
+ends), with `eval.batch_size` rounded up to a multiple of their number, as
+JAX shards its per-host sampler; the padded rows are dropped as above.
+`eval.shard_local_devices=false` keeps one card. The default (true, as
+JAX's) follows four H100s, where a split batch of 100 ran at 1.728x the
+whole batch's speed on one card over 2 cards and 2.813x over 4 (PERF.md).
 """
 
 from __future__ import annotations
@@ -108,7 +107,7 @@ def main(argv=None) -> dict:
 
     tokenizer, generator, sampling_cfg, _, _ = load_generation_models(config, logger, device)
     batch_size = int(config.select("eval.batch_size", 100))
-    shard = process_count() == 1 and config.select("eval.shard_local_devices", False)
+    shard = process_count() == 1 and config.select("eval.shard_local_devices", True)
     devices = split.local_devices(device) if shard else [device]
     if len(devices) > 1:
         # one process over several cards: each batch split over them, the
@@ -142,25 +141,30 @@ def main(argv=None) -> dict:
     logger.info(f"generating {len(labels)} samples in {num_batches} batches of {batch_size} "
                 f"on each of {p_cnt} process(es)")
     batch_seconds = []
-    for i in range(num_batches):
-        chunk = labels[i * batch_size:(i + 1) * batch_size]
-        valid = len(chunk)
-        y = np.zeros((batch_size,), np.int64)
-        y[:valid] = chunk  # pad rows sample class 0 and are discarded below
-        t0 = _sync(device)
-        images, _ = sampler(torch.from_numpy(y).to(device), rng)
-        t1 = _sync(device)
-        times = {"sampler": t1 - t0}
-        if accum is not None:
-            feats = inception_fn(to_pixels_255(images))
-            t2 = _sync(device)
-            acts, logits = (feats[k][:valid].cpu().numpy() for k in ("2048", "logits_unbiased"))
-            local_idx = np.arange(i * batch_size, i * batch_size + valid)
-            accum.update(acts, logits, local_idx * p_cnt + p_idx)
-            times.update(inception=t2 - t1, moments=time.perf_counter() - t2)
-        batch_seconds.append(times)
-        if (i + 1) % 10 == 0:
-            logger.info(f"generated {min((i + 1) * batch_size, len(labels))} samples")
+    try:
+        for i in range(num_batches):
+            chunk = labels[i * batch_size:(i + 1) * batch_size]
+            valid = len(chunk)
+            y = np.zeros((batch_size,), np.int64)
+            y[:valid] = chunk  # pad rows sample class 0 and are discarded below
+            t0 = _sync(device)
+            images, _ = sampler(torch.from_numpy(y).to(device), rng)
+            t1 = _sync(device)
+            times = {"sampler": t1 - t0}
+            if accum is not None:
+                feats = inception_fn(to_pixels_255(images))
+                t2 = _sync(device)
+                acts, logits = (feats[k][:valid].cpu().numpy()
+                                for k in ("2048", "logits_unbiased"))
+                local_idx = np.arange(i * batch_size, i * batch_size + valid)
+                accum.update(acts, logits, local_idx * p_cnt + p_idx)
+                times.update(inception=t2 - t1, moments=time.perf_counter() - t2)
+            batch_seconds.append(times)
+            if (i + 1) % 10 == 0:
+                logger.info(f"generated {min((i + 1) * batch_size, len(labels))} samples")
+    finally:
+        if hasattr(sampler, "close"):  # the split's workers
+            sampler.close()
 
     results = {}
     if accum is not None:

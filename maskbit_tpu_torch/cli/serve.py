@@ -20,13 +20,16 @@ Counterpart of `maskbit_tpu/cli/serve.py`, on the process's CUDA cards:
   * with `serve.shard_local_devices=true`, more than one local device
     (`sampling.serve.local_devices`: every visible card for an unindexed
     "cuda") and a batch that divides over them, each batch is split over
-    them (`sampling.serve.make_sharded_sampler`: a replica and a thread per
-    card), as the JAX server shards over its local chips; otherwise one
-    device runs the whole batch. The default is false, unlike JAX's: every
-    thread makes a whole call's kernel launches from Python, and serving
-    is bound by those launches, so on H100s a split call of 8 images takes
-    3.9x one card's time over 2 cards and 15.6x over 4 (PERF.md). A seeded
-    request gives the same bytes for a given number of devices.
+    them (`sampling.serve.make_sharded_sampler`: a worker process and a
+    replica per card, holding this process's weights), as the JAX server
+    shards over its local chips; otherwise one device runs the whole
+    batch. The default is false, unlike JAX's: on four H100s a split call
+    of 8 images ran at 0.991x the whole batch's speed on one card over 2
+    cards and 0.923x over 4 (PERF.md): at that batch each card's work is
+    too small to pay for a second card. The workers start with the
+    service and stop with `close()` (and with `main`'s server); one that
+    dies or hangs fails the requests in flight. A seeded request gives
+    the same bytes for a given number of devices.
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "warm": true, "batch_size": b}
@@ -99,7 +102,7 @@ class GeneratorService:
         if n_local > 1 and self.batch % n_local == 0 and \
                 config.select("serve.shard_local_devices", False):
             # several local cards: split each serving batch over them
-            # (weights replicated, a thread and a stream per card)
+            # (weights replicated, a worker process per card)
             self.logger.info(f"sharding serving batch {self.batch} over {n_local} local devices")
             self._sampler = split.make_sharded_sampler(generator, tokenizer, sampling_cfg,
                                                        devices)
@@ -133,11 +136,15 @@ class GeneratorService:
         return dt
 
     def close(self) -> None:
+        """Stop the micro-batching thread and the split sampler's workers."""
         with self._units_cv:
             self._stop = True
             self._units_cv.notify_all()
         if self._worker is not None:
             self._worker.join(timeout=5)
+        if hasattr(self._sampler, "close"):
+            with self._lock:
+                self._sampler.close()
 
     def _validate(self, labels) -> np.ndarray:
         labels = np.asarray(labels, np.int32)
@@ -307,12 +314,20 @@ def main(argv=None, serve_forever: bool = True):
 
     config = config_from_cli(argv if argv is not None else sys.argv[1:])
     service = GeneratorService(config)
-    service.warmup()
-    port = int(config.select("serve.port", 8000))
-    server = ThreadingHTTPServer(("127.0.0.1", port), make_handler(service))
+    try:
+        service.warmup()
+        port = int(config.select("serve.port", 8000))
+        server = ThreadingHTTPServer(("127.0.0.1", port), make_handler(service))
+    except BaseException:
+        service.close()
+        raise
     service.logger.info(f"serving on 127.0.0.1:{server.server_address[1]}")
     if serve_forever:
-        server.serve_forever()
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            service.close()
     return server, service
 
 

@@ -18,23 +18,20 @@ The chain is the QKV projection, the attention forward of
 `nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, whose
 count in `dropout_attention.launches["fused_attention"]` it adds to), the
 out-projection with the residual (f32) and the LayerNorm. `launches`
-counts the chain's launches (one per call on a CUDA tensor), under a lock:
-the split sampler (`sampling/serve.py`) launches from one thread per
-shard. The plan and SM caches take idempotent writes only, and the library is loaded under
-`cuda_build`'s per-library lock.
+counts the chain's launches in this process (one per call on a CUDA
+tensor); the split sampler's workers (`sampling/serve.py`) count their
+own, and report them on request.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from maskbit_tpu_torch.nn import dropout_attention
 
 launches = 0
-_count_lock = threading.Lock()
 
 HEAD_DIM = 64  # the attention kernel's head width
 MAX_E = 4096
@@ -158,8 +155,7 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     if err != 0:
         raise RuntimeError(f"attention_block launch failed: CUDA error {err}")
     global launches
-    with _count_lock:
-        launches += 1
+    launches += 1
     dropout_attention.count("fused_attention")
     return out
 

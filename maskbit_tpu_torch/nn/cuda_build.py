@@ -5,7 +5,11 @@ library with a plain C interface and loaded with `ctypes`. The library is
 named after a hash of its source and of every header under `csrc/` that it
 includes (`#include "..."`, followed through headers), so an edited source
 or header rebuilds and an unchanged one loads from the build directory,
-`build/maskbit_tpu_torch/` under the checkout (git-ignored).
+`build/maskbit_tpu_torch/` under the checkout (git-ignored). `build_all`
+compiles every source at once without loading it: a process that spawns
+workers (the split sampler's) builds there first, so each worker only loads
+the libraries. Concurrent builds of one library, in threads or processes,
+are safe (a per-process temporary file, then `os.replace`), but redundant.
 """
 
 from __future__ import annotations
@@ -71,6 +75,48 @@ def nvcc_command(src, out) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
+def sources() -> list[str]:
+    """The names of the kernel sources, `csrc/<name>.cu`."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _build(name: str) -> tuple[Path, bool, str]:
+    """(library path, whether it was built already, ptxas output)."""
+    src = CSRC / f"{name}.cu"
+    digest = source_digest(src)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    if lib_path.exists():
+        return lib_path, True, ""
+    tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.{threading.get_ident()}.so"
+    proc = subprocess.run(nvcc_command(src, tmp), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {src.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, False, proc.stderr
+
+
+def build_all() -> None:
+    """Compile every source that is not built yet, one nvcc each, all at
+    once, without loading them; raises the first failure."""
+    errors = []
+
+    def one(name):
+        try:
+            _build(name)
+        except Exception as e:  # noqa: BLE001 — raised below, on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in sources()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<name>.cu`. Raises on failure."""
     with _locks_guard:
@@ -78,22 +124,8 @@ def load_library(name: str) -> ctypes.CDLL:
     with lock:
         if name in _libs:
             return _libs[name]
-        src = CSRC / f"{name}.cu"
-        digest = source_digest(src)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
         t0 = time.perf_counter()
-        ptxas = ""
-        cached = lib_path.exists()
-        if not cached:
-            tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
-            proc = subprocess.run(nvcc_command(src, tmp), capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name} ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            ptxas = proc.stderr
-            os.replace(tmp, lib_path)
+        lib_path, cached, ptxas = _build(name)
         lib = ctypes.CDLL(str(lib_path))
         build_log[name] = {"seconds": time.perf_counter() - t0, "cached": cached,
                            "ptxas": ptxas}

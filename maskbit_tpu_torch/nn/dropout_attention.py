@@ -22,14 +22,13 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
-CUDA kernels) and "fused_attention"; `count` adds to it under a lock, as
-the wrappers may launch from several threads (the split sampler's shards).
+CUDA kernels) and "fused_attention", in this process (`count` adds to it);
+the split sampler's workers (`sampling/serve.py`) count their own.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
@@ -44,15 +43,13 @@ TILE = 64  # queries or keys per kernel tile
 # blocks launched before it.
 ROTATE_MAX_TILES = 64
 launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
-_count_lock = threading.Lock()
 
 _MASK32 = 0xFFFFFFFF
 
 
 def count(key: str) -> None:
     """One launch more of `key` in `launches`."""
-    with _count_lock:
-        launches[key] += 1
+    launches[key] += 1
 
 
 def keep_threshold(rate: float) -> int:
@@ -212,9 +209,8 @@ def _lib():
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     lib = load_library("dropout_attention")
-    with _count_lock:  # bind once, before any thread calls
-        if lib.mb_dropout_attention_bwd.argtypes is None:
-            bind(lib)
+    if lib.mb_dropout_attention_bwd.argtypes is None:
+        bind(lib)
     return lib
 
 

@@ -43,8 +43,10 @@ explicit collective (the trainers take their gradients with
     and `assert_host_agreement` for the facts that gate a collective.
 
 Under gloo, tensors on a card are staged through host memory for each
-collective, and bf16 is reduced in float32 (gloo's `reduce_scatter` is
-there on the CPU's torch 2.13 and the card's 2.11).
+collective (gloo's `reduce_scatter` is there on the CPU's torch 2.13 and
+the card's 2.11). Under every backend a bf16 or fp16 tensor travels and is
+reduced in float32 and comes back in its own dtype, so NCCL's sums equal
+gloo's, which the CPU tests hold against JAX.
 Everything is a no-op (or the identity) in one process.
 """
 
@@ -305,11 +307,10 @@ def _pg(g: Optional[Group]):
 # ------------------------------------------------------------- collectives
 
 def _staged(t: torch.Tensor) -> torch.Tensor:
-    """`t` as the backend takes it: on the collective's device, and in
-    float32 when gloo would see a half type."""
-    dtype = t.dtype
-    if dist.get_backend() != "nccl" and dtype in (torch.bfloat16, torch.float16):
-        dtype = torch.float32
+    """`t` as the collective takes it: on the collective's device, and a
+    half type in float32 (under every backend, so that the sums do not
+    depend on it)."""
+    dtype = torch.float32 if t.dtype in (torch.bfloat16, torch.float16) else t.dtype
     return t.to(_comm_device(), dtype)
 
 

@@ -1,5 +1,6 @@
-"""The split sampler (`maskbit_tpu_torch/sampling/serve.py`) and its use by
-the serving and eval CLIs, on the CPU at the tiny sizes of
+"""The split sampler (`maskbit_tpu_torch/sampling/serve.py`: one worker
+process per device) and its use by the serving and eval CLIs, on the CPU
+at the tiny sizes of
 `tests/test_parallel.py::test_sharded_sampler_matches_single_device`.
 
 * `make_sharded_sampler` over `[cpu, cpu]` and `[cpu] * 4` at batch 8 with
@@ -9,24 +10,33 @@ the serving and eval CLIs, on the CPU at the tiny sizes of
   may sum in another order). Over the same weights and draws it equals the
   JAX package's sampler at the tolerance of
   `test_torch_sampler.py::test_slice_make_sampler_matches_jax_chain`
-  (tokens exactly, images atol 1e-4).
-* Without injected draws, a seeded split run repeats itself; shard i draws
-  from its own generator, so rows differ from the one-device run's.
+  (tokens exactly, images atol 1e-4). Each replica holds the caller's
+  weights bit for bit.
+* Without injected draws, a seeded split run repeats itself, and shard i's
+  rows are a one-device call's on those rows with a generator seeded
+  `derive_seed(base, i)` (`base` one draw of the caller's generator).
+* A worker killed in the middle of a call, or one that stops answering,
+  makes the call raise within its deadline, and one that cannot start
+  makes the start raise; no worker outlives `close()` or the failure.
 * `cli.serve` with `sampling.serve.local_devices` patched to 2 CPU
   "cards" and `serve.shard_local_devices=true`: a batch that divides is
   split (a seeded /generate returns the same bytes twice, through the
   split sampler), one that does not keeps one device, as the JAX server
-  does; `serve.shard_local_devices=false`, the port's default, keeps one
-  device too.
-* `cli.eval_maskbit` on 2 and 4 "cards" with `eval.shard_local_devices=true`:
-  `eval.batch_size` 7 and 6 are rounded up to 8 and exactly
-  `eval.total_samples` are scored, each label once; by default it keeps
-  one device and the batch as given.
+  does; `serve.shard_local_devices=false`, and the port's default, keep
+  one device; the workers stop with the server.
+* `cli.eval_maskbit` on 2 and 4 "cards": `eval.batch_size` 7 and 6 are
+  rounded up to 8 and exactly `eval.total_samples` are scored, each label
+  once, with the split on by default or asked for; the workers stop when
+  the run ends.
 """
 
 import io
 import json
+import multiprocessing as mp
+import os
+import signal
 import threading
+import time
 import urllib.request
 
 import jax
@@ -90,9 +100,16 @@ def test_split_sampler_equals_one_device_and_jax(models, n_devices):
     labels = torch.from_numpy(models["labels"])
     draws = tuple(torch.from_numpy(d) for d in models["draws"])
     want_images, want_tokens = tsample.make_sampler(tgen, ttok, cfg)(labels, injected=draws)
-    sampler = split.make_sharded_sampler(tgen, ttok, cfg, ["cpu"] * n_devices)
-    assert len(sampler.devices) == n_devices
-    images, tokens = sampler(labels, injected=draws)
+    with split.make_sharded_sampler(tgen, ttok, cfg, ["cpu"] * n_devices) as sampler:
+        assert len(sampler.devices) == n_devices and len(set(sampler.pids)) == n_devices
+        images, tokens = sampler(labels, injected=draws)
+        # every replica holds the caller's weights, bit for bit
+        for gen_state, tok_state in sampler.replica_states():
+            for got, want in ((gen_state, tgen.state_dict()), (tok_state, ttok.state_dict())):
+                assert got.keys() == want.keys()
+                for key, value in want.items():
+                    assert torch.equal(got[key], value), key
+    _assert_stopped(sampler)
     assert images.shape == (BATCH, 8, 8, 3) and images.device.type == "cpu"
     np.testing.assert_array_equal(tokens.numpy(), want_tokens.numpy())
     np.testing.assert_allclose(images.numpy(), want_images.numpy(), atol=IMAGE_ATOL, rtol=0)
@@ -114,22 +131,73 @@ def test_split_sampler_equals_one_device_and_jax(models, n_devices):
 def test_split_sampler_seeded_draws_and_refusals(models):
     tgen, ttok, cfg = models["port"]
     labels = torch.from_numpy(models["labels"])
-    sampler = split.make_sharded_sampler(tgen, ttok, cfg, ["cpu", "cpu"])
-    a = sampler(labels, torch.Generator().manual_seed(3))
-    b = sampler(labels, torch.Generator().manual_seed(3))
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    # shard 1 draws from its own stream: its rows are not shard 0's draws
-    # for the same labels
-    same = split.make_sharded_sampler(tgen, ttok, cfg, ["cpu", "cpu"])(
-        torch.cat([labels[:4], labels[:4]]), torch.Generator().manual_seed(3))
-    assert not torch.equal(same[1][:4], same[1][4:])
-    with pytest.raises(ValueError, match="does not divide"):
-        sampler(labels[:7], torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="Generator or injected"):
-        sampler(labels)
+    one = tsample.make_sampler(tgen, ttok, cfg)
+    with split.make_sharded_sampler(tgen, ttok, cfg, ["cpu", "cpu"]) as sampler:
+        a = sampler(labels, torch.Generator().manual_seed(3))
+        b = sampler(labels, torch.Generator().manual_seed(3))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        # shard i draws from a generator seeded derive_seed(base, i)
+        base = int(torch.randint(0, 2**62, (1,), generator=torch.Generator().manual_seed(3)))
+        for i, rows in enumerate((slice(0, 4), slice(4, 8))):
+            want = one(labels[rows], torch.Generator().manual_seed(split.derive_seed(base, i)))
+            assert torch.equal(a[1][rows], want[1])
+            np.testing.assert_allclose(a[0][rows].numpy(), want[0].numpy(), atol=IMAGE_ATOL,
+                                       rtol=0)
+        # shard 1 draws from its own stream: its rows are not shard 0's draws
+        # for the same labels
+        same = sampler(torch.cat([labels[:4], labels[:4]]), torch.Generator().manual_seed(3))
+        assert not torch.equal(same[1][:4], same[1][4:])
+        with pytest.raises(ValueError, match="does not divide"):
+            sampler(labels[:7], torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="Generator or injected"):
+            sampler(labels)
+        assert [c["attention_block"] for c in sampler.launch_counts()] == [0, 0]  # no card
+    _assert_stopped(sampler)
+    with pytest.raises(RuntimeError, match="closed"):
+        sampler(labels, torch.Generator().manual_seed(3))
     assert split.local_devices("cpu") == [torch.device("cpu")]
     assert split.local_devices("cuda:1") == [torch.device("cuda", 1)]
     assert split.derive_seed(1, 0) != split.derive_seed(1, 1)
+
+
+def _assert_stopped(sampler):
+    """No worker of `sampler` is left running."""
+    for proc in sampler._procs:
+        assert not proc.is_alive() and proc.exitcode is not None
+    for pid in sampler.pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+
+
+@pytest.mark.parametrize("fault", ["killed", "silent", "start"])
+def test_split_sampler_raises_when_a_worker_fails(models, fault):
+    """A worker killed while it holds a call, one that stops answering, or
+    one that cannot take its replica to its device makes the call (or the
+    start) raise within the deadline, and every worker stops."""
+    tgen, ttok, cfg = models["port"]
+    labels = torch.from_numpy(models["labels"])
+    timeout = 20.0
+    if fault == "start":  # no XPU here: the second worker fails to start
+        with pytest.raises(RuntimeError, match="worker 1 on xpu raised"):
+            split.make_sharded_sampler(tgen, ttok, cfg, ["cpu", "xpu"], timeout=timeout)
+        assert not [p for p in mp.active_children() if p.name.startswith("sampler-")]
+        return
+    sampler = split.make_sharded_sampler(tgen, ttok, cfg, ["cpu", "cpu"], timeout=timeout)
+    try:
+        sampler(labels, torch.Generator().manual_seed(0))
+        os.kill(sampler.pids[1], signal.SIGSTOP)  # the request waits in its pipe
+        if fault == "killed":
+            threading.Timer(0.5, os.kill, (sampler.pids[1], signal.SIGKILL)).start()
+            sampler.timeout = 600.0  # the death, not the deadline, must end the call
+        else:
+            sampler.timeout = 2.0
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="died" if fault == "killed" else "no answer"):
+            sampler(labels, torch.Generator().manual_seed(0))
+        assert time.monotonic() - t0 < timeout
+    finally:
+        sampler.close()
+    _assert_stopped(sampler)
 
 
 def _cards(monkeypatch, n=2):
@@ -187,26 +255,32 @@ def test_serve_splits_a_dividing_batch_over_local_devices(tmp_path, monkeypatch,
         server.shutdown()
         server.server_close()
         service.close()
+    for sampler in made:  # the workers stop with the server
+        _assert_stopped(sampler)
 
 
-@pytest.mark.parametrize("cards,batch,shard", [(2, 7, True), (4, 6, True), (2, 7, None)],
-                         ids=["7-over-2", "6-over-4", "default-one-device"])
+@pytest.mark.parametrize("cards,batch,shard", [(2, 7, True), (4, 6, True), (2, 7, None),
+                                               (2, 7, False)],
+                         ids=["7-over-2", "6-over-4", "default-one-device", "switched-off"])
 def test_eval_maskbit_rounds_the_batch_up_over_two_devices(tmp_path, monkeypatch, cards, batch,
                                                            shard):
     from maskbit_tpu_torch.cli import eval_maskbit as em
 
     _cards(monkeypatch, cards)
-    batches, made = [], []
+    batches, made, samplers = [], [], []
 
     def recording(make):
         def build(*args, **kwargs):
             sampler = make(*args, **kwargs)
             made.append(make)
+            samplers.append(sampler)
 
             def run(labels, rng):
                 batches.append(labels.clone())
                 return sampler(labels, rng)
 
+            if hasattr(sampler, "close"):
+                run.close = sampler.close
             return run
 
         return build
@@ -232,9 +306,10 @@ def test_eval_maskbit_rounds_the_batch_up_over_two_devices(tmp_path, monkeypatch
     path = tmp_path / "eval.yaml"
     path.write_text(yaml.safe_dump(cfg))
     result = em.main([f"config={path}"])
-    if shard:
+    if shard is not False:  # split, by default as when asked for
         assert made == [sharded]
         assert [len(b) for b in batches] == [8, 8]  # rounded up to 8 to fill every shard
+        _assert_stopped(samplers[0])  # the workers stop when the run ends
     else:  # one device, the batch as given
         assert made == [one]
         assert [len(b) for b in batches] == [batch, batch]

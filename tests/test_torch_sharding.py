@@ -18,6 +18,10 @@ against the JAX package's, in one process.
   summed before the bias, give the whole layer's output (float32; atol
   1e-5, a few ulps of outputs up to about 4: the partial sums reassociate
   the output projection's sum).
+* The collectives take a bf16 or fp16 tensor in float32 under gloo and
+  under NCCL alike (`dist.get_backend` and the collective's device patched,
+  the collectives themselves replaced by spies over two emulated members),
+  and give it back in its own dtype: the backend does not change the sums.
 """
 
 import jax
@@ -228,3 +232,44 @@ def test_row_and_column_slices_reassemble_the_feed_forward_layer():
     with torch.no_grad():
         want = ffn._net(x, None)
     torch.testing.assert_close(partial + fc2.bias.detach(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_collectives_reduce_half_types_in_float32(monkeypatch, backend, dtype):
+    from maskbit_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setattr(pm.dist, "get_backend", lambda *args, **kwargs: backend)
+    monkeypatch.setattr(pm, "_comm_device", lambda: torch.device("cpu"))
+    seen = []
+
+    def all_reduce(t, group=None):  # two members that hold the same tensor
+        seen.append(t.dtype)
+        t.add_(t.clone())
+
+    def all_gather(out, t, group=None):
+        seen.append(t.dtype)
+        for o in out:
+            o.copy_(t)
+
+    def reduce_scatter(out, pieces, group=None):
+        seen.append(pieces[0].dtype)
+        out.copy_(pieces[0] + pieces[1])
+
+    monkeypatch.setattr(pm.dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(pm.dist, "all_gather", all_gather)
+    monkeypatch.setattr(pm.dist, "reduce_scatter", reduce_scatter)
+    wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+    x = torch.tensor([1.0, 3.0, -0.5, 2.0**-6], dtype=dtype)
+    assert pm._staged(x).dtype == wide
+    g = pm.Group("pg", (0, 1), 0)
+    mean = pm.all_reduce_mean_([x.clone()], g)[0]
+    summed = pm.reduce_from_group(x.clone(), g)
+    gathered = pm.all_gather_flat(x, g)
+    scattered = pm.reduce_scatter_flat([x, x], g)
+    y = x.clone().requires_grad_()
+    pm.copy_to_group(y, g).sum().backward()  # Megatron's f: the cotangents summed
+    assert y.grad.dtype == dtype and torch.equal(y.grad, torch.full_like(x, 2.0))
+    assert seen and all(d == wide for d in seen), seen
+    for out, want in ((mean, x), (summed, 2 * x), (gathered[1], x), (scattered, 2 * x)):
+        assert out.dtype == dtype and torch.equal(out, want)

@@ -24,7 +24,15 @@ Phases, each of which fails the run if it fails:
      16, 64), the kernel's keep mask (read out at zero logits) against the
      plain version's bit for bit, and the dropout-free `fused_attention` at
      (16, 257, 16, 64), each timed beside its plain version and
-     `scaled_dot_product_attention`; then the flagship generator's logits
+     `scaled_dot_product_attention`; the same four kernels at the other
+     head dims' kernels (mma.sync), at every multiple of 16 in [16, 128]
+     but 64 (`HEAD_DIM_SHAPES`: the dropout pair at batch 32, the block and
+     `fused_attention` at the system check's CFG batch 60, or 16 at d =
+     128), each at n = 257 and n = 17 against its plain version (the mask
+     bit for bit, dq, dk, dv; the tolerances of d = 64), at d = 16, 32 and
+     128 (`TIMED_HEAD_DIMS`) timed at n = 257 beside SDPA (the block beside
+     the library chain) and the bound, and head dims 8 and 144 refused;
+     then the flagship generator's logits
      (depth cut to 2) through the kernel against a float32 plain-PyTorch
      forward of the same weights. Every time is taken twice: `ms`, the
      device time per call (the kernels' device times under torch.profiler,
@@ -154,7 +162,7 @@ Phases, each of which fails the run if it fails:
         (`MASKBIT_DISTRIBUTED=1`, world size 1, depth 2, 3 steps): the
         backend is NCCL;
      b. in a second pair of ranks: one step of the flagship-width LFQBert
-        (depth 24, hidden dropout off, attention dropout 0.1, bf16) with
+        (depth cut to 12, hidden dropout off, attention dropout 0.1, bf16) with
         injected global draws, 2 ranks x batch 16 against one process x
         batch 32 (this process, meanwhile): the reduced gradients' relative
         L2 gap and the updates' sign agreement, with `DP_GRAD_TOL`; each
@@ -173,7 +181,7 @@ Phases, each of which fails the run if it fails:
  12. sharded (`--phases sharded`): the fsdp and tensor axes
      (`parallel/zero.py`), two ranks sharing the card over gloo, first at
      parallel.fsdp=2, then at tensor=2, each logging as phase 11's ranks:
-     the flagship-width LFQBert at depth 24 (hidden dropout off, attention
+     the flagship-width LFQBert at depth 12 (hidden dropout off, attention
      dropout 0.1, bf16), per-device batch 16 (global 32; under tensor=2
      both ranks hold the 32 rows, 8 heads each), 4 steps with injected
      global draws: the first update against one process x batch 32 on the
@@ -258,6 +266,18 @@ Phases, each of which fails the run if it fails:
      Each part runs even when another failed; every rank must report NCCL.
      With fewer than four cards it prints that it was not run. The
      kernels line gains `launches_multicard_per_rank` (null then).
+ 16. system_check (`--phases system_check`): `maskbit_tpu_torch.cli.system_check`
+     on the card, both runs (the counterpart of `tools/system_check.py`):
+     Stage I, 400 steps at batch 32 (recon must fall below 0.2x its first
+     value), then per run 600 Stage-II steps and 30 CFG samples whose
+     quadrant colours must match their classes (MSE below 0.35x chance):
+     `tool` at the tool's widths (head dim 32: the mma.sync kernels) and
+     `flagship` at the flagship generator's width and depth (head dim 64).
+     One line a run: recon first and last, mlm loss, masked accuracy,
+     matched and chance MSE, seconds a stage, and the dropout forward,
+     backward and block launches of the run by head dim. The kernels line
+     gains the head-dim-generic kernels (launches: run `tool`) and
+     `launches_system_check` (run `flagship`) on the d = 64 ones.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -318,9 +338,11 @@ TAMING_CONFIG = os.path.join(ROOT, "configs", "external", "taming_vqgan_tokenize
 TAMING_BATCHES = 4
 # phase 11: two ranks share the card. Stage-II per-rank batch (global 32),
 # the stop run's depth (cut from 24 to make room for phase 12), the gradient
-# check's depth, the NCCL rank's depth and steps, Stage I's per-rank batch,
-# steps and gate, the sharded eval, each launch's limit (s)
-DP_SIZES = {"batch": 16, "stop_depth": 12, "grad_depth": 24, "nccl_depth": 2, "nccl_steps": 3,
+# check's depth (cut from 24, as phase 12's, to make room for phase 16; phase
+# 12 compares its train state with these ranks'), the NCCL rank's depth and
+# steps, Stage I's per-rank batch, steps and gate, the sharded eval, each
+# launch's limit (s)
+DP_SIZES = {"batch": 16, "stop_depth": 12, "grad_depth": 12, "nccl_depth": 2, "nccl_steps": 3,
             "tok_batch": 8,
             "tok_steps": 4, "tok_gate": 2, "eval_samples": 300, "eval_batch": 100,
             "timeout": 600}
@@ -599,10 +621,10 @@ def phase_kernels(torch) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
-def _qkv_packed(torch, b, n, h, seed):
-    """bf16 q, k, v as the QKV projection's views of one (b, n, 3, h, 64)."""
+def _qkv_packed(torch, b, n, h, seed, d=64):
+    """bf16 q, k, v as the QKV projection's views of one (b, n, 3, h, d)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(b, n, 3, h, 64, generator=g, device="cuda").to(torch.bfloat16)
+    qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(torch.bfloat16)
     return qkv.unbind(2)
 
 
@@ -612,16 +634,16 @@ def _sdpa(torch, q, k, v, dropout_p):
     return f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), dropout_p=dropout_p)
 
 
-def kernel_keep_mask(torch, da, seeds, b, n, h):
-    """The forward kernel's keep mask, read out exactly: at zero logits every
-    kept weight is positive and every dropped one 0, so with V one-hot over
-    the head dim for 64 keys at a time, out[b, i, h, d] > 0 iff key
-    (chunk + d) is kept for query i."""
-    z = torch.zeros(b, n, h, 64, device="cuda", dtype=torch.bfloat16)
+def kernel_keep_mask(torch, da, seeds, b, n, h, d=64):
+    """The forward kernel's keep mask at head dim d, read out exactly: at
+    zero logits every kept weight is positive and every dropped one 0, so
+    with V one-hot over the head dim for d keys at a time, out[b, i, h, j]
+    > 0 iff key (chunk + j) is kept for query i."""
+    z = torch.zeros(b, n, h, d, device="cuda", dtype=torch.bfloat16)
     seeds32 = da.seeds_as_int32(seeds, (b, h))
     keep = torch.empty(b, h, n, n, device="cuda", dtype=torch.bool)
-    for c0 in range(0, n, 64):
-        m = min(64, n - c0)
+    for c0 in range(0, n, d):
+        m = min(d, n - c0)
         v = torch.zeros_like(z)
         v[:, c0:c0 + m, :, :m] = torch.eye(m, device="cuda", dtype=torch.bfloat16)[:, None, :]
         out = da.launch_forward(z, z, v, seeds32, RATE)[0]
@@ -718,6 +740,127 @@ def phase_dropout_kernels(torch) -> dict:
         raise AssertionError(f"fused_attention disagrees: max_abs_err {err}")
     rows["fused_attention"].append(dict(shape=[b, n, h, 64], max_abs_err=err, **t, **bound))
     return rows
+
+
+# The other head dims' kernels in phase 3: per d, (heads, the dropout
+# pair's batch, the block's and fused_attention's batch, the block's E).
+# 32 is the system check's generator (its CFG batch of 60 samples), 16 the
+# JAX package's tests (E = 64 over 4 heads), 128 the flagship's width over 8
+# heads; 48, 80, 96 and 112, where d / 16 is odd, are checked, not timed.
+HEAD_DIM_SHAPES = {16: (4, TRAIN_BATCH, 60, 64), 32: (4, TRAIN_BATCH, 60, 128),
+                   48: (4, TRAIN_BATCH, 60, 192), 80: (4, TRAIN_BATCH, 60, 320),
+                   96: (4, TRAIN_BATCH, 60, 384), 112: (8, TRAIN_BATCH, 60, 896),
+                   128: (8, TRAIN_BATCH, 2 * SERVE_BATCH, 1024)}
+TIMED_HEAD_DIMS = (16, 32, 128)
+
+
+def phase_head_dims(torch) -> dict:
+    """The four kernels at every head dim of the mma.sync kernels against
+    their plain versions at n = 257 and n = 17, timed at n = 257 at
+    `TIMED_HEAD_DIMS`; head dims 8 and 144 refused."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    rows = []
+    for d, (h, b, bb, e) in HEAD_DIM_SHAPES.items():
+        for n in (257, 17):
+            q, k, v = _qkv_packed(torch, b, n, h, seed=d * n, d=d)
+            seeds = torch.randint(0, 2**32, (b, h), device="cuda", dtype=torch.int64,
+                                  generator=torch.Generator(device="cuda").manual_seed(d + n))
+            seeds32 = da.seeds_as_int32(seeds, (b, h))
+            g = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n),
+                            device="cuda").to(torch.bfloat16)
+            out, lse = da.launch_forward(q, k, v, seeds32, RATE)
+            grads = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
+            torch.cuda.synchronize()
+            qf, kf, vf = q.float(), k.float(), v.float()
+            fwd_err = (out.float() - da.dropout_attention_reference(qf, kf, vf, seeds, RATE)
+                       ).abs().max().item()
+            refs = da.dropout_attention_backward_reference(qf, kf, vf, g.float(), seeds, RATE)
+            bwd_errs = [(x.float() - r).abs().max().item() for x, r in zip(grads, refs)]
+            bwd_tol = DROPOUT_ATOL * max(1.0, max(r.abs().max().item() for r in refs))
+            mask_flips = int((kernel_keep_mask(torch, da, seeds, b, n, h, d)
+                              != da.hash_keep_mask(seeds, n, RATE)).sum().item())
+            fq, fk, fv = _qkv_packed(torch, bb, n, h, seed=d * n + 1, d=d)
+            fused = da.fused_attention(fq, fk, fv)
+            fused_err = (fused.float() - da.fused_attention_reference(
+                fq.float(), fk.float(), fv.float())).abs().max().item()
+            inp = _block_inputs(torch, bb, n, e, seed=d * n + 2, vectors=torch.bfloat16)
+            block = ab.fused_attention_block(**inp, num_heads=e // d)
+            torch.cuda.synchronize()
+            block_err = (block.float() - ab.fused_attention_block_reference(
+                **{x: y.float() for x, y in inp.items()}, num_heads=e // d)).abs().max().item()
+            finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads, fused, block))
+            row = dict(d=d, n=n, heads=h, dropout_shape=[b, n, h, d], block_shape=[bb, n, e],
+                       fused_shape=[bb, n, h, d],
+                       fwd_err=fwd_err, bwd_errs=bwd_errs, bwd_tol=bwd_tol,
+                       mask_flips=mask_flips, fused_err=fused_err, block_err=block_err)
+            log(f"[kernel] head dim {d}, n {n}: dropout ({b}, {n}, {h}, {d}) fwd max_abs_err "
+                f"{fwd_err:.6f}, dq/dk/dv {bwd_errs[0]:.6f}/{bwd_errs[1]:.6f}/{bwd_errs[2]:.6f} "
+                f"(atol {DROPOUT_ATOL}, bwd {bwd_tol:.4f}), keep mask {mask_flips} of "
+                f"{b * h * n * n} bits differ; fused_attention ({bb}, {n}, {h}, {d}) "
+                f"{fused_err:.6f}; block ({bb}, {n}, {e}) {e // d} heads {block_err:.6f} "
+                f"(atol {KERNEL_ATOL})")
+            if (not finite or fwd_err > DROPOUT_ATOL or max(bwd_errs) > bwd_tol or mask_flips
+                    or fused_err > DROPOUT_ATOL or block_err > KERNEL_ATOL):
+                raise AssertionError(f"the kernels disagree at head dim {d}, n {n}: {row}")
+            if n == 257 and d in TIMED_HEAD_DIMS:
+                lib_g = g.transpose(1, 2)
+                ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+                lib_out = _sdpa(torch, ql, kl, vl, RATE)
+                elems = b * n * h * d
+                row["dropout_attention_fwd"] = dict(
+                    **_times(torch, lambda: da.launch_forward(q, k, v, seeds32, RATE),
+                             plain=lambda: da.dropout_attention_reference(q, k, v, seeds, RATE),
+                             library=lambda: _sdpa(torch, q, k, v, RATE)),
+                    **_bound(4 * b * h * n * n * d, 2 * 4 * elems + 4 * b * h * n))
+                row["dropout_attention_bwd"] = dict(
+                    **_times(torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32,
+                                                               RATE),
+                             plain=lambda: da.dropout_attention_backward_reference(
+                                 q, k, v, g, seeds, RATE),
+                             library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g,
+                                                                 retain_graph=True)),
+                    **_bound(10 * b * h * n * n * d, 2 * 8 * elems + 4 * b * h * n))
+                row["fused_attention"] = dict(
+                    **_times(torch, lambda: da.fused_attention(fq, fk, fv),
+                             plain=lambda: da.fused_attention_reference(fq, fk, fv),
+                             library=lambda: _sdpa(torch, fq, fk, fv, 0.0)),
+                    **_bound(4 * bb * h * n * n * d, 2 * 4 * bb * n * h * d))
+                call = lambda: ab.fused_attention_block(**inp, num_heads=e // d)  # noqa: E731
+                row["fused_attention_block"] = dict(
+                    **_times(torch, call, plain=lambda: ab.fused_attention_block_reference(
+                        **inp, num_heads=e // d)),
+                    library_chain_ms=_device_ms(torch, _library_chain(torch, inp, e // d)),
+                    **_bound(2 * bb * n * e * 3 * e + 2 * bb * n * e * e
+                             + 4 * bb * (e // d) * n * n * d,
+                             2 * (2 * bb * n * e + 4 * e * e) + 2 * 6 * e))
+                log(f"[kernel]   head dim {d} device ms (plain; library; bound): " + "; ".join(
+                    f"{name} {t['ms']:.4f} ({t['plain_ms']:.4f}; "
+                    f"{t.get('library_ms', t.get('library_chain_ms')):.4f}; "
+                    f"{t['bound_ms']:.4f} by {t['bound_by']})"
+                    for name, t in row.items() if isinstance(t, dict)))
+                del lib_out, ql, kl, vl
+            rows.append(row)
+            del q, k, v, g, out, lse, grads, refs, fq, fk, fv, fused, inp, block
+    # head dims outside the multiples of 16 in [16, 128] raise, on the card
+    refused = []
+    for d in (8, 144):
+        q, k, v = _qkv_packed(torch, 1, 17, 2, seed=d, d=d)
+        inp = _block_inputs(torch, 1, 17, 8 * d, seed=d, vectors=torch.bfloat16)
+        for name, fn in (("dropout_attention", lambda: da.dropout_attention(
+                             q, k, v, torch.zeros(1, 2, dtype=torch.int64), RATE)),
+                         ("fused_attention", lambda: da.fused_attention(q, k, v)),
+                         ("fused_attention_block", lambda: ab.fused_attention_block(
+                             **inp, num_heads=8))):
+            try:
+                fn()
+            except ValueError as err:
+                refused.append(f"{name} d={d}: {err}")
+            else:
+                raise AssertionError(f"{name} ran at head dim {d}")
+    log("[kernel] refused: " + "; ".join(refused))
+    return {"rows": rows, "refused": refused}
 
 
 def _model_node(path: str) -> dict:
@@ -2853,8 +2996,8 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
 # same 32 rows), steps per run (the first checked against one process, the
 # second with the collectives timed, the rest timed as steps), sampler
 # labels per rank under tensor=2, Stage I's per-rank batch and steps, each
-# launch's limit (s)
-SH_SIZES = {"batch": 16, "depth": 24, "steps": 4, "sample": 2, "tok_batch": 8, "tok_steps": 3,
+# launch's limit (s); the depth cut from 24 to make room for phase 16
+SH_SIZES = {"batch": 16, "depth": 12, "steps": 4, "sample": 2, "tok_batch": 8, "tok_steps": 3,
             "timeout": 600}
 SH_MESHES = (("fsdp2", {"fsdp": 2, "tensor": 1}), ("tensor2", {"fsdp": 1, "tensor": 2}))
 # the state a rank keeps under fsdp=2 against data=2's (replicated): half,
@@ -3815,9 +3958,36 @@ def phase_multicard(torch, device_info, device="cuda", gen_config=CONFIG,
     return out
 
 
+def phase_system_check(torch) -> dict:
+    """Phase 16: both runs of `cli.system_check` on the card; its own
+    thresholds fail the phase. The launches are counted per run, zeroed
+    just before its Stage II and read after its sampling."""
+    from maskbit_tpu_torch.cli import system_check
+
+    t0 = time.perf_counter()
+    result = system_check.run_check("cuda", log=lambda m: log(f"[system-check] {m}"))
+    tok = result["tokenizer"]
+    for name, r in result["runs"].items():
+        launched = {**r["launches_train"]["by_head_dim"], **r["launches_sample"]["by_head_dim"],
+                    "attention_block": r["launches_sample"]["attention_block"]}
+        log(f"[system-check] run {name} (head dim {r['head_dim']}, depth {r['depth']}): recon "
+            f"{tok['recon_first']:.4f} -> {tok['recon_last']:.4f} (Stage I {tok['stage1_seconds']:.1f}"
+            f" s); mlm loss {r['mlm_loss']:.4f}, masked acc {r['masked_acc']:.4f} (Stage II "
+            f"{r['stage2_seconds']:.1f} s); quadrant MSE matched {r['matched']:.5f} chance "
+            f"{r['chance']:.5f} (ratio {r['matched'] / r['chance']:.3f}; sampling "
+            f"{r['sample_seconds']:.1f} s); launches {launched}")
+        for key in ("dropout_attention_fwd", "dropout_attention_bwd"):
+            if r["launches_train"]["by_head_dim"].get(f"{key}@{r['head_dim']}", 0) <= 0:
+                raise AssertionError(f"run {name}: no {key} launch at head dim {r['head_dim']}")
+        if r["launches_sample"]["by_head_dim"].get(f"fused_attention@{r['head_dim']}", 0) <= 0:
+            raise AssertionError(f"run {name}: no block launch at head dim {r['head_dim']}")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
           "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
-          "split_scale", "multicard")
+          "split_scale", "multicard", "system_check")
 
 
 def _args(argv):
@@ -3858,32 +4028,46 @@ def main(argv=None) -> int:
     device_info = phase_device(torch)
     phase_build()
     run = set(args.phases)
-    kern = phase_kernels(torch) if "kernels" in run else None
-    drop = phase_dropout_kernels(torch) if "dropout" in run else None
-    if "generator" in run:
-        phase_generator(torch)
-    sl = phase_slice(torch, device_info) if "slice" in run else None
-    check = phase_train_check(torch) if "train_check" in run else None
-    tr = phase_train_slice(torch, device_info) if "train" in run else None
-    data = phase_train_data(torch, device_info, tr) if "train_data" in run else None
-    ev = phase_eval(torch, device_info) if "eval" in run else None
-    tok = phase_tokenizer_train(torch, device_info) if "tokenizer_train" in run else None
-    var = phase_variants(torch, device_info) if "variants" in run else None
-    dp = phase_distributed(torch, device_info) if "distributed" in run else None
-    sh = (phase_sharded(torch, device_info, data_parallel=dp and dp["ranks"])
-          if "sharded" in run else None)
-    sp = (phase_split(torch, device_info, stage2_step_s=tr and tr["median_step_s"])
-          if "split" in run else None)
-    sc = phase_split_scale(torch, device_info) if "split_scale" in run else None
-    mc = phase_multicard(torch, device_info) if "multicard" in run else None
+    seconds = {}
+
+    def phase(name, fn, *a, **kw):
+        """fn(*a, **kw) if the phase runs (else None), its seconds logged."""
+        if name not in run:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[time] phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    kern = phase("kernels", phase_kernels, torch)
+    drop, widths = phase("dropout", lambda: (phase_dropout_kernels(torch),
+                                             phase_head_dims(torch))) or (None, None)
+    phase("generator", phase_generator, torch)
+    sl = phase("slice", phase_slice, torch, device_info)
+    check = phase("train_check", phase_train_check, torch)
+    tr = phase("train", phase_train_slice, torch, device_info)
+    data = phase("train_data", phase_train_data, torch, device_info, tr)
+    ev = phase("eval", phase_eval, torch, device_info)
+    tok = phase("tokenizer_train", phase_tokenizer_train, torch, device_info)
+    var = phase("variants", phase_variants, torch, device_info)
+    dp = phase("distributed", phase_distributed, torch, device_info)
+    sh = phase("sharded", phase_sharded, torch, device_info, data_parallel=dp and dp["ranks"])
+    sp = phase("split", phase_split, torch, device_info,
+               stage2_step_s=tr and tr["median_step_s"])
+    sc = phase("split_scale", phase_split_scale, torch, device_info)
+    mc = phase("multicard", phase_multicard, torch, device_info)
+    syscheck = phase("system_check", phase_system_check, torch)
     os.makedirs(OUT_DIR, exist_ok=True)
+    results = {"device": device_info, "phase_seconds": seconds,
+               "kernel_rows": kern and kern["rows"], "dropout_rows": drop,
+               "head_dim_rows": widths, "slice": sl, "train_check": check, "train": tr,
+               "train_data": data, "eval": ev, "tokenizer_train": tok, "variants": var,
+               "distributed": dp, "sharded": sh, "split": sp, "split_scale": sc,
+               "multicard": mc, "system_check": syscheck}
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
-            json.dump({"device": device_info, "kernel_rows": kern and kern["rows"],
-                       "dropout_rows": drop, "slice": sl, "train_check": check, "train": tr,
-                       "train_data": data, "eval": ev, "tokenizer_train": tok,
-                       "variants": var, "distributed": dp, "sharded": sh, "split": sp,
-                       "split_scale": sc, "multicard": mc}, f, indent=1)
+            json.dump(results, f, indent=1)
         log(f"[done] phases {args.phases} passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3939,6 +4123,11 @@ def main(argv=None) -> int:
                  "launches": [r["sample_launches"][key] for r in mc["sharded"]["ranks"]]},
                 {"run": "eval_maskbit", "launches": [r["eval_launches"][key]
                                                      for r in mc["combined"]["ranks"]]}]
+        # phase 16: run `flagship` of the system check (head dim 64)
+        flagship = syscheck["runs"]["flagship"]
+        stage = "launches_sample" if key in ("attention_block", "fused_attention") else (
+            "launches_train")
+        per_rank["launches_system_check"] = flagship[stage][key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_train_data": data_launches, **bert, **per_rank,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3972,12 +4161,49 @@ def main(argv=None) -> int:
             sl["fused_attention_launches"], drop["fused_attention"],
             launches_eval=ev["launches"]["fused_attention"]),
     ]}
+    # the other head dims' kernels: launched by phase 16's run `tool` (head
+    # dim 32, the sampler's block and the Stage-II dropout pair), timed in
+    # phase 3 at head dim 32 (the run's shapes) and at 16 and 128 ("widths")
+    tool = syscheck["runs"]["tool"]
+    tool_d = tool["head_dim"]
+    width_rows = {r["d"]: r for r in widths["rows"] if "dropout_attention_fwd" in r}
+    generic = {"fused_attention_block": (f"{pa}:532", "maskbit_tpu_torch/csrc/attention_block.cu",
+                                         tool["launches_sample"]["attention_block"]),
+               "dropout_attention_fwd": (f"{pa}:232", "maskbit_tpu_torch/csrc/attention_fwd.cuh",
+                                         tool["launches_train"]["by_head_dim"].get(
+                                             f"dropout_attention_fwd@{tool_d}", 0)),
+               "dropout_attention_bwd": (f"{pa}:274", src, tool["launches_train"]["by_head_dim"].get(
+                   f"dropout_attention_bwd@{tool_d}", 0)),
+               "fused_attention": (f"{pa}:94", "maskbit_tpu_torch/csrc/attention_fwd.cuh",
+                                   tool["launches_sample"]["by_head_dim"].get(
+                                       f"fused_attention@{tool_d}", 0))}
+    time_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    errs = {"fused_attention_block": lambda r: r["block_err"],
+            "dropout_attention_fwd": lambda r: r["fwd_err"],
+            "dropout_attention_bwd": lambda r: max(r["bwd_errs"]),
+            "fused_attention": lambda r: r["fused_err"]}
+    for name, (replaces, source, launches) in generic.items():
+        at = width_rows[tool_d][name]
+        record["kernels"].append({
+            "name": f"{name}_mma", "route": "cuda", "source": source, "replaces": replaces,
+            "head_dims": "multiples of 16 in [16, 128] but 64", "launches": launches,
+            "launches_head_dim": tool_d,
+            "max_abs_err": max(errs[name](r) for r in widths["rows"]),
+            **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
+            **({"library_chain_ms": at["library_chain_ms"]} if "library_chain_ms" in at else {}),
+            "widths": [{"d": d, "shape": r[{"fused_attention_block": "block_shape",
+                                            "fused_attention": "fused_shape"}.get(
+                                                name, "dropout_shape")],
+                        **{k: r[name][k] for k in time_keys},
+                        "library_ms": r[name].get("library_ms", r[name].get("library_chain_ms"))}
+                       for d, r in sorted(width_rows.items())]})
     bert_path = {"fused_attention_block": "launches_bert_serve",
                  "fused_attention": "launches_bert_serve",
                  "dropout_attention_fwd": "launches_bert_train",
                  "dropout_attention_bwd": "launches_bert_train"}
-    idle = [k["name"] for k in record["kernels"]
-            if k["launches"] <= 0 or k["launches_train_data"] <= 0
+    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    idle += [k["name"] for k in record["kernels"] if "widths" not in k and (
+            k["launches_train_data"] <= 0 or k["launches_system_check"] <= 0
             or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0
             or min(k.get("launches_distributed_per_rank", [1])) <= 0
             or min(k.get("launches_distributed_eval_per_rank", [1])) <= 0
@@ -3986,14 +4212,11 @@ def main(argv=None) -> int:
             or min([n for x in k.get("launches_split_scale_per_worker") or []
                     for n in x["launches"]] or [1]) <= 0
             or min([n for x in k["launches_multicard_per_rank"] or [] for n in x["launches"]]
-                   or [1]) <= 0]
+                   or [1]) <= 0)]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
-        json.dump({"device": device_info, "kernel_rows": kern["rows"], "dropout_rows": drop,
-                   "slice": sl, "train_check": check, "train": tr, "train_data": data,
-                   "eval": ev, "tokenizer_train": tok, "variants": var, "distributed": dp,
-                   "sharded": sh, "split": sp, "split_scale": sc, "multicard": mc}, f, indent=1)
+        json.dump(results, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

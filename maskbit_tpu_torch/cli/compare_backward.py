@@ -6,7 +6,10 @@
 
 Each source is a version of `maskbit_tpu_torch/csrc/dropout_attention.cu`
 with the same C interface, e.g. one taken from another commit with `git show
-<commit>:maskbit_tpu_torch/csrc/dropout_attention.cu`. Every source is built
+<commit>:maskbit_tpu_torch/csrc/dropout_attention.cu`. Sources from before
+`mb_dropout_attention_bwd` took the head dim (`int d`) have another
+interface, which the binding would misread: they are refused before the
+build. Every source is built
 with the package's nvcc flags (all at once, into the git-ignored
 `build/compare_backward/`), and its ptxas lines on registers, spills and
 serialised wgmma are printed. Then, on the forward of this checkout's
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -38,6 +42,11 @@ TIME_SHAPES = ((32, 257, 16), (8, 1025, 16))
 
 
 def build(sources):
+    for src in sources:
+        with open(src) as f:
+            if not re.search(r"mb_dropout_attention_bwd\([^)]*\bint d\b", f.read()):
+                raise ValueError(f"{src}: its mb_dropout_attention_bwd takes no head dim d, so "
+                                 "its interface is not this checkout's")
     out_dir = cuda_build.BUILD_DIR.parent / "compare_backward"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = [subprocess.Popen(cuda_build.nvcc_command(src, out_dir / f"lib{i}.so"),

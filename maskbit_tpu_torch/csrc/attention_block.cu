@@ -23,7 +23,9 @@
 //   2. attn_fwd_kernel<false> (attention_fwd.cuh, shared with the training
 //      kernels): softmax(q k^T / 8) v per (batch * head, 64-query tile), over
 //      the qkv buffer's strided (b, n, 3, h, 64) view, into a contiguous
-//      (b, n, h, 64) = (b * n, E) bf16 buffer.
+//      (b, n, h, 64) = (b * n, E) bf16 buffer; at other head dims d (a
+//      multiple of 16 in [16, 128]) attn_fwd_mma_kernel<d, false>, the same
+//      function with 1/sqrt(d).
 //   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
 //   4. layernorm_kernel: out = bf16(LN(y)), one block a row, two passes.
 // A LayerNorm in the out-projection's epilogue, with a cluster of E / 256
@@ -363,9 +365,10 @@ cudaError_t launch_proj_bm(int bm, const void* a, const void* b, void* c_out, co
 // w_o: (E, E) bf16; b_qkv (3E), b_o, ln_g, ln_b (E) f32, or bf16 where bits
 // 0, 1, 2, 3 of vec_bf16 are set. Scratch, allocated by the caller: qkv
 // (B*n, 3E) bf16, attn (B*n, E) bf16, y (B*n, E) f32. bm_qkv, bm_out (64
-// or 128): the projections' block rows. E = 64 H <= 4096. Returns the first
-// launch error (cudaSuccess == 0), or cudaErrorInvalidValue if an argument
-// or a tensor map is refused.
+// or 128): the projections' block rows. E = d H <= 4096, a multiple of 64,
+// with the head dim d a multiple of 16 in [16, 128]. Returns the first launch error
+// (cudaSuccess == 0), or cudaErrorInvalidValue if an argument or a tensor
+// map is refused.
 extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* b_qkv,
                                   const void* w_o, const void* b_o, const void* ln_g,
                                   const void* ln_b, int vec_bf16, void* qkv, void* attn, void* y,
@@ -373,15 +376,17 @@ extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* 
                                   int bm_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * n;
-  if (E != H * HD || E > 4096 || !current_context()) return static_cast<int>(cudaErrorInvalidValue);
+  if (H <= 0 || E % H || E % PJ_BK || E > 4096 || !current_context())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int D = E / H;  // attention_forward refuses a head dim it has no kernel for
   cudaError_t err = launch_proj_bm<EPI_BIAS>(bm_qkv, x, w_qkv, qkv, b_qkv, nullptr, nullptr,
                                              vec_bf16 & 1, M, 3 * E, E, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const bf16* q = static_cast<const bf16*>(qkv);
-  const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, 64)
-  const int aerr = attention_forward(q, q + E, q + 2 * E, row * n, row, HD, nullptr, attn,
-                                     nullptr, B, n, H, 0u, 1.0f, false, s);
+  const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, D)
+  const int aerr = attention_forward(q, q + E, q + 2 * E, row * n, row, D, nullptr, attn,
+                                     nullptr, B, n, H, D, 0u, 1.0f, false, s);
   if (aerr != 0) return aerr;
 
   err = launch_proj_bm<EPI_RESID>(bm_out, attn, w_o, nullptr, b_o, x, static_cast<float*>(y),

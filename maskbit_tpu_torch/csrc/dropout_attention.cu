@@ -9,6 +9,11 @@
 //     forward with the mask compiled out;
 //   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_prep_kernel,
 //     attn_bwd_kernel and attn_bwd_dq_kernel.
+// Those take head dim 64, the flagship's. At every other head dim that is a
+// multiple of 16 in [16, 128] (the TPU kernels read d from their inputs)
+// attn_fwd_mma_kernel (attention_fwd.cuh), attn_bwd_prep_kernel,
+// attn_bwd_dkdv_mma_kernel and attn_bwd_dq_mma_kernel (at the end of this
+// file) replace the same three, in a simpler mma.sync design.
 // The forward template lives in attention_fwd.cuh, which the serving
 // attention block (attention_block.cu) includes too; the PTX wrappers and
 // the tensor-map encoder in sm90.cuh.
@@ -89,9 +94,9 @@
 //     The TPU kernel's rounding points are kept: the dropped weights are
 //     rounded to bf16 before dv, the score gradient before dq and dk.
 //
-// Layouts: q, k, v are (b, n, h, 64) bf16 read through strides (batch, row,
+// Layouts: q, k, v are (b, n, h, d) bf16 read through strides (batch, row,
 // head; the last dimension contiguous, every stride a multiple of 16 bytes).
-// out, the incoming gradient, dq, dk and dv are contiguous (b, n, h, 64)
+// out, the incoming gradient, dq, dk and dv are contiguous (b, n, h, d)
 // bf16. The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
@@ -102,8 +107,10 @@ namespace {
 // ------------------------------------------------------------ backward ----
 
 // Per (b, row, h), row over the padded length n_pad: stats[bh, row] =
-// (lse * log2e, rowsum(g * out)) in f32, (0, 0) past n; one warp per row.
-// The grid's first `num_tickets` threads also zero the dq tickets.
+// (lse * log2e, rowsum(g * out)) in f32, (0, 0) past n; one warp per row,
+// at head dim D. The grid's first `num_tickets` threads also zero the dq
+// tickets (none at D != 64, whose dq kernel needs none).
+template <int D>
 __global__ void __launch_bounds__(128)
 attn_bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad,
                      const float* __restrict__ lse, float2* __restrict__ stats,
@@ -112,7 +119,7 @@ attn_bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad
   const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gt < num_tickets) tickets[gt] = 0;
   const long long r = gt >> 5;
-  if (r >= rows) return;
+  if (r >= rows) return;  // whole warps: a warp shares its row
   const int lane = threadIdx.x & 31;
   const int h = static_cast<int>(r % H);
   const long long bn = r / H;  // b * n_pad + row
@@ -123,10 +130,17 @@ attn_bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad
     if (lane == 0) stats[bh * n_pad + row] = make_float2(0.0f, 0.0f);
     return;
   }
-  const long long e = ((b * n + row) * H + h) * HD + 2 * lane;
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + e));
-  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(grad + e));
-  float s = a.x * d.x + a.y * d.y;
+  const long long e = ((b * n + row) * H + h) * D;
+  float s = 0.0f;
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += 64) {  // 64 elements a pass, two a lane
+    const int d = d0 + 2 * lane;
+    if (D % 64 == 0 || d < D) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + e + d));
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(grad + e + d));
+      s += a.x * x.x + a.y * x.y;
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) stats[bh * n_pad + row] = make_float2(lse[bh * n + row] * LOG2E, s);
@@ -424,38 +438,353 @@ bool dq_sum_map(CUtensorMap* map, void* base, int BH, int n) {
                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// ------------------------------- backward at every other head width ----
+//
+// The backward at head dim D (a multiple of 16 in [16, 128], not 64), in
+// attention_fwd.cuh's simple design (mma.sync, padded shared-memory rows
+// filled by all threads): the same formulas, keep hash and rounding points
+// as attn_bwd_kernel, in three launches that need no co-residency:
+//   attn_bwd_prep_kernel<D>: the row pairs (lse * log2 e, delta), without
+//     tickets;
+//   attn_bwd_dkdv_mma_kernel: one block per (batch*head, 64-key tile), its
+//     K and V resident, looping over the query tiles: S^T = K Q^T, dP^T =
+//     V G^T, then dV += bf16(dropped P^T) G and dK += bf16(dS^T) Q;
+//   attn_bwd_dq_mma_kernel: one block per (batch*head, 64-query tile), its
+//     Q and G resident, looping over the key tiles: S and dP again, then
+//     dQ += bf16(dS) K, summed in registers in key order, so dq is
+//     deterministic without the d = 64 kernel's tickets. It computes the
+//     two score products a second time (14 * b*h*n^2*d operations in all,
+//     against 10).
+
+template <int D>
+struct MmaBwdDims {
+  using M = MmaDims<D>;
+  // K | V | Q | G | Q^T | G^T | row pairs
+  static constexpr int DKDV_SMEM = 4 * M::TILE + 2 * M::TILE_T + MMA_ROWS * 8;
+  // Q | G | K | V | K^T | row pairs
+  static constexpr int DQ_SMEM = 4 * M::TILE + M::TILE_T + MMA_ROWS * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, long long sb, long long sn, long long sh,
+                         const bf16* __restrict__ grad, const float2* __restrict__ stats,
+                         const int* __restrict__ seeds, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int n, int H, int n_pad, float scale,
+                         float scale_log2, uint32_t threshold, float keep_scale) {
+  using M = MmaDims<D>;
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_mma);
+  bf16* vs = reinterpret_cast<bf16*>(smem_mma + M::TILE);
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma + 2 * M::TILE);
+  bf16* gs = reinterpret_cast<bf16*>(smem_mma + 3 * M::TILE);
+  bf16* qt = reinterpret_cast<bf16*>(smem_mma + 4 * M::TILE);
+  bf16* gt = reinterpret_cast<bf16*>(smem_mma + 4 * M::TILE + M::TILE_T);
+  float2* st = reinterpret_cast<float2*>(smem_mma + 4 * M::TILE + 2 * M::TILE_T);
+
+  const int k0 = blockIdx.x * MMA_ROWS;
+  const int ntiles = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long head = b * sb + h * sh;
+  const long long gstride = static_cast<long long>(H) * D;  // grad is contiguous
+  const long long ghead = (long long)b * n * gstride + static_cast<long long>(h) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys (accumulator rows): key0, key0 + 8
+  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+  const uint32_t kmix[2] = {key0 * 0x85EBCA77u + seed_mix, (key0 + 8) * 0x85EBCA77u + seed_mix};
+  const bool kvalid[2] = {key0 < n, key0 + 8 < n};
+
+  load_tile<D, false>(ks, k + head + k0 * sn, sn, n - k0);
+  load_tile<D, false>(vs, v + head + k0 * sn, sn, n - k0);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int q0 = i * MMA_ROWS;
+    __syncthreads();  // every warp is done with the previous query tile
+    load_tile<D, false>(qs, q + head + q0 * sn, sn, n - q0);
+    load_tile<D, true>(qt, q + head + q0 * sn, sn, n - q0);
+    load_tile<D, false>(gs, grad + ghead + q0 * gstride, gstride, n - q0);
+    load_tile<D, true>(gt, grad + ghead + q0 * gstride, gstride, n - q0);
+    if (threadIdx.x < MMA_ROWS) st[threadIdx.x] = stats[(long long)bh * n_pad + q0 + threadIdx.x];
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V G^T: keys as rows, queries as columns
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      load_afrag(ka, ks, M::LD, warp * 16, 16 * kk, g, c);
+      load_afrag(va, vs, M::LD, warp * 16, 16 * kk, g, c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b0, b1;
+        load_bfrag(b0, b1, qs, M::LD, 8 * j, 16 * kk, g, c);
+        mma16816(sc + 4 * j, ka, b0, b1);
+        load_bfrag(b0, b1, gs, M::LD, 8 * j, 16 * kk, g, c);
+        mma16816(dp + 4 * j, va, b0, b1);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 8 * j + 2 * c + e;  // query within the tile
+        const float2 lse_delta = st[qi];
+        const uint32_t query = q0 + qi;
+        const bool qvalid = query < static_cast<uint32_t>(n);
+        const uint32_t qmix = query * 0x9E3779B1u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = 4 * j + 2 * r + e;
+          const float p = qvalid && kvalid[r] ? exp2f(fmaf(sc[idx], scale_log2, -lse_delta.x)) : 0.0f;
+          const bool keep = fmix(qmix + kmix[r]) >= threshold;
+          const float dw = keep ? dp[idx] * keep_scale : 0.0f;
+          sc[idx] = keep ? p * keep_scale : 0.0f;   // dropped weights, for dV
+          dp[idx] = p * (dw - lse_delta.y) * scale;  // score gradient, for dK
+        }
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_afrag(pa, sc);
+    acc_to_afrag(dsa, dp);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b0, b1;
+        load_bfrag(b0, b1, gt, MMA_LDT, 8 * j, 16 * kk, g, c);
+        mma16816(dv_acc + 4 * j, pa[kk], b0, b1);
+        load_bfrag(b0, b1, qt, MMA_LDT, 8 * j, 16 * kk, g, c);
+        mma16816(dk_acc + 4 * j, dsa[kk], b0, b1);
+      }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < n) {
+      const long long o = (((long long)b * n + key) * H + h) * D + 2 * c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, long long sb, long long sn, long long sh,
+                       const bf16* __restrict__ grad, const float2* __restrict__ stats,
+                       const int* __restrict__ seeds, bf16* __restrict__ dq, int n, int H,
+                       int n_pad, float scale, float scale_log2, uint32_t threshold,
+                       float keep_scale) {
+  using M = MmaDims<D>;
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);
+  bf16* gs = reinterpret_cast<bf16*>(smem_mma + M::TILE);
+  bf16* ks = reinterpret_cast<bf16*>(smem_mma + 2 * M::TILE);
+  bf16* vs = reinterpret_cast<bf16*>(smem_mma + 3 * M::TILE);
+  bf16* kt = reinterpret_cast<bf16*>(smem_mma + 4 * M::TILE);
+  float2* st = reinterpret_cast<float2*>(smem_mma + 4 * M::TILE + M::TILE_T);
+
+  const int q0 = blockIdx.x * MMA_ROWS;
+  const int ntiles = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long head = b * sb + h * sh;
+  const long long gstride = static_cast<long long>(H) * D;
+  const long long ghead = (long long)b * n * gstride + static_cast<long long>(h) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int qrow = warp * 16 + g;  // this thread's queries in the tile: qrow, qrow + 8
+  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+
+  load_tile<D, false>(qs, q + head + q0 * sn, sn, n - q0);
+  load_tile<D, false>(gs, grad + ghead + q0 * gstride, gstride, n - q0);
+  if (threadIdx.x < MMA_ROWS) st[threadIdx.x] = stats[(long long)bh * n_pad + q0 + threadIdx.x];
+  __syncthreads();
+  float lse2[2], delta[2];
+  uint32_t qmix[2];
+  bool qvalid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float2 lse_delta = st[qrow + 8 * r];
+    const uint32_t query = q0 + qrow + 8 * r;
+    lse2[r] = lse_delta.x;
+    delta[r] = lse_delta.y;
+    qvalid[r] = query < static_cast<uint32_t>(n);
+    qmix[r] = query * 0x9E3779B1u + seed_mix;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * MMA_ROWS;
+    __syncthreads();  // every warp is done with the previous key tile
+    load_tile<D, false>(ks, k + head + k0 * sn, sn, n - k0);
+    load_tile<D, true>(kt, k + head + k0 * sn, sn, n - k0);
+    load_tile<D, false>(vs, v + head + k0 * sn, sn, n - k0);
+    __syncthreads();
+
+    // S = Q K^T and dP = G V^T: queries as rows, keys as columns
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], ga[4];
+      load_afrag(qa, qs, M::LD, warp * 16, 16 * kk, g, c);
+      load_afrag(ga, gs, M::LD, warp * 16, 16 * kk, g, c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b0, b1;
+        load_bfrag(b0, b1, ks, M::LD, 8 * j, 16 * kk, g, c);
+        mma16816(sc + 4 * j, qa, b0, b1);
+        load_bfrag(b0, b1, vs, M::LD, 8 * j, 16 * kk, g, c);
+        mma16816(dp + 4 * j, ga, b0, b1);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t key = k0 + 8 * j + 2 * c + e;
+        const bool kvalid = key < static_cast<uint32_t>(n);
+        const uint32_t kmix = key * 0x85EBCA77u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = 4 * j + 2 * r + e;
+          const float p = qvalid[r] && kvalid ? exp2f(fmaf(sc[idx], scale_log2, -lse2[r])) : 0.0f;
+          const bool keep = fmix(qmix[r] + kmix) >= threshold;
+          const float dw = keep ? dp[idx] * keep_scale : 0.0f;
+          dp[idx] = p * (dw - delta[r]) * scale;  // score gradient, for dQ
+        }
+      }
+    }
+    uint32_t dsa[4][4];
+    acc_to_afrag(dsa, dp);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b0, b1;
+        load_bfrag(b0, b1, kt, MMA_LDT, 8 * j, 16 * kk, g, c);
+        mma16816(dq_acc + 4 * j, dsa[kk], b0, b1);
+      }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + qrow + 8 * r;
+    if (row < n) {
+      bf16* dst = dq + (((long long)b * n + row) * H + h) * D + 2 * c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// The three launches at head dim D; stats as in the d = 64 backward.
+template <int D>
+int attention_backward_mma(const bf16* q, const bf16* k, const bf16* v, long long sb,
+                           long long sn, long long sh, const bf16* out, const bf16* grad,
+                           const float* lse, const int* seeds, bf16* dq, bf16* dk, bf16* dv,
+                           float2* stats, int B, int n, int H, unsigned int threshold,
+                           float keep_scale, cudaStream_t s) {
+  using BD = MmaBwdDims<D>;
+  static unsigned long long smem_set[2];
+  const int ntiles = (n + MMA_ROWS - 1) / MMA_ROWS;
+  const int n_pad = ntiles * MMA_ROWS;
+  const long long rows = static_cast<long long>(B) * n_pad * H;
+  attn_bwd_prep_kernel<D><<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
+      out, grad, lse, stats, nullptr, n, n_pad, H, rows, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const dim3 grid(ntiles, B * H);
+  if ((err = ensure_smem(attn_bwd_dkdv_mma_kernel<D>, BD::DKDV_SMEM, smem_set[0])) != cudaSuccess)
+    return static_cast<int>(err);
+  attn_bwd_dkdv_mma_kernel<D><<<grid, MMA_THREADS, BD::DKDV_SMEM, s>>>(
+      q, k, v, sb, sn, sh, grad, stats, seeds, dk, dv, n, H, n_pad, scale, scale * LOG2E,
+      threshold, keep_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = ensure_smem(attn_bwd_dq_mma_kernel<D>, BD::DQ_SMEM, smem_set[1])) != cudaSuccess)
+    return static_cast<int>(err);
+  attn_bwd_dq_mma_kernel<D><<<grid, MMA_THREADS, BD::DQ_SMEM, s>>>(
+      q, k, v, sb, sn, sh, grad, stats, seeds, dq, n, H, n_pad, scale, scale * LOG2E, threshold,
+      keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Forward on `stream` (attention_fwd.cuh's attention_forward). q, k, v:
-// (B, n, H, 64) bf16 with element strides (sb, sn, sh); out: contiguous
-// (B, n, H, 64) bf16; lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the
+// (B, n, H, d) bf16 with element strides (sb, sn, sh); out: contiguous
+// (B, n, H, d) bf16; lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the
 // uint32 seeds' bits), ignored when dropout == 0, which compiles the mask
-// out. Returns the launch error (cudaSuccess == 0), or
-// cudaErrorInvalidValue if a tensor map is refused.
+// out; d a multiple of 16 in [16, 128]. Returns the launch error
+// (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside that range
+// or a tensor map is refused.
 extern "C" int mb_dropout_attention_fwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* seeds, void* out, void* lse, int B, int n,
-                                        int H, unsigned int threshold, float keep_scale,
+                                        int H, int d, unsigned int threshold, float keep_scale,
                                         int dropout, void* stream) {
-  return attention_forward(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, threshold, keep_scale,
-                           dropout != 0, static_cast<cudaStream_t>(stream));
+  return attention_forward(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, d, threshold,
+                           keep_scale, dropout != 0, static_cast<cudaStream_t>(stream));
 }
 
-// Backward on `stream`: dq, dk, dv (contiguous (B, n, H, 64) bf16) from q,
+// Backward on `stream`: dq, dk, dv (contiguous (B, n, H, d) bf16) from q,
 // k, v (strided as in the forward), the forward's out and lse, the incoming
 // gradient grad (contiguous bf16) and the seeds. Scratch: stats, (B*H,
-// n_pad) float2 with n_pad = 64 * ceil(n / 64); dq_acc, (B*H, n, 64) f32;
-// tickets, (B*H, n_pad / 64) int32. Three launches: the row stats, the
-// main kernel, dq_acc to bf16 dq. Returns the first launch error
-// (cudaSuccess == 0), or cudaErrorInvalidValue if a tensor map is refused.
+// n_pad) float2 with n_pad = 64 * ceil(n / 64); at d = 64 also dq_acc,
+// (B*H, n, 64) f32, and tickets, (B*H, n_pad / 64) int32 (unread, and may
+// be null, at other d). Three launches: the row stats, then at d = 64 the
+// main kernel and dq_acc to bf16 dq, at other d the dk/dv and the dq
+// kernels. Returns the first launch error (cudaSuccess == 0), or
+// cudaErrorInvalidValue if d is not a multiple of 16 in [16, 128] or a
+// tensor map is refused.
 extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* out, const void* grad, const void* lse,
                                         const void* seeds, void* dq, void* dk, void* dv,
                                         void* stats, void* dq_acc, void* tickets, int B, int n,
-                                        int H, int rotate, unsigned int threshold,
+                                        int H, int d, int rotate, unsigned int threshold,
                                         float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define MB_BWD_CASE(W)                                                                         \
+  case W:                                                                                     \
+    return attention_backward_mma<W>(                                                         \
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), \
+        sb, sn, sh, static_cast<const bf16*>(out), static_cast<const bf16*>(grad),            \
+        static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<bf16*>(dq), \
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float2*>(stats), B, n, H,  \
+        threshold, keep_scale, s);
+    MB_MMA_HEAD_DIMS(MB_BWD_CASE)
+#undef MB_BWD_CASE
+    case HD:
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int ntiles = (n + TILE - 1) / TILE;
   const int n_pad = ntiles * TILE;
   CUtensorMap tq, tk, tv, tg, tdq;
@@ -467,7 +796,7 @@ extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void
 
   const long long rows = static_cast<long long>(B) * n_pad * H;
   const int num_tickets = B * H * ntiles;
-  attn_bwd_prep_kernel<<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
+  attn_bwd_prep_kernel<HD><<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
       static_cast<const bf16*>(out), static_cast<const bf16*>(grad),
       static_cast<const float*>(lse), static_cast<float2*>(stats), static_cast<int*>(tickets), n,
       n_pad, H, rows, num_tickets);

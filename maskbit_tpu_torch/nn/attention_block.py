@@ -9,7 +9,8 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
 * A CUDA tensor launches the hand-written chain in
   `csrc/attention_block.cu` or raises: bf16 x, wqkv and wo; the biases and
   LayerNorm parameters each f32 or bf16 (the kernels widen bf16 exactly);
-  head dim 64; E at most 4096. The weights must be the transposed views of
+  a head dim in `dropout_attention.HEAD_DIMS` (the multiples of 16 in [16,
+  128]); E a multiple of 64 and at most 4096. The weights must be the transposed views of
   contiguous PyTorch weights (`in_proj_weight.t()`, `out_proj.weight.t()`),
   which is how `BertAttention` passes them: the kernels read the (out, in)
   layout.
@@ -19,8 +20,9 @@ The chain is the QKV projection, the attention forward of
 count in `dropout_attention.launches["fused_attention"]` it adds to), the
 out-projection with the residual (f32) and the LayerNorm. `launches`
 counts the chain's launches in this process (one per call on a CUDA
-tensor); the split sampler's workers (`sampling/serve.py`) count their
-own, and report them on request.
+tensor); `launch_counts` reads it beside the dropout-attention kernels'
+counts and `reset_launch_counts` zeroes them all. The split sampler's
+workers (`sampling/serve.py`) count their own, and report them on request.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ from maskbit_tpu_torch.nn import dropout_attention
 
 launches = 0
 
-HEAD_DIM = 64  # the attention kernel's head width
 MAX_E = 4096
 BLOCK_N = 256  # output columns of a projection block
 VECTOR_DTYPES = (torch.float32, torch.bfloat16)
@@ -111,8 +112,12 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     rows of an out-projection block) to use instead of the plan for this
     shape, for measuring the alternatives side by side."""
     b, n, e = x.shape
-    if e != num_heads * HEAD_DIM:
-        raise ValueError(f"the kernel needs head dim {HEAD_DIM}, got {e}/{num_heads}")
+    if e % num_heads:
+        raise ValueError(f"E = {e} is not a multiple of the {num_heads} heads")
+    d = e // num_heads
+    dropout_attention.check_head_dim(d)
+    if e % 64:
+        raise ValueError(f"the kernel needs E to be a multiple of 64, got {e}")
     if e > MAX_E:
         raise ValueError(f"the kernel needs E <= {MAX_E}, got {e}")
     dev = x.device
@@ -156,8 +161,24 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
         raise RuntimeError(f"attention_block launch failed: CUDA error {err}")
     global launches
     launches += 1
-    dropout_attention.count("fused_attention")
+    dropout_attention.count("fused_attention", d)
     return out
+
+
+def launch_counts() -> dict:
+    """This process's launches: the block's ("attention_block"), the
+    dropout-attention kernels' by name, and theirs by head dim
+    ("by_head_dim", keys "<name>@<d>")."""
+    by_d = sorted(dropout_attention.launches_by_head_dim.items())
+    return {"attention_block": launches, **dropout_attention.launches,
+            "by_head_dim": {f"{key}@{d}": n for (key, d), n in by_d}}
+
+
+def reset_launch_counts() -> None:
+    """Zero every count `launch_counts` reads."""
+    global launches
+    launches = 0
+    dropout_attention.reset_counts()
 
 
 def fused_attention_block(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias,

@@ -18,12 +18,15 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
 * A CUDA tensor launches the hand-written kernels in
   `csrc/dropout_attention.cu` or raises: bf16 q, k, v with the same strides
   and a contiguous last dimension (the QKV projection's view qualifies),
-  head dim 64, 0 <= rate < 1.
+  a head dim in `HEAD_DIMS` (the multiples of 16 in [16, 128]: 64 takes the
+  Hopper kernels, the others the mma.sync ones), 0 <= rate < 1. The JAX
+  kernels take any head dim.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
-CUDA kernels) and "fused_attention", in this process (`count` adds to it);
-the split sampler's workers (`sampling/serve.py`) count their own.
+CUDA kernels) and "fused_attention", in this process (`count` adds to it),
+and `launches_by_head_dim` the same by (kernel, head dim); the split
+sampler's workers (`sampling/serve.py`) count their own.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
-HEAD_DIM = 64  # the kernels' head width
+# the head dims the kernels take: 64 and attention_fwd.cuh's MB_MMA_HEAD_DIMS
+HEAD_DIMS = range(16, 129, 16)
 TILE = 64  # queries or keys per kernel tile
 # The backward sums dq over a head's key tiles in a fixed order. Up to this
 # many tiles (n <= 4096) each key tile starts at its own query tile, so the
@@ -43,13 +47,30 @@ TILE = 64  # queries or keys per kernel tile
 # blocks launched before it.
 ROTATE_MAX_TILES = 64
 launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
+launches_by_head_dim: dict[tuple[str, int], int] = {}
 
 _MASK32 = 0xFFFFFFFF
 
 
-def count(key: str) -> None:
-    """One launch more of `key` in `launches`."""
+def count(key: str, head_dim: int) -> None:
+    """One launch more of `key` in `launches`, at `head_dim` in
+    `launches_by_head_dim`."""
     launches[key] += 1
+    launches_by_head_dim[key, head_dim] = launches_by_head_dim.get((key, head_dim), 0) + 1
+
+
+def reset_counts() -> None:
+    """Zero `launches` and empty `launches_by_head_dim`."""
+    for key in launches:
+        launches[key] = 0
+    launches_by_head_dim.clear()
+
+
+def check_head_dim(d: int) -> None:
+    """Raises unless the kernels take head dim `d`."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernels need a head dim that is a multiple of 16 in "
+                         f"[{HEAD_DIMS[0]}, {HEAD_DIMS[-1]}], got {d}")
 
 
 def keep_threshold(rate: float) -> int:
@@ -185,8 +206,7 @@ def _check_qkv(q, k, v):
             raise ValueError("q, k and v must have the same strides")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernels need head dim {HEAD_DIM}, got {q.shape[-1]}")
+    check_head_dim(q.shape[-1])
     sb, sn, sh, sd = q.stride()
     if sd != 1 or sb % 8 or sn % 8 or sh % 8:
         raise ValueError("q, k, v need a contiguous last dimension and strides that are "
@@ -197,10 +217,10 @@ def bind(lib):
     """Declare the C interface of a built `csrc/dropout_attention.cu`."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.mb_dropout_attention_fwd.argtypes = (
-        [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 3 + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
+        [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
     lib.mb_dropout_attention_fwd.restype = i32
     lib.mb_dropout_attention_bwd.argtypes = (
-        [ptr] * 3 + [i64] * 3 + [ptr] * 10 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, ptr])
+        [ptr] * 3 + [i64] * 3 + [ptr] * 10 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
     lib.mb_dropout_attention_bwd.restype = i32
     return lib
 
@@ -219,25 +239,24 @@ def launch_forward(q, k, v, seeds_i32, rate: float):
     from `seeds_as_int32`, or None for the dropout-free kernel (then rate
     is ignored and lse is None)."""
     _check_qkv(q, k, v)
-    b, n, h, _ = q.shape
+    b, n, h, d = q.shape
     dev = q.device
     dropout = seeds_i32 is not None
     if dropout and (seeds_i32.dtype != torch.int32 or seeds_i32.device != dev
                     or tuple(seeds_i32.shape) != (b, h) or not seeds_i32.is_contiguous()):
         raise ValueError(f"seeds_i32 must be contiguous int32 {(b, h)} on {dev}")
-    out = torch.empty((b, n, h, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=dev) if dropout else None
     lib = _lib()
     with torch.cuda.device(dev):  # the runtime launches on the current device
         err = lib.mb_dropout_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
-            seeds_i32.data_ptr() if dropout else None, out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, n, h,
+            _ptr(seeds_i32), out.data_ptr(), _ptr(lse), b, n, h, d,
             keep_threshold(rate), 1.0 / (1.0 - rate), int(dropout),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention forward launch failed: CUDA error {err}")
-    count("dropout_attention_fwd" if dropout else "fused_attention")
+    count("dropout_attention_fwd" if dropout else "fused_attention", d)
     return out, lse
 
 
@@ -249,29 +268,36 @@ def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
     if g.dtype != torch.bfloat16 or g.shape != out.shape:
         raise TypeError(f"the incoming gradient must be bf16 of shape {tuple(out.shape)}")
     grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
-    count("dropout_attention_bwd")
+    count("dropout_attention_bwd", q.shape[-1])
     return grads
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
     """`launch_backward`'s launch through `lib` (a `bind`-declared build of
     the source), on checked inputs with a contiguous `g`; not counted."""
-    b, n, h, _ = q.shape
+    b, n, h, d = q.shape
     dev = q.device
-    dq, dk, dv = (torch.empty((b, n, h, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16, device=dev)
                   for _ in range(3))
     tiles = -(-n // TILE)
-    # scratch: per query row (lse * log2 e, delta), padded to whole tiles; the
-    # f32 sum of dq over key tiles (b*h*n*64*4 bytes, 33.7 MB at (32, 257,
-    # 16, 64)); one ticket per (batch*head, query tile)
+    # scratch: per query row (lse * log2 e, delta), padded to whole tiles; at
+    # d = 64 the f32 sum of dq over key tiles (b*h*n*64*4 bytes, 33.7 MB at
+    # (32, 257, 16, 64)) and one ticket per (batch*head, query tile); the
+    # kernels of the other widths sum dq in registers
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
-    dq_acc = torch.empty((b * h, n, HEAD_DIM), dtype=torch.float32, device=dev)
-    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
+    dq_acc = tickets = None
+    if d == 64:
+        dq_acc = torch.empty((b * h, n, d), dtype=torch.float32, device=dev)
+        tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mb_dropout_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(), tickets.data_ptr(), b, n, h,
+            dv.data_ptr(), stats.data_ptr(), _ptr(dq_acc), _ptr(tickets), b, n, h, d,
             int(tiles <= ROTATE_MAX_TILES), keep_threshold(rate), 1.0 / (1.0 - rate),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

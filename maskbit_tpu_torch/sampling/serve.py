@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.multiprocessing  # noqa: F401 — tensors cross pipes through shared memory
 
+from maskbit_tpu_torch.nn import attention_block
 from maskbit_tpu_torch.sampling.sample import SamplingConfig, make_sampler
 
 # how long a worker may take to start, or to answer a call (s)
@@ -105,20 +106,6 @@ def _shared_cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(module, memo)
 
 
-def _counts() -> dict:
-    from maskbit_tpu_torch.nn import attention_block, dropout_attention
-
-    return {"attention_block": attention_block.launches, **dropout_attention.launches}
-
-
-def _reset_counts() -> None:
-    from maskbit_tpu_torch.nn import attention_block, dropout_attention
-
-    attention_block.launches = 0
-    for key in dropout_attention.launches:
-        dropout_attention.launches[key] = 0
-
-
 def _worker(device: str, conn, threads: int) -> None:
     """A worker's life: take the models, move them to `device`, load the
     kernels, say "ready", then answer ("sample", labels, seed, injected),
@@ -154,14 +141,14 @@ def _worker(device: str, conn, threads: int) -> None:
                 images, tokens = sampler(labels.to(dev), gen, injected)
                 reply = ("ok", (images.cpu(), tokens.cpu()))
             elif msg[0] == "launches":
-                reply = ("ok", _counts())
+                reply = ("ok", attention_block.launch_counts())
                 if msg[1]:
-                    _reset_counts()
+                    attention_block.reset_launch_counts()
             elif msg[0] == "state":
                 reply = ("ok", tuple({k: v.cpu() for k, v in m.state_dict().items()}
                                      for m in (generator, tokenizer)))
             elif msg[0] == "close":
-                conn.send(("ok", _counts()))
+                conn.send(("ok", attention_block.launch_counts()))
                 return
             else:
                 reply = ("error", f"unknown request {msg[0]!r}")

@@ -3,8 +3,9 @@
 The plain PyTorch version (which the wrapper runs for CPU tensors) is held
 against the JAX block `maskbit_tpu.nn.pallas_attention.fused_attention_block`,
 run in Pallas interpret mode, at atol 3e-5 / rtol 1e-4 in float32 — the
-tolerance `tests/test_pallas_attention.py` holds the JAX block to. The CUDA
-kernel is held against the plain version on the card in
+tolerance `tests/test_pallas_attention.py` holds the JAX block to — at head
+dims 16 (E = 64 over 4 heads, the JAX tests' own block), 32 and 64. The
+CUDA kernel is held against the plain version on the card in
 `tests/test_torch_cuda.py`.
 """
 
@@ -31,10 +32,12 @@ def _inputs(rng, b, n, e, dtype=np.float32):
     )
 
 
-@pytest.mark.parametrize("n", [17, 257])
-def test_plain_version_matches_jax_block(n):
+# (2, 33, 64) over 4 heads is the block case of tests/test_pallas_attention.py
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("n", [17, 33, 257])
+def test_plain_version_matches_jax_block(n, d):
     rng = np.random.default_rng(n)
-    inp = _inputs(rng, 2, n, 64)
+    inp = _inputs(rng, 2, n, 4 * d)
     want = jax_block(**{k: jnp.asarray(v) for k, v in inp.items()}, num_heads=4,
                      interpret=True)
     got = ab.fused_attention_block_reference(

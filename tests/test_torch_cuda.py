@@ -41,24 +41,30 @@ def _block_inputs(b, n, e, seed, vectors=torch.float32):
 # (eval_maskbit's CFG batch of 200); sequence
 # lengths 1, 63, 64, 65, 257 and 1025 (the attention's 64-row tiles); E of
 # 512 and 1024, 576 (the last 256-column block of each projection partly
-# past the matrix) and 3072.
-@pytest.mark.parametrize("b,n,e", [(2, 257, 1024), (1, 17, 1024), (2, 1025, 1024),
-                                   (3, 100, 512), (1, 1, 1024), (1, 127, 512), (2, 64, 1024),
-                                   (1, 129, 1024), (2, 63, 512), (2, 65, 576), (16, 257, 1024),
-                                   (1, 1025, 512), (3, 65, 3072), (1, 257, 576),
-                                   (200, 257, 1024)])
-def test_attention_block_kernel_matches_plain_version(b, n, e):
+# past the matrix) and 3072; head dim 64, and the other widths' kernel at
+# 16 (the JAX tests' block, E = 64 over 4 heads), 32 (the system check's
+# sampler, CFG batch 60 at E = 128), 48, 80, 96, 112 and 128.
+@pytest.mark.parametrize("b,n,e,d", [(2, 257, 1024, 64), (1, 17, 1024, 64), (2, 1025, 1024, 64),
+                                     (3, 100, 512, 64), (1, 1, 1024, 64), (1, 127, 512, 64),
+                                     (2, 64, 1024, 64), (1, 129, 1024, 64), (2, 63, 512, 64),
+                                     (2, 65, 576, 64), (16, 257, 1024, 64), (1, 1025, 512, 64),
+                                     (3, 65, 3072, 64), (1, 257, 576, 64), (200, 257, 1024, 64),
+                                     (2, 33, 64, 16), (2, 257, 64, 16), (60, 257, 128, 32),
+                                     (2, 1025, 256, 32), (2, 257, 768, 48), (1, 65, 320, 80),
+                                     (2, 257, 384, 96), (1, 129, 896, 112), (1, 17, 512, 128),
+                                     (16, 257, 1024, 128)])
+def test_attention_block_kernel_matches_plain_version(b, n, e, d):
     """bf16 kernel vs the plain version in float32 on the same bf16 inputs:
     within 3e-2, about twice the half-ulp rounding of a bf16 LayerNorm
     output of magnitude below 8."""
     _card()
     inp = _block_inputs(b, n, e, seed=n)
     before = ab.launches
-    got = ab.fused_attention_block(**inp, num_heads=e // 64)
+    got = ab.fused_attention_block(**inp, num_heads=e // d)
     torch.cuda.synchronize()
     assert ab.launches == before + 1
     want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
-                                              num_heads=e // 64)
+                                              num_heads=e // d)
     assert got.dtype == torch.bfloat16 and got.shape == (b, n, e)
     assert torch.isfinite(got).all()
     assert (got.float() - want).abs().max().item() <= 3e-2
@@ -134,8 +140,14 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, x=inp["x"].float()), num_heads=16)
     with pytest.raises(ValueError, match="contiguous"):
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
-    with pytest.raises(ValueError, match="head dim"):
-        ab.fused_attention_block(**inp, num_heads=8)
+    # head dims outside the multiples of 16 in [16, 128] raise, on the card
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
+        ab.fused_attention_block(**inp, num_heads=128)
+    with pytest.raises(ValueError, match="multiple of the 7 heads"):
+        ab.fused_attention_block(**inp, num_heads=7)
+    wide = _block_inputs(1, 17, 1152, seed=0)
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+        ab.fused_attention_block(**wide, num_heads=8)
     # the vectors: f32 or bf16, on x's device, of their length, contiguous
     with pytest.raises(TypeError, match="bqkv"):
         ab.fused_attention_block(**dict(inp, bqkv=inp["bqkv"].half()), num_heads=16)
@@ -159,14 +171,20 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**big, num_heads=e // 64)
 
 
-def _qkv(b, n, h, seed, layout="separate"):
-    """bf16 q, k, v (b, n, h, 64); "packed" gives the QKV projection's view
-    of one (b, n, 3, h, 64) tensor, as the transformer passes them."""
+def _qkv(b, n, h, seed, layout="separate", d=64):
+    """bf16 q, k, v (b, n, h, d); "packed" gives the QKV projection's view
+    of one (b, n, 3, h, d) tensor, as the transformer passes them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     if layout == "packed":
-        qkv = torch.randn(b, n, 3, h, 64, generator=g, device="cuda").bfloat16()
+        qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").bfloat16()
         return qkv.unbind(2)
-    return [torch.randn(b, n, h, 64, generator=g, device="cuda").bfloat16() for _ in range(3)]
+    return [torch.randn(b, n, h, d, generator=g, device="cuda").bfloat16() for _ in range(3)]
+
+
+# head dim 64 takes the Hopper kernels, every other multiple of 16 in [16,
+# 128] the mma.sync ones: 16 (the JAX package's tests), 32 (the system
+# check's generator), 128, and 48, 80, 96 and 112, where d / 16 is odd
+HEAD_DIMS = list(range(16, 129, 16))
 
 
 def _seeds(b, h, seed):
@@ -186,13 +204,14 @@ DROPOUT_ATOL = 2e-2
 
 
 # (16, 257, 8): one rank's share of the flagship's 16 heads under tensor=2
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,n,h,layout", [(2, 257, 4, "packed"), (1, 33, 2, "separate"),
                                           (1, 130, 3, "packed"), (16, 257, 8, "packed")])
-def test_dropout_attention_kernels_match_plain_versions(b, n, h, layout):
+def test_dropout_attention_kernels_match_plain_versions(b, n, h, layout, d):
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
-    q, k, v = _qkv(b, n, h, seed=n, layout=layout)
+    q, k, v = _qkv(b, n, h, seed=n, layout=layout, d=d)
     seeds = _seeds(b, h, seed=n + 1)
     rate = 0.1
     before = dict(da.launches)
@@ -235,44 +254,47 @@ def _check_against_plain(da, q, k, v, seeds, rate, out, grads, gout):
     # d^-0.5 |k| and d^-0.5 |q|. It dominates where one key takes the whole
     # weight (n = 1, where dq and dk are 0).
     gv = (gout.float() * v.float()).sum(-1).abs().max().item() / (1.0 - rate)
-    slack = [2**-7 * gv * 64**-0.5 * t.float().abs().max().item() for t in (k, q)] + [0.0]
+    d = q.shape[-1]
+    slack = [2**-7 * gv * d**-0.5 * t.float().abs().max().item() for t in (k, q)] + [0.0]
     for got, ref, extra in zip(grads, refs, slack):
         assert torch.isfinite(got).all()
         tol = DROPOUT_ATOL * max(1.0, ref.abs().max().item()) + extra
         assert (got.float() - ref).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["packed", "separate"])
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 257, 1025])
-def test_dropout_attention_kernels_at_ragged_lengths(n, rate, layout):
+def test_dropout_attention_kernels_at_ragged_lengths(n, rate, layout, d):
     """Every tile edge: one row, a partial first tile, whole tiles, one row
     past a tile, and the training lengths 257 and 1025."""
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
     b, h = 2, 3
-    q, k, v = _qkv(b, n, h, seed=n, layout=layout)
+    q, k, v = _qkv(b, n, h, seed=n, layout=layout, d=d)
     seeds = _seeds(b, h, seed=n + 2)
-    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(n + 3),
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n + 3),
                        device="cuda").bfloat16()
     out, grads = _launch_both(da, q, k, v, seeds, rate, gout)
     torch.cuda.synchronize()
     _check_against_plain(da, q, k, v, seeds, rate, out, grads, gout)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("n", [65, 257, 1025])
-def test_dropout_attention_backward_is_deterministic(n):
+def test_dropout_attention_backward_is_deterministic(n, d):
     """Two calls on the same inputs give bit-identical dq, dk and dv: dq's
     sum over key tiles runs in a fixed order."""
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
     b, h = 8, 16
-    q, k, v = _qkv(b, n, h, seed=n, layout="packed")
+    q, k, v = _qkv(b, n, h, seed=n, layout="packed", d=d)
     seeds = _seeds(b, h, seed=1)
     seeds32 = da.seeds_as_int32(seeds, (b, h))
-    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(2),
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(2),
                        device="cuda").bfloat16()
     out, lse = da.launch_forward(q, k, v, seeds32, 0.1)
     first = da.launch_backward(q, k, v, out, lse, gout, seeds32, 0.1)
@@ -305,8 +327,9 @@ def test_dropout_attention_backward_in_key_tile_order(n, monkeypatch):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,n,h", [(2, 200, 2), (2, 65, 3), (1, 257, 4)])
-def test_dropout_attention_kernel_mask_is_the_hash_mask(b, n, h):
+def test_dropout_attention_kernel_mask_is_the_hash_mask(b, n, h, d):
     """The forward kernel's keep mask, read out at zero logits with one-hot
     values (`chip_smoke.kernel_keep_mask`), equals the plain version's bit
     for bit."""
@@ -315,16 +338,17 @@ def test_dropout_attention_kernel_mask_is_the_hash_mask(b, n, h):
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     seeds = _seeds(b, h, seed=4)
-    got = chip_smoke.kernel_keep_mask(torch, da, seeds, b, n, h)
+    got = chip_smoke.kernel_keep_mask(torch, da, seeds, b, n, h, d)
     assert torch.equal(got, da.hash_keep_mask(seeds, n, chip_smoke.RATE))
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("n", [17, 257])
-def test_fused_attention_kernel_matches_plain_version(n):
+def test_fused_attention_kernel_matches_plain_version(n, d):
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
-    q, k, v = _qkv(2, n, 4, seed=11, layout="packed")
+    q, k, v = _qkv(2, n, 4, seed=11, layout="packed", d=d)
     before = da.launches["fused_attention"]
     got = da.fused_attention(q, k, v)
     torch.cuda.synchronize()
@@ -341,8 +365,16 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
     s = _seeds(1, 2, seed=1)
     with pytest.raises(TypeError):
         da.dropout_attention(q.float(), k.float(), v.float(), s, 0.1)
-    with pytest.raises(ValueError, match="head dim"):
-        da.dropout_attention(q[..., :32], k[..., :32], v[..., :32], s, 0.1)
+    # head dims outside the multiples of 16 in [16, 128] raise, on the card
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
+        da.dropout_attention(q[..., :8], k[..., :8], v[..., :8], s, 0.1)
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
+        da.fused_attention(q[..., :8], k[..., :8], v[..., :8])
+    wide = _qkv(1, 17, 2, seed=0, d=144)
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+        da.dropout_attention(*wide, s, 0.1)
+    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+        da.fused_attention(*wide)
     with pytest.raises(ValueError, match="strides"):
         da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)
 

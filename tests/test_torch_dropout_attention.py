@@ -6,7 +6,10 @@ in interpret mode, with the same seeds; the port's keep mask against
 Float32 on both sides. The forward and dq/dk/dv agree to atol 5e-5,
 rtol 1e-4, the tolerances of the JAX package's own replica test
 (`test_dropout_attention_fwd_and_grads_match_replica`): both compute the
-same f32 softmax and products, in other summation orders.
+same f32 softmax and products, in other summation orders. Each parity test
+runs at head dims 16 (the JAX package's own tests), 32 (the system check's
+generator) and 64 (the flagship's): the port's kernels take every multiple
+of 16 in [16, 128].
 """
 
 import jax
@@ -54,9 +57,10 @@ def test_hash_keep_mask_bit_identical(rate):
         assert abs(1.0 - got.mean() - rate) < 0.05
 
 
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("n", [33, 257])
-def test_dropout_attention_fwd_and_grads_match_jax(n):
-    b, h, d = 2, 2, 64
+def test_dropout_attention_fwd_and_grads_match_jax(n, d):
+    b, h = 2, 2
     q, k, v = _qkv(b, n, h, d, seed=n)
     seeds = _seeds(b, h, seed=n + 1)
     w0 = np.random.default_rng(n + 2).normal(size=(b, n, h, d)).astype(np.float32)
@@ -94,8 +98,9 @@ def test_plain_backward_matches_autograd_of_plain_forward():
         torch.testing.assert_close(f, a, atol=1e-10, rtol=1e-10)
 
 
-def test_fused_attention_matches_jax():
-    b, n, h, d = 2, 57, 2, 64
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_fused_attention_matches_jax(d):
+    b, n, h = 2, 57, 2
     q, k, v = _qkv(b, n, h, d, seed=9)
     want = jax_attn.fused_attention(*(jnp.asarray(x) for x in (q, k, v)), interpret=True)
     before = dict(da.launches)

@@ -30,7 +30,8 @@ Phases, each of which fails the run if it fails:
      `fused_attention` at the system check's CFG batch 60, or 16 at d =
      128), each at n = 257 and n = 17 against its plain version (the mask
      bit for bit, dq, dk, dv; the tolerances of d = 64), at d = 16, 32 and
-     128 (`TIMED_HEAD_DIMS`) timed at n = 257 beside SDPA (the block beside
+     128 (`TIMED_HEAD_DIMS`; every one with `--all-widths`) timed at n = 257
+     beside SDPA (the block beside
      the library chain) and the bound, and head dims 8 and 144 refused;
      then the flagship generator's logits
      (depth cut to 2) through the kernel against a float32 plain-PyTorch
@@ -73,8 +74,9 @@ Phases, each of which fails the run if it fails:
         loss, per-parameter gradient norms and updated parameters equal bit
         for bit, the recompute's second dropout-forward launch per layer;
         peak memory and device time of a step for both.
-  8. eval, the flagship (depth 24, hidden 1024, 64 steps, guidance 7.1
-     cosine, bf16) and the 14-bit and VQ 12-bit tokenizers, random weights:
+  8. eval, the flagship (hidden 1024, 64 steps, guidance 7.1 cosine, bf16;
+     depth cut from 24 to `EVAL_DEPTH` = 12 to make room for phase 17) and
+     the 14-bit and VQ 12-bit tokenizers, random weights:
      a. random pt-fid-layout Inception weights from a seed, saved as a
         `.pth` under build/chip_smoke_data/ and named by
         MASKBIT_INCEPTION_WEIGHTS; `resize_bilinear_tf1` on the card bit for
@@ -171,8 +173,9 @@ Phases, each of which fails the run if it fails:
         random weights) at per-rank batch 8, 4 steps across
         `discriminator_start=2`: every rank's parameters, EMA and LeCam
         state equal bit for bit after every step;
-     e. the same ranks: `cli.eval_maskbit` on 300 samples at batch 100
-        (each rank's second batch half padding): 300 scored, the merged
+     e. the same ranks: `cli.eval_maskbit` on 300 samples at batch 100,
+        the generator's depth cut to 12 (each rank's second batch half
+        padding): 300 scored, the merged
         float64 moments within 1e-12 of the concatenated per-rank Inception
         features', and the block's and `fused_attention`'s launches per
         rank (depth x steps x 2 batches).
@@ -218,8 +221,8 @@ Phases, each of which fails the run if it fails:
         the same bytes, through the split, its workers' launches, and no
         worker left after the server's shutdown;
      c. `cli.eval_maskbit` in this process over the two entries
-        (`eval.shard_local_devices=true`), 200
-        samples at batch 100 (random Inception weights): 200 scored, and
+        (`eval.shard_local_devices=true`), 200 samples at batch 100, the
+        generator's depth cut to 12 (random Inception weights): 200 scored, and
         depth x steps x 2 batches block launches in each worker;
      d. when g++ finds `jpeglib.h`: the native decoder built, 256 synthetic
         500 x 375 JPEGs written with `data/shard_writer`, img/s of the
@@ -272,12 +275,41 @@ Phases, each of which fails the run if it fails:
      value), then per run 600 Stage-II steps and 30 CFG samples whose
      quadrant colours must match their classes (MSE below 0.35x chance):
      `tool` at the tool's widths (head dim 32: the mma.sync kernels) and
-     `flagship` at the flagship generator's width and depth (head dim 64).
+     `flagship` at the flagship generator's width (head dim 64), its depth
+     cut to 12 (`SYSTEM_CHECK_FLAGSHIP_DEPTH`; the CLI's own run is at 24).
      One line a run: recon first and last, mlm loss, masked accuracy,
      matched and chance MSE, seconds a stage, and the dropout forward,
      backward and block launches of the run by head dim. The kernels line
      gains the head-dim-generic kernels (launches: run `tool`) and
      `launches_system_check` (run `flagship`) on the d = 64 ones.
+ 17. float32 (`--phases float32`; run right after phase 3, as CUPTI loses
+     profile events late in a long process): the
+     float32 forms of the four kernels
+     (`csrc/attention_f32.cu`, full float32, TF32 off), as
+     `training.mixed_precision: no` runs them:
+     a. each against its plain version in float32 on the card at every
+        head dim and n = 257 and 17 (the dropout pair at batch 32, the
+        block and `fused_attention` at the serve batch's CFG 16 at d = 64,
+        else phase 3's `HEAD_DIM_SHAPES`): every output, dq, dk and dv
+        within `F32_TOL` of the largest reference value, the keep mask bit
+        for bit; timed at n = 257 at head dims 32, 64 and 128 beside SDPA in
+        float32 (the block beside the float32 library chain) and the bound
+        at the float32 peak; float16 and float64 refused;
+     b. a profile of one float32 block call, one serving-mode BertAttention
+        call and one dropout-attention forward and backward: their float32
+        kernels, no library GEMM or attention kernel and no bf16 one;
+     c. phase 5's depth-2 step with the kernels in float32 against the CPU's
+        float32 step (`F32_STEP_TOL`);
+     d. `cli.train_maskbit` on the flagship config with
+        `training.mixed_precision=no`, batch 32, 4 steps with
+        `generate_every=3`: finite losses, the EMA sample grid, and the
+        float32 kernels only (counts by kernel, head dim and dtype zeroed
+        before the run): the dropout pair on every layer of every step, the
+        block on every layer of every sampling step;
+     e. `cli.serve` at `training.mixed_precision=no`: one seeded /generate
+        of 8 labels, the float32 block on every layer of every step and
+        nothing in bf16.
+     The kernels line gains the four `*_f32` rows.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -325,8 +357,10 @@ PRETOKENIZE_IMAGES = 256
 SAVE_EVERY, RESUME_STEPS = 3, 8
 # the 512 px config's per-device batch (maskbit_generator_14bit_512.yaml)
 LONG_BATCH = 8
-# eval_maskbit's default batch; 1000 samples = 10 batches
+# eval_maskbit's default batch; 1000 samples = 10 batches; the generator's
+# depth in phase 8 (cut from 24 to make room for phase 17)
 EVAL_BATCH, EVAL_SAMPLES, STATS_IMAGES, EVAL_TOKENIZER_BATCHES = 100, 1000, 512, 4
+EVAL_DEPTH = 12
 TOKENIZER_CONFIGS = tuple(os.path.join(ROOT, "configs", "tokenizer", name)
                           for name in ("maskbit_tokenizer_14bit.yaml", "vqgan_plus_12bit.yaml"))
 TOKENIZER_18 = os.path.join(ROOT, "configs", "tokenizer", "maskbit_tokenizer_18bit.yaml")
@@ -340,12 +374,13 @@ TAMING_BATCHES = 4
 # the stop run's depth (cut from 24 to make room for phase 12), the gradient
 # check's depth (cut from 24, as phase 12's, to make room for phase 16; phase
 # 12 compares its train state with these ranks'), the NCCL rank's depth and
-# steps, Stage I's per-rank batch, steps and gate, the sharded eval, each
-# launch's limit (s)
+# steps, Stage I's per-rank batch, steps and gate, the sharded eval (its
+# generator's depth cut from 24 to make room for phase 17), each launch's
+# limit (s)
 DP_SIZES = {"batch": 16, "stop_depth": 12, "grad_depth": 12, "nccl_depth": 2, "nccl_steps": 3,
             "tok_batch": 8,
             "tok_steps": 4, "tok_gate": 2, "eval_samples": 300, "eval_batch": 100,
-            "timeout": 600}
+            "eval_depth": 12, "timeout": 600}
 DP_CHECK_EVERY = 8  # GracefulShutdown's cross-process check, as the train CLIs use it
 # b: two ranks' reduced gradients against one process's, relative L2 over
 # every gradient. In bf16 the ranks' linears see 16 rows where one process
@@ -358,8 +393,10 @@ DP_GRAD_TOL = {"grad_rel_l2": 1e-2, "update_same_sign": 0.99}
 DP_GRAD_TOL_CPU = {"grad_rel_l2": 1e-5, "update_same_sign": 0.999}
 # phase 13: the serve batch split in two, the eval samples and batch, the
 # synthetic 500 x 375 JPEGs, the reader's batch and output size
-SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "photos": 256,
-               "decode_batch": 32, "decode_res": None}  # None: the config's resolution
+# (the eval's generator depth cut from 24 to make room for phase 17)
+SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "eval_depth": 12,
+               "photos": 256, "decode_batch": 32,
+               "decode_res": None}  # None: the config's resolution
 # phase 14: the serve and the eval batch split over the visible cards, and
 # the timed calls of each setting (after one warm-up)
 SCALE_SIZES = {"batches": (SERVE_BATCH, EVAL_BATCH), "calls": 2}
@@ -392,7 +429,7 @@ def phase_device(torch) -> dict:
 def phase_build() -> None:
     from maskbit_tpu_torch.nn import cuda_build
 
-    names = ["attention_block", "dropout_attention"]
+    names = cuda_build.sources()
     errors = []
 
     def build(name):
@@ -421,10 +458,10 @@ def phase_build() -> None:
                 log(f"[build] ptxas: {line.strip()}")
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations at the bf16 peak or
-    bytes at the memory rate, whichever is longer."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> dict:
+    """The least time the card could take: operations at the bf16 peak (or
+    `peak_flops`) or bytes at the memory rate, whichever is longer."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
@@ -461,25 +498,42 @@ def _host_ms(torch, fn, iters: int = 100, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_breakdown(torch, fn, iters: int = 50, warmup: int = 3) -> dict:
+def _device_breakdown(torch, fn, iters: int = 50, warmup: int = 3, tries: int = 3) -> dict:
     """Device time per call of each CUDA kernel (and memset or copy) that
     `iters` calls of fn launched under torch.profiler: its summed
-    `self_device_time_total` over `iters`, by name."""
+    `self_device_time_total` over `iters`, by name. CUPTI sometimes
+    records nothing (more often late in a long process):
+    a profile that recorded no device time is taken again, up to `tries`
+    times; then the calls are timed by CUDA events instead, under the one
+    name `EVENTS_KEY`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA}
-    if sum(times.values()) <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return times
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA}
+        if sum(times.values()) > 0:
+            return times
+        log(f"[profile] the profiler recorded no device time (try {attempt + 1} of {tries})")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    log("[profile] timed by CUDA events over back-to-back calls instead")
+    return {EVENTS_KEY: start.elapsed_time(end) / iters}
+
+
+# `_device_breakdown`'s one key when the profiler recorded nothing
+EVENTS_KEY = "(CUDA events, all kernels)"
 
 
 def _device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
@@ -505,31 +559,32 @@ def _times(torch, fn, plain=None, library=None) -> dict:
     return out
 
 
-def _block_inputs(torch, b, n, e, seed, vectors):
+def _block_inputs(torch, b, n, e, seed, vectors, dtype=None):
+    """x and the weights in `dtype` (default bf16), the vectors in `vectors`."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dev, bf16 = "cuda", torch.bfloat16
+    dev, dt = "cuda", dtype or torch.bfloat16
 
     def rnd(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
 
-    x = torch.nn.functional.layer_norm(rnd(b, n, e), (e,)).to(bf16)
-    w_qkv = rnd(3 * e, e, std=0.02).to(bf16)  # torch (out, in) layout
-    w_o = rnd(e, e, std=0.02).to(bf16)
+    x = torch.nn.functional.layer_norm(rnd(b, n, e), (e,)).to(dt)
+    w_qkv = rnd(3 * e, e, std=0.02).to(dt)  # torch (out, in) layout
+    w_o = rnd(e, e, std=0.02).to(dt)
     return dict(x=x, wqkv=w_qkv.t(), bqkv=rnd(3 * e, std=0.02).to(vectors), wo=w_o.t(),
                 bo=rnd(e, std=0.02).to(vectors), ln_scale=(1.0 + rnd(e, std=0.02)).to(vectors),
                 ln_bias=rnd(e, std=0.02).to(vectors))
 
 
 def _library_chain(torch, inp, heads):
-    """The block as a chain of library calls on the same bf16 weights:
-    cuBLAS QKV projection, `scaled_dot_product_attention`, cuBLAS
+    """The block as a chain of library calls on the same weights, in x's
+    dtype: cuBLAS QKV projection, `scaled_dot_product_attention`, cuBLAS
     out-projection plus the residual, `F.layer_norm` (the yardstick: no one
     PyTorch call computes the block)."""
     F = torch.nn.functional
     x = inp["x"]
     b, n, e = x.shape
     w_qkv, w_o = inp["wqkv"].t(), inp["wo"].t()
-    bqkv, bo, g, beta = (inp[k].to(torch.bfloat16) for k in ("bqkv", "bo", "ln_scale", "ln_bias"))
+    bqkv, bo, g, beta = (inp[k].to(x.dtype) for k in ("bqkv", "bo", "ln_scale", "ln_bias"))
 
     def run():
         q, k, v = F.linear(x, w_qkv, bqkv).view(b, n, 3, heads, e // heads).permute(
@@ -621,10 +676,11 @@ def phase_kernels(torch) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
-def _qkv_packed(torch, b, n, h, seed, d=64):
-    """bf16 q, k, v as the QKV projection's views of one (b, n, 3, h, d)."""
+def _qkv_packed(torch, b, n, h, seed, d=64, dtype=None):
+    """q, k, v in `dtype` (default bf16) as the QKV projection's views of one
+    (b, n, 3, h, d)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(dtype or torch.bfloat16)
     return qkv.unbind(2)
 
 
@@ -634,18 +690,20 @@ def _sdpa(torch, q, k, v, dropout_p):
     return f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), dropout_p=dropout_p)
 
 
-def kernel_keep_mask(torch, da, seeds, b, n, h, d=64):
-    """The forward kernel's keep mask at head dim d, read out exactly: at
-    zero logits every kept weight is positive and every dropped one 0, so
-    with V one-hot over the head dim for d keys at a time, out[b, i, h, j]
-    > 0 iff key (chunk + j) is kept for query i."""
-    z = torch.zeros(b, n, h, d, device="cuda", dtype=torch.bfloat16)
+def kernel_keep_mask(torch, da, seeds, b, n, h, d=64, dtype=None):
+    """The forward kernel's keep mask at head dim d for inputs of `dtype`
+    (default bf16), read out exactly: at zero logits every kept weight is
+    positive and every dropped one 0, so with V one-hot over the head dim
+    for d keys at a time, out[b, i, h, j] > 0 iff key (chunk + j) is kept
+    for query i."""
+    dt = dtype or torch.bfloat16
+    z = torch.zeros(b, n, h, d, device="cuda", dtype=dt)
     seeds32 = da.seeds_as_int32(seeds, (b, h))
     keep = torch.empty(b, h, n, n, device="cuda", dtype=torch.bool)
     for c0 in range(0, n, d):
         m = min(d, n - c0)
         v = torch.zeros_like(z)
-        v[:, c0:c0 + m, :, :m] = torch.eye(m, device="cuda", dtype=torch.bfloat16)[:, None, :]
+        v[:, c0:c0 + m, :, :m] = torch.eye(m, device="cuda", dtype=dt)[:, None, :]
         out = da.launch_forward(z, z, v, seeds32, RATE)[0]
         keep[..., c0:c0 + m] = (out[..., :m] > 0).permute(0, 2, 1, 3)
     return keep
@@ -754,10 +812,10 @@ HEAD_DIM_SHAPES = {16: (4, TRAIN_BATCH, 60, 64), 32: (4, TRAIN_BATCH, 60, 128),
 TIMED_HEAD_DIMS = (16, 32, 128)
 
 
-def phase_head_dims(torch) -> dict:
+def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
     """The four kernels at every head dim of the mma.sync kernels against
     their plain versions at n = 257 and n = 17, timed at n = 257 at
-    `TIMED_HEAD_DIMS`; head dims 8 and 144 refused."""
+    `timed_dims`; head dims 8 and 144 refused."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
@@ -804,7 +862,7 @@ def phase_head_dims(torch) -> dict:
             if (not finite or fwd_err > DROPOUT_ATOL or max(bwd_errs) > bwd_tol or mask_flips
                     or fused_err > DROPOUT_ATOL or block_err > KERNEL_ATOL):
                 raise AssertionError(f"the kernels disagree at head dim {d}, n {n}: {row}")
-            if n == 257 and d in TIMED_HEAD_DIMS:
+            if n == 257 and d in timed_dims:
                 lib_g = g.transpose(1, 2)
                 ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
                 lib_out = _sdpa(torch, ql, kl, vl, RATE)
@@ -1015,10 +1073,11 @@ def phase_slice(torch, device_info) -> dict:
             "img_per_s": SERVE_BATCH / t2}
 
 
-def phase_train_check(torch) -> dict:
+def phase_train_check(torch, dtype=None, tol=None) -> dict:
     """One MLM train step of the flagship-width LFQBert (depth 2) with the
-    kernels in bf16 on the card against the same step with the plain
-    versions in float32 on the CPU."""
+    kernels in `dtype` (default bf16) on the card against the same step with
+    the plain versions in float32 on the CPU: the loss and the global grad
+    norm within `tol` (relative; default bf16's)."""
     import numpy as np
 
     from maskbit_tpu_torch.cli.common import build_module
@@ -1047,12 +1106,17 @@ def phase_train_check(torch) -> dict:
                 "attention_seeds": [rng.integers(0, 2**32, size=(b, mlm["heads"]), dtype=np.int64)
                                     for _ in range(depth)]}
 
+    # bf16 keeps 8 significant bits: a few roundings per layer keep the loss
+    # within ~1e-3 and the grad norm (a sum of squares over every parameter)
+    # within a few 1e-3 of the f32 step; the tolerances leave room.
+    dtype = dtype or torch.bfloat16
+    tol = tol or {"mlm_loss": 1e-2, "grad_norm": 5e-2}
     cpu = build_module(lambda: LFQBert.from_config(mlm, vq), "cpu")
     init_generator_weights_(cpu, torch.Generator().manual_seed(1))
-    card = build_module(lambda: LFQBert.from_config(mlm, vq, dtype=torch.bfloat16), "cuda")
+    card = build_module(lambda: LFQBert.from_config(mlm, vq, dtype=dtype), "cuda")
     card.load_state_dict(cpu.state_dict(), strict=True)
     results = {}
-    before = dict(da.launches)
+    before = dict(da.launches_by_dtype)
     for name, gen, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
         opt = make_optimizer(gen.parameters(), lambda t: 1e-4, beta2=0.96, weight_decay=0.045)
         train_step = make_generator_train_step_from_tokens(
@@ -1062,21 +1126,20 @@ def phase_train_check(torch) -> dict:
                                 torch.from_numpy(tokens).to(dev), torch.from_numpy(labels).to(dev),
                                 injected=injected)
         results[name] = {k: float(metrics[k]) for k in ("mlm_loss", "grad_norm")}
-    launched = {k: da.launches[k] - before[k] for k in before}
+    by_dtype = {f"{k}@{d}/{t}": n - before.get((k, d, t), 0)
+                for (k, d, t), n in da.launches_by_dtype.items() if n != before.get((k, d, t), 0)}
     rel = {k: abs(results["card"][k] - results["cpu"][k]) / abs(results["cpu"][k])
            for k in ("mlm_loss", "grad_norm")}
-    log(f"[train-check] flagship width, depth {depth}, batch {b}: loss card(bf16 kernels) "
+    dt_name = str(dtype).removeprefix("torch.")
+    log(f"[train-check] flagship width, depth {depth}, batch {b}: loss card({dt_name} kernels) "
         f"{results['card']['mlm_loss']:.6f} vs cpu(f32 plain) {results['cpu']['mlm_loss']:.6f} "
-        f"(rel {rel['mlm_loss']:.2e}, tol 1e-2); grad norm {results['card']['grad_norm']:.6f} vs "
-        f"{results['cpu']['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}, tol 5e-2); "
-        f"kernel launches {launched}")
-    # bf16 keeps 8 significant bits: a few roundings per layer keep the loss
-    # within ~1e-3 and the grad norm (a sum of squares over every parameter)
-    # within a few 1e-3 of the f32 step; the tolerances leave room.
-    if (launched["dropout_attention_fwd"] != depth or launched["dropout_attention_bwd"] != depth
-            or rel["mlm_loss"] > 1e-2 or rel["grad_norm"] > 5e-2):
-        raise AssertionError(f"train step disagrees: {results}, launches {launched}")
-    return {"results": results, "rel": rel}
+        f"(rel {rel['mlm_loss']:.2e}, tol {tol['mlm_loss']:g}); grad norm "
+        f"{results['card']['grad_norm']:.6f} vs {results['cpu']['grad_norm']:.6f} (rel "
+        f"{rel['grad_norm']:.2e}, tol {tol['grad_norm']:g}); kernel launches {by_dtype}")
+    want = {f"dropout_attention_{x}@64/{dt_name}": depth for x in ("fwd", "bwd")}
+    if by_dtype != want or rel["mlm_loss"] > tol["mlm_loss"] or rel["grad_norm"] > tol["grad_norm"]:
+        raise AssertionError(f"train step disagrees: {results}, launches {by_dtype} != {want}")
+    return {"results": results, "rel": rel, "launches": by_dtype}
 
 
 def phase_train_slice(torch, device_info) -> dict:
@@ -1527,10 +1590,11 @@ def phase_eval(torch, device_info, device="cuda") -> dict:
 
         # c. eval_maskbit at batch 100
         mlm = _flagship()["mlm_model"]
-        depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+        depth, steps = EVAL_DEPTH, int(mlm["num_steps"])
         argv = [f"config={CONFIG}", f"eval.total_samples={EVAL_SAMPLES}",
                 f"eval.batch_size={EVAL_BATCH}", f"eval.stats_path={stats}",
                 f"eval.device={device}", "eval.shard_local_devices=false",  # one card
+                f"model.mlm_model.depth={depth}",
                 "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
                 f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"]
         for key in da.launches:
@@ -2827,7 +2891,8 @@ def _combined_spec(base: dict, work: str, gen_config: str, tok_config: str, devi
                            f"eval.total_samples={s['eval_samples']}",
                            f"eval.batch_size={s['eval_batch']}", "eval.stats_path=",
                            "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
-                           f"experiment.output_dir={os.path.join(work, 'dp_eval')}"])
+                           f"experiment.output_dir={os.path.join(work, 'dp_eval')}"]
+                + ([f"model.mlm_model.depth={s['eval_depth']}"] if s.get("eval_depth") else []))
 
 
 def _reference_step(torch, spec: dict, cuda: bool) -> tuple:
@@ -2902,7 +2967,7 @@ def _check_combined(torch, spec: dict, s: dict, world: int, reference: tuple, cu
     per_rank = -(-s["eval_samples"] // world)
     batches = -(-per_rank // s["eval_batch"])
     mlm = _model_node(spec["gen_config"])["mlm_model"]
-    want = int(mlm["depth"]) * int(mlm["num_steps"]) * batches
+    want = int(s.get("eval_depth") or mlm["depth"]) * int(mlm["num_steps"]) * batches
     wall = max(r["eval_s"] for r in ranks)
     for r in ranks:
         log(f"[{tag}] e. eval_maskbit rank: {r['eval_local_samples']} of {r['eval_count']} "
@@ -3620,7 +3685,9 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
                 f"eval.batch_size={sizes['eval_batch']}", f"eval.device={device}",
                 "eval.shard_local_devices=true",
                 "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint=",
-                f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"])
+                f"experiment.output_dir={os.path.join(work, 'eval_maskbit')}"]
+                + ([f"model.mlm_model.depth={sizes['eval_depth']}"] if sizes.get("eval_depth")
+                   else []))
             wall = time.perf_counter() - t0
         finally:
             if saved is None:
@@ -3628,7 +3695,7 @@ def phase_split(torch, device_info, device="cuda", gen_config=CONFIG, sizes=None
             else:
                 os.environ["MASKBIT_INCEPTION_WEIGHTS"] = saved
         batches = -(-sizes["eval_samples"] // sizes["eval_batch"])
-        want = depth * steps * batches
+        want = (sizes.get("eval_depth") or depth) * steps * batches
         counts = block_launches(made[-1].launch_counts()) if made else []
         log(f"[split] c. eval_maskbit over {len(devices)} entries: {ev['count']} of "
             f"{sizes['eval_samples']} samples scored in {batches} batches of "
@@ -3958,6 +4025,11 @@ def phase_multicard(torch, device_info, device="cuda", gen_config=CONFIG,
     return out
 
 
+# phase 16's run `flagship` at the flagship's width, its depth cut from 24 to
+# make room for phase 17
+SYSTEM_CHECK_FLAGSHIP_DEPTH = 12
+
+
 def phase_system_check(torch) -> dict:
     """Phase 16: both runs of `cli.system_check` on the card; its own
     thresholds fail the phase. The launches are counted per run, zeroed
@@ -3965,7 +4037,8 @@ def phase_system_check(torch) -> dict:
     from maskbit_tpu_torch.cli import system_check
 
     t0 = time.perf_counter()
-    result = system_check.run_check("cuda", log=lambda m: log(f"[system-check] {m}"))
+    result = system_check.run_check("cuda", log=lambda m: log(f"[system-check] {m}"),
+                                    flagship_depth=SYSTEM_CHECK_FLAGSHIP_DEPTH)
     tok = result["tokenizer"]
     for name, r in result["runs"].items():
         launched = {**r["launches_train"]["by_head_dim"], **r["launches_sample"]["by_head_dim"],
@@ -3985,9 +4058,335 @@ def phase_system_check(torch) -> dict:
     return result
 
 
+# Phase 17, the float32 forms of the four kernels (`csrc/attention_f32.cu`).
+# A kernel and its plain version both compute in full float32 (TF32 off) on
+# the same inputs and differ only in summation order and exp2f against exp:
+# a few ulp of each sum, far below 1e-4 of the largest reference value (or
+# 1e-4 absolute below 1).
+F32_TOL = 1e-4
+PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet: float32 on the CUDA cores
+# the depth-2 float32 step on the card against the CPU's float32 step: both
+# in float32, summed in other orders over 2 layers and a 16,384-way cross
+# entropy (a few 1e-6 relative); the loss within 1e-4, the global grad norm
+# (a sum of squares over every parameter) within 1e-3
+F32_STEP_TOL = {"mlm_loss": 1e-4, "grad_norm": 1e-3}
+# the float32 train CLI's steps and its in-training generations
+F32_TRAIN_STEPS, F32_GENERATE_EVERY = 4, 3
+# the head dims whose float32 kernels are timed: the flagship's and the
+# other widths' timed ones
+F32_TIMED_HEAD_DIMS = (32, 64, 128)
+
+
+def _f32_shapes(d: int) -> tuple:
+    """(heads, the dropout pair's batch, the block's and fused_attention's
+    batch, the block's E) at head dim d: the flagship's at 64, else phase
+    3's `HEAD_DIM_SHAPES`."""
+    return (HEADS, TRAIN_BATCH, 2 * SERVE_BATCH, 1024) if d == 64 else HEAD_DIM_SHAPES[d]
+
+
+def phase_float32_kernels(torch) -> dict:
+    """The four kernels' float32 forms against their plain versions in
+    float32 (TF32 off) at every head dim and n = 257 and 17, the keep mask
+    bit for bit; timed at n = 257 at `F32_TIMED_HEAD_DIMS` beside SDPA (the
+    block beside the library chain) and the float32 bound; float16 and
+    float64 refused."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    f32 = torch.float32
+    rows, timed = [], {}
+    for d in da.HEAD_DIMS:
+        h, b, bb, e = _f32_shapes(d)
+        for n in (257, 17):
+            q, k, v = _qkv_packed(torch, b, n, h, seed=d * n + 3, d=d, dtype=f32)
+            seeds = torch.randint(0, 2**32, (b, h), device="cuda", dtype=torch.int64,
+                                  generator=torch.Generator(device="cuda").manual_seed(d + n + 1))
+            seeds32 = da.seeds_as_int32(seeds, (b, h))
+            g = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n + 2),
+                            device="cuda")
+            out, lse = da.launch_forward(q, k, v, seeds32, RATE)
+            grads = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
+            fq, fk, fv = _qkv_packed(torch, bb, n, h, seed=d * n + 4, d=d, dtype=f32)
+            fused = da.fused_attention(fq, fk, fv)
+            inp = _block_inputs(torch, bb, n, e, seed=d * n + 5, vectors=f32, dtype=f32)
+            block = ab.fused_attention_block(**inp, num_heads=e // d)
+            torch.cuda.synchronize()
+            pairs = {"fwd": (out, da.dropout_attention_reference(q, k, v, seeds, RATE)),
+                     **dict(zip(("dq", "dk", "dv"), zip(grads, da.dropout_attention_backward_reference(
+                         q, k, v, g, seeds, RATE)))),
+                     "fused": (fused, da.fused_attention_reference(fq, fk, fv)),
+                     "block": (block, ab.fused_attention_block_reference(**inp, num_heads=e // d))}
+            errs, tols = {}, {}
+            for key, (got, ref) in pairs.items():
+                if got.dtype != f32 or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"float32 {key} at head dim {d}, n {n}: {got.dtype}, "
+                                         "or not finite")
+                errs[key] = (got - ref).abs().max().item()
+                tols[key] = F32_TOL * max(1.0, ref.abs().max().item())
+            mask_flips = int((kernel_keep_mask(torch, da, seeds, b, n, h, d, dtype=f32)
+                              != da.hash_keep_mask(seeds, n, RATE)).sum().item())
+            row = dict(d=d, n=n, heads=h, dropout_shape=[b, n, h, d], fused_shape=[bb, n, h, d],
+                       block_shape=[bb, n, e], errs=errs, tols=tols, mask_flips=mask_flips)
+            log(f"[float32] head dim {d}, n {n}: dropout ({b}, {n}, {h}, {d}), fused_attention "
+                f"({bb}, {n}, {h}, {d}), block ({bb}, {n}, {e}): max_abs_err " + ", ".join(
+                    f"{key} {errs[key]:.3e} (tol {tols[key]:.1e})" for key in errs)
+                + f"; keep mask {mask_flips} of {b * h * n * n} bits differ")
+            if mask_flips or any(errs[key] > tols[key] for key in errs):
+                raise AssertionError(f"the float32 kernels disagree at head dim {d}, n {n}: {row}")
+            if n == 257 and d in F32_TIMED_HEAD_DIMS:
+                elems = b * n * h * d
+                lib_g = g.transpose(1, 2)
+                ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+                lib_out = _sdpa(torch, ql, kl, vl, RATE)
+                t = {"dropout_attention_fwd": dict(
+                    **_times(torch, lambda: da.launch_forward(q, k, v, seeds32, RATE),
+                             plain=lambda: da.dropout_attention_reference(q, k, v, seeds, RATE),
+                             library=lambda: _sdpa(torch, q, k, v, RATE)),
+                    shape=[b, n, h, d],
+                    **_bound(4 * b * h * n * n * d, 4 * 4 * elems + 4 * b * h * n, PEAK_F32_FLOPS)),
+                    "dropout_attention_bwd": dict(
+                    **_times(torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32, RATE),
+                             plain=lambda: da.dropout_attention_backward_reference(
+                                 q, k, v, g, seeds, RATE),
+                             library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g,
+                                                                 retain_graph=True)),
+                    shape=[b, n, h, d],
+                    **_bound(10 * b * h * n * n * d, 4 * 8 * elems + 4 * b * h * n,
+                             PEAK_F32_FLOPS)),
+                    "fused_attention": dict(
+                    **_times(torch, lambda: da.fused_attention(fq, fk, fv),
+                             plain=lambda: da.fused_attention_reference(fq, fk, fv),
+                             library=lambda: _sdpa(torch, fq, fk, fv, 0.0)),
+                    shape=[bb, n, h, d],
+                    **_bound(4 * bb * h * n * n * d, 4 * 4 * bb * n * h * d, PEAK_F32_FLOPS))}
+                call = lambda: ab.fused_attention_block(**inp, num_heads=e // d)  # noqa: E731
+                chain = {_kernel_name(key): ms for key, ms in _device_breakdown(torch, call).items()}
+                t["fused_attention_block"] = dict(
+                    ms=sum(chain.values()), call_ms=_time_ms(torch, call),
+                    plain_ms=_device_ms(torch, lambda: ab.fused_attention_block_reference(
+                        **inp, num_heads=e // d)),
+                    shape=[bb, n, e], chain=chain,
+                    library_chain_ms=_device_ms(torch, _library_chain(torch, inp, e // d)),
+                    **_bound(2 * bb * n * e * 3 * e + 2 * bb * n * e * e
+                             + 4 * bb * (e // d) * n * n * d,
+                             4 * (2 * bb * n * e + 4 * e * e) + 4 * 6 * e, PEAK_F32_FLOPS))
+                log(f"[float32]   head dim {d} device ms (per call by events; plain; library; "
+                    f"bound): " + "; ".join(
+                        f"{name} {x['ms']:.4f} ({x['call_ms']:.4f}; {x['plain_ms']:.4f}; "
+                        f"{x.get('library_ms', x.get('library_chain_ms')):.4f}; "
+                        f"{x['bound_ms']:.4f} by {x['bound_by']})" for name, x in t.items()))
+                log("[float32]   block chain, device ms per call: " + "; ".join(
+                    f"{key} {ms:.4f}" for key, ms in chain.items()))
+                timed[d] = t
+                del lib_out, ql, kl, vl
+            rows.append(row)
+            del q, k, v, g, out, lse, grads, fq, fk, fv, fused, inp, block, pairs
+    # dtypes JAX's resolve_compute_dtype never yields raise, on the card
+    refused = []
+    for dt in (torch.float16, torch.float64):
+        q, k, v = _qkv_packed(torch, 1, 17, 2, seed=1, d=64, dtype=dt)
+        inp = {key: (x.to(dt) if x.dim() > 1 else x) for key, x in _block_inputs(
+            torch, 1, 17, 128, seed=1, vectors=f32, dtype=f32).items()}
+        for name, fn in (("dropout_attention", lambda: da.dropout_attention(
+                             q, k, v, torch.zeros(1, 2, dtype=torch.int64), RATE)),
+                         ("fused_attention", lambda: da.fused_attention(q, k, v)),
+                         ("fused_attention_block", lambda: ab.fused_attention_block(
+                             **inp, num_heads=2))):
+            try:
+                fn()
+            except TypeError as err:
+                refused.append(f"{name} {dt}: {err}")
+            else:
+                raise AssertionError(f"{name} ran on {dt}")
+    log("[float32] refused: " + "; ".join(refused))
+    return {"rows": rows, "timed": timed, "refused": refused}
+
+
+def _only_f32(launched: dict, want: dict, what: str) -> None:
+    """Raises unless `launched` holds exactly `want` (float32 kernels only)."""
+    if launched != want:
+        raise AssertionError(f"{what}: launches {launched}, expected {want} (float32 only)")
+
+
+def _f32_profile_check(torch) -> dict:
+    """A profile of one float32 block call, one float32 serving-mode
+    BertAttention call and one float32 dropout-attention forward and
+    backward through autograd: each launches its float32 kernels and no
+    library GEMM or attention kernel (nor a bf16 one of the port)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+    from maskbit_tpu_torch.nn.transformer import BertAttention
+
+    f32 = torch.float32
+    inp = _block_inputs(torch, 2 * SERVE_BATCH, 257, 1024, seed=7, vectors=f32, dtype=f32)
+    layer = BertAttention(1024, HEADS, attention_impl="fused").cuda().eval()
+    with torch.no_grad():
+        for param in layer.parameters():
+            param.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(11))
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in _qkv_packed(
+        torch, TRAIN_BATCH, 257, HEADS, seed=8, dtype=f32))
+    seeds = torch.randint(0, 2**32, (TRAIN_BATCH, HEADS), device="cuda", dtype=torch.int64,
+                          generator=torch.Generator(device="cuda").manual_seed(9))
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(10),
+                    device="cuda")
+    block_kernels = ("proj_f32_kernel<0>", "attn_fwd_f32_kernel", "proj_f32_kernel<1>",
+                     "layernorm_kernel<float>")
+    calls = {"block": (lambda: ab.fused_attention_block(**inp, num_heads=HEADS), block_kernels),
+             "bert_attention": (lambda: layer(inp["x"]), block_kernels),
+             "dropout_attention": (lambda: torch.autograd.grad(
+                 da.dropout_attention(q, k, v, seeds, RATE), (q, k, v), g),
+                 ("attn_fwd_f32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_dkdv_f32_kernel",
+                  "attn_bwd_dq_f32_kernel"))}
+    banned = ("gemm", "nvjet", "cutlass", "flash", "cudnn", "fmha", "efficient_attention",
+              "softmax", "attn_fwd_kernel", "attn_fwd_mma_kernel", "attn_bwd_kernel",
+              "attn_bwd_dkdv_mma", "attn_bwd_dq_mma", "proj_kernel<", "layernorm_kernel<__nv")
+    seen = {}
+    for name, (call, own) in calls.items():
+        # each call launches every one of `own`: a profile of 20 calls that
+        # lacks one lost events (CUPTI sometimes records nothing of a
+        # short profile) and is taken again, at most
+        # `tries` times; a kernel not allowed fails at once
+        tries = 3
+        for attempt in range(tries):
+            with torch.inference_mode(name != "dropout_attention"):
+                call()  # warm
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        call()
+                    torch.cuda.synchronize()
+            names = [_kernel_name(ev.key) for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA]
+            missing = [x for x in own if not any(x in key for key in names)]
+            bad = [key for key in names if any(x in key.lower() for x in banned)]
+            if name != "dropout_attention":  # the block launches its own kernels and nothing else
+                bad += [key for key in names if not any(x in key for x in own)]
+            log(f"[float32] profile of one {name} call (try {attempt + 1}): {names}")
+            if bad or not missing:
+                break
+        seen[name] = names
+        if missing or bad:
+            raise AssertionError(f"float32 {name}: kernels {missing} missing, {bad} not allowed")
+    return seen
+
+
+def _f32_train_cli(torch, device_info) -> dict:
+    """`cli.train_maskbit.main` on the flagship config at
+    `training.mixed_precision=no`, batch 32, `F32_TRAIN_STEPS` steps with
+    in-training generation every `F32_GENERATE_EVERY` (the EMA sample grid
+    through the float32 block): finite losses, the grids, and the float32
+    kernels only, on every layer of every step and sampling step."""
+    import numpy as np
+
+    from maskbit_tpu_torch.cli.train_maskbit import main
+    from maskbit_tpu_torch.nn import attention_block as ab
+
+    mlm = _flagship()["mlm_model"]
+    depth, sampling_steps = int(mlm["depth"]), int(mlm["num_steps"])
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_f32_train")  # git-ignored
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [f"config={CONFIG}", f"training.per_device_batch_size={TRAIN_BATCH}",
+            f"training.max_train_steps={F32_TRAIN_STEPS}", "training.device=cuda",
+            "training.mixed_precision=no", "experiment.vqgan_checkpoint=",
+            "experiment.log_every=1", f"experiment.generate_every={F32_GENERATE_EVERY}",
+            "experiment.save_every=100000", "experiment.eval_every=100000",
+            f"experiment.output_dir={out_dir}"]
+    ab.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = main(argv)
+    wall = time.perf_counter() - t0
+    launched = ab.launch_counts()["by_dtype"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = result["history"]
+    losses = [h["mlm_loss"] for h in hist]
+    step_s = [h["perf/step_seconds"] for h in hist]
+    grids = sorted(os.listdir(os.path.join(out_dir, "images")))
+    n_gen = F32_TRAIN_STEPS // F32_GENERATE_EVERY
+    sampled = depth * sampling_steps * n_gen
+    want = {"attention_block@64/float32": sampled, "fused_attention@64/float32": sampled,
+            "dropout_attention_fwd@64/float32": depth * F32_TRAIN_STEPS,
+            "dropout_attention_bwd@64/float32": depth * F32_TRAIN_STEPS}
+    median_s = statistics.median(step_s[1:])
+    log(f"[float32] train_maskbit mixed_precision=no, batch {TRAIN_BATCH}, depth {depth}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+        f"{', '.join(f'{x:.4f}' for x in step_s)} (median of steps 2..{len(hist)} "
+        f"{median_s * 1e3:.1f} ms = {TRAIN_BATCH / median_s:.1f} samples/s, generation steps "
+        f"included); peak memory {peak_gib:.2f} GiB; wall {wall:.1f} s; grids {grids}; "
+        f"launches {launched} [{device_info['card']}]")
+    want_grids = [f"train_{kind}-{s:09d}.png" for kind in ("decoded", "generated")
+                  for s in range(F32_GENERATE_EVERY, F32_TRAIN_STEPS + 1, F32_GENERATE_EVERY)]
+    if len(losses) != F32_TRAIN_STEPS or not all(np.isfinite(losses)) or grids != want_grids:
+        raise AssertionError(f"float32 train CLI: losses {losses}, grids {grids}")
+    _only_f32(launched, want, "float32 train CLI")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launched, "losses": losses, "step_seconds": step_s,
+            "median_step_s": median_s, "peak_gib": peak_gib, "wall_s": wall}
+
+
+def _f32_serve(torch, device_info) -> dict:
+    """`cli.serve` on the flagship at `training.mixed_precision=no`: one
+    seeded /generate of `SERVE_BATCH` labels (64 steps, CFG), the block in
+    float32 on every layer of every step of both device calls (the warm-up
+    and the request)."""
+    from maskbit_tpu_torch.cli.serve import main
+    from maskbit_tpu_torch.nn import attention_block as ab
+
+    mlm = _flagship()["mlm_model"]
+    depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+    argv = [f"config={CONFIG}", f"serve.batch_size={SERVE_BATCH}", "serve.port=0",
+            "serve.device=cuda", "serve.shard_local_devices=false", "training.mixed_precision=no",
+            "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
+    ab.reset_launch_counts()
+    t0 = time.perf_counter()
+    server, service = main(argv, serve_forever=False)
+    startup = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        labels = list(range(1, 8 * SERVE_BATCH, 8))[:SERVE_BATCH]
+        data, request_s = _post(base, {"labels": labels, "seed": 3})
+        images = _images(data)
+        _check_images(images, SERVE_BATCH)
+        calls = service.device_calls
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    torch.cuda.synchronize()
+    launched = ab.launch_counts()["by_dtype"]
+    want = {"attention_block@64/float32": depth * steps * calls,
+            "fused_attention@64/float32": depth * steps * calls}
+    log(f"[float32] serve mixed_precision=no: startup (random init + warm-up call) "
+        f"{startup:.2f} s; a seeded {SERVE_BATCH}-label /generate {request_s:.3f} s = "
+        f"{SERVE_BATCH / request_s:.3f} img/s; device calls {calls}; launches {launched} "
+        f"[{device_info['card']}]")
+    _only_f32(launched, want, "float32 serve")
+    return {"launches": launched, "request_s": request_s, "img_per_s": SERVE_BATCH / request_s,
+            "startup_s": startup}
+
+
+def phase_float32(torch, device_info) -> dict:
+    """Phase 17: the float32 kernels against their plain versions and
+    timed; the profile check; the depth-2 float32 step against the CPU's;
+    the train CLI and the server at `training.mixed_precision=no`, each
+    with its launch counts zeroed just before it."""
+    kernels = phase_float32_kernels(torch)
+    profiled = _f32_profile_check(torch)
+    check = phase_train_check(torch, torch.float32, F32_STEP_TOL)
+    train = _f32_train_cli(torch, device_info)
+    serve = _f32_serve(torch, device_info)
+    return {"kernels": kernels, "profile": profiled, "train_check": check, "train": train,
+            "serve": serve}
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
           "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
-          "split_scale", "multicard", "system_check")
+          "split_scale", "multicard", "system_check", "float32")
 
 
 def _args(argv):
@@ -4001,6 +4400,9 @@ def _args(argv):
                    help="checkout whose maskbit_tpu_torch to drive (default: this one), e.g. "
                         "a parent commit unpacked beside it, to compare two trees with one "
                         "script")
+    p.add_argument("--all-widths", action="store_true",
+                   help="phase 3 times the kernels at every head dim it checks, not only at "
+                        f"{TIMED_HEAD_DIMS}")
     args = p.parse_args(argv)
     args.phases = [x for x in args.phases.split(",") if x]
     unknown = set(args.phases) - set(PHASES)
@@ -4041,8 +4443,12 @@ def main(argv=None) -> int:
         return out
 
     kern = phase("kernels", phase_kernels, torch)
+    timed_dims = tuple(HEAD_DIM_SHAPES) if args.all_widths else TIMED_HEAD_DIMS
     drop, widths = phase("dropout", lambda: (phase_dropout_kernels(torch),
-                                             phase_head_dims(torch))) or (None, None)
+                                             phase_head_dims(torch, timed_dims))) or (None, None)
+    # phase 17 right after the other kernels: late in a long process CUPTI
+    # loses most of a profile's events
+    f32 = phase("float32", phase_float32, torch, device_info)
     phase("generator", phase_generator, torch)
     sl = phase("slice", phase_slice, torch, device_info)
     check = phase("train_check", phase_train_check, torch)
@@ -4064,7 +4470,7 @@ def main(argv=None) -> int:
                "head_dim_rows": widths, "slice": sl, "train_check": check, "train": tr,
                "train_data": data, "eval": ev, "tokenizer_train": tok, "variants": var,
                "distributed": dp, "sharded": sh, "split": sp, "split_scale": sc,
-               "multicard": mc, "system_check": syscheck}
+               "multicard": mc, "system_check": syscheck, "float32": f32}
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -4197,11 +4603,39 @@ def main(argv=None) -> int:
                         **{k: r[name][k] for k in time_keys},
                         "library_ms": r[name].get("library_ms", r[name].get("library_chain_ms"))}
                        for d, r in sorted(width_rows.items())]})
+    # the float32 kernels (phase 17): launched by its train CLI (the dropout
+    # pair; the block in its generations) and its server (the block and its
+    # attention core), timed at the flagship's shapes (head dim 64) and at 32
+    # and 128 ("widths")
+    f32_src = "maskbit_tpu_torch/csrc/attention_f32.cu"
+    f32_train, f32_serve = f32["train"]["launches"], f32["serve"]["launches"]
+    f32_rows = {"fused_attention_block": (f"{pa}:532", "attention_block", "block"),
+                "dropout_attention_fwd": (f"{pa}:232", "dropout_attention_fwd", "fwd"),
+                "dropout_attention_bwd": (f"{pa}:274", "dropout_attention_bwd", None),
+                "fused_attention": (f"{pa}:94", "fused_attention", "fused")}
+    for name, (replaces, key, err_key) in f32_rows.items():
+        at = f32["kernels"]["timed"][64][name]
+        errs = [max(r["errs"][x] for x in ("dq", "dk", "dv")) if err_key is None
+                else r["errs"][err_key] for r in f32["kernels"]["rows"]]
+        serve_path = not name.startswith("dropout")
+        record["kernels"].append({
+            "name": f"{name}_f32", "route": "cuda", "source": f32_src, "replaces": replaces,
+            "dtype": "float32", "head_dims": "multiples of 16 in [16, 128]",
+            "launches": (f32_serve if serve_path else f32_train).get(f"{key}@64/float32", 0),
+            "launches_train_cli": f32_train.get(f"{key}@64/float32", 0),
+            "max_abs_err": max(errs), "shape": at["shape"],
+            **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
+            **({"library_chain_ms": at["library_chain_ms"], "chain": at["chain"]}
+               if "library_chain_ms" in at else {}),
+            "widths": [{"d": d, "shape": t[name]["shape"], **{k: t[name][k] for k in time_keys},
+                        "library_ms": t[name].get("library_ms", t[name].get("library_chain_ms"))}
+                       for d, t in sorted(f32["kernels"]["timed"].items())]})
     bert_path = {"fused_attention_block": "launches_bert_serve",
                  "fused_attention": "launches_bert_serve",
                  "dropout_attention_fwd": "launches_bert_train",
                  "dropout_attention_bwd": "launches_bert_train"}
-    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0
+            or k.get("launches_train_cli", 1) <= 0]
     idle += [k["name"] for k in record["kernels"] if "widths" not in k and (
             k["launches_train_data"] <= 0 or k["launches_system_check"] <= 0
             or k.get("launches_eval", 1) <= 0 or k[bert_path[k["name"]]] <= 0

@@ -3,8 +3,8 @@
 Counterpart of `maskbit_tpu/cli/common.py`'s `validate_generator_config`,
 `resolve_compute_dtype` (here `compute_dtype`), `load_generation_models`,
 `setup_experiment`, `synthetic_batches`, `build_dataloaders`,
-`build_perceptual`, `reset_optimizer_counts`, `GracefulShutdown` and
-`StepTimer`; `setup_device` joins the process group and lays out the
+`build_perceptual`, `reset_optimizer_counts`, `ProfilerHook`,
+`GracefulShutdown` and `StepTimer`; `setup_device` joins the process group and lays out the
 (data, fsdp, tensor) mesh of the config's `parallel` node
 (`parallel/mesh.py`) where the JAX package's `setup_experiment` calls
 `maybe_init_distributed` and builds its mesh. Under several processes each
@@ -321,6 +321,50 @@ def reset_optimizer_counts(opt):
     `gradient_step` and `mini_step` in the JAX package)."""
     opt.count = opt.mini_step = 0
     return opt
+
+
+class ProfilerHook:
+    """A torch.profiler trace over a configured window of steps: CPU and,
+    where there is a card, CUDA activities.
+
+    `experiment.profile_steps="10-15"` (inclusive; "7" is one step) traces
+    the steps that start with 10 to 15 steps done, as JAX's `ProfilerHook`,
+    into <output_dir>/profile as one Chrome trace a process
+    (`steps_10-15_rank0.json`). An empty or absent key does nothing. The
+    train loop calls `step(steps_done)` before each step and `close()` on
+    every exit, a SIGTERM stop included; a window still open is written
+    then."""
+
+    def __init__(self, output_dir: str, spec: str = ""):
+        self.dir = os.path.join(output_dir, "profile")
+        self._start = self._stop = None
+        if spec:
+            lo, _, hi = str(spec).partition("-")
+            self._start, self._stop = int(lo), int(hi or lo)
+        self._prof = None
+
+    def step(self, global_step: int) -> None:
+        if self._start is None:
+            return
+        if global_step == self._start and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+        elif global_step > self._stop and self._prof is not None:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        self._prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self._prof.export_chrome_trace(os.path.join(
+            self.dir, f"steps_{self._start}-{self._stop}_rank{process_index()}.json"))
+        self._prof = None
 
 
 class GracefulShutdown:

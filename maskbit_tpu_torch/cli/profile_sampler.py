@@ -23,11 +23,14 @@ import torch
 _LAYERS = (
     ("proj_kernel", "attention block: projections (hand wgmma)"),
     ("attn_fwd_kernel", "attention block: attention (hand wgmma)"),
+    ("proj_f32_kernel", "attention block: projections (hand FFMA, float32)"),
+    ("attn_fwd_f32_kernel", "attention block: attention (hand FFMA, float32)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),
-    ("xmma", "decoder convolutions (cuDNN)"),
-    ("gemm", "cuBLAS GEMM (FFN, embeddings, head)"),
+    ("fprop", "decoder convolutions (cuDNN)"),
+    ("gemm", "cuBLAS GEMM (FFN, embeddings, head)"),  # float32 cuBLAS: sm80_xmma_gemm_*
     ("nvjet", "cuBLAS GEMM (FFN, embeddings, head)"),
+    ("xmma", "decoder convolutions (cuDNN)"),
     ("sort", "sampler sort"),
     ("Sort", "sampler sort"),
 )

@@ -31,13 +31,14 @@ from maskbit_tpu_torch.train import generator_trainer
 # kernel-name fragment -> category, first match wins
 _CATEGORIES = (
     ("attn_fwd_kernel", "dropout attention forward (hand)"),
+    ("attn_fwd_f32_kernel", "dropout attention forward (hand)"),
     ("attn_bwd", "dropout attention backward (hand)"),
     ("multi_tensor_apply", "optimizer, EMA, grad norm (foreach)"),
     ("conv", "tokenizer convolutions (cuDNN)"),
-    ("xmma", "tokenizer convolutions (cuDNN)"),
     ("implicit", "tokenizer convolutions (cuDNN)"),
-    ("gemm", "cuBLAS GEMM (projections, FFN, head)"),
+    ("gemm", "cuBLAS GEMM (projections, FFN, head)"),  # float32 cuBLAS: sm80_xmma_gemm_*
     ("nvjet", "cuBLAS GEMM (projections, FFN, head)"),
+    ("xmma", "tokenizer convolutions (cuDNN)"),
     ("layer_norm", "LayerNorm"),
     ("group_norm", "GroupNorm"),
     ("GroupNorm", "GroupNorm"),

@@ -47,7 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -234,12 +234,17 @@ def sample_and_score(gen: LFQBert, state, tokenizer: ConvVQModel, device: torch.
             "finite": bool(np.isfinite(images).all()), "shape": list(images.shape)}
 
 
-def run_check(device: str = "cuda", rehearsal: bool = False, log=print) -> Dict:
+def run_check(device: str = "cuda", rehearsal: bool = False, log=print,
+              flagship_depth: Optional[int] = None) -> Dict:
     """Stage I, then Stage II and sampling for each of `RUNS`. Returns
     {"tokenizer": ..., "runs": {name: ...}, "passed": bool}; a failed
     threshold raises AssertionError (after every run has run), except in a
-    `rehearsal`, which runs at `REHEARSAL`'s sizes."""
-    sizes = REHEARSAL if rehearsal else SIZES
+    `rehearsal`, which runs at `REHEARSAL`'s sizes. `flagship_depth`: the
+    run `flagship` at that depth (its width unchanged) instead of 24, or
+    of the rehearsal's 1."""
+    sizes = dict(REHEARSAL if rehearsal else SIZES)
+    if flagship_depth is not None:
+        sizes["flagship_depth"] = flagship_depth
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu for a rehearsal on the CPU")

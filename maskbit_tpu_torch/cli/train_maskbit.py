@@ -20,6 +20,8 @@ honoured); scalars and samples/s are logged every `experiment.log_every`
 steps through the `experiment.logger` tracker (jsonl by default:
 `metrics.jsonl`), per-parameter gradient norms every
 `experiment.log_grad_norm_every` steps (0: never).
+`experiment.profile_steps` ("10-15", inclusive) traces that window of steps
+with torch.profiler into `<output_dir>/profile` (`cli.common.ProfilerHook`).
 
 Checkpoints: every `experiment.save_every` steps, and at the end, the train
 state (parameters, AdamW moments and counts, EMA, step) goes to
@@ -82,6 +84,7 @@ import torch
 
 from maskbit_tpu_torch.cli.common import (
     GracefulShutdown,
+    ProfilerHook,
     StepTimer,
     build_dataloaders,
     build_module,
@@ -363,11 +366,13 @@ def main(argv=None) -> dict:
     num_devices = process_count()  # samples/s per device counts the global batch
     timer = StepTimer()
     history, save_seconds = [], []
+    profiler = ProfilerHook(output_dir, config.select("experiment.profile_steps", ""))
     shutdown = GracefulShutdown(logger)
     try:
         while state.step < max_steps:
             inputs, labels = next_batch(run)
             timer.data_tick()
+            profiler.step(state.step)
             state, metrics = train_step(state, inputs, labels, rng)
             step = state.step
             if shutdown.should_stop(step):
@@ -422,6 +427,7 @@ def main(argv=None) -> dict:
             save_seconds.append(save_checkpoint(ckpt, run, state.step, logger))
         ckpt.close()  # every process waits here until the last write has committed
     finally:
+        profiler.close()
         shutdown.close()
         tracker.close()
     return {"output_dir": output_dir, "steps": state.step, "resumed_from": resumed_from,

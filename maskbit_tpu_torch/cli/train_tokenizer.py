@@ -32,6 +32,8 @@ every `experiment.eval_every` steps `TokenizerEvaluator` scores the EMA
 weights' reconstructions of the eval batches (at most
 `eval.max_eval_batches`, default 50; 0 for all): PSNR, SSIM, MSE, MAE,
 codebook usage and entropy, logged as "eval/...".
+`experiment.profile_steps` ("10-15", inclusive) traces that window of steps
+with torch.profiler into `<output_dir>/profile` (`cli.common.ProfilerHook`).
 
 Checkpoints, as in `cli/train_maskbit.py`: every `experiment.save_every`
 steps and at the end, the train state (both models, both optimizers, EMA,
@@ -75,6 +77,7 @@ import torch
 
 from maskbit_tpu_torch.cli.common import (
     GracefulShutdown,
+    ProfilerHook,
     StepTimer,
     build_dataloaders,
     build_module,
@@ -304,12 +307,14 @@ def main(argv=None) -> dict:
                              config=config.to_dict())
     timer = StepTimer()
     history, evals, save_seconds = [], [], []
+    profiler = ProfilerHook(output_dir, config.select("experiment.profile_steps", ""))
     shutdown = GracefulShutdown(logger)
     try:
         while state.step < max_steps:
             batch = next(train_iter)
             images = torch.from_numpy(batch["image"]).to(device)
             timer.data_tick()
+            profiler.step(state.step)
             state, metrics = train_step(state, images)
             step = state.step
             if shutdown.should_stop(step):
@@ -356,6 +361,7 @@ def main(argv=None) -> dict:
             save_seconds.append(save_checkpoint(ckpt, run, state.step, logger))
         ckpt.close()  # every process waits here until the last write has committed
     finally:
+        profiler.close()
         shutdown.close()
         tracker.close()
     return {"output_dir": output_dir, "steps": state.step, "resumed_from": resumed_from,

@@ -27,7 +27,8 @@
 //      multiple of 16 in [16, 128]) attn_fwd_mma_kernel<d, false>, the same
 //      function with 1/sqrt(d).
 //   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
-//   4. layernorm_kernel: out = bf16(LN(y)), one block a row, two passes.
+//   4. layernorm_kernel<bf16> (layernorm.cuh): out = bf16(LN(y)), one block a
+//      row, two passes.
 // A LayerNorm in the out-projection's epilogue, with a cluster of E / 256
 // blocks exchanging row sums through distributed shared memory, kept y out
 // of device memory but was slower at both serving shapes (0.165 against
@@ -58,6 +59,7 @@
 // are stored.
 
 #include "attention_fwd.cuh"
+#include "layernorm.cuh"
 
 namespace {
 
@@ -127,11 +129,6 @@ __device__ __forceinline__ void wgmma_wide(float (&d)[64], uint64_t da, uint64_t
       "}\n"
       : MB_F64(d, 0)
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ float ld_vec(const void* p, bool is_bf16, int i) {
-  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
 }
 
 // C[M, N] = A[M, K] B[N, K]^T, f32 accumulation, then by EPI:
@@ -263,69 +260,6 @@ proj_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   }
 }
 
-// ----------------------------------------------------------- LayerNorm ----
-
-constexpr int LN_THREADS = 256;
-constexpr int LN_VEC = 4;  // float4 per thread per pass; E <= 4 * 4 * 256
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red is reused between calls
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.0f;
-#pragma unroll
-  for (int w = 0; w < LN_THREADS / 32; ++w) t += red[w];
-  return t;
-}
-
-// out[row] = bf16((y - mean) * rsqrt(var + eps) * gamma + beta), f32 math;
-// gamma, beta bf16 where bits 0, 1 of vec_bf16 are set. Requires E % 4 == 0,
-// E <= 4096 and 16-byte aligned rows.
-__global__ void __launch_bounds__(LN_THREADS)
-layernorm_kernel(const float* __restrict__ y, const void* __restrict__ gamma,
-                 const void* __restrict__ beta, bf16* __restrict__ out, int E, float eps,
-                 int vec_bf16) {
-  __shared__ float red[LN_THREADS / 32];
-  const float* yr = y + (size_t)blockIdx.x * E;
-  const bool gamma16 = vec_bf16 & 1, beta16 = vec_bf16 & 2;
-  float4 v[LN_VEC];
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    v[k] = i < E ? *reinterpret_cast<const float4*>(yr + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
-  }
-  const float mean = block_sum(s, red) / E;
-  float q = 0.0f;
-#pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    if (i < E) {
-      const float a = v[k].x - mean, b = v[k].y - mean, c = v[k].z - mean, d = v[k].w - mean;
-      q += (a * a + b * b) + (c * c + d * d);
-    }
-  }
-  const float rstd = rsqrtf(block_sum(q, red) / E + eps);
-  bf16* orow = out + (size_t)blockIdx.x * E;
-#pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    if (i < E) {
-      const float vals[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-      float o[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[e] = (vals[e] - mean) * rstd * ld_vec(gamma, gamma16, i + e) + ld_vec(beta, beta16, i + e);
-      *reinterpret_cast<__nv_bfloat162*>(orow + i) = __floats2bfloat162_rn(o[0], o[1]);
-      *reinterpret_cast<__nv_bfloat162*>(orow + i + 2) = __floats2bfloat162_rn(o[2], o[3]);
-    }
-  }
-}
-
 // ------------------------------------------------------------- host side ----
 
 // One projection on `s`: C = A (M, K) B (N, K)^T with the epilogue EPI.
@@ -392,7 +326,7 @@ extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* 
   err = launch_proj_bm<EPI_RESID>(bm_out, attn, w_o, nullptr, b_o, x, static_cast<float*>(y),
                                   (vec_bf16 >> 1) & 1, M, E, E, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  layernorm_kernel<<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y), ln_g, ln_b,
-                                            static_cast<bf16*>(out), E, eps, vec_bf16 >> 2);
+  layernorm_kernel<bf16><<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y), ln_g, ln_b,
+                                                  static_cast<bf16*>(out), E, eps, vec_bf16 >> 2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,736 @@
+// The float32 forms of the four attention kernels on Hopper (sm_90a), in full
+// float32: every product is an FFMA on the CUDA cores (no TF32), as a float32
+// matrix product on the card computes by default.
+//
+// Replaces, for float32 inputs (the JAX trainers' and generation entry
+// points' compute dtype under `training.mixed_precision: no`), the TPU
+// kernels of maskbit_tpu/nn/pallas_attention.py:
+//   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
+//     attn_fwd_f32_kernel<D, true>;
+//   * _attention_kernel (fused_attention), by attn_fwd_f32_kernel<D, false>:
+//     the same forward with the mask compiled out;
+//   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_prep_f32_kernel,
+//     attn_bwd_dkdv_f32_kernel and attn_bwd_dq_f32_kernel;
+//   * _attention_block_kernel (fused_attention_block), by proj_f32_kernel
+//     (QKV, with the bias), attn_fwd_f32_kernel<D, false>, proj_f32_kernel
+//     (out-projection, bias and residual) and layernorm_kernel<float>
+//     (layernorm.cuh, shared with the bf16 block).
+// Each takes every head dim D that is a multiple of 16 in [16, 128], as the
+// bf16 kernels do. In float32 each rounding point of the bf16 form (qkv, the
+// softmax weights, the head outputs, the score gradient) is a no-op, so these
+// compute what the TPU kernels compute in float32: the weights, products,
+// the LayerNorm and every output stay float32.
+//
+// What bounds them on the H100: the operations, against the 67 TFLOP/s
+// float32 peak of the CUDA cores. At the flagship training shape, q, k, v of
+// (32, 257, 16, 64) float32 (33.7 MB each), the forward moves 135 MB (40 us
+// at 3.35 TB/s) for 8.7 GFLOP (129 us at 67 TFLOP/s); the backward 270 MB
+// (81 us) for 21.6 GFLOP (323 us). The serving block at x (16 * 257, 1024)
+// is 38.8 GFLOP (579 us), nine tenths of it the two projections, against 50
+// MB (15 us). So the design keeps the FMA units fed from shared memory:
+//   * Every product is a (64 x 64) or (64 x D) output tile of one block of
+//     256 threads (16 x 16), each thread 4 rows x 4 columns (or D / 16),
+//     from operand tiles in shared memory whose rows are padded by 4 floats.
+//     A thread reads each operand as float4 along the reduction: 8 shared
+//     loads for 64 FMAs, no bank conflicts (the two row groups of a warp are
+//     16 banks apart, the 8 threads of a quarter warp on distinct banks).
+//     Each output is a sum in a fixed order, so every result is
+//     deterministic.
+//   * Tiles are copied from device memory with cp.async (16 bytes a thread,
+//     rows past the matrix zero-filled); the projections double-buffer their
+//     32-wide k slabs so the next slab's copy overlaps this one's products.
+//     The attention kernels copy a key tile while other blocks on the SM
+//     compute (two to three blocks an SM).
+//   * Forward: one block per (batch*head, 64-query tile); Q stays in shared
+//     memory, K and V tiles of 64 keys stream through; the online softmax
+//     runs in f32 with exp2f and log2(e) folded into the scale, the row sum
+//     over ALL keys before dropout, the keep hash applied to the
+//     unnormalised weights, which pass through shared memory to the value
+//     product; the row log-sum-exp is saved for the backward.
+//   * Backward, three launches, the bf16 mma.sync design's: the row pairs
+//     (lse * log2 e, delta = rowsum(g * out)); per 64-key tile dK and dV,
+//     looping over the query tiles (S^T = K Q^T, dP^T = V G^T, then dV +=
+//     dropped(P)^T G and dK += dS^T Q); per 64-query tile dQ, looping over
+//     the key tiles (S and dP again, then dQ += dS K). 14 * b*h*n^2*d
+//     operations where the TPU kernel does 10, and no cross-block sums.
+//   * The block: the QKV projection into a (b*n, 3E) f32 buffer, the forward
+//     over its strided (b, n, 3, h, D) view, the out-projection with bias and
+//     residual into f32 y, and a LayerNorm (two passes, f32 output).
+// The keep mask is the TPU kernel's, bit for bit (attention_fwd.cuh).
+//
+// Layouts as the bf16 kernels': q, k, v (b, n, h, D) f32 read through element
+// strides (batch, row, head; each a multiple of 4, the last dimension
+// contiguous, 16-byte aligned); out, the incoming gradient, dq, dk, dv
+// contiguous (b, n, h, D) f32; the block's weights in the PyTorch (out, in)
+// layout.
+
+#include "layernorm.cuh"
+
+namespace {
+
+constexpr int FR = 64;         // queries or keys per tile; rows of an output tile
+constexpr int FT = 256;        // threads: 16 x 16, each 4 rows of the tile
+constexpr int FLP = FR + 4;    // row length (floats) of a 64-wide tile in shared memory
+
+// Tiles of head dim D. A thread of (ty, tx) = (tid / 16, tid % 16) holds rows
+// 4 ty .. 4 ty + 3 of a 64-row output tile, the score columns tx + 16 j (j <
+// 4) and the D / 16 head-dim columns col(tx, c) = 4 tx + 64 (c / 4) + c % 4
+// (float4s) where D is a multiple of 64, else tx + 16 c.
+template <int D>
+struct F32 {
+  static constexpr int LD = D + 4;      // row length of a (64, D) tile
+  static constexpr int TILE = FR * LD;  // floats
+  static constexpr int CPT = D / 16;    // head-dim columns a thread holds
+  static constexpr bool VEC = D % 64 == 0;
+  static constexpr int FWD_SMEM = (3 * TILE + FR * FLP) * 4;           // Q | K | V | P
+  static constexpr int DKDV_SMEM = (4 * TILE + 2 * FR * FLP + 2 * FR) * 4;  // K V Q G | P dS | st
+  static constexpr int DQ_SMEM = (4 * TILE + FR * FLP + 2 * FR) * 4;   // Q G K V | dS | st
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed copy groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, 64) of a (rows, D) f32 tile whose row r starts at src + r * stride
+// into shared memory, rows D + 4 floats long; rows from `valid` on are zeros.
+// Starts the copies; the caller commits and waits.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+                                          long long stride, int valid) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < FR * CH; i += FT) {
+    const int r = i / CH, c = i - r * CH;
+    const bool ok = r < valid;
+    cp_async16(dst + r * F32<D>::LD + 4 * c, src + (ok ? r * stride : 0) + 4 * c, ok);
+  }
+}
+
+// acc[i][j] += sum_k A[4 ty + i][k] B[tx + 16 j][k], k in [0, K): both
+// operands row-major in shared memory (rows LDA and LDB floats long).
+template <int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a, const float* b, int ty,
+                                       int tx) {
+  const float* ar = a + 4 * ty * LDA;
+  const float* br = b + tx * LDB;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + i * LDA + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(br + 16 * j * LDB + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv[j].x, s);
+        s = fmaf(av[i].y, bv[j].y, s);
+        s = fmaf(av[i].z, bv[j].z, s);
+        s = fmaf(av[i].w, bv[j].w, s);
+        acc[i][j] = s;
+      }
+  }
+}
+
+// acc[i][c] += sum_k A[4 ty + i][k] B[k][col(tx, c)], k in [0, 64): A a
+// 64-wide tile (rows FLP long), B a (64, D) tile (rows D + 4 long).
+template <int D>
+__device__ __forceinline__ void mma_nn(float (&acc)[4][D / 16], const float* a, const float* b,
+                                       int ty, int tx) {
+  using F = F32<D>;
+  const float* ar = a + 4 * ty * FLP;
+#pragma unroll 2
+  for (int k = 0; k < FR; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + i * FLP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* br = b + (k + kk) * F::LD;
+      float bv[F::CPT];
+      if constexpr (F::VEC) {
+#pragma unroll
+        for (int q = 0; q < F::CPT / 4; ++q) {
+          const float4 x = *reinterpret_cast<const float4*>(br + 4 * tx + 64 * q);
+          bv[4 * q] = x.x;
+          bv[4 * q + 1] = x.y;
+          bv[4 * q + 2] = x.z;
+          bv[4 * q + 3] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < F::CPT; ++c) bv[c] = br[tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int c = 0; c < F::CPT; ++c) acc[i][c] = fmaf(ai, bv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// Row r's D head-dim values of this thread, times `scale`, to dst (a row of
+// a contiguous (b, n, h, D) tensor).
+template <int D>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[D / 16], float scale,
+                                          int tx) {
+  using F = F32<D>;
+  if constexpr (F::VEC) {
+#pragma unroll
+    for (int q = 0; q < F::CPT / 4; ++q)
+      *reinterpret_cast<float4*>(dst + 4 * tx + 64 * q) =
+          make_float4(v[4 * q] * scale, v[4 * q + 1] * scale, v[4 * q + 2] * scale,
+                      v[4 * q + 3] * scale);
+  } else {
+#pragma unroll
+    for (int c = 0; c < F::CPT; ++c) dst[tx + 16 * c] = v[c] * scale;
+  }
+}
+
+// ------------------------------------------------------------- forward ----
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(FT, 2)
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, long long sb, long long sn, long long sh,
+                    const int* __restrict__ seeds, float* __restrict__ out,
+                    float* __restrict__ lse, int n, int H, float scale_log2, uint32_t threshold,
+                    float keep_scale) {
+  using F = F32<D>;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;
+  float* ks = qs + F::TILE;
+  float* vs = ks + F::TILE;
+  float* ps = vs + F::TILE;  // the weights, (64 queries, 64 keys)
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * FR;
+  const long long head = b * sb + h * sh;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
+  uint32_t rmix[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rmix[i] = static_cast<uint32_t>(q0 + 4 * ty + i) * 0x9E3779B1u + seed_mix;
+
+  load_rows<D>(qs, q + head + q0 * sn, sn, n - q0);
+  float m_run[4], l_run[4], o[4][F::CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < F::CPT; ++c) o[i][c] = 0.0f;
+  }
+
+  const int ntiles = (n + FR - 1) / FR;
+  for (int t = 0; t < ntiles; ++t) {
+    const int kv0 = t * FR;
+    __syncthreads();  // every thread is done with the previous K, V and weights
+    load_rows<D>(ks, k + head + kv0 * sn, sn, n - kv0);
+    load_rows<D>(vs, v + head + kv0 * sn, sn, n - kv0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float s[4][4] = {};
+    mma_nt<D, F::LD, F::LD>(s, qs, ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = kv0 + tx + 16 * j < n ? s[i][j] * scale_log2 : -INFINITY;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m_run[i], tmax);  // finite: key kv0 is valid
+      const float alpha = exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float tsum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - m_new);  // 0 past n
+        tsum += p;  // the row sum runs before dropout
+        float w = p;
+        if (DROPOUT) {
+          const uint32_t col = kv0 + tx + 16 * j;
+          w = fmix(rmix[i] + col * 0x85EBCA77u) >= threshold ? p * keep_scale : 0.0f;
+        }
+        ps[(4 * ty + i) * FLP + tx + 16 * j] = w;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
+      l_run[i] = l_run[i] * alpha + tsum;
+#pragma unroll
+      for (int c = 0; c < F::CPT; ++c) o[i][c] *= alpha;
+    }
+    __syncthreads();
+    mma_nn<D>(o, ps, vs, ty, tx);  // O += w V
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row < n) {
+      store_row<D>(out + (((long long)b * n + row) * H + h) * D, o[i], 1.0f / l_run[i], tx);
+      if (lse != nullptr && tx == 0)
+        lse[(long long)bh * n + row] = (m_run[i] + log2f(l_run[i])) * LN2;
+    }
+  }
+}
+
+template <int D>
+int attention_forward_f32_at(const float* q, const float* k, const float* v, long long sb,
+                             long long sn, long long sh, const int* seeds, float* out, float* lse,
+                             int B, int n, int H, unsigned int threshold, float keep_scale,
+                             bool dropout, cudaStream_t s) {
+  static unsigned long long smem_set[2];
+  const dim3 grid((n + FR - 1) / FR, B * H);
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  constexpr int smem = F32<D>::FWD_SMEM;
+  cudaError_t err;
+  if (dropout) {
+    if ((err = ensure_smem(attn_fwd_f32_kernel<D, true>, smem, smem_set[1])) != cudaSuccess)
+      return static_cast<int>(err);
+    attn_fwd_f32_kernel<D, true><<<grid, FT, smem, s>>>(q, k, v, sb, sn, sh, seeds, out, lse, n,
+                                                        H, scale_log2, threshold, keep_scale);
+  } else {
+    if ((err = ensure_smem(attn_fwd_f32_kernel<D, false>, smem, smem_set[0])) != cudaSuccess)
+      return static_cast<int>(err);
+    attn_fwd_f32_kernel<D, false><<<grid, FT, smem, s>>>(q, k, v, sb, sn, sh, nullptr, out, lse,
+                                                         n, H, scale_log2, 0u, 1.0f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward on `s` at head dim D (a multiple of 16 in [16, 128], else
+// cudaErrorInvalidValue); the arguments of mb_dropout_attention_fwd_f32.
+int attention_forward_f32(const float* q, const float* k, const float* v, long long sb,
+                          long long sn, long long sh, const int* seeds, float* out, float* lse,
+                          int B, int n, int H, int D, unsigned int threshold, float keep_scale,
+                          bool dropout, cudaStream_t s) {
+  switch (D) {
+#define MB_F32_FWD_CASE(W)                                                                   \
+  case W:                                                                                   \
+    return attention_forward_f32_at<W>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H,       \
+                                       threshold, keep_scale, dropout, s);
+    MB_MMA_HEAD_DIMS(MB_F32_FWD_CASE)
+    MB_F32_FWD_CASE(64)
+#undef MB_F32_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ------------------------------------------------------------ backward ----
+
+// Per (b, row, h), row over the padded length n_pad: stats[bh, row] =
+// (lse * log2e, rowsum(g * out)) in f32, (0, 0) past n; one warp per row.
+template <int D>
+__global__ void __launch_bounds__(128)
+attn_bwd_prep_f32_kernel(const float* __restrict__ out, const float* __restrict__ grad,
+                         const float* __restrict__ lse, float2* __restrict__ stats, int n,
+                         int n_pad, int H, long long rows) {
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (r >= rows) return;  // whole warps: a warp shares its row
+  const int lane = threadIdx.x & 31;
+  const int h = static_cast<int>(r % H);
+  const long long bn = r / H;  // b * n_pad + row
+  const long long b = bn / n_pad;
+  const int row = static_cast<int>(bn % n_pad);
+  const long long bh = b * H + h;
+  if (row >= n) {
+    if (lane == 0) stats[bh * n_pad + row] = make_float2(0.0f, 0.0f);
+    return;
+  }
+  const long long e = ((b * n + row) * H + h) * D;
+  float s = 0.0f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) s = fmaf(out[e + d], grad[e + d], s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) stats[bh * n_pad + row] = make_float2(lse[bh * n + row] * LOG2E, s);
+}
+
+// dK and dV of one 64-key tile, its K and V resident, looping over the query
+// tiles. grad is contiguous (b, n, h, D).
+template <int D>
+__global__ void __launch_bounds__(FT)
+attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, long long sb, long long sn, long long sh,
+                         const float* __restrict__ grad, const float2* __restrict__ stats,
+                         const int* __restrict__ seeds, float* __restrict__ dk,
+                         float* __restrict__ dv, int n, int H, int n_pad, float scale,
+                         float scale_log2, uint32_t threshold, float keep_scale) {
+  using F = F32<D>;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* ks = smem_f32;
+  float* vs = ks + F::TILE;
+  float* qs = vs + F::TILE;
+  float* gs = qs + F::TILE;
+  float* ps = gs + F::TILE;  // dropped weights, (64 keys, 64 queries)
+  float* dss = ps + FR * FLP;  // score gradient, the same layout
+  float2* st = reinterpret_cast<float2*>(dss + FR * FLP);
+
+  const int k0 = blockIdx.x * FR;
+  const int ntiles = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long head = b * sb + h * sh;
+  const long long gstride = static_cast<long long>(H) * D;
+  const long long ghead = (long long)b * n * gstride + static_cast<long long>(h) * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+  uint32_t kmix[4];
+  bool kvalid[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;  // this thread's keys (rows)
+    kmix[i] = static_cast<uint32_t>(key) * 0x85EBCA77u + seed_mix;
+    kvalid[i] = key < n;
+  }
+
+  load_rows<D>(ks, k + head + k0 * sn, sn, n - k0);
+  load_rows<D>(vs, v + head + k0 * sn, sn, n - k0);
+  float dk_acc[4][F::CPT], dv_acc[4][F::CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < F::CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = it * FR;
+    __syncthreads();  // every thread is done with the previous query tile
+    load_rows<D>(qs, q + head + q0 * sn, sn, n - q0);
+    load_rows<D>(gs, grad + ghead + q0 * gstride, gstride, n - q0);
+    cp_async_commit();
+    if (threadIdx.x < FR) st[threadIdx.x] = stats[(long long)bh * n_pad + q0 + threadIdx.x];
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V G^T: keys as rows, queries as columns
+    float s[4][4] = {}, dp[4][4] = {};
+    mma_nt<D, F::LD, F::LD>(s, ks, qs, ty, tx);
+    mma_nt<D, F::LD, F::LD>(dp, vs, gs, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qi = tx + 16 * j;  // query within the tile
+      const float2 lse_delta = st[qi];
+      const uint32_t query = q0 + qi;
+      const bool qvalid = query < static_cast<uint32_t>(n);
+      const uint32_t qmix = query * 0x9E3779B1u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p =
+            qvalid && kvalid[i] ? exp2f(fmaf(s[i][j], scale_log2, -lse_delta.x)) : 0.0f;
+        const bool keep = fmix(qmix + kmix[i]) >= threshold;
+        const float dw = keep ? dp[i][j] * keep_scale : 0.0f;
+        ps[(4 * ty + i) * FLP + qi] = keep ? p * keep_scale : 0.0f;
+        dss[(4 * ty + i) * FLP + qi] = p * (dw - lse_delta.y) * scale;
+      }
+    }
+    __syncthreads();
+    mma_nn<D>(dv_acc, ps, gs, ty, tx);   // dV += dropped(P)^T G
+    mma_nn<D>(dk_acc, dss, qs, ty, tx);  // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;
+    if (key < n) {
+      const long long o = (((long long)b * n + key) * H + h) * D;
+      store_row<D>(dk + o, dk_acc[i], 1.0f, tx);
+      store_row<D>(dv + o, dv_acc[i], 1.0f, tx);
+    }
+  }
+}
+
+// dQ of one 64-query tile, its Q and G resident, looping over the key tiles
+// in order: dq is summed in registers, deterministically.
+template <int D>
+__global__ void __launch_bounds__(FT)
+attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, long long sb, long long sn, long long sh,
+                       const float* __restrict__ grad, const float2* __restrict__ stats,
+                       const int* __restrict__ seeds, float* __restrict__ dq, int n, int H,
+                       int n_pad, float scale, float scale_log2, uint32_t threshold,
+                       float keep_scale) {
+  using F = F32<D>;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;
+  float* gs = qs + F::TILE;
+  float* ks = gs + F::TILE;
+  float* vs = ks + F::TILE;
+  float* dss = vs + F::TILE;  // score gradient, (64 queries, 64 keys)
+  float2* st = reinterpret_cast<float2*>(dss + FR * FLP);
+
+  const int q0 = blockIdx.x * FR;
+  const int ntiles = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long head = b * sb + h * sh;
+  const long long gstride = static_cast<long long>(H) * D;
+  const long long ghead = (long long)b * n * gstride + static_cast<long long>(h) * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const uint32_t seed_mix = static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du;
+
+  load_rows<D>(qs, q + head + q0 * sn, sn, n - q0);
+  load_rows<D>(gs, grad + ghead + q0 * gstride, gstride, n - q0);
+  cp_async_commit();
+  if (threadIdx.x < FR) st[threadIdx.x] = stats[(long long)bh * n_pad + q0 + threadIdx.x];
+  cp_async_wait<0>();
+  __syncthreads();
+  float lse2[4], delta[4];
+  uint32_t qmix[4];
+  bool qvalid[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 lse_delta = st[4 * ty + i];
+    const uint32_t query = q0 + 4 * ty + i;  // this thread's queries (rows)
+    lse2[i] = lse_delta.x;
+    delta[i] = lse_delta.y;
+    qvalid[i] = query < static_cast<uint32_t>(n);
+    qmix[i] = query * 0x9E3779B1u + seed_mix;
+  }
+  float dq_acc[4][F::CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < F::CPT; ++c) dq_acc[i][c] = 0.0f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * FR;
+    __syncthreads();  // every thread is done with the previous key tile
+    load_rows<D>(ks, k + head + k0 * sn, sn, n - k0);
+    load_rows<D>(vs, v + head + k0 * sn, sn, n - k0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // S = Q K^T and dP = G V^T: queries as rows, keys as columns
+    float s[4][4] = {}, dp[4][4] = {};
+    mma_nt<D, F::LD, F::LD>(s, qs, ks, ty, tx);
+    mma_nt<D, F::LD, F::LD>(dp, gs, vs, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t key = k0 + tx + 16 * j;
+      const bool kvalid = key < static_cast<uint32_t>(n);
+      const uint32_t kmix = key * 0x85EBCA77u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = qvalid[i] && kvalid ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.0f;
+        const bool keep = fmix(qmix[i] + kmix) >= threshold;
+        const float dw = keep ? dp[i][j] * keep_scale : 0.0f;
+        dss[(4 * ty + i) * FLP + tx + 16 * j] = p * (dw - delta[i]) * scale;
+      }
+    }
+    __syncthreads();
+    mma_nn<D>(dq_acc, dss, ks, ty, tx);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row < n) store_row<D>(dq + (((long long)b * n + row) * H + h) * D, dq_acc[i], 1.0f, tx);
+  }
+}
+
+template <int D>
+int attention_backward_f32_at(const float* q, const float* k, const float* v, long long sb,
+                              long long sn, long long sh, const float* out, const float* grad,
+                              const float* lse, const int* seeds, float* dq, float* dk, float* dv,
+                              float2* stats, int B, int n, int H, unsigned int threshold,
+                              float keep_scale, cudaStream_t s) {
+  using F = F32<D>;
+  static unsigned long long smem_set[2];
+  const int ntiles = (n + FR - 1) / FR;
+  const int n_pad = ntiles * FR;
+  const long long rows = static_cast<long long>(B) * n_pad * H;
+  attn_bwd_prep_f32_kernel<D><<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
+      out, grad, lse, stats, n, n_pad, H, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const dim3 grid(ntiles, B * H);
+  if ((err = ensure_smem(attn_bwd_dkdv_f32_kernel<D>, F::DKDV_SMEM, smem_set[0])) != cudaSuccess)
+    return static_cast<int>(err);
+  attn_bwd_dkdv_f32_kernel<D><<<grid, FT, F::DKDV_SMEM, s>>>(
+      q, k, v, sb, sn, sh, grad, stats, seeds, dk, dv, n, H, n_pad, scale, scale * LOG2E,
+      threshold, keep_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = ensure_smem(attn_bwd_dq_f32_kernel<D>, F::DQ_SMEM, smem_set[1])) != cudaSuccess)
+    return static_cast<int>(err);
+  attn_bwd_dq_f32_kernel<D><<<grid, FT, F::DQ_SMEM, s>>>(q, k, v, sb, sn, sh, grad, stats, seeds,
+                                                         dq, n, H, n_pad, scale, scale * LOG2E,
+                                                         threshold, keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- the block's rest ----
+
+constexpr int PF_BK = 32;                // k per stage of a projection
+constexpr int PF_LD = PF_BK + 4;         // row length of a stage's tile
+constexpr int PF_TILE = FR * PF_LD;      // floats, one operand's (64 x 32) stage
+enum { EPI_BIAS = 0, EPI_RESID = 1 };
+
+// C[M, N] = A[M, K] W[N, K]^T + bias (+ resid), f32: A and W K-major (x or
+// the attention output, and PyTorch's (out, in) weights); bias bf16 where
+// bias_bf16 is set, else f32; resid (M, N) f32 with EPI_RESID. One (64 x 64)
+// tile of C a block. Requires K % 32 == 0 and 16-byte aligned rows.
+template <int EPI>
+__global__ void __launch_bounds__(FT, 2)
+proj_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                const void* __restrict__ bias, int bias_bf16, const float* __restrict__ resid,
+                float* __restrict__ c, int M, int N, int K) {
+  __shared__ __align__(16) float sm[4 * PF_TILE];  // (A, W) x 2 stages, 36 KB
+  const int m0 = blockIdx.y * FR, n0 = blockIdx.x * FR;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  auto load = [&](int kt, int stage) {
+    float* as = sm + stage * 2 * PF_TILE;
+    float* ws = as + PF_TILE;
+    for (int i = threadIdx.x; i < FR * (PF_BK / 4); i += FT) {
+      const int r = i / (PF_BK / 4), ch = i % (PF_BK / 4);
+      const int kc = kt * PF_BK + 4 * ch;
+      const bool a_ok = m0 + r < M, w_ok = n0 + r < N;
+      cp_async16(as + r * PF_LD + 4 * ch, a + (long long)(a_ok ? m0 + r : m0) * K + kc, a_ok);
+      cp_async16(ws + r * PF_LD + 4 * ch, w + (long long)(w_ok ? n0 + r : n0) * K + kc, w_ok);
+    }
+    cp_async_commit();
+  };
+  const int ktiles = K / PF_BK;
+  float acc[4][4] = {};
+  load(0, 0);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    if (kt + 1 < ktiles) {
+      load(kt + 1, (kt + 1) & 1);  // its stage was last read before the sync ending kt - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* as = sm + (kt & 1) * 2 * PF_TILE;
+    mma_nt<PF_BK, PF_LD, PF_LD>(acc, as, as + PF_TILE, ty, tx);
+    __syncthreads();
+  }
+  const bool b16 = bias_bf16 != 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx + 16 * j;
+    if (col >= N) continue;
+    const float bc = ld_vec(bias, b16, col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + 4 * ty + i;
+      if (row >= M) continue;
+      const long long o = (long long)row * N + col;
+      c[o] = EPI == EPI_RESID ? (acc[i][j] + bc) + resid[o] : acc[i][j] + bc;
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t launch_proj_f32(const float* a, const float* w, const void* bias, int bias_bf16,
+                            const float* resid, float* c, int M, int N, int K, cudaStream_t s) {
+  const dim3 grid((N + FR - 1) / FR, (M + FR - 1) / FR);
+  proj_f32_kernel<EPI><<<grid, FT, 0, s>>>(a, w, bias, bias_bf16, resid, c, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Forward on `stream`, float32: the arguments of mb_dropout_attention_fwd
+// (csrc/dropout_attention.cu) with q, k, v, out f32.
+extern "C" int mb_dropout_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                            long long sb, long long sn, long long sh,
+                                            const void* seeds, void* out, void* lse, int B,
+                                            int n, int H, int d, unsigned int threshold,
+                                            float keep_scale, int dropout, void* stream) {
+  return attention_forward_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), sb, sn, sh,
+                               static_cast<const int*>(seeds), static_cast<float*>(out),
+                               static_cast<float*>(lse), B, n, H, d, threshold, keep_scale,
+                               dropout != 0, static_cast<cudaStream_t>(stream));
+}
+
+// Backward on `stream`, float32: dq, dk, dv (contiguous (B, n, H, d) f32)
+// from q, k, v (strided as in the forward), the forward's out and lse, the
+// incoming gradient grad (contiguous f32) and the seeds. Scratch: stats,
+// (B*H, n_pad) float2 with n_pad = 64 * ceil(n / 64). Three launches.
+// Returns the first launch error (cudaSuccess == 0), or
+// cudaErrorInvalidValue if d is not a multiple of 16 in [16, 128].
+extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                            long long sb, long long sn, long long sh,
+                                            const void* out, const void* grad, const void* lse,
+                                            const void* seeds, void* dq, void* dk, void* dv,
+                                            void* stats, int B, int n, int H, int d,
+                                            unsigned int threshold, float keep_scale,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define MB_F32_BWD_CASE(W)                                                                     \
+  case W:                                                                                     \
+    return attention_backward_f32_at<W>(                                                      \
+        static_cast<const float*>(q), static_cast<const float*>(k),                           \
+        static_cast<const float*>(v), sb, sn, sh, static_cast<const float*>(out),             \
+        static_cast<const float*>(grad), static_cast<const float*>(lse),                      \
+        static_cast<const int*>(seeds), static_cast<float*>(dq), static_cast<float*>(dk),     \
+        static_cast<float*>(dv), static_cast<float2*>(stats), B, n, H, threshold, keep_scale, \
+        s);
+    MB_MMA_HEAD_DIMS(MB_F32_BWD_CASE)
+    MB_F32_BWD_CASE(64)
+#undef MB_F32_BWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The attention block on `stream`, float32: x, out (B*n, E) f32; w_qkv (3E,
+// E) and w_o (E, E) f32, PyTorch's (out, in) layout; b_qkv (3E), b_o, ln_g,
+// ln_b (E) f32, or bf16 where bits 0, 1, 2, 3 of vec_bf16 are set. Scratch,
+// allocated by the caller: qkv (B*n, 3E), attn (B*n, E), y (B*n, E), f32.
+// E = d H <= 4096, a multiple of 64, with d a multiple of 16 in [16, 128].
+// Returns the first launch error (cudaSuccess == 0), or
+// cudaErrorInvalidValue if an argument is refused.
+extern "C" int mb_attention_block_f32(const void* x, const void* w_qkv, const void* b_qkv,
+                                      const void* w_o, const void* b_o, const void* ln_g,
+                                      const void* ln_b, int vec_bf16, void* qkv, void* attn,
+                                      void* y, void* out, int B, int n, int E, int H, float eps,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * n;
+  if (H <= 0 || E % H || E % 64 || E > 4096) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  float* qf = static_cast<float*>(qkv);
+  cudaError_t err = launch_proj_f32<EPI_BIAS>(xf, static_cast<const float*>(w_qkv), b_qkv,
+                                              vec_bf16 & 1, nullptr, qf, M, 3 * E, E, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int D = E / H;  // attention_forward_f32 refuses a head dim it has no kernel for
+  const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, D)
+  const int aerr = attention_forward_f32(qf, qf + E, qf + 2 * E, row * n, row, D, nullptr,
+                                         static_cast<float*>(attn), nullptr, B, n, H, D, 0u, 1.0f,
+                                         false, s);
+  if (aerr != 0) return aerr;
+  err = launch_proj_f32<EPI_RESID>(static_cast<const float*>(attn),
+                                   static_cast<const float*>(w_o), b_o, (vec_bf16 >> 1) & 1, xf,
+                                   static_cast<float*>(y), M, E, E, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layernorm_kernel<float><<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y), ln_g, ln_b,
+                                                   static_cast<float*>(out), E, eps, vec_bf16 >> 2);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -22,24 +22,10 @@ constexpr int TILE_BYTES = TILE * HD * 2;   // one bf16 tile, 8 KB, 64 rows of 1
 constexpr int CONSUMERS = 128;              // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
 constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // The consumer warpgroup's own barrier (the producer warp does not take part).
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-
-// The murmur3 finaliser of the TPU kernel's keep hash; the callers form its
-// argument row * 0x9E3779B1 + col * 0x85EBCA77 + seed * 0xC2B2AE3D from
-// per-row and per-column terms computed once.
-__device__ __forceinline__ uint32_t fmix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
 }
 
 // One 64-key tile of the online softmax, in log2 units, over the scores sc
@@ -241,10 +227,6 @@ bool tile_map(CUtensorMap* map, const void* base, int B, int n, int H, long long
 // Shared-memory tiles: row-major [row][d] with rows D + 8 elements long,
 // and transposed [d][row] with rows MMA_ROWS + 8 long: the 16 bytes of pad
 // put the 8 rows a fragment load touches on distinct banks.
-
-// The head dims the mma.sync kernels take, every multiple of 16 in [16, 128]
-// but HD: X(W) for each, for the switches that pick a kernel by d.
-#define MB_MMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112) X(128)
 
 constexpr int MMA_ROWS = 64;     // queries or keys per tile
 constexpr int MMA_THREADS = 128;  // four warps of 16 rows

@@ -19,7 +19,34 @@
 
 typedef __nv_bfloat16 bf16;
 
+// The head dims the attention kernels take are the multiples of 16 in [16,
+// 128] (nn/dropout_attention.py's HEAD_DIMS). X(W) for each but 64, for the
+// switches that pick a kernel by d: in bf16 the mma.sync kernels take these
+// and d = 64 the Hopper ones (attention_fwd.cuh).
+#define MB_MMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112) X(128)
+
 namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The murmur3 finaliser of the TPU kernel's keep hash; the callers form its
+// argument row * 0x9E3779B1 + col * 0x85EBCA77 + seed * 0xC2B2AE3D from
+// per-row and per-column terms computed once.
+__device__ __forceinline__ uint32_t fmix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// Element i of a vector that is bf16 (widened exactly) or f32.
+__device__ __forceinline__ float ld_vec(const void* p, bool is_bf16, int i) {
+  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
+}
 
 // ------------------------------------------------------ PTX wrappers ----
 

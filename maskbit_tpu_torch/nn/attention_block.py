@@ -6,23 +6,28 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
 
 * A CPU tensor goes to `fused_attention_block_reference`, the plain PyTorch
   version with the kernel's rounding points.
-* A CUDA tensor launches the hand-written chain in
-  `csrc/attention_block.cu` or raises: bf16 x, wqkv and wo; the biases and
-  LayerNorm parameters each f32 or bf16 (the kernels widen bf16 exactly);
-  a head dim in `dropout_attention.HEAD_DIMS` (the multiples of 16 in [16,
-  128]); E a multiple of 64 and at most 4096. The weights must be the transposed views of
+* A CUDA tensor launches a hand-written chain or raises: x, wqkv and wo
+  of one dtype in `dropout_attention.DTYPES`, bf16 (`csrc/attention_block.cu`)
+  or float32 (`csrc/attention_f32.cu`: every product, the weights and the
+  output in full float32, as JAX's block computes under
+  `training.mixed_precision: no`); the biases and LayerNorm parameters
+  each f32 or bf16 (the kernels widen bf16 exactly); a head dim in
+  `dropout_attention.HEAD_DIMS` (the multiples of 16 in [16, 128]); E a
+  multiple of 64 and at most 4096. The weights must be the transposed views of
   contiguous PyTorch weights (`in_proj_weight.t()`, `out_proj.weight.t()`),
   which is how `BertAttention` passes them: the kernels read the (out, in)
   layout.
 
 The chain is the QKV projection, the attention forward of
-`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, whose
-count in `dropout_attention.launches["fused_attention"]` it adds to), the
-out-projection with the residual (f32) and the LayerNorm. `launches`
-counts the chain's launches in this process (one per call on a CUDA
-tensor); `launch_counts` reads it beside the dropout-attention kernels'
-counts and `reset_launch_counts` zeroes them all. The split sampler's
-workers (`sampling/serve.py`) count their own, and report them on request.
+`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, or its
+float32 form, whose count in `dropout_attention.launches["fused_attention"]`
+it adds to), the out-projection with the residual (f32) and the LayerNorm.
+`launches` counts the chain's launches in this process (one per call on a
+CUDA tensor, also in `dropout_attention.launches_by_dtype` under
+"attention_block"); `launch_counts` reads it beside the dropout-attention
+kernels' counts and `reset_launch_counts` zeroes them all. The split
+sampler's workers (`sampling/serve.py`) count their own, and report them on
+request.
 """
 
 from __future__ import annotations
@@ -107,10 +112,24 @@ def _lib():
     return fn
 
 
+def _lib_f32():
+    """`csrc/attention_f32.cu`'s block: `_lib()`'s arguments without the
+    tile plan."""
+    from maskbit_tpu_torch.nn.cuda_build import load_library
+
+    fn = load_library("attention_f32").mb_attention_block_f32
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.restype = i32
+        fn.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 4 + [ctypes.c_float, ptr]
+    return fn
+
+
 def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None):
     """The chain on CUDA tensors. `tiles`: `plan`'s (rows of a QKV block,
     rows of an out-projection block) to use instead of the plan for this
-    shape, for measuring the alternatives side by side."""
+    shape, for measuring the alternatives side by side (bf16 only: the
+    float32 chain has one tiling)."""
     b, n, e = x.shape
     if e % num_heads:
         raise ValueError(f"E = {e} is not a multiple of the {num_heads} heads")
@@ -120,12 +139,14 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
         raise ValueError(f"the kernel needs E to be a multiple of 64, got {e}")
     if e > MAX_E:
         raise ValueError(f"the kernel needs E <= {MAX_E}, got {e}")
-    dev = x.device
-    bf16 = (torch.bfloat16,)
+    dev, dt = x.device, x.dtype
+    if dt not in dropout_attention.DTYPES:
+        raise TypeError(f"x must be bfloat16 or float32, got {dt}")
+    same = (dt,)
     w_qkv, w_o = wqkv.t(), wo.t()  # the (out, in) layout the kernel reads
-    _check("x", x, bf16, (b, n, e), dev)
-    _check("wqkv.t()", w_qkv, bf16, (3 * e, e), dev)
-    _check("wo.t()", w_o, bf16, (e, e), dev)
+    _check("x", x, same, (b, n, e), dev)
+    _check("wqkv.t()", w_qkv, same, (3 * e, e), dev)
+    _check("wo.t()", w_o, same, (e, e), dev)
     vec_bf16 = 0
     for bit, (name, t, size) in enumerate((("bqkv", bqkv, 3 * e), ("bo", bo, e),
                                            ("ln_scale", ln_scale, e), ("ln_bias", ln_bias, e))):
@@ -133,25 +154,29 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
         if t.dtype is torch.bfloat16:
             vec_bf16 |= 1 << bit
 
-    fn = _lib()
     m = b * n
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    if tiles is None:
-        key = (m, e, _sms[idx])
-        tiles = _plans.get(key)
-        if tiles is None:
-            tiles = _plans[key] = plan(*key)
-    bm_qkv, bm_out = tiles
-    # one scratch allocation: qkv (m, 3E) and the attention output (m, E),
-    # bf16, then y (m, E) f32
-    scratch = torch.empty((m * e * 12,), dtype=torch.uint8, device=dev)
+    # one scratch allocation: qkv (m, 3E) and the attention output (m, E) in
+    # x's dtype, then y (m, E) f32
+    width = x.element_size()
+    scratch = torch.empty((m * e * (4 * width + 4),), dtype=torch.uint8, device=dev)
     out = torch.empty_like(x)
     qkv = scratch.data_ptr()
     args = (x.data_ptr(), w_qkv.data_ptr(), bqkv.data_ptr(), w_o.data_ptr(), bo.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), vec_bf16, qkv, qkv + m * e * 6,
-            qkv + m * e * 8, out.data_ptr(), b, n, e, num_heads, float(eps), bm_qkv, bm_out)
+            ln_scale.data_ptr(), ln_bias.data_ptr(), vec_bf16, qkv, qkv + m * e * 3 * width,
+            qkv + m * e * 4 * width, out.data_ptr(), b, n, e, num_heads, float(eps))
+    if dt is torch.float32:
+        fn = _lib_f32()
+    else:
+        fn = _lib()
+        if idx not in _sms:
+            _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        if tiles is None:
+            key = (m, e, _sms[idx])
+            tiles = _plans.get(key)
+            if tiles is None:
+                tiles = _plans[key] = plan(*key)
+        args += tuple(tiles)
     if idx == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:
@@ -161,17 +186,23 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
         raise RuntimeError(f"attention_block launch failed: CUDA error {err}")
     global launches
     launches += 1
-    dropout_attention.count("fused_attention", d)
+    dropout_attention.count("fused_attention", d, dt)
+    dropout_attention.count_dtype("attention_block", d, dt)
     return out
 
 
 def launch_counts() -> dict:
     """This process's launches: the block's ("attention_block"), the
-    dropout-attention kernels' by name, and theirs by head dim
+    dropout-attention kernels' by name, and all of them by head dim and
+    dtype ("by_dtype", keys "<name>@<d>/<dtype>", e.g.
+    "attention_block@64/float32") and by head dim over both dtypes
     ("by_head_dim", keys "<name>@<d>")."""
-    by_d = sorted(dropout_attention.launches_by_head_dim.items())
+    by_dtype, by_d = {}, {}
+    for (key, d, dt), n in sorted(dropout_attention.launches_by_dtype.items()):
+        by_dtype[f"{key}@{d}/{dt}"] = n
+        by_d[f"{key}@{d}"] = by_d.get(f"{key}@{d}", 0) + n
     return {"attention_block": launches, **dropout_attention.launches,
-            "by_head_dim": {f"{key}@{d}": n for (key, d), n in by_d}}
+            "by_head_dim": by_d, "by_dtype": by_dtype}
 
 
 def reset_launch_counts() -> None:

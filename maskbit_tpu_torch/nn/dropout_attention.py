@@ -15,18 +15,21 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   the TPU kernels' rounding points: f32 softmax, the dropped weights rounded
   to the input dtype before the value product, and in the backward the
   score gradient rounded before dq and dk.
-* A CUDA tensor launches the hand-written kernels in
-  `csrc/dropout_attention.cu` or raises: bf16 q, k, v with the same strides
-  and a contiguous last dimension (the QKV projection's view qualifies),
-  a head dim in `HEAD_DIMS` (the multiples of 16 in [16, 128]: 64 takes the
-  Hopper kernels, the others the mma.sync ones), 0 <= rate < 1. The JAX
-  kernels take any head dim.
+* A CUDA tensor launches the hand-written kernels or raises: q, k, v of
+  one dtype in `DTYPES` with the same strides and a contiguous last
+  dimension (the QKV projection's view qualifies), a head dim in
+  `HEAD_DIMS` (the multiples of 16 in [16, 128]), 0 <= rate < 1. bf16 takes
+  `csrc/dropout_attention.cu` (64: the Hopper kernels, the others the
+  mma.sync ones), float32 (the compute dtype of `training.mixed_precision:
+  no`) the full-float32 kernels of `csrc/attention_f32.cu`; outputs and
+  gradients take the inputs' dtype. The JAX kernels take any head dim.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
 CUDA kernels) and "fused_attention", in this process (`count` adds to it),
-and `launches_by_head_dim` the same by (kernel, head dim); the split
-sampler's workers (`sampling/serve.py`) count their own.
+and `launches_by_dtype` the same by (kernel, head dim, dtype name), where
+the attention block counts its own launches too; the split sampler's
+workers (`sampling/serve.py`) count their own.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ import ctypes
 import numpy as np
 import torch
 
-# the head dims the kernels take: 64 and attention_fwd.cuh's MB_MMA_HEAD_DIMS
+# the head dims the kernels take: 64 and sm90.cuh's MB_MMA_HEAD_DIMS
 HEAD_DIMS = range(16, 129, 16)
+# the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
+DTYPES = (torch.bfloat16, torch.float32)
 TILE = 64  # queries or keys per kernel tile
 # The backward sums dq over a head's key tiles in a fixed order. Up to this
 # many tiles (n <= 4096) each key tile starts at its own query tile, so the
@@ -47,23 +52,29 @@ TILE = 64  # queries or keys per kernel tile
 # blocks launched before it.
 ROTATE_MAX_TILES = 64
 launches = {"dropout_attention_fwd": 0, "dropout_attention_bwd": 0, "fused_attention": 0}
-launches_by_head_dim: dict[tuple[str, int], int] = {}
+launches_by_dtype: dict[tuple[str, int, str], int] = {}
 
 _MASK32 = 0xFFFFFFFF
 
 
-def count(key: str, head_dim: int) -> None:
-    """One launch more of `key` in `launches`, at `head_dim` in
-    `launches_by_head_dim`."""
+def count(key: str, head_dim: int, dtype: torch.dtype) -> None:
+    """One launch more of `key` in `launches` and at (head_dim, dtype) in
+    `launches_by_dtype`."""
     launches[key] += 1
-    launches_by_head_dim[key, head_dim] = launches_by_head_dim.get((key, head_dim), 0) + 1
+    count_dtype(key, head_dim, dtype)
+
+
+def count_dtype(key: str, head_dim: int, dtype: torch.dtype) -> None:
+    """One launch more of `key` at (head_dim, dtype) in `launches_by_dtype`."""
+    at = (key, head_dim, str(dtype).removeprefix("torch."))
+    launches_by_dtype[at] = launches_by_dtype.get(at, 0) + 1
 
 
 def reset_counts() -> None:
-    """Zero `launches` and empty `launches_by_head_dim`."""
+    """Zero `launches` and empty `launches_by_dtype`."""
     for key in launches:
         launches[key] = 0
-    launches_by_head_dim.clear()
+    launches_by_dtype.clear()
 
 
 def check_head_dim(d: int) -> None:
@@ -195,11 +206,13 @@ def seeds_as_int32(seeds: torch.Tensor, shape) -> torch.Tensor:
 def _check_qkv(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be q's {q.dtype}, got {t.dtype}")
         if t.dim() != 4 or t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape (b, n, h, d), got {tuple(t.shape)}")
         if t.stride() != q.stride():
@@ -208,9 +221,10 @@ def _check_qkv(q, k, v):
             raise ValueError(f"{name} must be 16-byte aligned")
     check_head_dim(q.shape[-1])
     sb, sn, sh, sd = q.stride()
-    if sd != 1 or sb % 8 or sn % 8 or sh % 8:
+    align = 16 // q.element_size()  # elements in 16 bytes
+    if sd != 1 or sb % align or sn % align or sh % align:
         raise ValueError("q, k, v need a contiguous last dimension and strides that are "
-                         f"multiples of 8 elements, got {q.stride()}")
+                         f"multiples of {align} elements, got {q.stride()}")
 
 
 def bind(lib):
@@ -234,6 +248,25 @@ def _lib():
     return lib
 
 
+def _lib_f32():
+    """`csrc/attention_f32.cu`, its attention functions declared: the
+    forward's arguments are the bf16 one's; the backward's lack dq_acc,
+    tickets and rotate."""
+    from maskbit_tpu_torch.nn.cuda_build import load_library
+
+    lib = load_library("attention_f32")
+    if lib.mb_dropout_attention_bwd_f32.argtypes is None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.mb_dropout_attention_fwd_f32.argtypes = (
+            [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, i32,
+                                                             ptr])
+        lib.mb_dropout_attention_fwd_f32.restype = i32
+        lib.mb_dropout_attention_bwd_f32.argtypes = (
+            [ptr] * 3 + [i64] * 3 + [ptr] * 8 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, ptr])
+        lib.mb_dropout_attention_bwd_f32.restype = i32
+    return lib
+
+
 def launch_forward(q, k, v, seeds_i32, rate: float):
     """The forward kernel on CUDA tensors; returns (out, lse). `seeds_i32`
     from `seeds_as_int32`, or None for the dropout-free kernel (then rate
@@ -245,18 +278,19 @@ def launch_forward(q, k, v, seeds_i32, rate: float):
     if dropout and (seeds_i32.dtype != torch.int32 or seeds_i32.device != dev
                     or tuple(seeds_i32.shape) != (b, h) or not seeds_i32.is_contiguous()):
         raise ValueError(f"seeds_i32 must be contiguous int32 {(b, h)} on {dev}")
-    out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=dev) if dropout else None
-    lib = _lib()
+    fn = (_lib_f32().mb_dropout_attention_fwd_f32 if q.dtype is torch.float32
+          else _lib().mb_dropout_attention_fwd)
     with torch.cuda.device(dev):  # the runtime launches on the current device
-        err = lib.mb_dropout_attention_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
             _ptr(seeds_i32), out.data_ptr(), _ptr(lse), b, n, h, d,
             keep_threshold(rate), 1.0 / (1.0 - rate), int(dropout),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention forward launch failed: CUDA error {err}")
-    count("dropout_attention_fwd" if dropout else "fused_attention", d)
+    count("dropout_attention_fwd" if dropout else "fused_attention", d, q.dtype)
     return out, lse
 
 
@@ -265,10 +299,13 @@ def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
     forward's inputs, `out` and `lse`, and the incoming gradient `g`."""
     _check_qkv(q, k, v)
     g = g.contiguous()
-    if g.dtype != torch.bfloat16 or g.shape != out.shape:
-        raise TypeError(f"the incoming gradient must be bf16 of shape {tuple(out.shape)}")
-    grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
-    count("dropout_attention_bwd", q.shape[-1])
+    if g.dtype != q.dtype or g.shape != out.shape:
+        raise TypeError(f"the incoming gradient must be {q.dtype} of shape {tuple(out.shape)}")
+    if q.dtype is torch.float32:
+        grads = _backward_f32(q, k, v, out, lse, g, seeds_i32, rate)
+    else:
+        grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
+    count("dropout_attention_bwd", q.shape[-1], q.dtype)
     return grads
 
 
@@ -302,6 +339,25 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention backward launch failed: CUDA error {err}")
+    return dq, dk, dv
+
+
+def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float):
+    """The float32 backward's three launches on checked inputs with a
+    contiguous `g`; not counted."""
+    b, n, h, d = q.shape
+    dev = q.device
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.float32, device=dev) for _ in range(3))
+    # scratch: per query row (lse * log2 e, delta), padded to whole tiles
+    stats = torch.empty((b * h, -(-n // TILE) * TILE, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib_f32().mb_dropout_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), b, n, h, d, keep_threshold(rate),
+            1.0 / (1.0 - rate), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_attention float32 backward launch failed: CUDA error {err}")
     return dq, dk, dv
 
 

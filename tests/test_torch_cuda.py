@@ -136,6 +136,18 @@ def test_attention_block_runs_only_the_ports_kernels():
 def test_attention_block_kernel_rejects_bad_inputs():
     _card()
     inp = _block_inputs(1, 17, 1024, seed=0)
+    # float32 x and weights run the float32 chain (and match the plain
+    # version, as the float32 tests below hold); float16 and float64 raise,
+    # as does a float32 x with bf16 weights
+    wide = {k: v.float() for k, v in inp.items()}
+    got = ab.fused_attention_block(**wide, num_heads=16)
+    want = ab.fused_attention_block_reference(**wide, num_heads=16)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= F32_TOL * max(1.0, want.abs().max().item())
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            ab.fused_attention_block(**{k: v.to(dt) if v.dim() > 1 else v for k, v in inp.items()},
+                                     num_heads=16)
     with pytest.raises(TypeError):
         ab.fused_attention_block(**dict(inp, x=inp["x"].float()), num_heads=16)
     with pytest.raises(ValueError, match="contiguous"):
@@ -363,8 +375,19 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
     _card()
     q, k, v = _qkv(1, 17, 2, seed=0)
     s = _seeds(1, 2, seed=1)
+    # float32 runs the float32 kernels (and matches the plain version);
+    # float16, float64 and mixed dtypes raise
+    got = da.dropout_attention(q.float(), k.float(), v.float(), s, 0.1)
+    want = da.dropout_attention_reference(q.float(), k.float(), v.float(), s, 0.1)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= F32_TOL * max(1.0, want.abs().max().item())
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            da.dropout_attention(q.to(dt), k.to(dt), v.to(dt), s, 0.1)
+        with pytest.raises(TypeError):
+            da.fused_attention(q.to(dt), k.to(dt), v.to(dt))
     with pytest.raises(TypeError):
-        da.dropout_attention(q.float(), k.float(), v.float(), s, 0.1)
+        da.dropout_attention(q.float(), k, v, s, 0.1)
     # head dims outside the multiples of 16 in [16, 128] raise, on the card
     with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
         da.dropout_attention(q[..., :8], k[..., :8], v[..., :8], s, 0.1)
@@ -377,6 +400,110 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
         da.fused_attention(*wide)
     with pytest.raises(ValueError, match="strides"):
         da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)
+
+
+# The float32 kernels (csrc/attention_f32.cu) and their plain versions both
+# compute in full float32 (TF32 off) on the same inputs; they differ only in
+# summation order and exp2f against exp, a few ulp of each sum: every output
+# within 1e-4 of the largest reference value (1e-4 absolute below 1).
+F32_TOL = 1e-4
+
+
+def _f32_close(got, want):
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= F32_TOL * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,h,layout", [(2, 257, 4, "packed"), (1, 17, 2, "separate"),
+                                          (1, 65, 3, "packed"), (2, 1025, 2, "packed"),
+                                          (32, 257, 16, "packed")])
+def test_float32_dropout_attention_kernels_match_plain_versions(b, n, h, layout, rate, d):
+    """The float32 forward and backward through autograd against the plain
+    versions in float32: out, dq, dk and dv; one launch of each, counted
+    under float32; the backward bit for bit again on a second call."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    q, k, v = (t.float() for t in _qkv(b, n, h, seed=n + 20, layout=layout, d=d))
+    seeds = _seeds(b, h, seed=n + 21)
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n + 22),
+                       device="cuda")
+    before = dict(da.launches_by_dtype)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = da.dropout_attention(qg, kg, vg, seeds, rate)
+    grads = torch.autograd.grad(out, (qg, kg, vg), gout)
+    again = torch.autograd.grad(da.dropout_attention(qg, kg, vg, seeds, rate), (qg, kg, vg), gout)
+    torch.cuda.synchronize()
+    for key in ("dropout_attention_fwd", "dropout_attention_bwd"):
+        at = (key, d, "float32")
+        assert da.launches_by_dtype[at] == before.get(at, 0) + 2
+    _f32_close(out.detach(), da.dropout_attention_reference(q, k, v, seeds, rate))
+    refs = da.dropout_attention_backward_reference(q, k, v, gout, seeds, rate)
+    for got, ref, second in zip(grads, refs, again):
+        _f32_close(got, ref)
+        assert torch.equal(got, second)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("b,n,h", [(2, 200, 2), (1, 257, 4)])
+def test_float32_dropout_kernel_mask_is_the_hash_mask(b, n, h, d):
+    """The float32 forward kernel's keep mask, read out at zero logits, equals
+    the plain version's bit for bit."""
+    _card()
+    import chip_smoke
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    seeds = _seeds(b, h, seed=5)
+    got = chip_smoke.kernel_keep_mask(torch, da, seeds, b, n, h, d, dtype=torch.float32)
+    assert torch.equal(got, da.hash_keep_mask(seeds, n, chip_smoke.RATE))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("b,n,h", [(2, 17, 4), (16, 257, 16), (1, 1025, 2)])
+def test_float32_fused_attention_kernel_matches_plain_version(b, n, h, d):
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    q, k, v = (t.float() for t in _qkv(b, n, h, seed=n + 30, layout="packed", d=d))
+    before = da.launches_by_dtype.get(("fused_attention", d, "float32"), 0)
+    got = da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert da.launches_by_dtype[("fused_attention", d, "float32")] == before + 1
+    _f32_close(got, da.fused_attention_reference(q, k, v))
+
+
+@pytest.mark.parametrize("b,n,e,d", [(16, 257, 1024, 64), (1, 17, 1024, 64), (2, 65, 576, 64),
+                                     (1, 1, 512, 64), (3, 100, 512, 64), (60, 257, 128, 32),
+                                     (2, 33, 64, 32), (1, 129, 320, 32)])
+@pytest.mark.parametrize("vectors", [torch.float32, torch.bfloat16])
+def test_float32_attention_block_kernel_matches_plain_version(b, n, e, d, vectors):
+    """The float32 chain against the plain version in float32 on the same
+    inputs, with f32 or bf16 vectors; one launch counted under float32."""
+    _card()
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    inp = {k: (t.float() if t.dim() > 1 else t) for k, t in _block_inputs(
+        b, n, e, seed=n + 40, vectors=vectors).items()}
+    before = da.launches_by_dtype.get(("attention_block", d, "float32"), 0)
+    got = ab.fused_attention_block(**inp, num_heads=e // d)
+    torch.cuda.synchronize()
+    assert da.launches_by_dtype[("attention_block", d, "float32")] == before + 1
+    assert got.shape == (b, n, e)
+    _f32_close(got, ab.fused_attention_block_reference(**inp, num_heads=e // d))
+
+
+def test_float32_attention_runs_only_the_ports_float32_kernels():
+    """A profile of one float32 block call, one float32 serving-mode
+    BertAttention call and one float32 dropout-attention forward and
+    backward (`chip_smoke._f32_profile_check`): their float32 kernels, and
+    no library GEMM or attention kernel, nor a bf16 one of the port."""
+    _card()
+    import chip_smoke
+
+    seen = chip_smoke._f32_profile_check(torch)
+    assert set(seen) == {"block", "bert_attention", "dropout_attention"}
 
 
 def _train_state_on_card(remat, seed=0):

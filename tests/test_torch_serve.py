@@ -112,9 +112,17 @@ def test_profile_sampler_reports_layers(tmp_path, capsys):
 
     for kernel in ("void (anonymous namespace)::proj_kernel<128, 0>(CUtensorMap_st, ...)",
                    "void (anonymous namespace)::attn_fwd_kernel<false>(CUtensorMap_st, ...)",
-                   "(anonymous namespace)::layernorm_kernel(float const*, ...)"):
+                   "(anonymous namespace)::layernorm_kernel(float const*, ...)",
+                   "void (anonymous namespace)::proj_f32_kernel<0>(float const*, ...)",
+                   "void (anonymous namespace)::attn_fwd_f32_kernel<64, false>(float const*, ...)",
+                   "void (anonymous namespace)::layernorm_kernel<float>(float const*, ...)"):
         assert profile_sampler.layer_of(kernel).startswith("attention block"), kernel
     assert profile_sampler.layer_of("nvjet_tst_128x256_64x4").startswith("cuBLAS")
+    # float32 cuBLAS and cuDNN kernels both carry "xmma" in their names
+    assert profile_sampler.layer_of(
+        "sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_stage3").startswith("cuBLAS")
+    assert profile_sampler.layer_of(
+        "sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc").startswith("decoder")
     assert profile_sampler.layer_of("aten::add").startswith("other")
     path = tmp_path / "serve.yaml"
     path.write_text(yaml.safe_dump(_cfg_dict()))

@@ -187,6 +187,24 @@ def test_profile_train_reports_phases_on_cpu(tmp_path):
     assert lines[0].startswith("train step at batch 2 on cpu")
 
 
+def test_profile_train_categorises_the_float32_kernels():
+    """float32 runs name their cuBLAS GEMMs `sm80_xmma_gemm_*` and their
+    attention kernels `attn_*_f32_kernel`; cuDNN's convolutions carry
+    `xmma` too."""
+    from maskbit_tpu_torch.cli.profile_train import category_of
+
+    assert category_of("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8").startswith(
+        "cuBLAS")
+    assert category_of("cutlass::Kernel2<cutlass_80_simt_sgemm_128x256_8x4_nt_align1>").startswith(
+        "cuBLAS")
+    assert category_of("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc").startswith(
+        "tokenizer convolutions")
+    assert category_of("void (anonymous namespace)::attn_fwd_f32_kernel<64, true>(float const*)"
+                       ).startswith("dropout attention forward")
+    assert category_of("void (anonymous namespace)::attn_bwd_dq_f32_kernel<64>(float const*)"
+                       ).startswith("dropout attention backward")
+
+
 def test_train_cli_trains_from_tar_shards(tmp_path):
     shards = _image_shards(tmp_path)
     cfg = _config(tmp_path, dataset={"params": {"train_shards_path_or_url": shards,

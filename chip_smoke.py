@@ -7,7 +7,10 @@ Phases, each of which fails the run if it fails:
   1. device: require CUDA; print the card's name and power limit; switch
      TF32 off for the comparisons.
   2. build: compile the hand-written kernels from `maskbit_tpu_torch/csrc/`,
-     one nvcc per source, all started together.
+     one nvcc per source, all started together; print each kernel's ptxas
+     registers and spill bytes (and any serialised-wgmma warning), and the
+     attention kernels' plan at each head dim (shared memory, blocks an SM,
+     the backward's Q/G stages and dQ-part buffers).
   3. kernels: the attention block's chain of kernels against its plain
      PyTorch version at the serving shapes (16, 257, 1024) and (2, 1025,
      1024), the eval shape (200, 257, 1024) and a split replica's share of
@@ -25,14 +28,16 @@ Phases, each of which fails the run if it fails:
      plain version's bit for bit, and the dropout-free `fused_attention` at
      (16, 257, 16, 64), each timed beside its plain version and
      `scaled_dot_product_attention`; the same four kernels at the other
-     head dims' kernels (mma.sync), at every multiple of 16 in [16, 128]
-     but 64 (`HEAD_DIM_SHAPES`: the dropout pair at batch 32, the block and
-     `fused_attention` at the system check's CFG batch 60, or 16 at d =
-     128), each at n = 257 and n = 17 against its plain version (the mask
-     bit for bit, dq, dk, dv; the tolerances of d = 64), at d = 16, 32 and
-     128 (`TIMED_HEAD_DIMS`; every one with `--all-widths`) timed at n = 257
-     beside SDPA (the block beside
-     the library chain) and the bound, and head dims 8 and 144 refused;
+     head dims (the same templates' instantiations), at every multiple of
+     16 in [16, 128] but 64 (`HEAD_DIM_SHAPES`: the dropout pair at batch
+     32, the block and `fused_attention` at the system check's CFG batch
+     60, or 16 at d = 128), each at n = 257 and n = 17 against its plain
+     version (the mask bit for bit, dq, dk, dv; the tolerances of d = 64),
+     at d = 16, 32 and 128 (`TIMED_HEAD_DIMS`; every one with
+     `--all-widths`) timed at n = 257 beside SDPA (the block beside the
+     library chain) and the bound, the CUDA kernels one call of each
+     launches at every width (the whole run fails if a `*_mma*` kernel
+     ran), and head dims 8 and 144 refused;
      then the flagship generator's logits
      (depth cut to 2) through the kernel against a float32 plain-PyTorch
      forward of the same weights. Every time is taken twice: `ms`, the
@@ -274,14 +279,15 @@ Phases, each of which fails the run if it fails:
      Stage I, 400 steps at batch 32 (recon must fall below 0.2x its first
      value), then per run 600 Stage-II steps and 30 CFG samples whose
      quadrant colours must match their classes (MSE below 0.35x chance):
-     `tool` at the tool's widths (head dim 32: the mma.sync kernels) and
-     `flagship` at the flagship generator's width (head dim 64), its depth
+     `tool` at the tool's widths (head dim 32: the kernels' d = 32
+     instantiations) and `flagship` at the flagship generator's width (head dim 64), its depth
      cut to 12 (`SYSTEM_CHECK_FLAGSHIP_DEPTH`; the CLI's own run is at 24).
      One line a run: recon first and last, mlm loss, masked accuracy,
      matched and chance MSE, seconds a stage, and the dropout forward,
      backward and block launches of the run by head dim. The kernels line
-     gains the head-dim-generic kernels (launches: run `tool`) and
-     `launches_system_check` (run `flagship`) on the d = 64 ones.
+     gains the other widths' entries (`*_other_widths`, with
+     `kernels_by_width`, the CUDA kernels by name; launches: run `tool`)
+     and `launches_system_check` (run `flagship`) on the d = 64 ones.
  17. float32 (`--phases float32`; run right after phase 3, as CUPTI loses
      profile events late in a long process): the
      float32 forms of the four kernels
@@ -321,6 +327,7 @@ import io
 import json
 import logging
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -454,8 +461,50 @@ def phase_build() -> None:
         with open(os.path.join(OUT_DIR, f"ptxas_{name}.txt"), "w") as f:
             f.write(info["ptxas"])
         for line in info["ptxas"].splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
+            if "wgmma" in line:  # a serialised wgmma, with its reason
                 log(f"[build] ptxas: {line.strip()}")
+        for k in ptxas_kernels(info["ptxas"]):
+            log(f"[build] ptxas {name}: {k['kernel']}: {k['registers']} registers, spill "
+                f"stores {k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
+                f"{k['smem']} B")
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    for d in da.HEAD_DIMS if hasattr(da, "kernel_plan") else ():  # a --tree from before it
+        plan = da.kernel_plan(d)
+        log(f"[build] attention plan d={d}: forward {plan['fwd_smem']} B dynamic smem, at least "
+            f"{plan['fwd_min_blocks']} blocks an SM; backward {plan['bwd_smem']} B, "
+            f"{plan['bwd_blocks']} blocks an SM, {plan['bwd_qg_stages']} Q/G stages, "
+            f"{plan['bwd_dq_buffers']} dQ-part buffers")
+
+
+def ptxas_kernels(text: str) -> list:
+    """Per kernel of a `ptxas -v` report: its name (demangled by c++filt
+    where there is one, without its parameters), registers, spill bytes and
+    static shared memory."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": None,
+                   "spill_loads": None, "smem": 0}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["smem"] = int(m.group(1))
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                r["kernel"] = _kernel_name(name)
+    return rows
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> dict:
@@ -813,9 +862,10 @@ TIMED_HEAD_DIMS = (16, 32, 128)
 
 
 def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
-    """The four kernels at every head dim of the mma.sync kernels against
-    their plain versions at n = 257 and n = 17, timed at n = 257 at
-    `timed_dims`; head dims 8 and 144 refused."""
+    """The four kernels at every head dim but 64 against their plain
+    versions at n = 257 and n = 17, timed at n = 257 at `timed_dims`, and
+    the CUDA kernels one call of each launches at n = 257 (`kernels`);
+    head dims 8 and 144 refused."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
@@ -862,6 +912,17 @@ def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
             if (not finite or fwd_err > DROPOUT_ATOL or max(bwd_errs) > bwd_tol or mask_flips
                     or fused_err > DROPOUT_ATOL or block_err > KERNEL_ATOL):
                 raise AssertionError(f"the kernels disagree at head dim {d}, n {n}: {row}")
+            if n == 257:  # at every width, the CUDA kernels one call of each launches
+                calls = {"dropout_attention_fwd": lambda: da.launch_forward(q, k, v, seeds32, RATE),
+                         "dropout_attention_bwd": lambda: da.launch_backward(
+                             q, k, v, out, lse, g, seeds32, RATE),
+                         "fused_attention": lambda: da.fused_attention(fq, fk, fv),
+                         "fused_attention_block": lambda: ab.fused_attention_block(
+                             **inp, num_heads=e // d)}
+                row["kernels"] = {name: sorted({_kernel_name(x) for x in _device_breakdown(
+                    torch, fn, iters=5, warmup=1)}) for name, fn in calls.items()}
+                log(f"[kernel]   head dim {d} CUDA kernels: " + "; ".join(
+                    f"{name} {', '.join(ks)}" for name, ks in row["kernels"].items()))
             if n == 257 and d in timed_dims:
                 lib_g = g.transpose(1, 2)
                 ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -893,11 +954,12 @@ def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
                     **_bound(2 * bb * n * e * 3 * e + 2 * bb * n * e * e
                              + 4 * bb * (e // d) * n * n * d,
                              2 * (2 * bb * n * e + 4 * e * e) + 2 * 6 * e))
-                log(f"[kernel]   head dim {d} device ms (plain; library; bound): " + "; ".join(
-                    f"{name} {t['ms']:.4f} ({t['plain_ms']:.4f}; "
-                    f"{t.get('library_ms', t.get('library_chain_ms')):.4f}; "
-                    f"{t['bound_ms']:.4f} by {t['bound_by']})"
-                    for name, t in row.items() if isinstance(t, dict)))
+                log(f"[kernel]   head dim {d} device ms (per call by events; plain; library; "
+                    "bound): " + "; ".join(
+                        f"{name} {t['ms']:.4f} ({t['call_ms']:.4f}; {t['plain_ms']:.4f}; "
+                        f"{t.get('library_ms', t.get('library_chain_ms')):.4f}; "
+                        f"{t['bound_ms']:.4f} by {t['bound_by']})"
+                        for name, t in row.items() if isinstance(t, dict) and "ms" in t))
                 del lib_out, ql, kl, vl
             rows.append(row)
             del q, k, v, g, out, lse, grads, refs, fq, fk, fv, fused, inp, block
@@ -4241,8 +4303,8 @@ def _f32_profile_check(torch) -> dict:
                  ("attn_fwd_f32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_dkdv_f32_kernel",
                   "attn_bwd_dq_f32_kernel"))}
     banned = ("gemm", "nvjet", "cutlass", "flash", "cudnn", "fmha", "efficient_attention",
-              "softmax", "attn_fwd_kernel", "attn_fwd_mma_kernel", "attn_bwd_kernel",
-              "attn_bwd_dkdv_mma", "attn_bwd_dq_mma", "proj_kernel<", "layernorm_kernel<__nv")
+              "softmax", "attn_fwd_kernel", "attn_bwd_kernel", "proj_kernel<",
+              "layernorm_kernel<__nv")
     seen = {}
     for name, (call, own) in calls.items():
         # each call launches every one of `own`: a profile of 20 calls that
@@ -4567,9 +4629,11 @@ def main(argv=None) -> int:
             sl["fused_attention_launches"], drop["fused_attention"],
             launches_eval=ev["launches"]["fused_attention"]),
     ]}
-    # the other head dims' kernels: launched by phase 16's run `tool` (head
-    # dim 32, the sampler's block and the Stage-II dropout pair), timed in
-    # phase 3 at head dim 32 (the run's shapes) and at 16 and 128 ("widths")
+    # the other head dims' instantiations of the same kernel templates:
+    # launched by phase 16's run `tool` (head dim 32, the sampler's block and
+    # the Stage-II dropout pair), timed in phase 3 at head dim 32 (the run's
+    # shapes) and at 16 and 128, or every width with --all-widths ("widths"),
+    # with the CUDA kernels each width launched ("kernels_by_width")
     tool = syscheck["runs"]["tool"]
     tool_d = tool["head_dim"]
     width_rows = {r["d"]: r for r in widths["rows"] if "dropout_attention_fwd" in r}
@@ -4584,6 +4648,12 @@ def main(argv=None) -> int:
                                    tool["launches_sample"]["by_head_dim"].get(
                                        f"fused_attention@{tool_d}", 0))}
     time_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    # every width runs the Hopper templates, no mma.sync kernel
+    kernels_by_width = {r["d"]: r["kernels"] for r in widths["rows"] if "kernels" in r}
+    mma = sorted({k for by_name in kernels_by_width.values() for ks in by_name.values()
+                  for k in ks if "_mma" in k})
+    if mma:
+        raise AssertionError(f"mma.sync kernels ran: {mma}")
     errs = {"fused_attention_block": lambda r: r["block_err"],
             "dropout_attention_fwd": lambda r: r["fwd_err"],
             "dropout_attention_bwd": lambda r: max(r["bwd_errs"]),
@@ -4591,8 +4661,9 @@ def main(argv=None) -> int:
     for name, (replaces, source, launches) in generic.items():
         at = width_rows[tool_d][name]
         record["kernels"].append({
-            "name": f"{name}_mma", "route": "cuda", "source": source, "replaces": replaces,
-            "head_dims": "multiples of 16 in [16, 128] but 64", "launches": launches,
+            "name": f"{name}_other_widths", "route": "cuda", "source": source,
+            "replaces": replaces, "head_dims": "multiples of 16 in [16, 128] but 64",
+            "launches": launches,
             "launches_head_dim": tool_d,
             "max_abs_err": max(errs[name](r) for r in widths["rows"]),
             **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
@@ -4602,7 +4673,9 @@ def main(argv=None) -> int:
                                                 name, "dropout_shape")],
                         **{k: r[name][k] for k in time_keys},
                         "library_ms": r[name].get("library_ms", r[name].get("library_chain_ms"))}
-                       for d, r in sorted(width_rows.items())]})
+                       for d, r in sorted(width_rows.items())],
+            # the CUDA kernels one call launched at each width, timed or not
+            "kernels_by_width": {str(d): ks[name] for d, ks in sorted(kernels_by_width.items())}})
     # the float32 kernels (phase 17): launched by its train CLI (the dropout
     # pair; the block in its generations) and its server (the block and its
     # attention core), timed at the flagship's shapes (head dim 64) and at 32

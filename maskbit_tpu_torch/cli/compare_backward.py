@@ -1,30 +1,39 @@
 """The dropout-attention backward built from several sources, side by side on one card.
 
     python -m maskbit_tpu_torch.cli.compare_backward OLD.cu NEW.cu [MORE.cu ...]
+    python -m maskbit_tpu_torch.cli.compare_backward --tree smoke_parent --tree . \\
+        --head-dims 16,32,48,64,80,96,112,128
 
 (from the checkout's root: it times with `chip_smoke._device_ms`).
 
 Each source is a version of `maskbit_tpu_torch/csrc/dropout_attention.cu`
 with the same C interface, e.g. one taken from another commit with `git show
-<commit>:maskbit_tpu_torch/csrc/dropout_attention.cu`. Sources from before
-`mb_dropout_attention_bwd` took the head dim (`int d`) have another
-interface, which the binding would misread: they are refused before the
-build. Every source is built
-with the package's nvcc flags (all at once, into the git-ignored
-`build/compare_backward/`), and its ptxas lines on registers, spills and
-serialised wgmma are printed. Then, on the forward of this checkout's
-kernel:
-  * dq, dk and dv of every source are bit-identical to the first source's
-    and to a repeated call of their own, at ragged lengths and in both dq
-    orders (the wrapper's order and key-tile order);
+<commit>:maskbit_tpu_torch/csrc/dropout_attention.cu`, or a whole tree's
+(`--tree DIR` takes DIR/maskbit_tpu_torch/csrc/dropout_attention.cu, whose
+headers then come from DIR too: a source's own directory is searched
+first). Sources from before `mb_dropout_attention_bwd` took the head dim
+(`int d`) have another interface, which the binding would misread: they are
+refused before the build. Every source is built with the package's nvcc
+flags (all at once, into the git-ignored `build/compare_backward/`), and
+its ptxas lines on registers, spills and serialised wgmma are printed.
+Then, at each head dim of `--head-dims` (default 64), on the forward of this
+checkout's kernel:
+  * dq, dk and dv of every source are bit-identical to a repeated call of
+    their own and agree with the plain version (phase 3's tolerance), at
+    ragged lengths and in both dq orders (the wrapper's order and key-tile
+    order); whether they are bit-identical to the first source's is
+    printed (two designs may sum in other orders);
   * each source's backward is timed by device time (the summed device
     times of its kernels under torch.profiler over 50 calls, per call) at
-    the training shapes (32, 257, 16, 64) and (8, 1025, 16, 64), the sources
-    taken in turn and then in reverse, so drift of the card's clock shows.
+    the training shapes, (32, 257, 16, 64) and (8, 1025, 16, 64) at d = 64
+    and `chip_smoke.HEAD_DIM_SHAPES`' dropout shape at n = 257 at the
+    others, the sources taken in turn and then in reverse, so drift of the
+    card's clock shows.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import re
@@ -38,10 +47,12 @@ from maskbit_tpu_torch.nn import dropout_attention as da
 
 RATE = 0.1
 CHECK_SHAPES = ((2, 1, 3), (2, 17, 3), (2, 65, 3), (2, 129, 3), (4, 257, 16), (2, 1025, 8))
-TIME_SHAPES = ((32, 257, 16), (8, 1025, 16))
+TIME_SHAPES_64 = ((32, 257, 16), (8, 1025, 16))
 
 
 def build(sources):
+    import chip_smoke
+
     for src in sources:
         with open(src) as f:
             if not re.search(r"mb_dropout_attention_bwd\([^)]*\bint d\b", f.read()):
@@ -59,52 +70,85 @@ def build(sources):
             raise RuntimeError(f"nvcc failed for {src}:\n{err}")
         print(f"== {src}")
         for line in err.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
+            if "wgmma" in line:  # a serialised wgmma, with its reason
                 print(line.strip())
+        for k in chip_smoke.ptxas_kernels(err):
+            print(f"{k['kernel']}: {k['registers']} registers, spill stores {k['spill_stores']} "
+                  f"B, spill loads {k['spill_loads']} B")
         libs.append(da.bind(ctypes.CDLL(str(out_dir / f"lib{i}.so"))))
     return libs
 
 
-def inputs(b, n, h):
+def inputs(b, n, h, d=64):
     g = torch.Generator(device="cuda").manual_seed(n)
-    q, k, v = torch.randn(b, n, 3, h, 64, generator=g, device="cuda").bfloat16().unbind(2)
+    q, k, v = torch.randn(b, n, 3, h, d, generator=g, device="cuda").bfloat16().unbind(2)
     seeds = torch.randint(0, 2**32, (b, h), generator=g, device="cuda", dtype=torch.int64)
     seeds32 = da.seeds_as_int32(seeds, (b, h))
-    grad = torch.randn(b, n, h, 64, generator=g, device="cuda").bfloat16()
+    grad = torch.randn(b, n, h, d, generator=g, device="cuda").bfloat16()
     out, lse = da.launch_forward(q, k, v, seeds32, RATE)
-    return q, k, v, out, lse, grad, seeds32
+    return q, k, v, out, lse, grad, seeds32, seeds
+
+
+def _args(argv):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("sources", nargs="*", help="versions of csrc/dropout_attention.cu")
+    p.add_argument("--tree", action="append", default=[],
+                   help="a checkout whose csrc/dropout_attention.cu to take (before the "
+                        "positional sources; repeatable)")
+    p.add_argument("--head-dims", default="64",
+                   help="comma-separated head dims to check and time (default %(default)s)")
+    args = p.parse_args(argv)
+    args.sources = [os.path.join(t, "maskbit_tpu_torch", "csrc", "dropout_attention.cu")
+                    for t in args.tree] + args.sources
+    args.head_dims = [int(x) for x in args.head_dims.split(",") if x]
+    return args
 
 
 def main(argv=None) -> int:
     import chip_smoke
 
-    sources = sys.argv[1:] if argv is None else argv
+    args = _args(sys.argv[1:] if argv is None else argv)
+    sources = [os.path.abspath(s) for s in args.sources]
     if len(sources) < 2 or not torch.cuda.is_available():
         print(__doc__)
         return 2
-    libs = build([os.path.abspath(s) for s in sources])
+    libs = build(sources)
     rotate_max = da.ROTATE_MAX_TILES
-    for b, n, h in CHECK_SHAPES:
-        x = inputs(b, n, h)
-        for order, max_tiles in (("wrapper", rotate_max), ("key tile", 0)):
-            da.ROTATE_MAX_TILES = max_tiles
-            first = da.backward_with(libs[0], *x, RATE)
-            for src, lib in zip(sources, libs):
-                got, again = da.backward_with(lib, *x, RATE), da.backward_with(lib, *x, RATE)
-                same = all(torch.equal(a, c) for a, c in zip(first, got))
-                repeat = all(torch.equal(a, c) for a, c in zip(got, again))
-                if not (same and repeat):
-                    raise AssertionError(f"{src} at ({b}, {n}, {h}), {order} order: equal to the "
-                                         f"first source {same}, to itself {repeat}")
-        da.ROTATE_MAX_TILES = rotate_max
-        print(f"({b}, {n}, {h}): dq, dk, dv bit-identical across sources and repeats")
-    for b, n, h in TIME_SHAPES:
-        x = inputs(b, n, h)
-        times = {src: [] for src in sources}
-        for src, lib in [*zip(sources, libs), *reversed(list(zip(sources, libs)))]:
-            times[src].append(chip_smoke._device_ms(torch, lambda: da.backward_with(lib, *x, RATE)))
-        print(f"({b}, {n}, {h}, 64) backward device ms: "
-              + "; ".join(f"{src} {', '.join(f'{t:.4f}' for t in ts)}" for src, ts in times.items()))
+    for d in args.head_dims:
+        for b, n, h in CHECK_SHAPES:
+            x = inputs(b, n, h, d)
+            qf, kf, vf = (t.float() for t in x[:3])
+            refs = da.dropout_attention_backward_reference(qf, kf, vf, x[5].float(), x[7], RATE)
+            tol = chip_smoke.DROPOUT_ATOL * max(1.0, max(r.abs().max().item() for r in refs))
+            for order, max_tiles in (("wrapper", rotate_max), ("key tile", 0)):
+                da.ROTATE_MAX_TILES = max_tiles
+                first = da.backward_with(libs[0], *x[:7], RATE)
+                for src, lib in zip(sources, libs):
+                    got, again = (da.backward_with(lib, *x[:7], RATE),
+                                  da.backward_with(lib, *x[:7], RATE))
+                    err = max((a.float() - r).abs().max().item() for a, r in zip(got, refs))
+                    repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+                    if not repeat or err > tol:
+                        raise AssertionError(
+                            f"{src} at ({b}, {n}, {h}, {d}), {order} order: repeat bit-identical "
+                            f"{repeat}, max |error| against the plain version {err} (tol {tol})")
+                    diff = max((a.float() - c.float()).abs().max().item()
+                               for a, c in zip(first, got))
+                    print(f"({b}, {n}, {h}, {d}) {order} order, {src}: max |error| {err:.5f} "
+                          f"(tol {tol:.4f}), repeats bit-identical, max |diff| from the first "
+                          f"source {diff:.6f}" + (" (bit-identical)" if diff == 0 else ""))
+            da.ROTATE_MAX_TILES = rotate_max
+        shapes = TIME_SHAPES_64 if d == 64 else (
+            (chip_smoke.HEAD_DIM_SHAPES[d][1], 257, chip_smoke.HEAD_DIM_SHAPES[d][0]),)
+        for b, n, h in shapes:
+            x = inputs(b, n, h, d)[:7]
+            times = {src: [] for src in sources}
+            for src, lib in [*zip(sources, libs), *reversed(list(zip(sources, libs)))]:
+                times[src].append(chip_smoke._device_ms(
+                    torch, lambda: da.backward_with(lib, *x, RATE)))
+            print(f"({b}, {n}, {h}, {d}) backward device ms: "
+                  + "; ".join(f"{src} {', '.join(f'{t:.4f}' for t in ts)}"
+                              for src, ts in times.items()))
     return 0
 
 

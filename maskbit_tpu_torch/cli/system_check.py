@@ -19,10 +19,10 @@ MLM (class-label dropout 0.1, EMA 0.995) on the 16x16 token grid (sequence
 257 with the class token) and samples 30 images (labels 0..9, three each;
 12 CFG steps, guidance 2.0 cosine, arccos, randomize_temperature 2.0):
   * `tool`: the tool's generator, hidden 128, depth 4, 4 heads (head dim 32,
-    the mma.sync kernels), mlp 256, 600 steps at lr 4e-4, AdamW as the
+    the kernels' d = 32 instantiations), mlp 256, 600 steps at lr 4e-4, AdamW as the
     tool's `make_optimizer(4e-4)`;
   * `flagship`: the 14-bit flagship's generator width and depth (hidden 1024,
-    depth 24, 16 heads: head dim 64, the Hopper kernels; mlp 4096) with its
+    depth 24, 16 heads: head dim 64, the d = 64 instantiations; mlp 4096) with its
     AdamW (beta2 0.96, weight decay 0.045, grad-norm clip 1.0), 600 steps at
     lr 2e-4 after a linear warmup of 100 steps (the tool's 4e-4 without
     warmup is a 4-layer model's setting; the flagship warms up too).

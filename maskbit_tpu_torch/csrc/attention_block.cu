@@ -20,12 +20,12 @@
 // whole (n, 3E) f32 qkv and the (group, n, n) logits in VMEM; neither fits
 // 227 KB of shared memory, so this is a chain of four kernels:
 //   1. proj_kernel<BM, EPI_BIAS>: qkv = bf16(x Wqkv^T + bqkv).
-//   2. attn_fwd_kernel<false> (attention_fwd.cuh, shared with the training
-//      kernels): softmax(q k^T / 8) v per (batch * head, 64-query tile), over
-//      the qkv buffer's strided (b, n, 3, h, 64) view, into a contiguous
-//      (b, n, h, 64) = (b * n, E) bf16 buffer; at other head dims d (a
-//      multiple of 16 in [16, 128]) attn_fwd_mma_kernel<d, false>, the same
-//      function with 1/sqrt(d).
+//   2. attn_fwd_kernel<d, false> (attention_fwd.cuh, shared with the
+//      training kernels): softmax(q k^T / sqrt(d)) v per (batch * head,
+//      64-query tile), over the qkv buffer's strided (b, n, 3, h, d) view,
+//      into a contiguous (b, n, h, d) = (b * n, E) bf16 buffer, at every
+//      head dim d that is a multiple of 16 in [16, 128]; this library
+//      builds only the dropout-free instantiations.
 //   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
 //   4. layernorm_kernel<bf16> (layernorm.cuh): out = bf16(LN(y)), one block a
 //      row, two passes.
@@ -319,8 +319,8 @@ extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* 
 
   const bf16* q = static_cast<const bf16*>(qkv);
   const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, D)
-  const int aerr = attention_forward(q, q + E, q + 2 * E, row * n, row, D, nullptr, attn,
-                                     nullptr, B, n, H, D, 0u, 1.0f, false, s);
+  const int aerr = attention_forward<false>(q, q + E, q + 2 * E, row * n, row, D, nullptr, attn,
+                                            nullptr, B, n, H, D, 0u, 1.0f, false, s);
   if (aerr != 0) return aerr;
 
   err = launch_proj_bm<EPI_RESID>(bm_out, attn, w_o, nullptr, b_o, x, static_cast<float*>(y),

@@ -330,8 +330,7 @@ int attention_forward_f32(const float* q, const float* k, const float* v, long l
   case W:                                                                                   \
     return attention_forward_f32_at<W>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H,       \
                                        threshold, keep_scale, dropout, s);
-    MB_MMA_HEAD_DIMS(MB_F32_FWD_CASE)
-    MB_F32_FWD_CASE(64)
+    MB_HEAD_DIMS(MB_F32_FWD_CASE)
 #undef MB_F32_FWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -692,8 +691,7 @@ extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const 
         static_cast<const int*>(seeds), static_cast<float*>(dq), static_cast<float*>(dk),     \
         static_cast<float*>(dv), static_cast<float2*>(stats), B, n, H, threshold, keep_scale, \
         s);
-    MB_MMA_HEAD_DIMS(MB_F32_BWD_CASE)
-    MB_F32_BWD_CASE(64)
+    MB_HEAD_DIMS(MB_F32_BWD_CASE)
 #undef MB_F32_BWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

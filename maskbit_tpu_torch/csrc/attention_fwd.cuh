@@ -1,27 +1,141 @@
 // The attention forward on Hopper (sm_90a), shared by two libraries:
-//   * csrc/dropout_attention.cu: attn_fwd_kernel<true> replaces the TPU kernel
-//     _dropattn_fwd_kernel (maskbit_tpu/nn/pallas_attention.py, dropout_attention
-//     -> _dropout_attention_fwd), and attn_fwd_kernel<false> replaces
-//     _attention_kernel (fused_attention);
-//   * csrc/attention_block.cu: attn_fwd_kernel<false> is the attention core of
-//     the serving block, over its QKV projection's output.
-// Those take head dim 64; attn_fwd_mma_kernel<D, DROPOUT> (below) replaces
-// the same TPU kernels at every other head dim that is a multiple of 16 in
-// [16, 128], and attention_forward picks one by D. See dropout_attention.cu
-// for the d = 64 design and what bounds it.
+//   * csrc/dropout_attention.cu: attn_fwd_kernel<D, true> replaces the TPU
+//     kernel _dropattn_fwd_kernel (maskbit_tpu/nn/pallas_attention.py,
+//     dropout_attention -> _dropout_attention_fwd), and attn_fwd_kernel<D,
+//     false> replaces _attention_kernel (fused_attention);
+//   * csrc/attention_block.cu: attn_fwd_kernel<D, false> is the attention
+//     core of the serving block (_attention_block_kernel), over its QKV
+//     projection's output.
+// One template serves every head dim D that is a multiple of 16 in [16,
+// 128] (the TPU kernels read d from their inputs); attention_forward picks
+// the instantiation by D. See dropout_attention.cu for the design, what
+// bounds it, and the backward.
+//
+// Head dims and the shared-memory layout. A tile is 64 rows of D bf16
+// values. wgmma reads its shared-memory operands through descriptors of
+// 128-, 64- or 32-byte swizzled rows, and a TMA box is at most one swizzle
+// width wide, so a D-wide row is cut into column panels, each its own TMA
+// box, stored one after the other: 64-wide panels (128-byte rows, 128-byte
+// swizzle) first, then a 32-wide (64-byte swizzle) and a 16-wide (32-byte
+// swizzle) remainder where D needs them (Panels below: 16 = 16, 32 = 32, 48
+// = 32 + 16, 64 = 64, 80 = 64 + 16, 96 = 64 + 32, 112 = 64 + 32 + 16, 128 =
+// 64 + 64). Every panel starts on a multiple of its swizzle's repeat (1024,
+// 512 or 256 bytes), so TMA's swizzle and the descriptors' agree.
+//   * Products that reduce over d (S = Q K^T, and in the backward S^T and
+//     dP^T) walk d in 16-wide slabs; each slab lies in one panel, and its
+//     K-major descriptor is that panel's, advanced 32 bytes a slab.
+//   * Products whose output columns are d (O += P V, and in the backward
+//     dV, dK and the dQ part) take V (G, Q, K) as an MN-major operand: one
+//     wgmma m64nWk16 per panel of width W, whose accumulators, panel after
+//     panel, are exactly those of one m64nD product (sm90.cuh's layout), so
+//     the epilogues index them as one array.
+// Each swizzle keeps the 8 rows a wgmma core matrix reads (16 bytes each)
+// on distinct banks; at 64 and 32 bytes a warp's TMA box moves shorter
+// rows, which costs the copy engine more requests for the same bytes.
+//
+// What bounds the forward, by width (H100: 3.35 TB/s, 989 TFLOP/s bf16).
+// At the shapes chip_smoke.py times, batch 32 and n = 257: d = 64 over 16
+// heads and d = 128 over 8 move 67 MB (20 us) for 8.7 GFLOP (9 us); d = 112
+// over 8 heads 59 MB (18 us); d = 16 to 96 over 4 heads 4.3 to 25 MB (1.3
+// to 7.6 us) in 640 blocks, under three waves, which the launch and the
+// last wave bound more than either rate. Beside the products, every width
+// spends about 20 f32 and integer operations a (query, key) pair on the
+// CUDA cores (the online softmax, the keep hash), which no bound counts
+// and which do not shrink with d. The design keeps the copies and the
+// tensor cores off their path at every width: the producer warp keeps the
+// next K and V tiles in flight, the score tile never leaves registers, and
+// three blocks an SM up to d = 64 (two past it, where d / 2 f32 output
+// accumulators a thread and 52 to 83 KB of shared memory leave room for no
+// third) overlap one block's softmax with another's products.
 
 #pragma once
+
+#include <utility>
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int HD = 64;                      // head dim (checked by the wrappers)
 constexpr int TILE = 64;                    // queries or keys per tile: wgmma's M
-constexpr int TILE_BYTES = TILE * HD * 2;   // one bf16 tile, 8 KB, 64 rows of 128 B
 constexpr int CONSUMERS = 128;              // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
 constexpr int STAGES = 2;
+
+// The column panels of a D-wide bf16 tile row (see the header).
+template <int D>
+struct Panels {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dim");
+  static constexpr int WIDE = D / 64;  // 64-column panels
+  static constexpr bool HAS32 = (D & 32) != 0, HAS16 = (D & 16) != 0;
+  static constexpr int COUNT = WIDE + HAS32 + HAS16;
+  static constexpr int TILE_BYTES = TILE * D * 2;  // a 64-row tile, panels included
+  __host__ __device__ static constexpr int width(int p) {
+    return p < WIDE ? 64 : (p == WIDE && HAS32) ? 32 : 16;
+  }
+  __host__ __device__ static constexpr int col(int p) {  // first column
+    return p < WIDE ? 64 * p : (p == WIDE) ? 64 * WIDE : D - 16;
+  }
+  // byte offset of panel p in a tile: the panels before it, 64 rows each
+  __host__ __device__ static constexpr int offset(int p) { return TILE * col(p) * 2; }
+  // the panel that holds column c (a multiple of 16)
+  __host__ __device__ static constexpr int of(int c) {
+    return c < 64 * WIDE ? c / 64 : (HAS32 && c < 64 * WIDE + 32) ? WIDE : COUNT - 1;
+  }
+};
+
+// A tensor's maps, one per panel width: [0] 64 wide, [1] 32, [2] 16; the
+// widths a D has no panel of are left unencoded.
+struct TileMaps {
+  CUtensorMap box[3];
+};
+
+__host__ __device__ constexpr int width_index(int w) { return w == 64 ? 0 : w == 32 ? 1 : 2; }
+
+// Calls f(std::integral_constant<int, 0>{}), ..., f(<N - 1>): a loop whose
+// index is a constant expression, so each panel's wgmma takes its width.
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_impl(F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// The accumulators of panel P within those of a m64nD product.
+template <int D, int P, int N>
+__device__ __forceinline__ float (&panel_acc(float (&acc)[N]))[Panels<D>::width(P) / 2] {
+  return *reinterpret_cast<float(*)[Panels<D>::width(P) / 2]>(acc + Panels<D>::col(P) / 2);
+}
+
+// All panels of the 64-row tile at `row` into the tile at shared address
+// `tile`, on barrier `bar` (which expects Panels<D>::TILE_BYTES).
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t tile, const TileMaps& maps, uint32_t bar,
+                                              int row, int h, int b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int p = 0; p < P::COUNT; ++p)
+    tma_load_box(tile + P::offset(p), &maps.box[width_index(P::width(p))], bar, P::col(p), row, h,
+                 b);
+}
+
+// K-major descriptor of the 16-wide slab kk (columns 16kk..16kk+15) of a
+// tile, from its row `row0` (a multiple of 8) on.
+template <int D>
+__device__ __forceinline__ uint64_t slab_desc(uint32_t tile, int kk, int row0 = 0) {
+  using P = Panels<D>;
+  const int p = P::of(16 * kk);
+  return smem_desc(tile + P::offset(p) + (row0 * P::width(p) + 16 * kk - P::col(p)) * 2,
+                   P::width(p) * 2, false);
+}
+
+// MN-major descriptor of rows 16kk..16kk+15 of panel p of a tile.
+template <int D>
+__device__ __forceinline__ uint64_t panel_desc(uint32_t tile, int p, int kk) {
+  using P = Panels<D>;
+  return smem_desc(tile + P::offset(p) + 16 * kk * P::width(p) * 2, P::width(p) * 2, true);
+}
 
 // The consumer warpgroup's own barrier (the producer warp does not take part).
 __device__ __forceinline__ void consumer_sync() {
@@ -77,24 +191,33 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2],
   }
 }
 
-// Shared memory: Q | K[0] V[0] | K[1] V[1] | barriers.
-constexpr int FWD_SMEM = TILE_BYTES * (1 + 2 * STAGES) + 64 + 1024;
+template <int D>
+struct FwdCfg {
+  // Shared memory: Q | K[0] V[0] | K[1] V[1] | barriers (80 KB at d = 128).
+  static constexpr int SMEM = Panels<D>::TILE_BYTES * (1 + 2 * STAGES) + 64 + 1024;
+  // Three blocks an SM up to d = 64 (136 registers a thread at most; 128
+  // at d = 64 with the mask), two past it, where the d / 2 f32 output
+  // accumulators a thread (40 to 64) would not fit 136 without spilling.
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;
+};
 
-template <bool DROPOUT>
-__global__ void __launch_bounds__(THREADS, 3)
-attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, const int* __restrict__ seeds,
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS, FwdCfg<D>::MIN_BLOCKS)
+attn_fwd_kernel(const __grid_constant__ TileMaps tq, const __grid_constant__ TileMaps tk,
+                const __grid_constant__ TileMaps tv, const int* __restrict__ seeds,
                 bf16* __restrict__ out, float* __restrict__ lse, int n, int H, float scale_log2,
                 uint32_t threshold, float keep_scale) {
+  using P = Panels<D>;
+  constexpr int TB = P::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + TILE_BYTES * (1 + 2 * STAGES));
+  uint8_t* qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + TB * (1 + 2 * STAGES));
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
-  auto ks = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (1 + 2 * s)); };
-  auto vs = [&](int s) { return reinterpret_cast<bf16*>(smem + TILE_BYTES * (2 + 2 * s)); };
+  auto ks = [&](int s) { return smem + TB * (1 + 2 * s); };
+  auto vs = [&](int s) { return smem + TB * (2 + 2 * s); };
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -113,14 +236,16 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   if (threadIdx.x >= CONSUMERS) {  // producer warp: one lane issues every copy
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, TILE_BYTES);
-      tma_load_tile(qs, &tq, q_full, q0, h, b);
+      const uint32_t base = smem_u32(smem), bar0 = smem_u32(bars);
+      mbar_expect_tx(bar0, TB);
+      tma_load_tile<D>(base, tq, bar0, q0, h, b);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
-        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_tile(ks(s), &tk, &full[s], t * TILE, h, b);
-        tma_load_tile(vs(s), &tv, &full[s], t * TILE, h, b);
+        const uint32_t full_s = bar0 + 8 * (1 + s), k_s = base + TB * (1 + 2 * s);
+        mbar_wait(full_s + 8 * STAGES, ((t / STAGES) & 1) ^ 1);  // empty[s]
+        mbar_expect_tx(full_s, 2 * TB);
+        tma_load_tile<D>(k_s, *opaque(&tk), full_s, t * TILE, h, b);
+        tma_load_tile<D>(k_s + TB, *opaque(&tv), full_s, t * TILE, h, b);
       }
     }
     return;
@@ -136,12 +261,12 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
 
   mbar_wait(q_full, 0);
-  const uint64_t dq_desc = desc_kmajor(qs);
+  const uint32_t q_base = smem_u32(qs);
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % STAGES;
@@ -151,9 +276,10 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     float sc[32];
     fence_regs(o);
     wgmma_fence();
-    const uint64_t dk_desc = desc_kmajor(ks(s));
+    const uint32_t q_addr = opaque(q_base), k_addr = smem_u32(ks(s));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sc, dq_desc + 2 * kk, dk_desc + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0, 0>(sc, slab_desc<D>(q_addr, kk), slab_desc<D>(k_addr, kk), kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -162,213 +288,23 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     softmax_tile<DROPOUT>(sc, m_run, l_run, alpha, kv0, n, c, scale_log2, rmix, seed_mix,
                           threshold, keep_scale);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     uint32_t pa[4][4];
     acc_to_afrag(pa, sc);
     fence_regs(o);
     wgmma_fence();
-    const uint64_t dv_desc = desc_mnmajor(vs(s));
+    const uint32_t v_addr = smem_u32(vs(s));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pa[kk], dv_desc + 128 * kk);  // O += bf16(w) V
+    for (int kk = 0; kk < 4; ++kk)  // O += bf16(w) V, a wgmma per panel
+      static_for<P::COUNT>([&](auto pc) {
+        constexpr int p = decltype(pc)::value;
+        wgmma_rs<1>(panel_acc<D, p>(o), pa[kk], panel_desc<D>(v_addr, p, kk));
+      });
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
     mbar_arrive(&empty[s]);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < n) {
-      const float inv = 1.0f / l_run[r];
-      bf16* dst = out + (((long long)b * n + row) * H + h) * HD + 2 * c;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-      if (lse != nullptr && c == 0)
-        lse[(long long)bh * n + row] = (m_run[r] + log2f(l_run[r])) * LN2;
-    }
-  }
-}
-
-// A (b, n, h, 64) bf16 tensor with element strides (sb, sn, sh) as a rank-4
-// (d, n, h, b) map of (64 x 64) boxes, 128-byte swizzled; rows past n read 0.
-bool tile_map(CUtensorMap* map, const void* base, int B, int n, int H, long long sb, long long sn,
-              long long sh) {
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {HD, TILE, 1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// ------------------------------------------- every other head width ----
-//
-// Head dims d that are multiples of 16 in [16, 128] other than 64: the
-// TPU kernels read d from their inputs, and the JAX package runs them at
-// d = 16 in its own tests. The d = 64 design above is built around
-// 128-byte rows (the TMA box, its swizzle and the wgmma descriptors); these
-// kernels are the simple design that holds at every such width: one block
-// of four warps per (batch*head, 64-row tile), the tiles copied from device
-// memory into padded shared-memory rows by all threads with 16-byte loads,
-// and the products as mma.sync m16n8k16 (bf16 in, f32 accumulate), each
-// warp holding 16 rows. The online softmax (softmax_tile), the keep hash,
-// the rounding points and the saved log-sum-exp are the d = 64 kernels'.
-// The copies do not overlap the products within a block; blocks on one SM
-// overlap each other's. At d = 32 and the training shape of the system
-// check, (32, 257, 4, 32), the forward moves 4.2 MB (1.3 us at 3.35 TB/s)
-// for 1.1 GFLOP (1.1 us at the bf16 peak): such a call is bound by its
-// launch and its one wave of blocks, not by either rate.
-//
-// Shared-memory tiles: row-major [row][d] with rows D + 8 elements long,
-// and transposed [d][row] with rows MMA_ROWS + 8 long: the 16 bytes of pad
-// put the 8 rows a fragment load touches on distinct banks.
-
-constexpr int MMA_ROWS = 64;     // queries or keys per tile
-constexpr int MMA_THREADS = 128;  // four warps of 16 rows
-constexpr int MMA_LDT = MMA_ROWS + 8;
-
-template <int D>
-struct MmaDims {
-  static constexpr int LD = D + 8;
-  static constexpr int TILE = MMA_ROWS * LD * 2;  // bytes of a row-major tile
-  static constexpr int TILE_T = D * MMA_LDT * 2;  // bytes of a transposed tile
-  static constexpr int FWD_SMEM = 2 * TILE + TILE_T;  // Q | K | V^T
-};
-
-// D(16 x 8, f32) += A(16 x 16) B(16 x 8), bf16 fragments in registers.
-// Lane l (g = l / 4, c = l % 4) holds D[g][2c..2c+1] in d[0..1] and
-// D[g + 8][2c..2c+1] in d[2..3], the wgmma accumulator's layout per warp.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows r0..r0+15 and columns k0..k0+15 of a shared tile
-// [row][col] whose rows are ld elements long.
-__device__ __forceinline__ void load_afrag(uint32_t (&a)[4], const bf16* t, int ld, int r0, int k0,
-                                           int g, int c) {
-  const bf16* p = t + (r0 + g) * ld + k0 + 2 * c;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// The B fragment of output columns n0..n0+7 and depth k0..k0+15 from a
-// shared tile that holds them as rows [column][depth], ld elements long.
-__device__ __forceinline__ void load_bfrag(uint32_t& b0, uint32_t& b1, const bf16* t, int ld,
-                                           int n0, int k0, int g, int c) {
-  const bf16* p = t + (n0 + g) * ld + k0 + 2 * c;
-  b0 = ld_pair(p);
-  b1 = ld_pair(p + 8);
-}
-
-// Rows [0, 64) of a (rows, D) bf16 tile whose row r starts at src + r *
-// stride (16-byte aligned, D contiguous) into shared memory: row-major
-// (TRANSPOSE false) or as [d][row] (true); rows from `valid` on are zeros.
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          long long stride, int valid) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < MMA_ROWS * CH; i += MMA_THREADS) {
-    // a warp's transposed stores go to neighbouring rows of one d: no conflicts
-    const int r = TRANSPOSE ? i % MMA_ROWS : i / CH, ch = TRANSPOSE ? i / MMA_ROWS : i % CH;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) x = __ldg(reinterpret_cast<const uint4*>(src + r * stride + ch * 8));
-    if (TRANSPOSE) {
-      const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(ch * 8 + j) * MMA_LDT + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * MmaDims<D>::LD + ch * 8) = x;
-    }
-  }
-}
-
-// The forward at head dim D: attn_fwd_kernel's arguments, with q, k, v
-// read through their element strides (sb, sn, sh) instead of tensor maps.
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, long long sb, long long sn, long long sh,
-                    const int* __restrict__ seeds, bf16* __restrict__ out,
-                    float* __restrict__ lse, int n, int H, float scale_log2, uint32_t threshold,
-                    float keep_scale) {
-  using M = MmaDims<D>;
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_mma);
-  bf16* ks = reinterpret_cast<bf16*>(smem_mma + M::TILE);
-  bf16* vt = reinterpret_cast<bf16*>(smem_mma + 2 * M::TILE);
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * MMA_ROWS;
-  const long long head = b * sb + h * sh;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const uint32_t row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
-  const uint32_t rmix[2] = {row0 * 0x9E3779B1u, (row0 + 8) * 0x9E3779B1u};
-
-  load_tile<D, false>(qs, q + head + q0 * sn, sn, n - q0);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_afrag(qa[kk], qs, M::LD, warp * 16, 16 * kk, g, c);
-
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-
-  const int ntiles = (n + MMA_ROWS - 1) / MMA_ROWS;
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = t * MMA_ROWS;
-    __syncthreads();  // every warp is done with the previous K and V
-    load_tile<D, false>(ks, k + head + kv0 * sn, sn, n - kv0);
-    load_tile<D, true>(vt, v + head + kv0 * sn, sn, n - kv0);
-    __syncthreads();
-
-    float sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_bfrag(b0, b1, ks, M::LD, 8 * j, 16 * kk, g, c);
-        mma16816(sc + 4 * j, qa[kk], b0, b1);
-      }
-    float alpha[2];
-    softmax_tile<DROPOUT>(sc, m_run, l_run, alpha, kv0, n, c, scale_log2, rmix, seed_mix,
-                          threshold, keep_scale);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-    uint32_t pa[4][4];
-    acc_to_afrag(pa, sc);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // O += bf16(w) V
-        uint32_t b0, b1;
-        load_bfrag(b0, b1, vt, MMA_LDT, 8 * j, 16 * kk, g, c);
-        mma16816(o + 4 * j, pa[kk], b0, b1);
-      }
   }
 
 #pragma unroll
@@ -387,80 +323,79 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// A (b, n, h, D) bf16 tensor with element strides (sb, sn, sh) as rank-4
+// (d, n, h, b) maps of (W x 64) boxes, one for each panel width W of D,
+// swizzled at W * 2 bytes; rows past n read 0.
 template <int D>
-int attention_forward_mma(const void* q, const void* k, const void* v, long long sb,
-                          long long sn, long long sh, const void* seeds, void* out, void* lse,
-                          int B, int n, int H, unsigned int threshold, float keep_scale,
-                          bool dropout, cudaStream_t s) {
-  static unsigned long long smem_set[2];
-  const dim3 grid((n + MMA_ROWS - 1) / MMA_ROWS, B * H);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
-             *bv = static_cast<const bf16*>(v);
-  cudaError_t err;
-  if (dropout) {
-    if ((err = ensure_smem(attn_fwd_mma_kernel<D, true>, MmaDims<D>::FWD_SMEM, smem_set[1])) !=
-        cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_mma_kernel<D, true><<<grid, MMA_THREADS, MmaDims<D>::FWD_SMEM, s>>>(
-        bq, bk, bv, sb, sn, sh, static_cast<const int*>(seeds), static_cast<bf16*>(out),
-        static_cast<float*>(lse), n, H, scale_log2, threshold, keep_scale);
-  } else {
-    if ((err = ensure_smem(attn_fwd_mma_kernel<D, false>, MmaDims<D>::FWD_SMEM, smem_set[0])) !=
-        cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_mma_kernel<D, false><<<grid, MMA_THREADS, MmaDims<D>::FWD_SMEM, s>>>(
-        bq, bk, bv, sb, sn, sh, nullptr, static_cast<bf16*>(out), static_cast<float*>(lse), n,
-        H, scale_log2, 0u, 1.0f);
+bool tile_maps(TileMaps* maps, const void* base, int B, int n, int H, long long sb, long long sn,
+               long long sh) {
+  using P = Panels<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  memset(maps, 0, sizeof(*maps));
+  for (int p = 0; p < P::COUNT; ++p) {
+    const int w = P::width(p);
+    if (p > 0 && w == P::width(p - 1)) continue;  // the 64-wide panels share a map
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), TILE, 1, 1};
+    const CUtensorMapSwizzle swizzle = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!encode_tiled(&maps->box[width_index(w)], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                      strides, box, swizzle))
+      return false;
   }
+  return true;
+}
+
+template <int D, bool DROPOUT>
+int attention_forward_at(const void* q, const void* k, const void* v, long long sb, long long sn,
+                         long long sh, const void* seeds, void* out, void* lse, int B, int n,
+                         int H, unsigned int threshold, float keep_scale, cudaStream_t s) {
+  static unsigned long long smem_set;
+  TileMaps tq, tk, tv;
+  if (!current_context() || !tile_maps<D>(&tq, q, B, n, H, sb, sn, sh) ||
+      !tile_maps<D>(&tk, k, B, n, H, sb, sn, sh) || !tile_maps<D>(&tv, v, B, n, H, sb, sn, sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = ensure_smem(attn_fwd_kernel<D, DROPOUT>, FwdCfg<D>::SMEM, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + TILE - 1) / TILE, B * H);
+  attn_fwd_kernel<D, DROPOUT><<<grid, THREADS, FwdCfg<D>::SMEM, s>>>(
+      tq, tk, tv, static_cast<const int*>(seeds), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, H, LOG2E / sqrtf(static_cast<float>(D)), threshold,
+      keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward on `stream`. q, k, v: (B, n, H, D) bf16 with element strides
 // (sb, sn, sh), each a multiple of 8; out: contiguous (B, n, H, D) bf16;
 // lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits),
-// ignored without dropout, which compiles the mask out. D = 64 takes the
-// Hopper kernel, every other multiple of 16 in [16, 128] the mma.sync one.
-// Returns the launch error (cudaSuccess == 0), or cudaErrorInvalidValue if
-// D is outside that range or a tensor map is refused.
+// ignored without dropout, which compiles the mask out. WITH_DROPOUT false
+// builds only the dropout-free kernels (the attention block needs no
+// other) and refuses `dropout`. Returns the launch error (cudaSuccess ==
+// 0), or cudaErrorInvalidValue if D is not a multiple of 16 in [16, 128]
+// or a tensor map is refused.
+template <bool WITH_DROPOUT>
 int attention_forward(const void* q, const void* k, const void* v, long long sb, long long sn,
                       long long sh, const void* seeds, void* out, void* lse, int B, int n, int H,
                       int D, unsigned int threshold, float keep_scale, bool dropout,
                       cudaStream_t s) {
+  if (!WITH_DROPOUT && dropout) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-#define MB_FWD_CASE(W)                                                                         \
-  case W:                                                                                     \
-    return attention_forward_mma<W>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, threshold, \
-                                    keep_scale, dropout, s);
-    MB_MMA_HEAD_DIMS(MB_FWD_CASE)
+#define MB_FWD_CASE(W)                                                                       \
+  case W:                                                                                   \
+    if constexpr (WITH_DROPOUT)                                                             \
+      if (dropout)                                                                          \
+        return attention_forward_at<W, true>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, \
+                                             threshold, keep_scale, s);                     \
+    return attention_forward_at<W, false>(q, k, v, sb, sn, sh, nullptr, out, lse, B, n, H,  \
+                                          0u, 1.0f, s);
+    MB_HEAD_DIMS(MB_FWD_CASE)
 #undef MB_FWD_CASE
-    case HD:
-      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  static unsigned long long smem_set[2];
-  CUtensorMap tq, tk, tv;
-  if (!current_context() || !tile_map(&tq, q, B, n, H, sb, sn, sh) ||
-      !tile_map(&tk, k, B, n, H, sb, sn, sh) || !tile_map(&tv, v, B, n, H, sb, sn, sh))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + TILE - 1) / TILE, B * H);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
-  cudaError_t err;
-  if (dropout) {
-    if ((err = ensure_smem(attn_fwd_kernel<true>, FWD_SMEM, smem_set[1])) != cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_kernel<true><<<grid, THREADS, FWD_SMEM, s>>>(
-        tq, tk, tv, static_cast<const int*>(seeds), static_cast<bf16*>(out),
-        static_cast<float*>(lse), n, H, scale_log2, threshold, keep_scale);
-  } else {
-    if ((err = ensure_smem(attn_fwd_kernel<false>, FWD_SMEM, smem_set[0])) != cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_kernel<false><<<grid, THREADS, FWD_SMEM, s>>>(
-        tq, tk, tv, nullptr, static_cast<bf16*>(out), static_cast<float*>(lse), n, H, scale_log2,
-        0u, 1.0f);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -3,8 +3,10 @@
 // map encoder (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint so that no library needs -lcuda), with a cache.
 //
-// Every shared-memory operand here is a tile of 64-element (128-byte) bf16
-// rows, 128-byte swizzled as TMA writes it: 8-row groups 1024 bytes apart.
+// Every shared-memory operand here is a tile of bf16 rows 128, 64 or 32
+// bytes long, swizzled at that width as TMA writes it (CU_TENSOR_MAP_SWIZZLE_
+// 128B, 64B or 32B): groups of 8 rows one after another, the 16-byte chunks
+// of a row permuted by the row's place in its group.
 
 #pragma once
 
@@ -20,10 +22,9 @@
 typedef __nv_bfloat16 bf16;
 
 // The head dims the attention kernels take are the multiples of 16 in [16,
-// 128] (nn/dropout_attention.py's HEAD_DIMS). X(W) for each but 64, for the
-// switches that pick a kernel by d: in bf16 the mma.sync kernels take these
-// and d = 64 the Hopper ones (attention_fwd.cuh).
-#define MB_MMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112) X(128)
+// 128] (nn/dropout_attention.py's HEAD_DIMS): X(W) for each, for the
+// switches that pick a kernel's instantiation by d.
+#define MB_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
 namespace {
 
@@ -59,18 +60,24 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
+// The barrier and copy helpers take shared-memory addresses as 32-bit
+// values (a producer that keeps 64-bit generic pointers to every stage and
+// panel runs out of its few registers); the pointer forms convert.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
+
 // Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n"
       ".reg .pred P1;\n"
@@ -79,18 +86,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@P1 bra DONE;\n"
       "bra LAB_WAIT;\n"
       "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
+      "}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
 }
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
 
-// One (64 rows x 64 d) bf16 tile of a rank-4 (d, n, h, b) tensor map.
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int h, int b) {
+// The box at (d0, row, h, b) of a rank-4 (d, n, h, b) tensor map.
+__device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int d0, int row, int h, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row), "r"(h), "r"(b)
       : "memory");
 }
 
@@ -117,12 +127,12 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
 }
 
 // `bytes` contiguous bytes (16-byte aligned, a multiple of 16).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -146,63 +156,93 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Shared-memory matrix descriptors for 128-byte-swizzled tiles of 64-element
-// (128-byte) rows, as TMA writes them: 8-row groups 1024 bytes apart. K-major
-// (the reduction dimension contiguous; the next 16-element slab is +32 bytes,
-// +2 in the address field): leading offset unused. MN-major (the output
-// dimension contiguous; the next 16-row slab is +2048 bytes, +128): the 8-row
-// groups along K are 1024 bytes apart, and the one 64-wide block along M or N
-// makes the other offset unused; both are set to 1024.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
-  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+// x, hidden from the compiler's loop-invariant code motion: values computed
+// from it inside a loop (the descriptors of each k slab, a map's address)
+// are recomputed there, a few integer operations, instead of each being
+// held in registers across the loop, where at the wide head dims they would
+// crowd out the accumulators.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
-  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  uint64_t v = reinterpret_cast<uint64_t>(p);
+  asm volatile("" : "+l"(v));
+  return reinterpret_cast<T*>(v);
 }
 
+// Shared-memory matrix descriptor of a tile whose rows are `row_bytes` (128,
+// 64 or 32) long, swizzled at that width as TMA writes it: 8-row groups
+// 8 * row_bytes apart (the stride offset); the swizzle mode in bits 62-63.
+// K-major (the reduction dimension contiguous along a row; the next
+// 16-element slab of a row is +32 bytes): the leading offset is unused.
+// MN-major (the output dimension contiguous; the next 16-row slab along
+// the reduction is +16 * row_bytes): each operand here is one swizzle atom
+// wide along M or N, so the leading offset (between such atoms) is unused
+// too; both offsets are set to the group stride.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int row_bytes, bool mn_major) {
+  const uint64_t group = 8 * row_bytes;
+  const uint64_t swizzle = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return ((addr & 0x3FFFF) >> 4) | (((mn_major ? group : 16) >> 4) << 16) | ((group >> 4) << 32) |
+         (swizzle << 62);
+}
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
+  return smem_desc(smem_u32(p), 128, false);
+}
+
+// wgmma m64nNk16 (bf16 in, f32 accumulate) at N = 16, 32 and 64, each
+// thread holding N / 2 accumulators; one macro writes each width's two
+// forms, overloaded on the accumulator array's length:
+//   wgmma_ss<TA, TB>(d, da, db, scale_d): D(64 x N) (+)= A(64 x 16) B(16 x
+//     N), both from shared memory; TA / TB: 0 K-major, 1 MN-major; scale_d
+//     0 overwrites D;
+//   wgmma_rs<TB>(d, a, db): D += A(64 x 16, bf16 fragments in registers)
+//     B(16 x N) from shared memory. The A fragment of warp w holds rows
+//     16w..16w+15 in mma.m16n8k16's A layout, which is the accumulator
+//     layout of the product before it, packed to bf16 pairs.
+#define MB_ACC8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define MB_ACC16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define MB_ACC32                                                                                 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define MB_ACC32_OPS(d)                                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define MB_OPS8(d, i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MB_OPS_N16(d) MB_OPS8(d, 0)
+#define MB_OPS_N32(d) MB_OPS8(d, 0), MB_OPS8(d, 8)
+#define MB_OPS_N64(d) MB_OPS8(d, 0), MB_OPS8(d, 8), MB_OPS8(d, 16), MB_OPS8(d, 24)
 
-// D(64 x 64, f32) (+)= A(64 x 16) B(16 x 64), both from shared memory.
-// TA / TB: 0 K-major, 1 MN-major. scale_d 0 overwrites D.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
-      ", %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : MB_ACC32_OPS(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
+// ACC: the accumulators' operand list; SS_*, RS_*: the operand numbers that
+// follow them (the predicate's source, then the rest of the instruction).
+#define MB_DEFINE_WGMMA(N, ACC, SS_P, SS_REST, RS_P, RS_REST)                                 \
+  template <int TA, int TB>                                                                  \
+  __device__ __forceinline__ void wgmma_ss(float(&d)[N / 2], uint64_t da, uint64_t db,        \
+                                           int scale_d) {                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P                                    \
+                 ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " ACC SS_REST \
+                 "}\n"                                                                       \
+                 : MB_OPS_N##N(d)                                                            \
+                 : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));                        \
+  }                                                                                          \
+  template <int TB>                                                                          \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2], const uint32_t(&a)[4],          \
+                                           uint64_t db) {                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_P                                    \
+                 ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " ACC RS_REST \
+                 "}\n"                                                                       \
+                 : MB_OPS_N##N(d)                                                            \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));    \
+  }
 
-// D(64 x 64, f32) += A(64 x 16, bf16 fragments in registers) B(16 x 64) from
-// shared memory; TB as above. The A fragment of warp w holds rows 16w..16w+15
-// in mma.m16n8k16's A layout, which is the accumulator layout of the
-// product before it, packed to bf16 pairs.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MB_ACC32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : MB_ACC32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
-}
+MB_DEFINE_WGMMA(16, MB_ACC8, "%10", ", %8, %9, p, 1, 1, %11, %12;\n", "%13",
+                ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n")
+MB_DEFINE_WGMMA(32, MB_ACC16, "%18", ", %16, %17, p, 1, 1, %19, %20;\n", "%21",
+                ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n")
+MB_DEFINE_WGMMA(64, MB_ACC32, "%34", ", %32, %33, p, 1, 1, %35, %36;\n", "%37",
+                ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n")
+#undef MB_DEFINE_WGMMA
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -19,7 +19,7 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   layout.
 
 The chain is the QKV projection, the attention forward of
-`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<false>`, or its
+`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<d, false>`, or its
 float32 form, whose count in `dropout_attention.launches["fused_attention"]`
 it adds to), the out-projection with the residual (f32) and the LayerNorm.
 `launches` counts the chain's launches in this process (one per call on a

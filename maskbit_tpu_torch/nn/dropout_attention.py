@@ -19,8 +19,8 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   one dtype in `DTYPES` with the same strides and a contiguous last
   dimension (the QKV projection's view qualifies), a head dim in
   `HEAD_DIMS` (the multiples of 16 in [16, 128]), 0 <= rate < 1. bf16 takes
-  `csrc/dropout_attention.cu` (64: the Hopper kernels, the others the
-  mma.sync ones), float32 (the compute dtype of `training.mixed_precision:
+  `csrc/dropout_attention.cu` (one TMA + wgmma kernel template on the head
+  dim, instantiated at each width), float32 (the compute dtype of `training.mixed_precision:
   no`) the full-float32 kernels of `csrc/attention_f32.cu`; outputs and
   gradients take the inputs' dtype. The JAX kernels take any head dim.
 
@@ -39,7 +39,8 @@ import ctypes
 import numpy as np
 import torch
 
-# the head dims the kernels take: 64 and sm90.cuh's MB_MMA_HEAD_DIMS
+# the head dims the kernels take: sm90.cuh's MB_HEAD_DIMS, each an instantiation
+# of the kernel templates
 HEAD_DIMS = range(16, 129, 16)
 # the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -236,6 +237,9 @@ def bind(lib):
     lib.mb_dropout_attention_bwd.argtypes = (
         [ptr] * 3 + [i64] * 3 + [ptr] * 10 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
     lib.mb_dropout_attention_bwd.restype = i32
+    if hasattr(lib, "mb_dropout_attention_plan"):  # sources before it lack it
+        lib.mb_dropout_attention_plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        lib.mb_dropout_attention_plan.restype = i32
     return lib
 
 
@@ -265,6 +269,19 @@ def _lib_f32():
             [ptr] * 3 + [i64] * 3 + [ptr] * 8 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, ptr])
         lib.mb_dropout_attention_bwd_f32.restype = i32
     return lib
+
+
+def kernel_plan(d: int) -> dict:
+    """The bf16 kernels' plan at head dim `d`, as built: shared memory and
+    blocks an SM of the forward and the backward, the backward's Q and G
+    stages and dQ-part buffers."""
+    check_head_dim(d)
+    plan = (ctypes.c_int * 6)()
+    if _lib().mb_dropout_attention_plan(d, plan) != 0:
+        raise RuntimeError(f"no kernel plan at head dim {d}")
+    keys = ("fwd_smem", "fwd_min_blocks", "bwd_smem", "bwd_blocks", "bwd_qg_stages",
+            "bwd_dq_buffers")
+    return dict(zip(keys, plan))
 
 
 def launch_forward(q, k, v, seeds_i32, rate: float):
@@ -321,15 +338,12 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16, device=dev)
                   for _ in range(3))
     tiles = -(-n // TILE)
-    # scratch: per query row (lse * log2 e, delta), padded to whole tiles; at
-    # d = 64 the f32 sum of dq over key tiles (b*h*n*64*4 bytes, 33.7 MB at
-    # (32, 257, 16, 64)) and one ticket per (batch*head, query tile); the
-    # kernels of the other widths sum dq in registers
+    # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
+    # the f32 sum of dq over key tiles (b*h*n*d*4 bytes, 33.7 MB at (32, 257,
+    # 16, 64)) and one ticket per (batch*head, query tile)
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
-    dq_acc = tickets = None
-    if d == 64:
-        dq_acc = torch.empty((b * h, n, d), dtype=torch.float32, device=dev)
-        tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
+    dq_acc = torch.empty((b * h, n, d), dtype=torch.float32, device=dev)
+    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mb_dropout_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),

@@ -193,9 +193,10 @@ def _qkv(b, n, h, seed, layout="separate", d=64):
     return [torch.randn(b, n, h, d, generator=g, device="cuda").bfloat16() for _ in range(3)]
 
 
-# head dim 64 takes the Hopper kernels, every other multiple of 16 in [16,
-# 128] the mma.sync ones: 16 (the JAX package's tests), 32 (the system
-# check's generator), 128, and 48, 80, 96 and 112, where d / 16 is odd
+# every head dim is an instantiation of the same kernel templates: 64 (the
+# flagship's), 16 (the JAX package's tests), 32 (the system check's
+# generator), 128, and 48, 80, 96 and 112, where d / 16 is odd (a 16-wide
+# column panel of their own)
 HEAD_DIMS = list(range(16, 129, 16))
 
 
@@ -317,19 +318,22 @@ def test_dropout_attention_backward_is_deterministic(n, d):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("n", [17, 257, 1025])
-def test_dropout_attention_backward_in_key_tile_order(n, monkeypatch):
-    """The backward's second design, which sums dq in key-tile order (the
-    wrapper takes it past ROTATE_MAX_TILES tiles), against the plain
-    version, and deterministic too."""
+# every width at three lengths, and 4097 (65 key tiles, past
+# ROTATE_MAX_TILES, where the wrapper takes key-tile order itself) at 128
+@pytest.mark.parametrize("n,d", [(n, d) for n in (17, 257, 1025) for d in HEAD_DIMS]
+                         + [(4097, 128)])
+def test_dropout_attention_backward_in_key_tile_order(n, d, monkeypatch):
+    """The backward's second dq order, key-tile order (the wrapper takes it
+    past ROTATE_MAX_TILES tiles), against the plain version, and
+    deterministic too."""
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     _card()
     monkeypatch.setattr(da, "ROTATE_MAX_TILES", 0)
     b, h, rate = 2, 4, 0.1
-    q, k, v = _qkv(b, n, h, seed=n + 5, layout="packed")
+    q, k, v = _qkv(b, n, h, seed=n + 5, layout="packed", d=d)
     seeds = _seeds(b, h, seed=3)
-    gout = torch.randn(b, n, h, 64, generator=torch.Generator(device="cuda").manual_seed(4),
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(4),
                        device="cuda").bfloat16()
     out, grads = _launch_both(da, q, k, v, seeds, rate, gout)
     _, again = _launch_both(da, q, k, v, seeds, rate, gout)

@@ -37,7 +37,12 @@ Phases, each of which fails the run if it fails:
      `--all-widths`) timed at n = 257 beside SDPA (the block beside the
      library chain) and the bound, the CUDA kernels one call of each
      launches at every width (the whole run fails if a `*_mma*` kernel
-     ran), and head dims 8 and 144 refused;
+     ran); the shapes the wrappers zero-pad (`PADDED_SHAPES`: head dims 8,
+     72 and 125, each kernel at n = 257 and 17, the mask bit for bit, the
+     launches counted at their own d; `PADDED_BLOCKS`: the block at E = 80
+     and 4608) against their plain versions at the same tolerances; and
+     head dim 144 refused by the kernels' wrappers (no instantiation holds
+     it; the layers raise there on the card);
      then the flagship generator's logits
      (depth cut to 2) through the kernel against a float32 plain-PyTorch
      forward of the same weights. Every time is taken twice: `ms`, the
@@ -291,19 +296,25 @@ Phases, each of which fails the run if it fails:
  17. float32 (`--phases float32`; run right after phase 3, as CUPTI loses
      profile events late in a long process): the
      float32 forms of the four kernels
-     (`csrc/attention_f32.cu`, full float32, TF32 off), as
+     (`csrc/attention_f32.cu`; the plain versions in full float32, TF32
+     off), as
      `training.mixed_precision: no` runs them:
      a. each against its plain version in float32 on the card at every
         head dim and n = 257 and 17 (the dropout pair at batch 32, the
         block and `fused_attention` at the serve batch's CFG 16 at d = 64,
-        else phase 3's `HEAD_DIM_SHAPES`): every output, dq, dk and dv
-        within `F32_TOL` of the largest reference value, the keep mask bit
-        for bit; timed at n = 257 at head dims 32, 64 and 128 beside SDPA in
-        float32 (the block beside the float32 library chain) and the bound
-        at the float32 peak; float16 and float64 refused;
+        else phase 3's `HEAD_DIM_SHAPES`), and at phase 3's padded shapes:
+        every output, dq, dk and dv within `F32_TOL` of the largest
+        reference value, the keep mask bit for bit; timed at n = 257 at
+        head dims 32, 64 and 128 beside SDPA in float32 (the block beside
+        the float32 library chain) and the bound both ways (`_bound_f32`:
+        the products as 3xTF32 on the tensor cores, and as FFMA); the
+        3xTF32 kernels' ptxas registers and spill bytes; float16 and
+        float64 refused;
      b. a profile of one float32 block call, one serving-mode BertAttention
         call and one dropout-attention forward and backward: their float32
-        kernels, no library GEMM or attention kernel and no bf16 one;
+        kernels (`split_tf32_kernel`, `proj_tf32_kernel`, the FFMA forward,
+        `attn_bwd_tf32_kernel`), no library GEMM or attention kernel and no
+        bf16 one;
      c. phase 5's depth-2 step with the kernels in float32 against the CPU's
         float32 step (`F32_STEP_TOL`);
      d. `cli.train_maskbit` on the flagship config with
@@ -316,6 +327,10 @@ Phases, each of which fails the run if it fails:
         of 8 labels, the float32 block on every layer of every step and
         nothing in bf16.
      The kernels line gains the four `*_f32` rows.
+Not in the default run, `--phases f32_error` (with `--tree` to compare
+trees in one call): the float32 block's and backward's error against
+float64 as the contraction grows (the block's E up to 8192, the backward's
+n up to 4097), beside the plain float32 version's, and their device ms.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -475,6 +490,11 @@ def phase_build() -> None:
             f"{plan['fwd_min_blocks']} blocks an SM; backward {plan['bwd_smem']} B, "
             f"{plan['bwd_blocks']} blocks an SM, {plan['bwd_qg_stages']} Q/G stages, "
             f"{plan['bwd_dq_buffers']} dQ-part buffers")
+    for d in da.HEAD_DIMS if hasattr(da, "kernel_plan_f32") else ():
+        plan = da.kernel_plan_f32(d)
+        log(f"[build] float32 backward plan d={d}: {plan['smem']} B dynamic smem, "
+            f"{plan['blocks']} blocks an SM, {plan['queries_a_step']} queries a step, "
+            f"{plan['qg_stages']} Q/G stages, {plan['dq_buffers']} dQ-part buffers")
 
 
 def ptxas_kernels(text: str) -> list:
@@ -963,24 +983,143 @@ def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
                 del lib_out, ql, kl, vl
             rows.append(row)
             del q, k, v, g, out, lse, grads, refs, fq, fk, fv, fused, inp, block
-    # head dims outside the multiples of 16 in [16, 128] raise, on the card
+    # head dims that are not multiples of 16, and widths E that are not
+    # multiples of 64 or exceed 4096: the kernels run them zero-padded
+    # (`PADDED_SHAPES`, `PADDED_BLOCKS`), against the plain versions
+    padded = [_padded_check(torch, d, n, shapes, torch.bfloat16)
+              for d, shapes in PADDED_SHAPES.items() for n in (257, 17)]
+    padded += [_padded_block_check(torch, b, n, e, heads, torch.bfloat16)
+               for b, n, e, heads in PADDED_BLOCKS]
+    # past head dim 128 the kernels' wrappers raise, and the layers that call
+    # them (the serving block, the fused dropout attention)
+    from maskbit_tpu_torch.nn.transformer import (BertAttention, DropoutRng,
+                                                  MultiHeadSelfAttention)
+
     refused = []
-    for d in (8, 144):
-        q, k, v = _qkv_packed(torch, 1, 17, 2, seed=d, d=d)
-        inp = _block_inputs(torch, 1, 17, 8 * d, seed=d, vectors=torch.bfloat16)
-        for name, fn in (("dropout_attention", lambda: da.dropout_attention(
-                             q, k, v, torch.zeros(1, 2, dtype=torch.int64), RATE)),
-                         ("fused_attention", lambda: da.fused_attention(q, k, v)),
-                         ("fused_attention_block", lambda: ab.fused_attention_block(
-                             **inp, num_heads=8))):
-            try:
-                fn()
-            except ValueError as err:
-                refused.append(f"{name} d={d}: {err}")
-            else:
-                raise AssertionError(f"{name} ran at head dim {d}")
+    d = 144
+    q, k, v = _qkv_packed(torch, 1, 17, 2, seed=d, d=d)
+    inp = _block_inputs(torch, 1, 17, 8 * d, seed=d, vectors=torch.bfloat16)
+    serving = BertAttention(2 * d, 2, attention_impl="fused").to("cuda", torch.bfloat16).eval()
+    training = MultiHeadSelfAttention(2 * d, 2, attention_dropout=RATE, fused_dropout=True).to(
+        "cuda", torch.bfloat16).train()
+    x = torch.zeros(1, 17, 2 * d, device="cuda", dtype=torch.bfloat16)
+    table = [[[0, 0]]]  # one (1, 2) seed table
+    for name, fn in (("dropout_attention", lambda: da.dropout_attention(
+                         q, k, v, torch.zeros(1, 2, dtype=torch.int64), RATE)),
+                     ("fused_attention", lambda: da.fused_attention(q, k, v)),
+                     ("fused_attention_block", lambda: ab.fused_attention_block(
+                         **inp, num_heads=8)),
+                     ("BertAttention (serving)", lambda: serving(x)),
+                     ("MultiHeadSelfAttention (training)",
+                      lambda: training(x, DropoutRng(attention_seeds=table)))):
+        try:
+            fn()
+        except ValueError as err:
+            refused.append(f"{name} d={d}: {err}")
+        else:
+            raise AssertionError(f"{name} ran at head dim {d}")
     log("[kernel] refused: " + "; ".join(refused))
-    return {"rows": rows, "refused": refused}
+    return {"rows": rows, "padded": padded, "refused": refused}
+
+
+# The shapes outside the kernels' native set that phases 3 and 17 hold
+# against the plain versions (zero-padded by the wrappers): per head dim d
+# that is not a multiple of 16, (heads, the dropout pair's batch, the
+# block's and fused_attention's batch, the block's E): 72 is hidden 1152
+# over 16 heads, which JAX trains and serves; 8 and 125 the narrowest and
+# the widest padding. And blocks (b, n, E, heads) whose E is not a multiple
+# of 64 (80 over 5 heads of 16) or exceeds 4096 (4608 over 36 heads of 128).
+PADDED_SHAPES = {8: (4, 8, 8, 32), 72: (16, 8, 2 * SERVE_BATCH, 1152), 125: (2, 8, 8, 250)}
+PADDED_BLOCKS = ((2, 257, 80, 5), (2, 257, 4608, 36))
+
+
+def _padded_check(torch, d, n, shapes, dtype) -> dict:
+    """The dropout pair, `fused_attention` and the block at head dim d (not
+    a multiple of 16) and length n against their plain versions, in
+    `dtype` (bf16 at phase 3's tolerances, float32 at `F32_TOL`), the keep
+    mask bit for bit; the launches counted at d."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    h, b, bb, e = shapes
+    f32 = dtype is torch.float32
+    q, k, v = _qkv_packed(torch, b, n, h, seed=d * n + 7, d=d, dtype=dtype)
+    seeds = torch.randint(0, 2**32, (b, h), device="cuda", dtype=torch.int64,
+                          generator=torch.Generator(device="cuda").manual_seed(d + n + 2))
+    seeds32 = da.seeds_as_int32(seeds, (b, h))
+    g = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n + 3),
+                    device="cuda").to(dtype)
+    before = dict(da.launches_by_dtype)
+    out, lse = da.launch_forward(q, k, v, seeds32, RATE)
+    grads = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
+    fq, fk, fv = _qkv_packed(torch, bb, n, h, seed=d * n + 8, d=d, dtype=dtype)
+    fused = da.fused_attention(fq, fk, fv)
+    inp = _block_inputs(torch, bb, n, e, seed=d * n + 9, vectors=torch.float32 if f32 else
+                        torch.bfloat16, dtype=dtype)
+    block = ab.fused_attention_block(**inp, num_heads=e // d)
+    torch.cuda.synchronize()
+    dt = str(dtype).removeprefix("torch.")
+    counted = {key: da.launches_by_dtype.get((key, d, dt), 0) - before.get((key, d, dt), 0)
+               for key in ("dropout_attention_fwd", "dropout_attention_bwd", "fused_attention",
+                           "attention_block")}
+    wide = (lambda t: t) if f32 else (lambda t: t.float())
+    qf, kf, vf, gf = (wide(t) for t in (q, k, v, g))
+    pairs = {"fwd": (out, da.dropout_attention_reference(qf, kf, vf, seeds, RATE)),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, da.dropout_attention_backward_reference(
+                 qf, kf, vf, gf, seeds, RATE)))),
+             "fused": (fused, da.fused_attention_reference(wide(fq), wide(fk), wide(fv))),
+             "block": (block, ab.fused_attention_block_reference(
+                 **{x: wide(y) for x, y in inp.items()}, num_heads=e // d))}
+    errs, tols = {}, {}
+    for key, (got, ref) in pairs.items():
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{dt} {key} at head dim {d}, n {n}: shape {tuple(got.shape)} "
+                                 f"against {tuple(ref.shape)}, or not finite")
+        errs[key] = (got.float() - ref).abs().max().item()
+        big = max(1.0, ref.abs().max().item())
+        tols[key] = (F32_TOL * big if f32 else
+                     KERNEL_ATOL if key == "block" else
+                     DROPOUT_ATOL * (big if key in ("dq", "dk", "dv") else 1.0))
+    mask_flips = int((kernel_keep_mask(torch, da, seeds, b, n, h, d, dtype=dtype)
+                      != da.hash_keep_mask(seeds, n, RATE)).sum().item())
+    row = dict(d=d, padded_to=da.padded_head_dim(d), n=n, dtype=dt, dropout_shape=[b, n, h, d],
+               fused_shape=[bb, n, h, d], block_shape=[bb, n, e], errs=errs, tols=tols,
+               mask_flips=mask_flips, launches=counted)
+    log(f"[{'float32' if f32 else 'kernel'}] padded head dim {d} (instantiation "
+        f"{row['padded_to']}), n {n}: dropout ({b}, {n}, {h}, {d}), fused_attention ({bb}, {n}, "
+        f"{h}, {d}), block ({bb}, {n}, {e}): max_abs_err " + ", ".join(
+            f"{key} {errs[key]:.3e} (tol {tols[key]:.1e})" for key in errs)
+        + f"; keep mask {mask_flips} of {b * h * n * n} bits differ; launches {counted}")
+    if mask_flips or any(errs[key] > tols[key] for key in errs) or min(counted.values()) < 1:
+        raise AssertionError(f"the {dt} kernels disagree at padded head dim {d}, n {n}: {row}")
+    return row
+
+
+def _padded_block_check(torch, b, n, e, heads, dtype) -> dict:
+    """The block at width E (not a multiple of 64, or past 4096) against
+    its plain version in `dtype`."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+
+    f32 = dtype is torch.float32
+    inp = _block_inputs(torch, b, n, e, seed=e + n, vectors=torch.float32 if f32 else
+                        torch.bfloat16, dtype=dtype)
+    before = ab.launches
+    got = ab.fused_attention_block(**inp, num_heads=heads)
+    torch.cuda.synchronize()
+    wide = (lambda t: t) if f32 else (lambda t: t.float())
+    ref = ab.fused_attention_block_reference(**{x: wide(y) for x, y in inp.items()},
+                                             num_heads=heads)
+    err = (got.float() - ref).abs().max().item()
+    tol = F32_TOL * max(1.0, ref.abs().max().item()) if f32 else KERNEL_ATOL
+    row = dict(block_shape=[b, n, e], heads=heads, d=e // heads,
+               dtype=str(dtype).removeprefix("torch."), err=err, tol=tol,
+               launches=ab.launches - before)
+    log(f"[{'float32' if f32 else 'kernel'}] block ({b}, {n}, {e}) over {heads} heads of "
+        f"{e // heads}: max_abs_err {err:.3e} (tol {tol:.1e})")
+    if (got.shape != ref.shape or not bool(torch.isfinite(got).all()) or err > tol
+            or row["launches"] != 1):
+        raise AssertionError(f"the {row['dtype']} block disagrees at E = {e}: {row}")
+    return row
 
 
 def _model_node(path: str) -> dict:
@@ -4127,6 +4266,7 @@ def phase_system_check(torch) -> dict:
 # 1e-4 absolute below 1).
 F32_TOL = 1e-4
 PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet: float32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12  # and TF32 on the tensor cores, dense
 # the depth-2 float32 step on the card against the CPU's float32 step: both
 # in float32, summed in other orders over 2 layers and a 16,384-way cross
 # entropy (a few 1e-6 relative); the loss within 1e-4, the global grad norm
@@ -4137,6 +4277,15 @@ F32_TRAIN_STEPS, F32_GENERATE_EVERY = 4, 3
 # the head dims whose float32 kernels are timed: the flagship's and the
 # other widths' timed ones
 F32_TIMED_HEAD_DIMS = (32, 64, 128)
+
+
+def _bound_f32(flops: float, nbytes: float) -> dict:
+    """A float32 function's bound both ways: `bound_ms`, the least time the
+    card could take, with its products as 3xTF32 on the tensor cores (three
+    TF32 products each, at the TF32 peak), and `bound_ffma_ms`, with them
+    as FFMA on the CUDA cores (the float32 peak); each against the bytes."""
+    tc, ffma = _bound(3 * flops, nbytes, PEAK_TF32_FLOPS), _bound(flops, nbytes, PEAK_F32_FLOPS)
+    return {**tc, "bound_ffma_ms": ffma["bound_ms"], "bound_ffma_by": ffma["bound_by"]}
 
 
 def _f32_shapes(d: int) -> tuple:
@@ -4205,7 +4354,7 @@ def phase_float32_kernels(torch) -> dict:
                              plain=lambda: da.dropout_attention_reference(q, k, v, seeds, RATE),
                              library=lambda: _sdpa(torch, q, k, v, RATE)),
                     shape=[b, n, h, d],
-                    **_bound(4 * b * h * n * n * d, 4 * 4 * elems + 4 * b * h * n, PEAK_F32_FLOPS)),
+                    **_bound_f32(4 * b * h * n * n * d, 4 * 4 * elems + 4 * b * h * n)),
                     "dropout_attention_bwd": dict(
                     **_times(torch, lambda: da.launch_backward(q, k, v, out, lse, g, seeds32, RATE),
                              plain=lambda: da.dropout_attention_backward_reference(
@@ -4213,14 +4362,13 @@ def phase_float32_kernels(torch) -> dict:
                              library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_g,
                                                                  retain_graph=True)),
                     shape=[b, n, h, d],
-                    **_bound(10 * b * h * n * n * d, 4 * 8 * elems + 4 * b * h * n,
-                             PEAK_F32_FLOPS)),
+                    **_bound_f32(10 * b * h * n * n * d, 4 * 8 * elems + 4 * b * h * n)),
                     "fused_attention": dict(
                     **_times(torch, lambda: da.fused_attention(fq, fk, fv),
                              plain=lambda: da.fused_attention_reference(fq, fk, fv),
                              library=lambda: _sdpa(torch, fq, fk, fv, 0.0)),
                     shape=[bb, n, h, d],
-                    **_bound(4 * bb * h * n * n * d, 4 * 4 * bb * n * h * d, PEAK_F32_FLOPS))}
+                    **_bound_f32(4 * bb * h * n * n * d, 4 * 4 * bb * n * h * d))}
                 call = lambda: ab.fused_attention_block(**inp, num_heads=e // d)  # noqa: E731
                 chain = {_kernel_name(key): ms for key, ms in _device_breakdown(torch, call).items()}
                 t["fused_attention_block"] = dict(
@@ -4229,20 +4377,27 @@ def phase_float32_kernels(torch) -> dict:
                         **inp, num_heads=e // d)),
                     shape=[bb, n, e], chain=chain,
                     library_chain_ms=_device_ms(torch, _library_chain(torch, inp, e // d)),
-                    **_bound(2 * bb * n * e * 3 * e + 2 * bb * n * e * e
-                             + 4 * bb * (e // d) * n * n * d,
-                             4 * (2 * bb * n * e + 4 * e * e) + 4 * 6 * e, PEAK_F32_FLOPS))
+                    **_bound_f32(2 * bb * n * e * 3 * e + 2 * bb * n * e * e
+                                 + 4 * bb * (e // d) * n * n * d,
+                                 4 * (2 * bb * n * e + 4 * e * e) + 4 * 6 * e))
                 log(f"[float32]   head dim {d} device ms (per call by events; plain; library; "
-                    f"bound): " + "; ".join(
+                    f"bound as 3xTF32; bound as FFMA): " + "; ".join(
                         f"{name} {x['ms']:.4f} ({x['call_ms']:.4f}; {x['plain_ms']:.4f}; "
                         f"{x.get('library_ms', x.get('library_chain_ms')):.4f}; "
-                        f"{x['bound_ms']:.4f} by {x['bound_by']})" for name, x in t.items()))
+                        f"{x['bound_ms']:.4f} by {x['bound_by']}; {x['bound_ffma_ms']:.4f} by "
+                        f"{x['bound_ffma_by']})" for name, x in t.items()))
                 log("[float32]   block chain, device ms per call: " + "; ".join(
                     f"{key} {ms:.4f}" for key, ms in chain.items()))
                 timed[d] = t
                 del lib_out, ql, kl, vl
             rows.append(row)
             del q, k, v, g, out, lse, grads, fq, fk, fv, fused, inp, block, pairs
+    # head dims that are not multiples of 16, and widths E that are not
+    # multiples of 64 or exceed 4096, zero-padded by the wrappers
+    padded = [_padded_check(torch, d, n, shapes, f32)
+              for d, shapes in PADDED_SHAPES.items() for n in (257, 17)]
+    padded += [_padded_block_check(torch, b, n, e, heads, f32)
+               for b, n, e, heads in PADDED_BLOCKS]
     # dtypes JAX's resolve_compute_dtype never yields raise, on the card
     refused = []
     for dt in (torch.float16, torch.float64):
@@ -4261,7 +4416,21 @@ def phase_float32_kernels(torch) -> dict:
             else:
                 raise AssertionError(f"{name} ran on {dt}")
     log("[float32] refused: " + "; ".join(refused))
-    return {"rows": rows, "timed": timed, "refused": refused}
+    return {"rows": rows, "timed": timed, "padded": padded, "refused": refused,
+            "ptxas": _tf32_ptxas()}
+
+
+def _tf32_ptxas() -> list:
+    """ptxas's registers and spill bytes of the 3xTF32 kernels (the float32
+    backward and the block's projections and weight split), logged."""
+    from maskbit_tpu_torch.nn import cuda_build
+
+    rows = [k for k in ptxas_kernels(cuda_build.build_log["attention_f32"]["ptxas"])
+            if "tf32" in k["kernel"]]
+    for k in rows:
+        log(f"[float32] ptxas {k['kernel']}: {k['registers']} registers, spill stores "
+            f"{k['spill_stores']} B, spill loads {k['spill_loads']} B")
+    return rows
 
 
 def _only_f32(launched: dict, want: dict, what: str) -> None:
@@ -4294,14 +4463,13 @@ def _f32_profile_check(torch) -> dict:
                           generator=torch.Generator(device="cuda").manual_seed(9))
     g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(10),
                     device="cuda")
-    block_kernels = ("proj_f32_kernel<0>", "attn_fwd_f32_kernel", "proj_f32_kernel<1>",
-                     "layernorm_kernel<float>")
+    block_kernels = ("split_tf32_kernel", "proj_tf32_kernel<0>", "attn_fwd_f32_kernel",
+                     "proj_tf32_kernel<1>", "layernorm_kernel<float>")
     calls = {"block": (lambda: ab.fused_attention_block(**inp, num_heads=HEADS), block_kernels),
              "bert_attention": (lambda: layer(inp["x"]), block_kernels),
              "dropout_attention": (lambda: torch.autograd.grad(
                  da.dropout_attention(q, k, v, seeds, RATE), (q, k, v), g),
-                 ("attn_fwd_f32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_dkdv_f32_kernel",
-                  "attn_bwd_dq_f32_kernel"))}
+                 ("attn_fwd_f32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_tf32_kernel"))}
     banned = ("gemm", "nvjet", "cutlass", "flash", "cudnn", "fmha", "efficient_attention",
               "softmax", "attn_fwd_kernel", "attn_bwd_kernel", "proj_kernel<",
               "layernorm_kernel<__nv")
@@ -4446,6 +4614,90 @@ def phase_float32(torch, device_info) -> dict:
             "serve": serve}
 
 
+# the float32 error probe's contraction lengths: the block's E (its
+# projections sum over E; d = 64) and the backward's n (dK and dV sum over
+# the queries, dQ over the keys; (1, n, 4, 64))
+F32_ERROR_E = (1024, 2048, 4096, 4608, 8192)
+F32_ERROR_N = (257, 1025, 4097)
+
+
+def _block_f64(torch, inp, heads):
+    """The postnorm block in float64 throughout, as the float64 yardstick."""
+    f64 = torch.float64
+    x = inp["x"].to(f64)
+    b, n, e = x.shape
+    d = e // heads
+    qkv = x @ inp["wqkv"].to(f64) + inp["bqkv"].to(f64)
+    q, k, v = qkv.view(b, n, 3, heads, d).unbind(2)
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5, dim=-1)
+    y = x + torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, e) @ inp["wo"].to(f64)
+    y = y + inp["bo"].to(f64)
+    return torch.nn.functional.layer_norm(y, (e,), inp["ln_scale"].to(f64),
+                                          inp["ln_bias"].to(f64), eps=1e-12)
+
+
+def phase_f32_error(torch) -> dict:
+    """Not in the default run (`--phases f32_error`, with `--tree` to
+    compare trees): the float32 kernels' error against float64 as the
+    contraction grows, beside the plain float32 version's (TF32 off). Each
+    error is max |got - ref| / max(1, max |ref|), ref the float64 result:
+    the block at (1, 257, E) over E / 64 heads for E in `F32_ERROR_E`, the
+    backward's dq, dk, dv at (1, n, 4, 64) for n in `F32_ERROR_N`. A shape
+    the tree's kernels refuse is recorded as refused. Also the device ms of
+    the block at (16, 257, 1024) and the backward at (32, 257, 16, 64)."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    f32, f64 = torch.float32, torch.float64
+
+    def rel(got, ref):
+        return (got.to(f64) - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+    out = {"block": [], "backward": []}
+    for e in F32_ERROR_E:
+        inp = _block_inputs(torch, 1, 257, e, seed=e, vectors=f32, dtype=f32)
+        heads = e // 64
+        ref = _block_f64(torch, inp, heads)
+        row = {"e": e, "plain_err": rel(ab.fused_attention_block_reference(**inp, num_heads=heads),
+                                        ref)}
+        try:
+            row["kernel_err"] = rel(ab.fused_attention_block(**inp, num_heads=heads), ref)
+        except ValueError as err:
+            row["refused"] = str(err)
+        log(f"[f32_error] block E={e}: {row}")
+        out["block"].append(row)
+        del inp, ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n in F32_ERROR_N:
+        q, k, v, w = (torch.randn(1, n, 4, 64, generator=g, device="cuda") for _ in range(4))
+        seeds = torch.randint(0, 2**31, (1, 4), generator=g, device="cuda")
+        refs = da.dropout_attention_backward_reference(*(t.to(f64) for t in (q, k, v, w)),
+                                                       seeds, RATE)
+        plain = da.dropout_attention_backward_reference(q, k, v, w, seeds, RATE)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        da.dropout_attention(qg, kg, vg, seeds, RATE).backward(w)
+        row = {"n": n}
+        for name, got, p, ref in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), plain, refs):
+            row[f"{name}_err"], row[f"{name}_plain_err"] = rel(got, ref), rel(p, ref)
+        log(f"[f32_error] backward n={n}: {row}")
+        out["backward"].append(row)
+        del refs, plain
+    inp = _block_inputs(torch, 2 * SERVE_BATCH, 257, 1024, seed=1, vectors=f32, dtype=f32)
+    out["block_ms"] = sum(_device_breakdown(
+        torch, lambda: ab.fused_attention_block(**inp, num_heads=HEADS)).values())
+    q, k, v, w = (torch.randn(TRAIN_BATCH, 257, HEADS, 64, generator=g, device="cuda")
+                  for _ in range(4))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    seeds = torch.randint(0, 2**31, (TRAIN_BATCH, HEADS), generator=g, device="cuda")
+    o = da.dropout_attention(q, k, v, seeds, RATE)
+    times = _device_breakdown(torch, lambda: torch.autograd.grad(o, (q, k, v), w,
+                                                                 retain_graph=True))
+    out["backward_ms"] = sum(times.values())
+    log(f"[f32_error] device ms: block (16, 257, 1024) {out['block_ms']:.4f}, backward "
+        f"(32, 257, 16, 64) {out['backward_ms']:.4f} ({times})")
+    return out
+
+
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
           "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
           "split_scale", "multicard", "system_check", "float32")
@@ -4456,8 +4708,9 @@ def _args(argv):
 
     p = argparse.ArgumentParser(description="Smoke run of maskbit_tpu_torch on one CUDA card.")
     p.add_argument("--phases", default=",".join(PHASES),
-                   help="comma-separated subset of %(default)s (device and build always run); "
-                        "the JSON lines are printed only when all run")
+                   help="comma-separated subset of %(default)s (device and build always run), "
+                        "or f32_error (not in the default run); the JSON lines are printed only "
+                        "when all of the default run")
     p.add_argument("--tree", default=ROOT,
                    help="checkout whose maskbit_tpu_torch to drive (default: this one), e.g. "
                         "a parent commit unpacked beside it, to compare two trees with one "
@@ -4467,7 +4720,7 @@ def _args(argv):
                         f"{TIMED_HEAD_DIMS}")
     args = p.parse_args(argv)
     args.phases = [x for x in args.phases.split(",") if x]
-    unknown = set(args.phases) - set(PHASES)
+    unknown = set(args.phases) - set(PHASES) - {"f32_error"}
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
     return args
@@ -4511,6 +4764,7 @@ def main(argv=None) -> int:
     # phase 17 right after the other kernels: late in a long process CUPTI
     # loses most of a profile's events
     f32 = phase("float32", phase_float32, torch, device_info)
+    f32_error = phase("f32_error", phase_f32_error, torch)
     phase("generator", phase_generator, torch)
     sl = phase("slice", phase_slice, torch, device_info)
     check = phase("train_check", phase_train_check, torch)
@@ -4532,7 +4786,8 @@ def main(argv=None) -> int:
                "head_dim_rows": widths, "slice": sl, "train_check": check, "train": tr,
                "train_data": data, "eval": ev, "tokenizer_train": tok, "variants": var,
                "distributed": dp, "sharded": sh, "split": sp, "split_scale": sc,
-               "multicard": mc, "system_check": syscheck, "float32": f32}
+               "multicard": mc, "system_check": syscheck, "float32": f32,
+               "f32_error": f32_error}
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -4666,6 +4921,16 @@ def main(argv=None) -> int:
             "launches": launches,
             "launches_head_dim": tool_d,
             "max_abs_err": max(errs[name](r) for r in widths["rows"]),
+            # the shapes the wrappers zero-pad (head dims 8, 72, 125; the
+            # block also at E = 80 and 4608)
+            "padded_max_abs_err": max(
+                [r["errs"][{"fused_attention_block": "block", "dropout_attention_fwd": "fwd",
+                            "fused_attention": "fused"}[name]] if name in (
+                    "fused_attention_block", "dropout_attention_fwd", "fused_attention")
+                 else max(r["errs"][x] for x in ("dq", "dk", "dv"))
+                 for r in widths["padded"] if "errs" in r]
+                + [r["err"] for r in widths["padded"]
+                   if "err" in r and name == "fused_attention_block"]),
             **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
             **({"library_chain_ms": at["library_chain_ms"]} if "library_chain_ms" in at else {}),
             "widths": [{"d": d, "shape": r[{"fused_attention_block": "block_shape",
@@ -4691,16 +4956,30 @@ def main(argv=None) -> int:
         errs = [max(r["errs"][x] for x in ("dq", "dk", "dv")) if err_key is None
                 else r["errs"][err_key] for r in f32["kernels"]["rows"]]
         serve_path = not name.startswith("dropout")
+        # the padded shapes' errors (head dims 8, 72, 125; the block also at
+        # E = 80 and 4608)
+        padded_errs = [max(r["errs"][x] for x in ("dq", "dk", "dv")) if err_key is None
+                       else r["errs"][err_key] for r in f32["kernels"]["padded"] if "errs" in r]
+        if name == "fused_attention_block":
+            padded_errs += [r["err"] for r in f32["kernels"]["padded"] if "err" in r]
+        f32_keys = time_keys + ("bound_ffma_ms", "bound_ffma_by")
+        # the 3xTF32 kernels' ptxas report (registers, spill bytes)
+        tf32 = {"dropout_attention_bwd": ("attn_bwd_tf32",),
+                "fused_attention_block": ("proj_tf32", "split_tf32")}
         record["kernels"].append({
             "name": f"{name}_f32", "route": "cuda", "source": f32_src, "replaces": replaces,
-            "dtype": "float32", "head_dims": "multiples of 16 in [16, 128]",
+            "dtype": "float32", "head_dims": "[1, 128] (multiples of 16 native, others padded)",
             "launches": (f32_serve if serve_path else f32_train).get(f"{key}@64/float32", 0),
             "launches_train_cli": f32_train.get(f"{key}@64/float32", 0),
-            "max_abs_err": max(errs), "shape": at["shape"],
-            **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
+            "max_abs_err": max(errs), "padded_max_abs_err": max(padded_errs),
+            "shape": at["shape"],
+            **{k: at[k] for k in f32_keys}, "library_ms": at.get("library_ms"),
             **({"library_chain_ms": at["library_chain_ms"], "chain": at["chain"]}
                if "library_chain_ms" in at else {}),
-            "widths": [{"d": d, "shape": t[name]["shape"], **{k: t[name][k] for k in time_keys},
+            **({"ptxas": [k for k in f32["kernels"]["ptxas"]
+                          if any(x in k["kernel"] for x in tf32[name])]}
+               if name in tf32 else {}),
+            "widths": [{"d": d, "shape": t[name]["shape"], **{k: t[name][k] for k in f32_keys},
                         "library_ms": t[name].get("library_ms", t[name].get("library_chain_ms"))}
                        for d, t in sorted(f32["kernels"]["timed"].items())]})
     bert_path = {"fused_attention_block": "launches_bert_serve",

@@ -23,7 +23,8 @@ import torch
 _LAYERS = (
     ("proj_kernel", "attention block: projections (hand wgmma)"),
     ("attn_fwd_kernel", "attention block: attention (hand wgmma)"),
-    ("proj_f32_kernel", "attention block: projections (hand FFMA, float32)"),
+    ("proj_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
+    ("split_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
     ("attn_fwd_f32_kernel", "attention block: attention (hand FFMA, float32)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),

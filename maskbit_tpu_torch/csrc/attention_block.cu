@@ -20,15 +20,19 @@
 // whole (n, 3E) f32 qkv and the (group, n, n) logits in VMEM; neither fits
 // 227 KB of shared memory, so this is a chain of four kernels:
 //   1. proj_kernel<BM, EPI_BIAS>: qkv = bf16(x Wqkv^T + bqkv).
-//   2. attn_fwd_kernel<d, false> (attention_fwd.cuh, shared with the
+//   2. attn_fwd_kernel<D, false> (attention_fwd.cuh, shared with the
 //      training kernels): softmax(q k^T / sqrt(d)) v per (batch * head,
-//      64-query tile), over the qkv buffer's strided (b, n, 3, h, d) view,
-//      into a contiguous (b, n, h, d) = (b * n, E) bf16 buffer, at every
-//      head dim d that is a multiple of 16 in [16, 128]; this library
-//      builds only the dropout-free instantiations.
+//      64-query tile), over the qkv buffer's strided (b, n, 3, h, D) view,
+//      into a contiguous (b, n, h, D) = (b * n, h D) bf16 buffer, at every
+//      head dim d in [1, 128]: D = d rounded up to 16 (the wrapper pads
+//      W_qkv's rows and W_o's columns per head, so that the QKV projection
+//      writes the padded head layout and the out-projection reads it); this
+//      library builds only the dropout-free instantiations.
 //   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
 //   4. layernorm_kernel<bf16> (layernorm.cuh): out = bf16(LN(y)), one block a
-//      row, two passes.
+//      row, two passes, over the true E of rows E_pad long (E rounded up to
+//      8, the tensor maps' 16-byte rows; the wrapper pads x, the weights'
+//      E-wide sides and bo with zeros).
 // A LayerNorm in the out-projection's epilogue, with a cluster of E / 256
 // blocks exchanging row sums through distributed shared memory, kept y out
 // of device memory but was slower at both serving shapes (0.165 against
@@ -135,7 +139,8 @@ __device__ __forceinline__ void wgmma_wide(float (&d)[64], uint64_t da, uint64_t
 //   EPI_BIAS:  c = bf16(C + bias)      through tc (bf16)
 //   EPI_RESID: y = C + bias + resid    (f32, row stride N)
 // `bias` is bf16 where vec_bf16 is set, else f32. resid (M, N) bf16.
-// Requires K % 64 == 0 and N % 8 == 0.
+// Requires K % 8 == 0 (16-byte rows) and N % 8 == 0; the last k tile's
+// columns past K arrive as zeros from TMA.
 template <int BM, int EPI>
 __global__ void __launch_bounds__(PJ_THREADS, 1)
 proj_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
@@ -152,7 +157,7 @@ proj_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 
   const int n0 = blockIdx.x * PJ_BN;
   const int m0 = blockIdx.y * BM;
-  const int ktiles = K / PJ_BK;
+  const int ktiles = (K + PJ_BK - 1) / PJ_BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < PJ_STAGES; ++s) {
@@ -295,14 +300,17 @@ cudaError_t launch_proj_bm(int bm, const void* a, const void* b, void* c_out, co
 
 }  // namespace
 
-// Runs the chain on `stream`. x, out: (B*n, E) bf16; w_qkv: (3E, E) bf16;
-// w_o: (E, E) bf16; b_qkv (3E), b_o, ln_g, ln_b (E) f32, or bf16 where bits
-// 0, 1, 2, 3 of vec_bf16 are set. Scratch, allocated by the caller: qkv
-// (B*n, 3E) bf16, attn (B*n, E) bf16, y (B*n, E) f32. bm_qkv, bm_out (64
-// or 128): the projections' block rows. E = d H <= 4096, a multiple of 64,
-// with the head dim d a multiple of 16 in [16, 128]. Returns the first launch error
-// (cudaSuccess == 0), or cudaErrorInvalidValue if an argument or a tensor
-// map is refused.
+// Runs the chain on `stream` at width E over H heads of d = E / H in [1,
+// 128], every tensor at its padded widths: D = d rounded up to 16, E_pad =
+// E rounded up to 8, Eq = H D. x, out: (B*n, E_pad) bf16; w_qkv: (3 Eq,
+// E_pad) bf16, each head's rows zero past d; w_o: (E_pad, Eq) bf16, each
+// head's columns zero past d; b_qkv (3 Eq), b_o (E_pad), ln_g, ln_b (E) f32,
+// or bf16 where bits 0, 1, 2, 3 of vec_bf16 are set; all padding zeros.
+// Scratch, allocated by the caller: qkv (B*n, 3 Eq) bf16, attn (B*n, Eq)
+// bf16, y (B*n, E_pad) f32. bm_qkv, bm_out (64 or 128): the projections'
+// block rows. out's columns E..E_pad come out 0. Returns the first launch
+// error (cudaSuccess == 0), or cudaErrorInvalidValue if an argument or a
+// tensor map is refused.
 extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* b_qkv,
                                   const void* w_o, const void* b_o, const void* ln_g,
                                   const void* ln_b, int vec_bf16, void* qkv, void* attn, void* y,
@@ -310,23 +318,24 @@ extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* 
                                   int bm_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * n;
-  if (H <= 0 || E % H || E % PJ_BK || E > 4096 || !current_context())
+  if (H <= 0 || E <= 0 || E % H || E / H > 128 || !current_context())
     return static_cast<int>(cudaErrorInvalidValue);
-  const int D = E / H;  // attention_forward refuses a head dim it has no kernel for
+  const int d = E / H, D = pad_head_dim(d), Eq = H * D, E_pad = (E + 7) / 8 * 8;
   cudaError_t err = launch_proj_bm<EPI_BIAS>(bm_qkv, x, w_qkv, qkv, b_qkv, nullptr, nullptr,
-                                             vec_bf16 & 1, M, 3 * E, E, s);
+                                             vec_bf16 & 1, M, 3 * Eq, E_pad, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const bf16* q = static_cast<const bf16*>(qkv);
-  const long long row = 3LL * E;  // the qkv buffer as (B, n, 3, H, D)
-  const int aerr = attention_forward<false>(q, q + E, q + 2 * E, row * n, row, D, nullptr, attn,
-                                            nullptr, B, n, H, D, 0u, 1.0f, false, s);
+  const long long row = 3LL * Eq;  // the qkv buffer as (B, n, 3, H, D)
+  const int aerr = attention_forward<false>(q, q + Eq, q + 2 * Eq, row * n, row, D, nullptr, attn,
+                                            nullptr, B, n, H, d, 0u, 1.0f, false, s);
   if (aerr != 0) return aerr;
 
   err = launch_proj_bm<EPI_RESID>(bm_out, attn, w_o, nullptr, b_o, x, static_cast<float*>(y),
-                                  (vec_bf16 >> 1) & 1, M, E, E, s);
+                                  (vec_bf16 >> 1) & 1, M, E_pad, Eq, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   layernorm_kernel<bf16><<<M, LN_THREADS, 0, s>>>(static_cast<const float*>(y), ln_g, ln_b,
-                                                  static_cast<bf16*>(out), E, eps, vec_bf16 >> 2);
+                                                  static_cast<bf16*>(out), E, E_pad, eps,
+                                                  vec_bf16 >> 2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,10 @@
 //     projection's output.
 // One template serves every head dim D that is a multiple of 16 in [16,
 // 128] (the TPU kernels read d from their inputs); attention_forward picks
-// the instantiation by D. See dropout_attention.cu for the design, what
-// bounds it, and the backward.
+// the instantiation by D, and takes every other d in [1, 128] at d rounded
+// up to 16 (pad_head_dim) on inputs the caller zero-pads per head, with the
+// softmax scale of the unpadded d. See dropout_attention.cu for the design,
+// what bounds it, and the backward.
 //
 // Head dims and the shared-memory layout. A tile is 64 rows of D bf16
 // values. wgmma reads its shared-memory operands through descriptors of
@@ -352,7 +354,7 @@ bool tile_maps(TileMaps* maps, const void* base, int B, int n, int H, long long 
 template <int D, bool DROPOUT>
 int attention_forward_at(const void* q, const void* k, const void* v, long long sb, long long sn,
                          long long sh, const void* seeds, void* out, void* lse, int B, int n,
-                         int H, unsigned int threshold, float keep_scale, cudaStream_t s) {
+                         int H, int d, unsigned int threshold, float keep_scale, cudaStream_t s) {
   static unsigned long long smem_set;
   TileMaps tq, tk, tv;
   if (!current_context() || !tile_maps<D>(&tq, q, B, n, H, sb, sn, sh) ||
@@ -363,34 +365,35 @@ int attention_forward_at(const void* q, const void* k, const void* v, long long 
   const dim3 grid((n + TILE - 1) / TILE, B * H);
   attn_fwd_kernel<D, DROPOUT><<<grid, THREADS, FwdCfg<D>::SMEM, s>>>(
       tq, tk, tv, static_cast<const int*>(seeds), static_cast<bf16*>(out),
-      static_cast<float*>(lse), n, H, LOG2E / sqrtf(static_cast<float>(D)), threshold,
+      static_cast<float*>(lse), n, H, LOG2E / sqrtf(static_cast<float>(d)), threshold,
       keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward on `stream`. q, k, v: (B, n, H, D) bf16 with element strides
-// (sb, sn, sh), each a multiple of 8; out: contiguous (B, n, H, D) bf16;
-// lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits),
-// ignored without dropout, which compiles the mask out. WITH_DROPOUT false
-// builds only the dropout-free kernels (the attention block needs no
-// other) and refuses `dropout`. Returns the launch error (cudaSuccess ==
-// 0), or cudaErrorInvalidValue if D is not a multiple of 16 in [16, 128]
-// or a tensor map is refused.
+// The forward on `stream` at head dim d in [1, 128]. q, k, v: (B, n, H,
+// D) bf16 with D = pad_head_dim(d), zero past d, element strides (sb, sn,
+// sh), each a multiple of 8; out: contiguous (B, n, H, D) bf16; lse: (B*H,
+// n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored
+// without dropout, which compiles the mask out. WITH_DROPOUT false builds
+// only the dropout-free kernels (the attention block needs no other) and
+// refuses `dropout`. Returns the launch error (cudaSuccess == 0), or
+// cudaErrorInvalidValue if d is outside [1, 128] or a tensor map is
+// refused.
 template <bool WITH_DROPOUT>
 int attention_forward(const void* q, const void* k, const void* v, long long sb, long long sn,
                       long long sh, const void* seeds, void* out, void* lse, int B, int n, int H,
-                      int D, unsigned int threshold, float keep_scale, bool dropout,
+                      int d, unsigned int threshold, float keep_scale, bool dropout,
                       cudaStream_t s) {
-  if (!WITH_DROPOUT && dropout) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
+  if ((!WITH_DROPOUT && dropout) || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (pad_head_dim(d)) {
 #define MB_FWD_CASE(W)                                                                       \
   case W:                                                                                   \
     if constexpr (WITH_DROPOUT)                                                             \
       if (dropout)                                                                          \
         return attention_forward_at<W, true>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, \
-                                             threshold, keep_scale, s);                     \
+                                             d, threshold, keep_scale, s);                  \
     return attention_forward_at<W, false>(q, k, v, sb, sn, sh, nullptr, out, lse, B, n, H,  \
-                                          0u, 1.0f, s);
+                                          d, 0u, 1.0f, s);
     MB_HEAD_DIMS(MB_FWD_CASE)
 #undef MB_FWD_CASE
     default:

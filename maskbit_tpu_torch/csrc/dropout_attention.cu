@@ -3,9 +3,10 @@
 //     out = (keep(row, col, seed) * softmax(q k^T / sqrt(d)) / (1 - p)) v
 //
 // Replaces the TPU kernels of maskbit_tpu/nn/pallas_attention.py, at every
-// head dim d that is a multiple of 16 in [16, 128] (the TPU kernels read d
-// from their inputs; each kernel here is a template on d, instantiated at
-// the eight widths):
+// head dim d in [1, 128] (the TPU kernels read d from their inputs; each
+// kernel here is a template on d, instantiated at the eight multiples of 16,
+// and another d runs the instantiation at d rounded up to 16 on inputs the
+// wrapper zero-pads per head, with d's softmax scale):
 //   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
 //     attn_fwd_kernel<d, true> (attention_fwd.cuh);
 //   * _attention_kernel (fused_attention), by attn_fwd_kernel<d, false>: the
@@ -172,15 +173,6 @@ attn_bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ grad
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) stats[bh * n_pad + row] = make_float2(lse[bh * n + row] * LOG2E, s);
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
 // The f32 box at (d0, row, batch*head) of one of the dq sum's tensor maps =
@@ -569,12 +561,13 @@ bool dq_sum_maps(TileMaps* maps, void* base, int BH, int n) {
                                       dims, strides, box16, CU_TENSOR_MAP_SWIZZLE_64B));
 }
 
-// The three launches at head dim D; the arguments of mb_dropout_attention_bwd.
+// The three launches at head dim D = pad_head_dim(d); the arguments of
+// mb_dropout_attention_bwd.
 template <int D>
 int attention_backward_at(const void* q, const void* k, const void* v, long long sb, long long sn,
                           long long sh, const void* out, const void* grad, const void* lse,
                           const void* seeds, void* dq, void* dk, void* dv, void* stats,
-                          void* dq_acc, void* tickets, int B, int n, int H, int rotate,
+                          void* dq_acc, void* tickets, int B, int n, int H, int d, int rotate,
                           unsigned int threshold, float keep_scale, cudaStream_t s) {
   const int ntiles = (n + TILE - 1) / TILE;
   const int n_pad = ntiles * TILE;
@@ -594,7 +587,7 @@ int attention_backward_at(const void* q, const void* k, const void* v, long long
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
   static unsigned long long smem_set;
   if ((err = ensure_smem(attn_bwd_kernel<D>, BwdCfg<D>::SMEM, smem_set)) != cudaSuccess)
     return static_cast<int>(err);
@@ -612,13 +605,14 @@ int attention_backward_at(const void* q, const void* k, const void* v, long long
 
 }  // namespace
 
-// Forward on `stream` (attention_fwd.cuh's attention_forward). q, k, v:
-// (B, n, H, d) bf16 with element strides (sb, sn, sh); out: contiguous
-// (B, n, H, d) bf16; lse: (B*H, n) f32 or null; seeds: (B*H,) int32 (the
-// uint32 seeds' bits), ignored when dropout == 0, which compiles the mask
-// out; d a multiple of 16 in [16, 128]. Returns the launch error
-// (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside that range
-// or a tensor map is refused.
+// Forward on `stream` (attention_fwd.cuh's attention_forward) at head dim
+// d in [1, 128]. q, k, v: (B, n, H, D) bf16 with D = d rounded up to a
+// multiple of 16, zero past d (the wrapper pads a d that is not one),
+// element strides (sb, sn, sh); out: contiguous (B, n, H, D) bf16; lse:
+// (B*H, n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits),
+// ignored when dropout == 0, which compiles the mask out. Returns the
+// launch error (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside
+// that range or a tensor map is refused.
 extern "C" int mb_dropout_attention_fwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* seeds, void* out, void* lse, int B, int n,
@@ -650,15 +644,16 @@ extern "C" int mb_dropout_attention_plan(int d, int* plan) {
   }
 }
 
-// Backward on `stream`: dq, dk, dv (contiguous (B, n, H, d) bf16) from q,
-// k, v (strided as in the forward), the forward's out and lse, the incoming
-// gradient grad (contiguous bf16) and the seeds. Scratch: stats, (B*H,
-// n_pad) float2 with n_pad = 64 * ceil(n / 64); dq_acc, (B*H, n, d) f32;
-// tickets, (B*H, n_pad / 64) int32. rotate: 1 for the rotated dq order,
-// 0 for key-tile order (see the header). Three launches: the row stats, the
-// main kernel, and dq_acc to bf16 dq. Returns the first launch error
-// (cudaSuccess == 0), or cudaErrorInvalidValue if d is not a multiple of 16
-// in [16, 128] or a tensor map is refused.
+// Backward on `stream` at head dim d in [1, 128]: dq, dk, dv (contiguous
+// (B, n, H, D) bf16, D as in the forward) from q, k, v (strided as in the
+// forward), the forward's out and lse, the incoming gradient grad
+// (contiguous bf16; out and grad zero past d too) and the seeds. Scratch:
+// stats, (B*H, n_pad) float2 with n_pad = 64 * ceil(n / 64); dq_acc, (B*H,
+// n, D) f32; tickets, (B*H, n_pad / 64) int32. rotate: 1 for the rotated dq
+// order, 0 for key-tile order (see the header). Three launches: the row
+// stats, the main kernel, and dq_acc to bf16 dq. Returns the first launch
+// error (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside [1,
+// 128] or a tensor map is refused.
 extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* out, const void* grad, const void* lse,
@@ -666,11 +661,11 @@ extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void
                                         void* stats, void* dq_acc, void* tickets, int B, int n,
                                         int H, int d, int rotate, unsigned int threshold,
                                         float keep_scale, void* stream) {
-  switch (d) {
+  switch (d < 1 ? 0 : pad_head_dim(d)) {
 #define MB_BWD_CASE(W)                                                                         \
   case W:                                                                                     \
     return attention_backward_at<W>(q, k, v, sb, sn, sh, out, grad, lse, seeds, dq, dk, dv,   \
-                                    stats, dq_acc, tickets, B, n, H, rotate, threshold,       \
+                                    stats, dq_acc, tickets, B, n, H, d, rotate, threshold,    \
                                     keep_scale, static_cast<cudaStream_t>(stream));
     MB_HEAD_DIMS(MB_BWD_CASE)
 #undef MB_BWD_CASE

@@ -1,9 +1,11 @@
 // The LayerNorm that ends the attention block, shared by its bf16 chain
 // (attention_block.cu) and its float32 chain (attention_f32.cu):
 //     out[row] = (y - mean) * rsqrt(var + eps) * gamma + beta
-// over the f32 rows y of the out-projection, eps from the caller, mean and
-// variance in two passes over the row held in registers, one block a row.
-// Bound by bytes: it reads y once and writes out once.
+// over the first E columns of the f32 rows y of the out-projection (row
+// stride ld >= E, the padded width: columns E..ld are padding and are
+// ignored), eps from the caller, mean and variance in two passes, one block
+// a row, any E. Bound by bytes: it reads y once from device memory (the
+// second and third passes over the row hit L1) and writes out once.
 
 #pragma once
 
@@ -12,7 +14,6 @@
 namespace {
 
 constexpr int LN_THREADS = 256;
-constexpr int LN_VEC = 4;  // float4 per thread per pass; E <= 4 * 4 * 256
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
@@ -36,48 +37,58 @@ __device__ __forceinline__ void store4(float* dst, const float (&o)[4]) {
   *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
 }
 
-// out[row] = T((y - mean) * rsqrt(var + eps) * gamma + beta), f32 math, T
-// bf16 or float; gamma, beta bf16 where bits 0, 1 of vec_bf16 are set.
-// Requires E % 4 == 0, E <= 4096 and 16-byte aligned rows.
+// Columns i..i+3 of a row, those at or past E as 0.
+__device__ __forceinline__ float4 load4(const float* row, int i, int E) {
+  float4 v = *reinterpret_cast<const float4*>(row + i);
+  if (i + 4 > E) {
+    v.y = i + 1 < E ? v.y : 0.0f;
+    v.z = i + 2 < E ? v.z : 0.0f;
+    v.w = i + 3 < E ? v.w : 0.0f;
+  }
+  return v;
+}
+
+// out[row, :E] = T((y - mean) * rsqrt(var + eps) * gamma + beta), f32
+// math, T bf16 or float; gamma, beta (E) bf16 where bits 0, 1 of vec_bf16
+// are set. y and out rows are ld long (ld % 4 == 0, 16-byte aligned rows);
+// out's columns E..ld are written with zeros. A thread takes the float4s
+// at columns 4 (tid + 256 k), k = 0, 1, ..., in that order in each pass,
+// so the sums are taken in the same order whatever E is.
 template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
 layernorm_kernel(const float* __restrict__ y, const void* __restrict__ gamma,
-                 const void* __restrict__ beta, T* __restrict__ out, int E, float eps,
+                 const void* __restrict__ beta, T* __restrict__ out, int E, int ld, float eps,
                  int vec_bf16) {
   __shared__ float red[LN_THREADS / 32];
-  const float* yr = y + (size_t)blockIdx.x * E;
+  const float* yr = y + (size_t)blockIdx.x * ld;
   const bool gamma16 = vec_bf16 & 1, beta16 = vec_bf16 & 2;
-  float4 v[LN_VEC];
   float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    v[k] = i < E ? *reinterpret_cast<const float4*>(yr + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  for (int i = threadIdx.x * 4; i < E; i += LN_THREADS * 4) {
+    const float4 v = load4(yr, i, E);
+    s += (v.x + v.y) + (v.z + v.w);
   }
   const float mean = block_sum(s, red) / E;
   float q = 0.0f;
-#pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    if (i < E) {
-      const float a = v[k].x - mean, b = v[k].y - mean, c = v[k].z - mean, d = v[k].w - mean;
-      q += (a * a + b * b) + (c * c + d * d);
-    }
+  for (int i = threadIdx.x * 4; i < E; i += LN_THREADS * 4) {
+    const float4 v = load4(yr, i, E);
+    const float a = v.x - mean;
+    const float b = i + 1 < E ? v.y - mean : 0.0f;
+    const float c = i + 2 < E ? v.z - mean : 0.0f;
+    const float d = i + 3 < E ? v.w - mean : 0.0f;
+    q += (a * a + b * b) + (c * c + d * d);
   }
   const float rstd = rsqrtf(block_sum(q, red) / E + eps);
-  T* orow = out + (size_t)blockIdx.x * E;
+  T* orow = out + (size_t)blockIdx.x * ld;
+  for (int i = threadIdx.x * 4; i < ld; i += LN_THREADS * 4) {
+    const float4 v = load4(yr, i, E);
+    const float vals[4] = {v.x, v.y, v.z, v.w};
+    float o[4];
 #pragma unroll
-  for (int k = 0; k < LN_VEC; ++k) {
-    const int i = (threadIdx.x + k * LN_THREADS) * 4;
-    if (i < E) {
-      const float vals[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-      float o[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[e] = (vals[e] - mean) * rstd * ld_vec(gamma, gamma16, i + e) + ld_vec(beta, beta16, i + e);
-      store4(orow + i, o);
-    }
+    for (int e = 0; e < 4; ++e)
+      o[e] = i + e < E ? (vals[e] - mean) * rstd * ld_vec(gamma, gamma16, i + e) +
+                             ld_vec(beta, beta16, i + e)
+                       : 0.0f;
+    store4(orow + i, o);
   }
 }
 

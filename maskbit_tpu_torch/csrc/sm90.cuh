@@ -21,12 +21,16 @@
 
 typedef __nv_bfloat16 bf16;
 
-// The head dims the attention kernels take are the multiples of 16 in [16,
-// 128] (nn/dropout_attention.py's HEAD_DIMS): X(W) for each, for the
-// switches that pick a kernel's instantiation by d.
+// The head dims the attention kernels are instantiated at are the
+// multiples of 16 in [16, 128] (nn/dropout_attention.py's HEAD_DIMS): X(W)
+// for each, for the switches that pick a kernel's instantiation by d.
 #define MB_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
 namespace {
+
+// The instantiation that runs head dim d in [1, 128]: d rounded up to a
+// multiple of 16, on inputs zero-padded per head from d to it.
+__host__ __device__ constexpr int pad_head_dim(int d) { return (d + 15) / 16 * 16; }
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -134,6 +138,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// A ticket between blocks: acquire-load and release-store at GPU scope.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

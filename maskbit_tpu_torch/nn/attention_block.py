@@ -8,15 +8,25 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   version with the kernel's rounding points.
 * A CUDA tensor launches a hand-written chain or raises: x, wqkv and wo
   of one dtype in `dropout_attention.DTYPES`, bf16 (`csrc/attention_block.cu`)
-  or float32 (`csrc/attention_f32.cu`: every product, the weights and the
-  output in full float32, as JAX's block computes under
+  or float32 (`csrc/attention_f32.cu`: the projections in 3xTF32 on the
+  tensor cores, each stage's sum added in float32 on the CUDA cores, within
+  the plain float32 block's error of a float64 one up to E = 8192; the
+  attention and LayerNorm in float32, as JAX's block computes under
   `training.mixed_precision: no`); the biases and LayerNorm parameters
-  each f32 or bf16 (the kernels widen bf16 exactly); a head dim in
-  `dropout_attention.HEAD_DIMS` (the multiples of 16 in [16, 128]); E a
-  multiple of 64 and at most 4096. The weights must be the transposed views of
-  contiguous PyTorch weights (`in_proj_weight.t()`, `out_proj.weight.t()`),
-  which is how `BertAttention` passes them: the kernels read the (out, in)
-  layout.
+  each f32 or bf16 (the kernels widen bf16 exactly); a head dim d = E /
+  heads in [1, `dropout_attention.MAX_HEAD_DIM`], any E. The weights must
+  be the transposed views of contiguous PyTorch weights
+  (`in_proj_weight.t()`, `out_proj.weight.t()`), which is how
+  `BertAttention` passes them: the kernels read the (out, in) layout.
+* Shapes outside the kernels' native set run padded, exactly
+  (`pad_block`): a head dim that is not a multiple of 16 takes the
+  instantiation at d rounded up to 16, with W_qkv's rows and bqkv's
+  entries zero-padded per head (the QKV projection then writes the padded
+  head layout) and W_o's columns likewise; an E that is not a multiple of 8
+  (the tensor maps' 16-byte rows) pads x's, W_qkv's and W_o's E-wide sides
+  and bo with zeros. The softmax keeps d's scale and the LayerNorm takes
+  its mean and variance over the true E. The cost is a copy of the weights
+  and x per call, paid only by such shapes.
 
 The chain is the QKV projection, the attention forward of
 `nn/dropout_attention.fused_attention` (`attn_fwd_kernel<d, false>`, or its
@@ -35,12 +45,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from maskbit_tpu_torch.nn import dropout_attention
 
 launches = 0
 
-MAX_E = 4096
 BLOCK_N = 256  # output columns of a projection block
 VECTOR_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -64,6 +74,31 @@ def fused_attention_block_reference(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
     return ((y - mu) * torch.rsqrt(var + eps) * ln_scale.to(f32) + ln_bias.to(f32)).to(x.dtype)
 
 
+def block_widths(e: int, num_heads: int) -> tuple[int, int, int]:
+    """(d, the padded head dim, the padded E) of a block of width `e`: the
+    kernels run d rounded up to 16 and E rounded up to 8."""
+    d = e // num_heads
+    return d, dropout_attention.padded_head_dim(d), -(-e // 8) * 8
+
+
+def pad_block(x, wqkv, bqkv, wo, bo, num_heads: int):
+    """x, wqkv, bqkv, wo and bo at `block_widths`' padded widths, in the
+    layouts `fused_attention_block` takes (wqkv (E_pad, 3 H d_pad), wo (H
+    d_pad, E_pad): the transposed views of contiguous (out, in) weights):
+    each head's rows of the QKV projection and columns of the
+    out-projection zero-padded from d to d_pad, and every E-wide side
+    zero-padded from E to E_pad."""
+    b, n, e = x.shape
+    h = num_heads
+    d, dp, ep = block_widths(e, h)
+    x = F.pad(x, (0, ep - e))
+    w_qkv = F.pad(wqkv.t().reshape(3, h, d, e), (0, ep - e, 0, dp - d)).reshape(3 * h * dp, ep)
+    bqkv = F.pad(bqkv.reshape(3, h, d), (0, dp - d)).reshape(3 * h * dp)
+    w_o = F.pad(wo.t().reshape(e, h, d), (0, dp - d, 0, 0, 0, ep - e)).reshape(ep, h * dp)
+    return (x.contiguous(), w_qkv.contiguous().t(), bqkv.contiguous(), w_o.contiguous().t(),
+            F.pad(bo, (0, ep - e)).contiguous())
+
+
 def plan(m: int, e: int, sms: int) -> tuple[int, int]:
     """(rows of a QKV block, rows of an out-projection block) for x of
     (m, e) on a card of `sms` SMs: 128 or 64, whichever takes the less
@@ -79,13 +114,14 @@ def plan(m: int, e: int, sms: int) -> tuple[int, int]:
     return rows(3 * e), rows(e)
 
 
-def _check(name, t, dtypes, shape, device):
+def _check(name, t, dtypes, shape, device, layout=True):
     """Raises unless t is on `device`, of one of `dtypes` (one or two), of
-    `shape`, contiguous and 16-byte aligned. Runs on every call, so the
-    common case takes one cheap test (dtypes compared by identity)."""
+    `shape`, and (with `layout`) contiguous and 16-byte aligned. Runs on
+    every call, so the common case takes one cheap test (dtypes compared by
+    identity)."""
     dt = t.dtype
     if (t.device == device and (dt is dtypes[0] or dt is dtypes[-1]) and t.shape == shape
-            and t.is_contiguous() and not t.data_ptr() % 16):
+            and (not layout or (t.is_contiguous() and not t.data_ptr() % 16))):
         return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
@@ -113,15 +149,15 @@ def _lib():
 
 
 def _lib_f32():
-    """`csrc/attention_f32.cu`'s block: `_lib()`'s arguments without the
-    tile plan."""
+    """`csrc/attention_f32.cu`'s block: `_lib()`'s arguments with the
+    weights' split scratch and without the tile plan."""
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     fn = load_library("attention_f32").mb_attention_block_f32
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.restype = i32
-        fn.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 4 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [i32] + [ptr] * 5 + [i32] * 4 + [ctypes.c_float, ptr]
     return fn
 
 
@@ -133,22 +169,26 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     b, n, e = x.shape
     if e % num_heads:
         raise ValueError(f"E = {e} is not a multiple of the {num_heads} heads")
-    d = e // num_heads
+    d, dp, ep = block_widths(e, num_heads)
     dropout_attention.check_head_dim(d)
-    if e % 64:
-        raise ValueError(f"the kernel needs E to be a multiple of 64, got {e}")
-    if e > MAX_E:
-        raise ValueError(f"the kernel needs E <= {MAX_E}, got {e}")
     dev, dt = x.device, x.dtype
     if dt not in dropout_attention.DTYPES:
         raise TypeError(f"x must be bfloat16 or float32, got {dt}")
     same = (dt,)
+    padded = dp != d or ep != e
+    if padded:  # the originals' layout is not read: only their dtypes and shapes count
+        for name, t, dts, shape in (("x", x, same, (b, n, e)), ("wqkv", wqkv, same, (e, 3 * e)),
+                                    ("wo", wo, same, (e, e)), ("bqkv", bqkv, VECTOR_DTYPES, (3 * e,)),
+                                    ("bo", bo, VECTOR_DTYPES, (e,))):
+            _check(name, t, dts, shape, dev, layout=False)
+        x, wqkv, bqkv, wo, bo = pad_block(x, wqkv, bqkv, wo, bo, num_heads)
+    hq = num_heads * dp  # the attention's padded width
     w_qkv, w_o = wqkv.t(), wo.t()  # the (out, in) layout the kernel reads
-    _check("x", x, same, (b, n, e), dev)
-    _check("wqkv.t()", w_qkv, same, (3 * e, e), dev)
-    _check("wo.t()", w_o, same, (e, e), dev)
+    _check("x", x, same, (b, n, ep), dev)
+    _check("wqkv.t()", w_qkv, same, (3 * hq, ep), dev)
+    _check("wo.t()", w_o, same, (ep, hq), dev)
     vec_bf16 = 0
-    for bit, (name, t, size) in enumerate((("bqkv", bqkv, 3 * e), ("bo", bo, e),
+    for bit, (name, t, size) in enumerate((("bqkv", bqkv, 3 * hq), ("bo", bo, ep),
                                            ("ln_scale", ln_scale, e), ("ln_bias", ln_bias, e))):
         _check(name, t, VECTOR_DTYPES, (size,), dev)
         if t.dtype is torch.bfloat16:
@@ -156,19 +196,23 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
 
     m = b * n
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    # one scratch allocation: qkv (m, 3E) and the attention output (m, E) in
-    # x's dtype, then y (m, E) f32
+    # one scratch allocation: qkv (m, 3 hq) and the attention output (m, hq)
+    # in x's dtype, y (m, E_pad) f32, and for float32 the weights' TF32
+    # halves (hi and lo of the (3 hq, E_pad) and (E_pad, hq) weights, f32)
     width = x.element_size()
-    scratch = torch.empty((m * e * (4 * width + 4),), dtype=torch.uint8, device=dev)
-    out = torch.empty_like(x)
+    split = 2 * (3 * hq * ep + ep * hq) * 4 if dt is torch.float32 else 0
+    scratch = torch.empty((m * (4 * hq * width + 4 * ep) + split,), dtype=torch.uint8, device=dev)
+    out = torch.empty((b, n, ep), dtype=dt, device=dev)
     qkv = scratch.data_ptr()
     args = (x.data_ptr(), w_qkv.data_ptr(), bqkv.data_ptr(), w_o.data_ptr(), bo.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), vec_bf16, qkv, qkv + m * e * 3 * width,
-            qkv + m * e * 4 * width, out.data_ptr(), b, n, e, num_heads, float(eps))
+            ln_scale.data_ptr(), ln_bias.data_ptr(), vec_bf16, qkv, qkv + m * hq * 3 * width,
+            qkv + m * hq * 4 * width, out.data_ptr())
     if dt is torch.float32:
         fn = _lib_f32()
+        args += (qkv + m * (4 * hq * width + 4 * ep), b, n, e, num_heads, float(eps))
     else:
         fn = _lib()
+        args += (b, n, e, num_heads, float(eps))
         if idx not in _sms:
             _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
         if tiles is None:
@@ -188,7 +232,7 @@ def _launch(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, num_heads, eps, tiles=None
     launches += 1
     dropout_attention.count("fused_attention", d, dt)
     dropout_attention.count_dtype("attention_block", d, dt)
-    return out
+    return out if ep == e else out[..., :e]
 
 
 def launch_counts() -> dict:

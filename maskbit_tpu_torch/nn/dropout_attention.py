@@ -17,12 +17,19 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   score gradient rounded before dq and dk.
 * A CUDA tensor launches the hand-written kernels or raises: q, k, v of
   one dtype in `DTYPES` with the same strides and a contiguous last
-  dimension (the QKV projection's view qualifies), a head dim in
-  `HEAD_DIMS` (the multiples of 16 in [16, 128]), 0 <= rate < 1. bf16 takes
-  `csrc/dropout_attention.cu` (one TMA + wgmma kernel template on the head
-  dim, instantiated at each width), float32 (the compute dtype of `training.mixed_precision:
-  no`) the full-float32 kernels of `csrc/attention_f32.cu`; outputs and
-  gradients take the inputs' dtype. The JAX kernels take any head dim.
+  dimension (the QKV projection's view qualifies), a head dim d in [1,
+  `MAX_HEAD_DIM`], 0 <= rate < 1. The kernels are instantiated at the
+  multiples of 16 (`HEAD_DIMS`); another d runs the instantiation at d
+  rounded up to 16 (`padded_head_dim`) on inputs the wrapper zero-pads per
+  head (zero columns of q and k add nothing to the scores, zero columns of
+  v give output columns that are sliced away; the softmax scale stays
+  d^-0.5, passed apart from the padded width), exact in either dtype, for
+  a copy of the inputs per call. bf16 takes `csrc/dropout_attention.cu`
+  (one TMA + wgmma kernel template on the head dim), float32 (the compute
+  dtype of `training.mixed_precision: no`) `csrc/attention_f32.cu` (its
+  backward in 3xTF32 on the tensor cores); outputs and gradients take the
+  inputs' dtype. The JAX kernels take any head dim; past 128 no
+  instantiation holds the tiles, and the wrappers raise.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
@@ -38,10 +45,13 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-# the head dims the kernels take: sm90.cuh's MB_HEAD_DIMS, each an instantiation
-# of the kernel templates
+# the head dims the kernels are instantiated at: sm90.cuh's MB_HEAD_DIMS; the
+# kernels take every d in [1, MAX_HEAD_DIM], the others zero-padded to the
+# next of these
 HEAD_DIMS = range(16, 129, 16)
+MAX_HEAD_DIM = 128
 # the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
 DTYPES = (torch.bfloat16, torch.float32)
 TILE = 64  # queries or keys per kernel tile
@@ -80,9 +90,13 @@ def reset_counts() -> None:
 
 def check_head_dim(d: int) -> None:
     """Raises unless the kernels take head dim `d`."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernels need a head dim that is a multiple of 16 in "
-                         f"[{HEAD_DIMS[0]}, {HEAD_DIMS[-1]}], got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernels need a head dim in [1, {MAX_HEAD_DIM}], got {d}")
+
+
+def padded_head_dim(d: int) -> int:
+    """The instantiation that runs head dim `d`: d rounded up to 16."""
+    return -(-d // 16) * 16
 
 
 def keep_threshold(rate: float) -> int:
@@ -146,9 +160,9 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _softmax_f32(q, k):
-    d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * d**-0.5
+def _softmax_f32(q, k, scale=None):
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * scale
     return torch.softmax(logits, dim=-1)
 
 
@@ -157,38 +171,41 @@ def _dropped(w, keep, rate):
                                                                      device=w.device))
 
 
-def dropout_attention_reference(q, k, v, seeds, rate: float) -> torch.Tensor:
+def dropout_attention_reference(q, k, v, seeds, rate: float, scale=None) -> torch.Tensor:
     """Plain forward: f32 softmax, hash mask, dropped weights rounded to
-    v's dtype, f32 value product, output in q's dtype."""
+    v's dtype, f32 value product, output in q's dtype. `scale`: the
+    softmax scale, d^-0.5 by default (the kernels' padded calls keep the
+    unpadded d's)."""
     rate = _check_rate(rate)
-    w = _softmax_f32(q, k)
+    w = _softmax_f32(q, k, scale)
     w = _dropped(w, hash_keep_mask(seeds.to(w.device), q.shape[1], rate), rate)
     out = torch.einsum("bhqk,bkhd->bqhd", _wide(w.to(v.dtype)), _wide(v))
     return out.to(q.dtype)
 
 
-def dropout_attention_backward_reference(q, k, v, g, seeds, rate: float):
+def dropout_attention_backward_reference(q, k, v, g, seeds, rate: float, scale=None):
     """Plain backward, the TPU kernel's formula: recompute the softmax and
     the mask; dv = dropped^T g; dw = keep (g v^T) / (1 - p);
-    dlog = P (dw - rowsum(dw P)) / sqrt(d), rounded to q's dtype;
-    dq = dlog k; dk = dlog^T q."""
+    dlog = P (dw - rowsum(dw P)) * scale (d^-0.5 by default), rounded to
+    q's dtype; dq = dlog k; dk = dlog^T q."""
     rate = _check_rate(rate)
-    w = _softmax_f32(q, k)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    w = _softmax_f32(q, k, scale)
     keep = hash_keep_mask(seeds.to(w.device), q.shape[1], rate)
     dropped = _wide(_dropped(w, keep, rate).to(v.dtype))
     dv = torch.einsum("bhqk,bqhd->bkhd", dropped, _wide(g))
     dw = _dropped(torch.einsum("bqhd,bkhd->bhqk", _wide(g), _wide(v)), keep, rate)
     dlog = w * (dw - (dw * w).sum(-1, keepdim=True))
-    dlog = _wide((dlog * q.shape[-1] ** -0.5).to(q.dtype))
+    dlog = _wide((dlog * scale).to(q.dtype))
     dq = torch.einsum("bhqk,bkhd->bqhd", dlog, _wide(k))
     dk = torch.einsum("bhqk,bqhd->bkhd", dlog, _wide(q))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def fused_attention_reference(q, k, v) -> torch.Tensor:
+def fused_attention_reference(q, k, v, scale=None) -> torch.Tensor:
     """Plain dropout-free attention: f32 softmax, weights rounded to v's
-    dtype, f32 value product."""
-    w = _softmax_f32(q, k)
+    dtype, f32 value product; `scale` as `dropout_attention_reference`'s."""
+    w = _softmax_f32(q, k, scale)
     out = torch.einsum("bhqk,bkhd->bqhd", _wide(w.to(v.dtype)), _wide(v))
     return out.to(q.dtype)
 
@@ -205,6 +222,7 @@ def seeds_as_int32(seeds: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _check_qkv(q, k, v):
+    """Raises unless q, k, v suit the kernels: device, dtype, shape, head dim."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in DTYPES:
@@ -216,16 +234,27 @@ def _check_qkv(q, k, v):
             raise TypeError(f"{name} must be q's {q.dtype}, got {t.dtype}")
         if t.dim() != 4 or t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape (b, n, h, d), got {tuple(t.shape)}")
+    check_head_dim(q.shape[-1])
+
+
+def _check_layout(q, k, v):
+    """Raises unless q, k, v as the kernels read them share their strides,
+    have a contiguous last dimension and 16-byte aligned rows."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride() != q.stride():
             raise ValueError("q, k and v must have the same strides")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    check_head_dim(q.shape[-1])
     sb, sn, sh, sd = q.stride()
     align = 16 // q.element_size()  # elements in 16 bytes
     if sd != 1 or sb % align or sn % align or sh % align:
         raise ValueError("q, k, v need a contiguous last dimension and strides that are "
                          f"multiples of {align} elements, got {q.stride()}")
+
+
+def _pad_heads(t, width: int):
+    """(b, n, h, d) -> a contiguous (b, n, h, width), zeros past d."""
+    return F.pad(t, (0, width - t.shape[-1]))
 
 
 def bind(lib):
@@ -254,8 +283,7 @@ def _lib():
 
 def _lib_f32():
     """`csrc/attention_f32.cu`, its attention functions declared: the
-    forward's arguments are the bf16 one's; the backward's lack dq_acc,
-    tickets and rotate."""
+    forward's arguments are the bf16 one's; the backward's lack dq_acc."""
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     lib = load_library("attention_f32")
@@ -266,16 +294,19 @@ def _lib_f32():
                                                              ptr])
         lib.mb_dropout_attention_fwd_f32.restype = i32
         lib.mb_dropout_attention_bwd_f32.argtypes = (
-            [ptr] * 3 + [i64] * 3 + [ptr] * 8 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, ptr])
+            [ptr] * 3 + [i64] * 3 + [ptr] * 9 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
         lib.mb_dropout_attention_bwd_f32.restype = i32
+        lib.mb_attention_bwd_f32_plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        lib.mb_attention_bwd_f32_plan.restype = i32
     return lib
 
 
 def kernel_plan(d: int) -> dict:
-    """The bf16 kernels' plan at head dim `d`, as built: shared memory and
-    blocks an SM of the forward and the backward, the backward's Q and G
-    stages and dQ-part buffers."""
-    check_head_dim(d)
+    """The bf16 kernels' plan at head dim `d` (one of `HEAD_DIMS`), as
+    built: shared memory and blocks an SM of the forward and the backward,
+    the backward's Q and G stages and dQ-part buffers."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no instantiation at head dim {d}")
     plan = (ctypes.c_int * 6)()
     if _lib().mb_dropout_attention_plan(d, plan) != 0:
         raise RuntimeError(f"no kernel plan at head dim {d}")
@@ -284,18 +315,60 @@ def kernel_plan(d: int) -> dict:
     return dict(zip(keys, plan))
 
 
+def kernel_plan_f32(d: int) -> dict:
+    """The float32 backward's plan at head dim `d` (one of `HEAD_DIMS`), as
+    built: its shared memory, blocks an SM, queries a step, Q and G stages
+    and dQ-part buffers."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no instantiation at head dim {d}")
+    plan = (ctypes.c_int * 5)()
+    if _lib_f32().mb_attention_bwd_f32_plan(d, plan) != 0:
+        raise RuntimeError(f"no float32 backward plan at head dim {d}")
+    return dict(zip(("smem", "blocks", "queries_a_step", "qg_stages", "dq_buffers"), plan))
+
+
 def launch_forward(q, k, v, seeds_i32, rate: float):
     """The forward kernel on CUDA tensors; returns (out, lse). `seeds_i32`
     from `seeds_as_int32`, or None for the dropout-free kernel (then rate
-    is ignored and lse is None)."""
+    is ignored and lse is None). A head dim that is not a multiple of 16
+    runs zero-padded (the module's docstring)."""
     _check_qkv(q, k, v)
-    b, n, h, d = q.shape
+    d = q.shape[-1]
+    out, lse = _forward_padded(*_padded(d, q, k, v), seeds_i32, rate, d)
+    return out[..., :d], lse
+
+
+def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
+    """The backward kernels on CUDA tensors: (dq, dk, dv) from the
+    forward's inputs, `out` and `lse`, and the incoming gradient `g`; a
+    head dim that is not a multiple of 16 runs zero-padded."""
+    _check_qkv(q, k, v)
+    g = g.contiguous()
+    if g.dtype != q.dtype or g.shape != out.shape:
+        raise TypeError(f"the incoming gradient must be {q.dtype} of shape {tuple(out.shape)}")
+    d = q.shape[-1]
+    q, k, v, out, g = _padded(d, q, k, v, out, g)
+    return tuple(t[..., :d] for t in _backward_padded(q, k, v, out, lse, g, seeds_i32, rate, d))
+
+
+def _padded(d: int, *ts):
+    """ts, each (b, n, h, d), zero-padded per head to `padded_head_dim`
+    (unchanged where d is one of `HEAD_DIMS`)."""
+    dp = padded_head_dim(d)
+    return ts if dp == d else tuple(_pad_heads(t, dp) for t in ts)
+
+
+def _forward_padded(q, k, v, seeds_i32, rate: float, d: int):
+    """`launch_forward`'s launch on checked q, k, v holding head dim `d`
+    zero-padded to their width; returns (out at that width, lse)."""
+    _check_layout(q, k, v)
+    b, n, h, dp = q.shape
     dev = q.device
     dropout = seeds_i32 is not None
     if dropout and (seeds_i32.dtype != torch.int32 or seeds_i32.device != dev
                     or tuple(seeds_i32.shape) != (b, h) or not seeds_i32.is_contiguous()):
         raise ValueError(f"seeds_i32 must be contiguous int32 {(b, h)} on {dev}")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, n, h, dp), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=dev) if dropout else None
     fn = (_lib_f32().mb_dropout_attention_fwd_f32 if q.dtype is torch.float32
           else _lib().mb_dropout_attention_fwd)
@@ -311,18 +384,16 @@ def launch_forward(q, k, v, seeds_i32, rate: float):
     return out, lse
 
 
-def launch_backward(q, k, v, out, lse, g, seeds_i32, rate: float):
-    """The backward kernels on CUDA tensors: (dq, dk, dv) from the
-    forward's inputs, `out` and `lse`, and the incoming gradient `g`."""
-    _check_qkv(q, k, v)
-    g = g.contiguous()
-    if g.dtype != q.dtype or g.shape != out.shape:
-        raise TypeError(f"the incoming gradient must be {q.dtype} of shape {tuple(out.shape)}")
+def _backward_padded(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
+    """`launch_backward`'s launches on checked q, k, v, out and a
+    contiguous g, each holding head dim `d` zero-padded to their width;
+    returns dq, dk, dv at that width."""
+    _check_layout(q, k, v)
     if q.dtype is torch.float32:
-        grads = _backward_f32(q, k, v, out, lse, g, seeds_i32, rate)
+        grads = _backward_f32(q, k, v, out, lse, g, seeds_i32, rate, d)
     else:
-        grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate)
-    count("dropout_attention_bwd", q.shape[-1], q.dtype)
+        grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate, d)
+    count("dropout_attention_bwd", d, q.dtype)
     return grads
 
 
@@ -330,19 +401,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
+def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float, d=None):
     """`launch_backward`'s launch through `lib` (a `bind`-declared build of
-    the source), on checked inputs with a contiguous `g`; not counted."""
-    b, n, h, d = q.shape
+    the source), on checked inputs with a contiguous `g`, at head dim `d`
+    (default: q's; q, k, v, out and g then hold it zero-padded to their
+    width); not counted."""
+    b, n, h, dp = q.shape
+    d = dp if d is None else d
     dev = q.device
-    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16, device=dev)
+    dq, dk, dv = (torch.empty((b, n, h, dp), dtype=torch.bfloat16, device=dev)
                   for _ in range(3))
     tiles = -(-n // TILE)
     # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
     # the f32 sum of dq over key tiles (b*h*n*d*4 bytes, 33.7 MB at (32, 257,
     # 16, 64)) and one ticket per (batch*head, query tile)
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
-    dq_acc = torch.empty((b * h, n, d), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((b * h, n, dp), dtype=torch.float32, device=dev)
     tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mb_dropout_attention_bwd(
@@ -356,34 +430,45 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float):
     return dq, dk, dv
 
 
-def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float):
-    """The float32 backward's three launches on checked inputs with a
-    contiguous `g`; not counted."""
-    b, n, h, d = q.shape
+def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
+    """The float32 backward's launches on checked inputs (at the padded
+    width of head dim `d`) with a contiguous `g`; not counted. dq is summed
+    over key tiles in place, in a fixed order, as the bf16 backward's
+    f32 sum is."""
+    b, n, h, dp = q.shape
     dev = q.device
-    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.float32, device=dev) for _ in range(3))
-    # scratch: per query row (lse * log2 e, delta), padded to whole tiles
-    stats = torch.empty((b * h, -(-n // TILE) * TILE, 2), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty((b, n, h, dp), dtype=torch.float32, device=dev) for _ in range(3))
+    tiles = -(-n // TILE)
+    # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
+    # one ticket per (batch*head, query tile)
+    stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
+    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib_f32().mb_dropout_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, n, h, d, keep_threshold(rate),
-            1.0 / (1.0 - rate), torch.cuda.current_stream(dev).cuda_stream)
+            dv.data_ptr(), stats.data_ptr(), tickets.data_ptr(), b, n, h, d,
+            int(tiles <= ROTATE_MAX_TILES), keep_threshold(rate), 1.0 / (1.0 - rate),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_attention float32 backward launch failed: CUDA error {err}")
     return dq, dk, dv
 
 
 class _DropoutAttention(torch.autograd.Function):
+    # on the card the padded q, k, v and out are saved (a head dim that is
+    # not a multiple of 16), so the backward pads only the incoming gradient
     @staticmethod
     def forward(ctx, q, k, v, seeds, rate):
         ctx.rate = rate
         if q.device.type == "cuda":
+            _check_qkv(q, k, v)
+            d = ctx.d = q.shape[-1]
             seeds_i32 = seeds_as_int32(seeds.to(q.device), (q.shape[0], q.shape[2]))
-            out, lse = launch_forward(q, k, v, seeds_i32, rate)
+            q, k, v = _padded(d, q, k, v)
+            out, lse = _forward_padded(q, k, v, seeds_i32, rate, d)
             ctx.save_for_backward(q, k, v, out, lse, seeds_i32)
-            return out
+            return out if out.shape[-1] == d else out[..., :d]
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, seeds)
             return dropout_attention_reference(q, k, v, seeds, rate)
@@ -393,7 +478,10 @@ class _DropoutAttention(torch.autograd.Function):
     def backward(ctx, g):
         if g.device.type == "cuda":
             q, k, v, out, lse, seeds = ctx.saved_tensors
-            dq, dk, dv = launch_backward(q, k, v, out, lse, g, seeds, ctx.rate)
+            d = ctx.d
+            g, = _padded(d, g.contiguous())
+            grads = _backward_padded(q, k, v, out, lse, g, seeds, ctx.rate, d)
+            dq, dk, dv = (t[..., :d] for t in grads)
         else:
             q, k, v, seeds = ctx.saved_tensors
             dq, dk, dv = dropout_attention_backward_reference(q, k, v, g, seeds, ctx.rate)

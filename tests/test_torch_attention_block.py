@@ -109,3 +109,86 @@ def test_bert_attention_passes_parameters_as_stored(monkeypatch):
     assert seen["ln_scale"] is layer.norm.weight and seen["ln_bias"] is layer.norm.bias
     assert seen["wqkv"].data_ptr() == mha.in_proj_weight.data_ptr()
     assert seen["wo"].data_ptr() == mha.out_proj.weight.data_ptr()
+
+
+def _padded_block_f64(x, wqkv, bqkv, wo, bo, ln_scale, ln_bias, heads: int, d: int, e: int):
+    """The plain block in float64 on inputs in `pad_block`'s layout: the
+    head width read from wqkv, d's softmax scale, the LayerNorm over the
+    first e columns (on unpadded inputs, the plain block itself)."""
+    b, n, _ = x.shape
+    dp = wqkv.shape[1] // (3 * heads)
+    q, k, v = (x @ wqkv + bqkv).view(b, n, 3, heads, dp).unbind(2)
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5, dim=-1)
+    attn = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, heads * dp)
+    y = (x + attn @ wo + bo)[..., :e]
+    return torch.nn.functional.layer_norm(y, (e,), ln_scale, ln_bias, eps=1e-12)
+
+
+# pad_block's layout: per head, W_qkv's rows and bqkv's entries padded from d
+# to d rounded up to 16 and W_o's columns likewise; x, W_qkv's and W_o's
+# E-wide sides and bo padded from E to E rounded up to 8; the block on those
+# inputs with d's softmax scale and the LayerNorm over the true E, sliced,
+# against the unpadded block, in float64 (only the contraction lengths
+# differ, which can move a sum's order: 1e-12); the unpadded float64 block is
+# the plain version's function (its float32 products: 1e-4).
+@pytest.mark.parametrize("e,heads", [(1152, 16), (65, 5), (40, 5), (250, 2), (80, 5)])
+def test_block_padding_is_exact(e, heads):
+    rng = np.random.default_rng(e)
+    inp = {k: torch.from_numpy(v.astype(np.float64)) for k, v in _inputs(rng, 2, 9, e).items()}
+    d, dp, ep = ab.block_widths(e, heads)
+    assert (d, dp % 16, ep % 8) == (e // heads, 0, 0) and d <= dp < d + 16 and e <= ep < e + 8
+    x, wqkv, bqkv, wo, bo = ab.pad_block(inp["x"], inp["wqkv"], inp["bqkv"], inp["wo"], inp["bo"],
+                                         heads)
+    assert x.shape == (2, 9, ep) and wqkv.shape == (ep, 3 * heads * dp)
+    assert wo.shape == (heads * dp, ep) and bqkv.shape == (3 * heads * dp,) and bo.shape == (ep,)
+    # the (out, in) weights the kernels read are contiguous, their padding zeros
+    assert wqkv.t().is_contiguous() and wo.t().is_contiguous()
+    assert not wqkv.reshape(ep, 3, heads, dp)[..., d:].any() and not wqkv[e:].any()
+    assert not wo.reshape(heads, dp, ep)[:, d:].any() and not wo[:, e:].any()
+    got = _padded_block_f64(x, wqkv, bqkv, wo, bo, inp["ln_scale"], inp["ln_bias"], heads, d, e)
+    want = _padded_block_f64(*inp.values(), heads, d, e)
+    torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
+    plain = ab.fused_attention_block_reference(**inp, num_heads=heads)
+    torch.testing.assert_close(want, plain.double(), atol=1e-4, rtol=1e-4)
+
+
+# hidden 1152 over 16 heads (d = 72) trains and serves in JAX; E = 80 over 5
+# heads is not a multiple of 64
+@pytest.mark.parametrize("b,n,e,heads", [(1, 17, 80, 5), (2, 17, 144, 2), (1, 9, 1152, 16)])
+def test_plain_version_matches_jax_block_at_other_widths(b, n, e, heads):
+    rng = np.random.default_rng(e)
+    inp = _inputs(rng, b, n, e)
+    inp["wqkv"] *= 0.5
+    want = jax_block(**{k: jnp.asarray(v) for k, v in inp.items()}, num_heads=heads,
+                     interpret=True)
+    got = ab.fused_attention_block(**{k: torch.from_numpy(v) for k, v in inp.items()},
+                                   num_heads=heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
+
+
+def test_serving_layer_takes_the_plain_route_past_the_widest_kernel():
+    """Head dim 192: no kernel instantiation holds it, so the block's
+    launch refuses it before it looks at the device (on the card the
+    serving layer raises), while on the CPU the serving layer runs the plain
+    block, as at every d, with its values and no kernel counted."""
+    from maskbit_tpu_torch.nn import transformer
+
+    meta = {k: torch.zeros(v.shape, device="meta")
+            for k, v in _inputs(np.random.default_rng(0), 1, 3, 384).items()}
+    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 192"):
+        ab._launch(**meta, num_heads=2, eps=1e-12)
+    ab.reset_launch_counts()
+    layer = transformer.BertAttention(384, 2, attention_impl="fused").eval()
+    with torch.no_grad():
+        for i, p in enumerate(layer.parameters()):
+            p.copy_(torch.from_numpy(np.random.default_rng(i).normal(size=p.shape) * 0.05))
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 9, 384)).astype(np.float32))
+    with torch.no_grad():
+        got = layer(x)
+    counts = ab.launch_counts()
+    assert counts["attention_block"] == 0 and counts["by_dtype"] == {}
+    mha = layer.mha
+    want = ab.fused_attention_block_reference(
+        x, mha.in_proj_weight.t(), mha.in_proj_bias, mha.out_proj.weight.t(), mha.out_proj.bias,
+        layer.norm.weight, layer.norm.bias, num_heads=2)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -152,13 +152,16 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, x=inp["x"].float()), num_heads=16)
     with pytest.raises(ValueError, match="contiguous"):
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
-    # head dims outside the multiples of 16 in [16, 128] raise, on the card
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
-        ab.fused_attention_block(**inp, num_heads=128)
+    # head dim 8 runs zero-padded to 16; past 128 the kernels' wrapper raises
+    # (the serving layer takes the plain version by shape instead)
+    got = ab.fused_attention_block(**inp, num_heads=128)
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
+                                              num_heads=128)
+    assert (got.float() - want).abs().max().item() <= 3e-2
     with pytest.raises(ValueError, match="multiple of the 7 heads"):
         ab.fused_attention_block(**inp, num_heads=7)
     wide = _block_inputs(1, 17, 1152, seed=0)
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
         ab.fused_attention_block(**wide, num_heads=8)
     # the vectors: f32 or bf16, on x's device, of their length, contiguous
     with pytest.raises(TypeError, match="bqkv"):
@@ -172,15 +175,13 @@ def test_attention_block_kernel_rejects_bad_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         ab.fused_attention_block(**dict(inp, bo=torch.stack([inp["bo"]] * 2, 1)[:, 0]),
                                  num_heads=16)
-    with pytest.raises(ValueError, match="E <= 4096"):
-        e = 4160
-        big = dict(x=torch.zeros(1, 1, e, device="cuda", dtype=torch.bfloat16),
-                   wqkv=torch.zeros(3 * e, e, device="cuda", dtype=torch.bfloat16).t(),
-                   bqkv=torch.zeros(3 * e, device="cuda"),
-                   wo=torch.zeros(e, e, device="cuda", dtype=torch.bfloat16).t(),
-                   bo=torch.zeros(e, device="cuda"), ln_scale=torch.ones(e, device="cuda"),
-                   ln_bias=torch.zeros(e, device="cuda"))
-        ab.fused_attention_block(**big, num_heads=e // 64)
+    # E past 4096 runs (the LayerNorm loops over a row of any length)
+    e = 4160
+    big = _block_inputs(1, 3, e, seed=1)
+    got = ab.fused_attention_block(**big, num_heads=e // 64)
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in big.items()},
+                                              num_heads=e // 64)
+    assert (got.float() - want).abs().max().item() <= 3e-2
 
 
 def _qkv(b, n, h, seed, layout="separate", d=64):
@@ -392,15 +393,19 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
             da.fused_attention(q.to(dt), k.to(dt), v.to(dt))
     with pytest.raises(TypeError):
         da.dropout_attention(q.float(), k, v, s, 0.1)
-    # head dims outside the multiples of 16 in [16, 128] raise, on the card
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
-        da.dropout_attention(q[..., :8], k[..., :8], v[..., :8], s, 0.1)
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 8"):
-        da.fused_attention(q[..., :8], k[..., :8], v[..., :8])
+    # head dim 8 runs zero-padded to 16 (views of the first 8 columns: the
+    # wrapper copies them padded); past 128 the kernels' wrappers raise
+    narrow = [t[..., :8] for t in (q, k, v)]
+    got = da.dropout_attention(*narrow, s, 0.1)
+    want = da.dropout_attention_reference(*(t.float() for t in narrow), s, 0.1)
+    assert got.shape == (1, 17, 2, 8) and (got.float() - want).abs().max().item() <= DROPOUT_ATOL
+    got = da.fused_attention(*narrow)
+    want = da.fused_attention_reference(*(t.float() for t in narrow))
+    assert (got.float() - want).abs().max().item() <= DROPOUT_ATOL
     wide = _qkv(1, 17, 2, seed=0, d=144)
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
         da.dropout_attention(*wide, s, 0.1)
-    with pytest.raises(ValueError, match=r"multiple of 16 in \[16, 128\], got 144"):
+    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
         da.fused_attention(*wide)
     with pytest.raises(ValueError, match="strides"):
         da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)
@@ -508,6 +513,99 @@ def test_float32_attention_runs_only_the_ports_float32_kernels():
 
     seen = chip_smoke._f32_profile_check(torch)
     assert set(seen) == {"block", "bert_attention", "dropout_attention"}
+
+
+# the head dims the kernels take zero-padded (not multiples of 16): 8, 72
+# (hidden 1152 over 16 heads) and 125
+PADDED_HEAD_DIMS = [8, 72, 125]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS + PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("b,n,h", [(2, 257, 3), (1, 17, 2), (3, 130, 2)])
+@pytest.mark.parametrize("order", ["wrapper", "key tile"])
+def test_float32_backward_at_every_width(b, n, h, d, order, monkeypatch):
+    """The 3xTF32 backward (csrc/attention_f32.cu) at every native width and
+    at the padded ones, in the wrapper's dq order and in key-tile order:
+    dq, dk and dv within F32_TOL of the plain version in float32 (TF32
+    off), and bit-identical on a second call."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    if order == "key tile":
+        monkeypatch.setattr(da, "ROTATE_MAX_TILES", 0)
+    q, k, v = (t.float() for t in _qkv(b, n, h, seed=n + d, layout="packed", d=d))
+    seeds = _seeds(b, h, seed=d)
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(n),
+                       device="cuda")
+    out, grads = _launch_both(da, q, k, v, seeds, 0.1, gout)
+    _, again = _launch_both(da, q, k, v, seeds, 0.1, gout)
+    torch.cuda.synchronize()
+    _f32_close(out, da.dropout_attention_reference(q, k, v, seeds, 0.1))
+    for got, ref, second in zip(grads, da.dropout_attention_backward_reference(
+            q, k, v, gout, seeds, 0.1), again):
+        assert got.shape == (b, n, h, d)
+        _f32_close(got, ref)
+        assert torch.equal(got, second)
+
+
+@pytest.mark.parametrize("b,n,e,heads", [(2, 257, 16 * w, 1) for w in range(1, 9)]
+                         + [(16, 257, 1024, 8), (2, 65, 1152, 16), (2, 33, 32, 4),
+                            (1, 17, 250, 2), (2, 257, 80, 5), (1, 33, 4608, 36), (2, 9, 65, 5)])
+@pytest.mark.parametrize("vectors", [torch.float32, torch.bfloat16])
+def test_float32_attention_block_at_every_width(b, n, e, heads, vectors):
+    """The float32 chain (3xTF32 projections) at every native head dim, at
+    the padded ones (72, 8, 125, 13) and at E = 80, 4608 and 65, against the
+    plain version in float32 (TF32 off), within F32_TOL."""
+    _card()
+    inp = {k: (t.float() if t.dim() > 1 else t) for k, t in _block_inputs(
+        b, n, e, seed=e + n, vectors=vectors).items()}
+    got = ab.fused_attention_block(**inp, num_heads=heads)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, e)
+    _f32_close(got, ab.fused_attention_block_reference(**inp, num_heads=heads))
+
+
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("n", [17, 257])
+def test_bf16_kernels_at_padded_head_dims(n, d):
+    """The bf16 kernels at head dims that are not multiples of 16 (zero-padded
+    to the next instantiation): forward, backward and fused_attention
+    against their plain versions at the tolerances of the native widths,
+    each launch counted at its own d."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    b, h = 2, 3
+    q, k, v = _qkv(b, n, h, seed=n + d, layout="packed", d=d)
+    seeds = _seeds(b, h, seed=d + 1)
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(d),
+                       device="cuda").bfloat16()
+    before = dict(da.launches_by_dtype)
+    out, grads = _launch_both(da, q, k, v, seeds, 0.1, gout)
+    fused = da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    for key in ("dropout_attention_fwd", "dropout_attention_bwd", "fused_attention"):
+        assert da.launches_by_dtype[(key, d, "bfloat16")] == before.get((key, d, "bfloat16"), 0) + 1
+    assert out.shape == fused.shape == (b, n, h, d)
+    _check_against_plain(da, q, k, v, seeds, 0.1, out, grads, gout)
+    want = da.fused_attention_reference(q.float(), k.float(), v.float())
+    assert (fused.float() - want).abs().max().item() <= DROPOUT_ATOL
+
+
+@pytest.mark.parametrize("b,n,e,heads", [(2, 257, 1152, 16), (1, 65, 80, 5), (1, 17, 250, 2),
+                                         (1, 33, 4608, 36), (2, 9, 65, 5), (16, 257, 128, 16)])
+def test_bf16_attention_block_at_padded_widths(b, n, e, heads):
+    """The bf16 chain at padded head dims (72, 16 at E = 80, 125, 128 at E =
+    4608, 13, 8) and widths E that are not multiples of 64 or exceed 4096,
+    against the plain version (the bf16 tolerance of the native widths)."""
+    _card()
+    inp = _block_inputs(b, n, e, seed=e)
+    got = ab.fused_attention_block(**inp, num_heads=heads)
+    torch.cuda.synchronize()
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
+                                              num_heads=heads)
+    assert got.shape == (b, n, e) and torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() <= 3e-2
 
 
 def _train_state_on_card(remat, seed=0):

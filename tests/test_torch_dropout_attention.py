@@ -121,3 +121,93 @@ def test_wrapper_rejects_bad_rate_and_seeds():
         da.dropout_attention(q, q, q, torch.zeros(2, 2, dtype=torch.int64), 0.1)
     with pytest.raises(ValueError, match="device"):
         da.fused_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# Head dims that are not multiples of 16 (1, 8, 72, 125): the kernels run the
+# instantiation at d rounded up to 16 on inputs zero-padded per head, with
+# the softmax scale of the unpadded d. In float64 the plain version at the
+# padded width, sliced, equals the plain version at d: the padding adds exact
+# zeros to every score and leaves zero output columns; only the contraction
+# length differs, which can move a sum's order (1e-12 covers that).
+@pytest.mark.parametrize("d", [1, 8, 72, 125])
+def test_head_dim_padding_is_exact(d):
+    b, n, h = 2, 37, 2
+    dp = da.padded_head_dim(d)
+    assert dp % 16 == 0 and d <= dp < d + 16
+    q, k, v, g = (torch.tensor(x, dtype=torch.float64) for x in _qkv(b, n, h, d, seed=d) + [
+        np.random.default_rng(d + 1).normal(size=(b, n, h, d))])
+    seeds = torch.from_numpy(_seeds(b, h, seed=d + 2).astype(np.int64))
+    qp, kp, vp, gp = (da._pad_heads(t, dp) for t in (q, k, v, g))
+    assert qp.shape == (b, n, h, dp) and qp.is_contiguous() and not qp[..., d:].any()
+    scale = d**-0.5
+    close = dict(atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(
+        da.dropout_attention_reference(qp, kp, vp, seeds, RATE, scale)[..., :d],
+        da.dropout_attention_reference(q, k, v, seeds, RATE), **close)
+    for got, want in zip(da.dropout_attention_backward_reference(qp, kp, vp, gp, seeds, RATE, scale),
+                         da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE)):
+        assert not got[..., d:].any()  # the padded columns' gradients are exact zeros
+        torch.testing.assert_close(got[..., :d], want, **close)
+    torch.testing.assert_close(da.fused_attention_reference(qp, kp, vp, scale)[..., :d],
+                               da.fused_attention_reference(q, k, v), **close)
+
+
+@pytest.mark.parametrize("d", [8, 72])
+def test_dropout_attention_matches_jax_at_unpadded_head_dims(d):
+    """d = 72 (hidden 1152 over 16 heads) and 8: the port's module on the
+    CPU against the JAX kernels in interpret mode, forward and gradients,
+    at the parity tests' tolerances (atol 5e-5, rtol 1e-4)."""
+    b, n, h = 2, 33, 2
+    q, k, v = _qkv(b, n, h, d, seed=d)
+    seeds = _seeds(b, h, seed=d + 1)
+    w0 = np.random.default_rng(d + 2).normal(size=(b, n, h, d)).astype(np.float32)
+
+    def f_jax(q, k, v):
+        return jax_attn.dropout_attention(q, k, v, jnp.asarray(seeds), RATE, interpret=True)
+
+    want, vjp = jax.vjp(f_jax, *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(w0))
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    got = da.dropout_attention(tq, tk, tv, torch.from_numpy(seeds.astype(np.int64)), RATE)
+    (got * torch.from_numpy(w0)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=5e-5, rtol=1e-4)
+    for t, w in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-5, rtol=1e-4)
+    fused = jax_attn.fused_attention(*(jnp.asarray(x) for x in (q, k, v)), interpret=True)
+    np.testing.assert_allclose(da.fused_attention(*(torch.from_numpy(x) for x in (q, k, v))).numpy(),
+                               np.asarray(fused), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [129, 192])
+def test_plain_route_past_the_widest_kernel(d):
+    """Past head dim 128 (the JAX kernels take any d) no instantiation here
+    holds the tiles: the kernels' head-dim check refuses d, so on the card
+    the training layer raises as the wrappers do, while on the CPU it takes
+    the plain versions, as at every d, with their values and no kernel
+    counted."""
+    from maskbit_tpu_torch.nn import attention_block as ab
+    from maskbit_tpu_torch.nn.transformer import DropoutRng, MultiHeadSelfAttention
+
+    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got " + str(d)):
+        da.check_head_dim(d)
+    da.check_head_dim(128)  # the widest that runs
+    ab.reset_launch_counts()
+    b, n, h = 2, 9, 2
+    mha = MultiHeadSelfAttention(h * d, h, attention_dropout=RATE, fused_dropout=True).train()
+    with torch.no_grad():
+        for i, p in enumerate(mha.parameters()):
+            p.copy_(torch.from_numpy(np.random.default_rng(i).normal(size=p.shape) * 0.05))
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(b, n, h * d)).astype(np.float32))
+    x.requires_grad_(True)
+    table = _seeds(b, h, seed=6).astype(np.int64)
+    out = mha(x, DropoutRng(attention_seeds=[table]))
+    out.sum().backward()
+    counts = ab.launch_counts()
+    assert counts["dropout_attention_fwd"] == 0 and counts["by_dtype"] == {}
+    # the plain version's function
+    qkv = torch.nn.functional.linear(x.detach(), mha.in_proj_weight, mha.in_proj_bias)
+    q, k, v = (t.detach().requires_grad_(True) for t in qkv.view(b, n, 3, h, d).unbind(2))
+    seeds = torch.from_numpy(table)
+    want = da.dropout_attention_reference(q, k, v, seeds, RATE)
+    torch.testing.assert_close(out, mha.out_proj(want.reshape(b, n, h * d)), atol=0, rtol=0)
+    ab.reset_launch_counts()

@@ -113,7 +113,8 @@ def test_profile_sampler_reports_layers(tmp_path, capsys):
     for kernel in ("void (anonymous namespace)::proj_kernel<128, 0>(CUtensorMap_st, ...)",
                    "void (anonymous namespace)::attn_fwd_kernel<false>(CUtensorMap_st, ...)",
                    "(anonymous namespace)::layernorm_kernel(float const*, ...)",
-                   "void (anonymous namespace)::proj_f32_kernel<0>(float const*, ...)",
+                   "void (anonymous namespace)::proj_tf32_kernel<0>(CUtensorMap_st, ...)",
+                   "void (anonymous namespace)::split_tf32_kernel(float4 const*, ...)",
                    "void (anonymous namespace)::attn_fwd_f32_kernel<64, false>(float const*, ...)",
                    "void (anonymous namespace)::layernorm_kernel<float>(float const*, ...)"):
         assert profile_sampler.layer_of(kernel).startswith("attention block"), kernel

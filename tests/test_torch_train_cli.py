@@ -201,7 +201,7 @@ def test_profile_train_categorises_the_float32_kernels():
         "tokenizer convolutions")
     assert category_of("void (anonymous namespace)::attn_fwd_f32_kernel<64, true>(float const*)"
                        ).startswith("dropout attention forward")
-    assert category_of("void (anonymous namespace)::attn_bwd_dq_f32_kernel<64>(float const*)"
+    assert category_of("void (anonymous namespace)::attn_bwd_tf32_kernel<64>(TileMaps const)"
                        ).startswith("dropout attention backward")
 
 

@@ -308,13 +308,14 @@ Phases, each of which fails the run if it fails:
         head dims 32, 64 and 128 beside SDPA in float32 (the block beside
         the float32 library chain) and the bound both ways (`_bound_f32`:
         the products as 3xTF32 on the tensor cores, and as FFMA); the
-        3xTF32 kernels' ptxas registers and spill bytes; float16 and
-        float64 refused;
+        3xTF32 kernels' ptxas registers and spill bytes (the forward
+        `attn_fwd_tf32_kernel`, the backward, the projections and the
+        weight split); float16 and float64 refused;
      b. a profile of one float32 block call, one serving-mode BertAttention
         call and one dropout-attention forward and backward: their float32
-        kernels (`split_tf32_kernel`, `proj_tf32_kernel`, the FFMA forward,
-        `attn_bwd_tf32_kernel`), no library GEMM or attention kernel and no
-        bf16 one;
+        kernels (`split_tf32_kernel`, `proj_tf32_kernel`,
+        `attn_fwd_tf32_kernel`, `attn_bwd_tf32_kernel`), no library GEMM or
+        attention kernel and no bf16 one;
      c. phase 5's depth-2 step with the kernels in float32 against the CPU's
         float32 step (`F32_STEP_TOL`);
      d. `cli.train_maskbit` on the flagship config with
@@ -326,11 +327,13 @@ Phases, each of which fails the run if it fails:
      e. `cli.serve` at `training.mixed_precision=no`: one seeded /generate
         of 8 labels, the float32 block on every layer of every step and
         nothing in bf16.
-     The kernels line gains the four `*_f32` rows.
+     The kernels line gains the four `*_f32` rows, each naming its CUDA
+     kernels (`cuda_kernels`).
 Not in the default run, `--phases f32_error` (with `--tree` to compare
-trees in one call): the float32 block's and backward's error against
-float64 as the contraction grows (the block's E up to 8192, the backward's
-n up to 4097), beside the plain float32 version's, and their device ms.
+trees in one call): the float32 block's, forward's (out and lse) and
+backward's error against float64 as the contraction grows (the block's E
+up to 8192, the forward's and backward's n up to 4097), beside the plain
+float32 version's, and their device ms.
 Where one sampler call's time goes is `maskbit_tpu_torch.cli.profile_sampler`.
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -495,6 +498,10 @@ def phase_build() -> None:
         log(f"[build] float32 backward plan d={d}: {plan['smem']} B dynamic smem, "
             f"{plan['blocks']} blocks an SM, {plan['queries_a_step']} queries a step, "
             f"{plan['qg_stages']} Q/G stages, {plan['dq_buffers']} dQ-part buffers")
+        if "fwd_smem" in plan:  # a --tree from before the 3xTF32 forward lacks it
+            log(f"[build] float32 forward plan d={d}: {plan['fwd_smem']} B dynamic smem, "
+                f"{plan['fwd_warpgroups']} consumer warpgroups of 64 queries, "
+                f"{plan['fwd_keys_a_tile']} keys a tile")
 
 
 def ptxas_kernels(text: str) -> list:
@@ -4277,6 +4284,14 @@ F32_TRAIN_STEPS, F32_GENERATE_EVERY = 4, 3
 # the head dims whose float32 kernels are timed: the flagship's and the
 # other widths' timed ones
 F32_TIMED_HEAD_DIMS = (32, 64, 128)
+# the CUDA kernels of each float32 row (csrc/attention_f32.cu, layernorm.cuh)
+F32_CUDA_KERNELS = {
+    "fused_attention_block": ["split_tf32_kernel", "proj_tf32_kernel<0>",
+                              "attn_fwd_tf32_kernel<D, false>", "proj_tf32_kernel<1>",
+                              "layernorm_kernel<float>"],
+    "dropout_attention_fwd": ["attn_fwd_tf32_kernel<D, true>"],
+    "dropout_attention_bwd": ["attn_bwd_prep_f32_kernel<D>", "attn_bwd_tf32_kernel<D>"],
+    "fused_attention": ["attn_fwd_tf32_kernel<D, false>"]}
 
 
 def _bound_f32(flops: float, nbytes: float) -> dict:
@@ -4422,7 +4437,8 @@ def phase_float32_kernels(torch) -> dict:
 
 def _tf32_ptxas() -> list:
     """ptxas's registers and spill bytes of the 3xTF32 kernels (the float32
-    backward and the block's projections and weight split), logged."""
+    forward and backward, the block's projections and weight split),
+    logged."""
     from maskbit_tpu_torch.nn import cuda_build
 
     rows = [k for k in ptxas_kernels(cuda_build.build_log["attention_f32"]["ptxas"])
@@ -4463,13 +4479,13 @@ def _f32_profile_check(torch) -> dict:
                           generator=torch.Generator(device="cuda").manual_seed(9))
     g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(10),
                     device="cuda")
-    block_kernels = ("split_tf32_kernel", "proj_tf32_kernel<0>", "attn_fwd_f32_kernel",
+    block_kernels = ("split_tf32_kernel", "proj_tf32_kernel<0>", "attn_fwd_tf32_kernel",
                      "proj_tf32_kernel<1>", "layernorm_kernel<float>")
     calls = {"block": (lambda: ab.fused_attention_block(**inp, num_heads=HEADS), block_kernels),
              "bert_attention": (lambda: layer(inp["x"]), block_kernels),
              "dropout_attention": (lambda: torch.autograd.grad(
                  da.dropout_attention(q, k, v, seeds, RATE), (q, k, v), g),
-                 ("attn_fwd_f32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_tf32_kernel"))}
+                 ("attn_fwd_tf32_kernel", "attn_bwd_prep_f32_kernel", "attn_bwd_tf32_kernel"))}
     banned = ("gemm", "nvjet", "cutlass", "flash", "cudnn", "fmha", "efficient_attention",
               "softmax", "attn_fwd_kernel", "attn_bwd_kernel", "proj_kernel<",
               "layernorm_kernel<__nv")
@@ -4636,15 +4652,22 @@ def _block_f64(torch, inp, heads):
                                           inp["ln_bias"].to(f64), eps=1e-12)
 
 
+def _lse(torch, q, k):
+    """The rows' log-sum-exp of the scores (b*h, n), in q's dtype."""
+    b, n, h, d = q.shape
+    return torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5, -1).reshape(b * h, n)
+
+
 def phase_f32_error(torch) -> dict:
     """Not in the default run (`--phases f32_error`, with `--tree` to
     compare trees): the float32 kernels' error against float64 as the
     contraction grows, beside the plain float32 version's (TF32 off). Each
     error is max |got - ref| / max(1, max |ref|), ref the float64 result:
-    the block at (1, 257, E) over E / 64 heads for E in `F32_ERROR_E`, the
-    backward's dq, dk, dv at (1, n, 4, 64) for n in `F32_ERROR_N`. A shape
-    the tree's kernels refuse is recorded as refused. Also the device ms of
-    the block at (16, 257, 1024) and the backward at (32, 257, 16, 64)."""
+    the block at (1, 257, E) over E / 64 heads for E in `F32_ERROR_E`; the
+    dropout forward's out and lse, and the backward's dq, dk, dv, at (1, n,
+    4, 64) for n in `F32_ERROR_N`. A shape the tree's kernels refuse is
+    recorded as refused. Also the device ms of the block at (16, 257,
+    1024), and of the forward and the backward at (32, 257, 16, 64)."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
@@ -4653,7 +4676,7 @@ def phase_f32_error(torch) -> dict:
     def rel(got, ref):
         return (got.to(f64) - ref).abs().max().item() / max(1.0, ref.abs().max().item())
 
-    out = {"block": [], "backward": []}
+    out = {"block": [], "forward": [], "backward": []}
     for e in F32_ERROR_E:
         inp = _block_inputs(torch, 1, 257, e, seed=e, vectors=f32, dtype=f32)
         heads = e // 64
@@ -4667,6 +4690,21 @@ def phase_f32_error(torch) -> dict:
         log(f"[f32_error] block E={e}: {row}")
         out["block"].append(row)
         del inp, ref
+    gf = torch.Generator(device="cuda").manual_seed(1)  # g below draws the backward's, as before
+    for n in F32_ERROR_N:
+        q, k, v = (torch.randn(1, n, 4, 64, generator=gf, device="cuda") for _ in range(3))
+        seeds = torch.randint(0, 2**31, (1, 4), generator=gf, device="cuda")
+        wide = [t.to(f64) for t in (q, k, v)]
+        ref, lse_ref = da.dropout_attention_reference(*wide, seeds, RATE), _lse(torch, *wide[:2])
+        got, lse = da.launch_forward(q, k, v, da.seeds_as_int32(seeds, (1, 4)), RATE)
+        row = {"n": n, "out_err": rel(got, ref),
+               "out_plain_err": rel(da.dropout_attention_reference(q, k, v, seeds, RATE), ref),
+               "lse_err": rel(lse, lse_ref), "lse_plain_err": rel(_lse(torch, q, k), lse_ref)}
+        row["within_3x_plain"] = (row["out_err"] <= 3 * row["out_plain_err"]
+                                  and row["lse_err"] <= 3 * row["lse_plain_err"])
+        log(f"[f32_error] forward n={n}: {row}")
+        out["forward"].append(row)
+        del ref, lse_ref, wide
     g = torch.Generator(device="cuda").manual_seed(0)
     for n in F32_ERROR_N:
         q, k, v, w = (torch.randn(1, n, 4, 64, generator=g, device="cuda") for _ in range(4))
@@ -4693,8 +4731,12 @@ def phase_f32_error(torch) -> dict:
     times = _device_breakdown(torch, lambda: torch.autograd.grad(o, (q, k, v), w,
                                                                  retain_graph=True))
     out["backward_ms"] = sum(times.values())
-    log(f"[f32_error] device ms: block (16, 257, 1024) {out['block_ms']:.4f}, backward "
-        f"(32, 257, 16, 64) {out['backward_ms']:.4f} ({times})")
+    seeds32 = da.seeds_as_int32(seeds, (TRAIN_BATCH, HEADS))
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    out["forward_ms"] = sum(_device_breakdown(
+        torch, lambda: da.launch_forward(qd, kd, vd, seeds32, RATE)).values())
+    log(f"[f32_error] device ms: block (16, 257, 1024) {out['block_ms']:.4f}, forward "
+        f"(32, 257, 16, 64) {out['forward_ms']:.4f}, backward {out['backward_ms']:.4f} ({times})")
     return out
 
 
@@ -4964,11 +5006,14 @@ def main(argv=None) -> int:
             padded_errs += [r["err"] for r in f32["kernels"]["padded"] if "err" in r]
         f32_keys = time_keys + ("bound_ffma_ms", "bound_ffma_by")
         # the 3xTF32 kernels' ptxas report (registers, spill bytes)
-        tf32 = {"dropout_attention_bwd": ("attn_bwd_tf32",),
-                "fused_attention_block": ("proj_tf32", "split_tf32")}
+        tf32 = {"dropout_attention_fwd": ("attn_fwd_tf32",),
+                "dropout_attention_bwd": ("attn_bwd_tf32",),
+                "fused_attention": ("attn_fwd_tf32",),
+                "fused_attention_block": ("proj_tf32", "split_tf32", "attn_fwd_tf32")}
         record["kernels"].append({
             "name": f"{name}_f32", "route": "cuda", "source": f32_src, "replaces": replaces,
             "dtype": "float32", "head_dims": "[1, 128] (multiples of 16 native, others padded)",
+            "cuda_kernels": F32_CUDA_KERNELS[name],
             "launches": (f32_serve if serve_path else f32_train).get(f"{key}@64/float32", 0),
             "launches_train_cli": f32_train.get(f"{key}@64/float32", 0),
             "max_abs_err": max(errs), "padded_max_abs_err": max(padded_errs),

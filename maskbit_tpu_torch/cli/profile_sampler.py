@@ -25,7 +25,7 @@ _LAYERS = (
     ("attn_fwd_kernel", "attention block: attention (hand wgmma)"),
     ("proj_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
     ("split_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
-    ("attn_fwd_f32_kernel", "attention block: attention (hand FFMA, float32)"),
+    ("attn_fwd_tf32_kernel", "attention block: attention (hand wgmma, 3xTF32 float32)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),
     ("fprop", "decoder convolutions (cuDNN)"),

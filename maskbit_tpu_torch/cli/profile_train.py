@@ -31,7 +31,7 @@ from maskbit_tpu_torch.train import generator_trainer
 # kernel-name fragment -> category, first match wins
 _CATEGORIES = (
     ("attn_fwd_kernel", "dropout attention forward (hand)"),
-    ("attn_fwd_f32_kernel", "dropout attention forward (hand)"),
+    ("attn_fwd_tf32_kernel", "dropout attention forward (hand)"),
     ("attn_bwd", "dropout attention backward (hand)"),
     ("multi_tensor_apply", "optimizer, EMA, grad norm (foreach)"),
     ("conv", "tokenizer convolutions (cuDNN)"),

@@ -4,14 +4,14 @@
 // points' compute dtype under `training.mixed_precision: no`), the TPU
 // kernels of maskbit_tpu/nn/pallas_attention.py:
 //   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
-//     attn_fwd_f32_kernel<D, true>;
-//   * _attention_kernel (fused_attention), by attn_fwd_f32_kernel<D, false>:
+//     attn_fwd_tf32_kernel<D, true>;
+//   * _attention_kernel (fused_attention), by attn_fwd_tf32_kernel<D, false>:
 //     the same forward with the mask compiled out;
 //   * _dropattn_bwd_kernel (_dropout_attention_bwd), by attn_bwd_prep_f32_kernel
 //     and attn_bwd_tf32_kernel<D>;
 //   * _attention_block_kernel (fused_attention_block), by split_tf32_kernel
 //     (the weights' TF32 halves), proj_tf32_kernel<EPI_BIAS> (QKV, with the
-//     bias), attn_fwd_f32_kernel<D, false>, proj_tf32_kernel<EPI_RESID>
+//     bias), attn_fwd_tf32_kernel<D, false>, proj_tf32_kernel<EPI_RESID>
 //     (out-projection, bias and residual) and layernorm_kernel<float>
 //     (layernorm.cuh, shared with the bf16 block).
 // Each is a template on the head dim D, instantiated at the multiples of 16
@@ -21,46 +21,86 @@
 // (qkv, the softmax weights, the head outputs, the score gradient) is a
 // no-op, so these compute what the TPU kernels compute in float32.
 //
-// Two ways to multiply in float32:
-//   * the forward and the block's attention core: FFMA tiles on the CUDA
-//     cores (full float32, as a float32 matrix product on the card computes
-//     by default);
-//   * the backward and the block's two projections: 3xTF32 on the tensor
-//     cores, wgmma m64nNk8 .tf32 (495 TFLOP/s dense, against 67 for FFMA).
-//     Each operand is split as a = a_hi + a_lo, a_hi = cvt.rna.tf32(a), a_lo
-//     = cvt.rna.tf32(a - a_hi) (a_hi carries 11 significant bits, a_lo the
-//     next 11), and each product is summed in f32 as a_lo b_hi + a_hi b_lo +
-//     a_hi b_hi; the dropped a_lo b_lo is below 2^-22 of |a b|. The tensor
-//     cores' f32 accumulation does not round to nearest, so a long chain of
-//     wgmma into one accumulator loses accuracy with its length: against a
-//     float64 block at (1, 257, E) the projections' error grew from 4.8e-7
-//     at E = 1024 to 1.5e-4 at 8192 with one accumulator over all of K,
-//     where the plain float32 block's stays within 1.4e-7..2.0e-6. The
-//     projections therefore add each 32-wide stage's wgmma sum into a
-//     register sum on the CUDA cores: 1.4e-7..1.4e-6 at those E. The
-//     backward's dK and dV stay in one accumulator over the queries (no
-//     registers left for a second): 3.7e-6 at n = 257, 1.0e-5 at 4097,
-//     against the plain version's 5.9e-7 and 8.1e-7 (chip_smoke.py --phases
-//     f32_error, an NVIDIA H100 80GB HBM3 at 700 W). The card tests hold
-//     every output within 1e-4 of the largest reference value (F32_TOL).
+// How they multiply in float32: 3xTF32 on the tensor cores, wgmma m64nNk8
+// .tf32 (495 TFLOP/s dense, against 67 for FFMA on the CUDA cores). Each
+// operand is split as a = a_hi + a_lo, a_hi = cvt.rna.tf32(a), a_lo =
+// cvt.rna.tf32(a - a_hi) (a_hi carries 11 significant bits, a_lo the next
+// 11), and each product is summed in f32 as a_lo b_hi + a_hi b_lo + a_hi
+// b_hi; the dropped a_lo b_lo is below 2^-22 of |a b|. The tensor cores' f32
+// accumulation does not round to nearest, so a long chain of wgmma into one
+// accumulator loses accuracy with its length: against a float64 block at
+// (1, 257, E) the projections' error grew from 4.8e-7 at E = 1024 to 1.5e-4
+// at 8192 with one accumulator over all of K, where the plain float32
+// block's stays within 1.4e-7..2.0e-6. The projections therefore add each
+// 32-wide stage's wgmma sum into a register sum on the CUDA cores:
+// 1.4e-7..1.4e-6 at those E; the forward does the same with each key tile's
+// value product, the long chain over n (its scores sum over d <= 128 in one
+// accumulator). The backward's dK and dV stay in one accumulator over the
+// queries (no registers left for a second): 3.7e-6 at n = 257, 1.0e-5 at
+// 4097, against the plain version's 5.9e-7 and 8.1e-7 (chip_smoke.py
+// --phases f32_error, an NVIDIA H100 80GB HBM3 at 700 W). The card tests
+// hold every output within 1e-4 of the largest reference value (F32_TOL).
 //
 // What bounds them on the H100. At the flagship training shape, q, k, v of
 // (32, 257, 16, 64) float32 (33.7 MB each), the forward moves 135 MB (40 us
-// at 3.35 TB/s) for 8.7 GFLOP (129 us at 67 TFLOP/s); the backward 270 MB
-// (81 us) for 21.6 GFLOP, which as 3xTF32 is 64.7 GFLOP of tensor-core work
-// (131 us at 495 TFLOP/s). The serving block at x (16 * 257, 1024) is 38.8
-// GFLOP, 34.5 of it the two projections (3xTF32: 104 GFLOP, 209 us), the
-// attention core 4.3 (64 us on the CUDA cores), against 50 MB (15 us).
+// at 3.35 TB/s) for 8.7 GFLOP, which as 3xTF32 is 26.0 GFLOP of
+// tensor-core work (53 us at 495 TFLOP/s); the backward 270 MB (81 us) for
+// 21.6 GFLOP, 64.7 as 3xTF32 (131 us). The serving block at x (16 * 257,
+// 1024) is 38.8 GFLOP, 34.5 of it the two projections (3xTF32: 104 GFLOP,
+// 209 us), the attention core 4.3 (3xTF32: 13 GFLOP, 26 us), against 50 MB
+// (15 us). Beside the products the forward spends about 20 f32 and integer
+// operations a (query, key) pair on the CUDA cores (the online softmax, the
+// keep hash, the weights' split), and the splitters 4 to 6 a K and V
+// element; no bound counts these.
 //
-// The FFMA forward. One block of 256 threads (16 x 16) per (batch*head,
-// 64-query tile); Q stays in shared memory (rows padded by 4 floats, so a
-// thread's float4 reads along d hit no bank twice), K and V tiles of 64
-// keys stream through by cp.async (rows past n zero-filled); the online
-// softmax in f32 with exp2f and log2(e) folded into the scale, the row sum
-// over ALL keys before dropout, the keep hash applied to the unnormalised
-// weights, which pass through shared memory to the value product; the row
-// log-sum-exp is saved for the backward. Each thread holds 4 rows x 4 score
-// columns and 4 rows x D / 16 output columns.
+// The forward (attn_fwd_tf32_kernel<D, DROPOUT>). One block per
+// (batch*head, 64 WGS queries), the bf16 forward's pipeline with a split
+// stage in it:
+//   * a producer warpgroup: one thread loads the Q tiles once, and K and V
+//     tiles of KT keys by TMA (rows past n read 0) into rings of two tiles;
+//     three splitter warps turn Q and each K tile into hi (in place) and lo
+//     halves, and each V tile into V^T's hi and lo halves, [d][key]: the
+//     value product reduces over keys, and .tf32 takes its B operand K-major
+//     only, so V is transposed there, as FlashAttention-3's fp8 path does.
+//     Within each group of 8 keys V^T's columns run 0, 2, 4, 6, 1, 3, 5, 7,
+//     so that the score accumulator's weights, (g, 2c) and (g, 2c + 1) in a
+//     k8 slab, are the A fragment's (g, c) and (g, c + 4) as they stand, with
+//     no shuffle. K, raw V and V^T have rings of their own, each tile freed
+//     as soon as its last reader is done (K after the scores, raw V after the
+//     split, V^T after the value product), so that loads and splits run a
+//     tile ahead of the products; with one ring of whole stages the next
+//     load waited for the value product;
+//   * WGS consumer warpgroups of 64 queries: S = Q K^T (A and B from shared
+//     memory), the online softmax on S in registers (exp2f with log2 e in
+//     the scale, keys past n masked, the row sum over ALL keys before
+//     dropout, the keep hash on the unnormalised weights, softmax_tile of
+//     attention_fwd.cuh), then P V with P's hi and lo halves as A from
+//     registers and V^T from shared memory, one wgmma per binary digit of D
+//     (Pieces), into a fresh accumulator that is added to O (rescaled by the
+//     row's alpha) on the CUDA cores. The scores' large products (hi hi) and
+//     small ones go to two accumulators, added on the CUDA cores too. Tile
+//     t + 1's scores are issued with tile t's value product, and its softmax
+//     runs while that product does. The row log-sum-exp is saved for the
+//     backward. A warpgroup whose queries all lie past n does nothing;
+//   * the weights and the splitters' tiles are split into TF32 halves by
+//     integer operations (split_tf32_int, equal to cvt.rna);
+//   * the plan by D (F32Fwd): two consumer warpgroups and 64-key tiles where
+//     they fit (D <= 64: 224 KB at 64), two and 32 keys at D = 80 and 96, one
+//     and 32 keys at 112 and 128 (224 KB at 128); one block an SM, and with
+//     two consumer warpgroups setmaxnreg moves the producer warpgroup's
+//     registers to them (56 and 224).
+// Versions compared side by side (cli/compare_forward_f32.py on copies of
+// this file, an NVIDIA H100 80GB HBM3 at 700 W; device ms of
+// fused_attention at (16, 257, 16, 64), this file 0.1224-0.1239): cvt.rna
+// for the splits 0.1461-0.1476, the integer split 0.1323-0.1336; one ring
+// of whole stages 0.1359; the two consumer warpgroups taking turns to issue
+// their products (named barriers; ptxas then waits on the wgmma registers)
+// 0.1630; a last tile of at most 16 keys (n = 257: one) computed at N = 16
+// and two k8 slabs, which makes ptxas do the same, 0.1605. What bounds it:
+// the shared memory the products read (S takes Q and K from shared memory,
+// 4 KB a wgmma, against 128 bytes a cycle) and the tensor cores, with the
+// splitters' 96 KB a 64-key tile beside them; the two consumer warpgroups'
+// softmaxes run at the same time, when the tensor cores wait.
 //
 // The 3xTF32 products (tf32 section below). wgmma takes .tf32 operands
 // K-major only (the transpose flags exist for f16 and bf16 alone), and TMA
@@ -73,7 +113,8 @@
 //   * an operand whose reduction runs along its rows (the input tiles in
 //     the backward's products over the sequence) is an A operand in
 //     registers, loaded by each thread from the d-contiguous tile at the
-//     transposed place; the operands the kernel computes itself (the
+//     transposed place, or, as the forward's V, a B operand that splitter
+//     warps write transposed; the operands the kernel computes itself (the
 //     backward's P^T, dS^T and dS) are written to shared memory K-major in
 //     the layout the product needs.
 //
@@ -150,274 +191,6 @@
 
 namespace {
 
-constexpr int FR = 64;         // queries or keys per tile; rows of an output tile
-constexpr int FT = 256;        // threads: 16 x 16, each 4 rows of the tile
-constexpr int FLP = FR + 4;    // row length (floats) of a 64-wide tile in shared memory
-
-// Tiles of head dim D. A thread of (ty, tx) = (tid / 16, tid % 16) holds rows
-// 4 ty .. 4 ty + 3 of a 64-row output tile, the score columns tx + 16 j (j <
-// 4) and the D / 16 head-dim columns col(tx, c) = 4 tx + 64 (c / 4) + c % 4
-// (float4s) where D is a multiple of 64, else tx + 16 c.
-template <int D>
-struct F32 {
-  static constexpr int LD = D + 4;      // row length of a (64, D) tile
-  static constexpr int TILE = FR * LD;  // floats
-  static constexpr int CPT = D / 16;    // head-dim columns a thread holds
-  static constexpr bool VEC = D % 64 == 0;
-  static constexpr int FWD_SMEM = (3 * TILE + FR * FLP) * 4;           // Q | K | V | P
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N committed copy groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [0, 64) of a (rows, D) f32 tile whose row r starts at src + r * stride
-// into shared memory, rows D + 4 floats long; rows from `valid` on are zeros.
-// Starts the copies; the caller commits and waits.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          long long stride, int valid) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < FR * CH; i += FT) {
-    const int r = i / CH, c = i - r * CH;
-    const bool ok = r < valid;
-    cp_async16(dst + r * F32<D>::LD + 4 * c, src + (ok ? r * stride : 0) + 4 * c, ok);
-  }
-}
-
-// acc[i][j] += sum_k A[4 ty + i][k] B[tx + 16 j][k], k in [0, K): both
-// operands row-major in shared memory (rows LDA and LDB floats long).
-template <int K, int LDA, int LDB>
-__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a, const float* b, int ty,
-                                       int tx) {
-  const float* ar = a + 4 * ty * LDA;
-  const float* br = b + tx * LDB;
-#pragma unroll 4
-  for (int k = 0; k < K; k += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + i * LDA + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(br + 16 * j * LDB + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(av[i].x, bv[j].x, s);
-        s = fmaf(av[i].y, bv[j].y, s);
-        s = fmaf(av[i].z, bv[j].z, s);
-        s = fmaf(av[i].w, bv[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][c] += sum_k A[4 ty + i][k] B[k][col(tx, c)], k in [0, 64): A a
-// 64-wide tile (rows FLP long), B a (64, D) tile (rows D + 4 long).
-template <int D>
-__device__ __forceinline__ void mma_nn(float (&acc)[4][D / 16], const float* a, const float* b,
-                                       int ty, int tx) {
-  using F = F32<D>;
-  const float* ar = a + 4 * ty * FLP;
-#pragma unroll 2
-  for (int k = 0; k < FR; k += 4) {
-    float4 av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + i * FLP + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* br = b + (k + kk) * F::LD;
-      float bv[F::CPT];
-      if constexpr (F::VEC) {
-#pragma unroll
-        for (int q = 0; q < F::CPT / 4; ++q) {
-          const float4 x = *reinterpret_cast<const float4*>(br + 4 * tx + 64 * q);
-          bv[4 * q] = x.x;
-          bv[4 * q + 1] = x.y;
-          bv[4 * q + 2] = x.z;
-          bv[4 * q + 3] = x.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < F::CPT; ++c) bv[c] = br[tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
-#pragma unroll
-        for (int c = 0; c < F::CPT; ++c) acc[i][c] = fmaf(ai, bv[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// Row r's D head-dim values of this thread, times `scale`, to dst (a row of
-// a contiguous (b, n, h, D) tensor).
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[D / 16], float scale,
-                                          int tx) {
-  using F = F32<D>;
-  if constexpr (F::VEC) {
-#pragma unroll
-    for (int q = 0; q < F::CPT / 4; ++q)
-      *reinterpret_cast<float4*>(dst + 4 * tx + 64 * q) =
-          make_float4(v[4 * q] * scale, v[4 * q + 1] * scale, v[4 * q + 2] * scale,
-                      v[4 * q + 3] * scale);
-  } else {
-#pragma unroll
-    for (int c = 0; c < F::CPT; ++c) dst[tx + 16 * c] = v[c] * scale;
-  }
-}
-
-// ------------------------------------------------------------- forward ----
-
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(FT, 2)
-attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, long long sb, long long sn, long long sh,
-                    const int* __restrict__ seeds, float* __restrict__ out,
-                    float* __restrict__ lse, int n, int H, float scale_log2, uint32_t threshold,
-                    float keep_scale) {
-  using F = F32<D>;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* qs = smem_f32;
-  float* ks = qs + F::TILE;
-  float* vs = ks + F::TILE;
-  float* ps = vs + F::TILE;  // the weights, (64 queries, 64 keys)
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * FR;
-  const long long head = b * sb + h * sh;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
-  uint32_t rmix[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rmix[i] = static_cast<uint32_t>(q0 + 4 * ty + i) * 0x9E3779B1u + seed_mix;
-
-  load_rows<D>(qs, q + head + q0 * sn, sn, n - q0);
-  float m_run[4], l_run[4], o[4][F::CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < F::CPT; ++c) o[i][c] = 0.0f;
-  }
-
-  const int ntiles = (n + FR - 1) / FR;
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = t * FR;
-    __syncthreads();  // every thread is done with the previous K, V and weights
-    load_rows<D>(ks, k + head + kv0 * sn, sn, n - kv0);
-    load_rows<D>(vs, v + head + kv0 * sn, sn, n - kv0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[4][4] = {};
-    mma_nt<D, F::LD, F::LD>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kv0 + tx + 16 * j < n ? s[i][j] * scale_log2 : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m_run[i], tmax);  // finite: key kv0 is valid
-      const float alpha = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-      float tsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m_new);  // 0 past n
-        tsum += p;  // the row sum runs before dropout
-        float w = p;
-        if (DROPOUT) {
-          const uint32_t col = kv0 + tx + 16 * j;
-          w = fmix(rmix[i] + col * 0x85EBCA77u) >= threshold ? p * keep_scale : 0.0f;
-        }
-        ps[(4 * ty + i) * FLP + tx + 16 * j] = w;
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-      l_run[i] = l_run[i] * alpha + tsum;
-#pragma unroll
-      for (int c = 0; c < F::CPT; ++c) o[i][c] *= alpha;
-    }
-    __syncthreads();
-    mma_nn<D>(o, ps, vs, ty, tx);  // O += w V
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row < n) {
-      store_row<D>(out + (((long long)b * n + row) * H + h) * D, o[i], 1.0f / l_run[i], tx);
-      if (lse != nullptr && tx == 0)
-        lse[(long long)bh * n + row] = (m_run[i] + log2f(l_run[i])) * LN2;
-    }
-  }
-}
-
-template <int D>
-int attention_forward_f32_at(const float* q, const float* k, const float* v, long long sb,
-                             long long sn, long long sh, const int* seeds, float* out, float* lse,
-                             int B, int n, int H, int d, unsigned int threshold, float keep_scale,
-                             bool dropout, cudaStream_t s) {
-  static unsigned long long smem_set[2];
-  const dim3 grid((n + FR - 1) / FR, B * H);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(d));
-  constexpr int smem = F32<D>::FWD_SMEM;
-  cudaError_t err;
-  if (dropout) {
-    if ((err = ensure_smem(attn_fwd_f32_kernel<D, true>, smem, smem_set[1])) != cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_f32_kernel<D, true><<<grid, FT, smem, s>>>(q, k, v, sb, sn, sh, seeds, out, lse, n,
-                                                        H, scale_log2, threshold, keep_scale);
-  } else {
-    if ((err = ensure_smem(attn_fwd_f32_kernel<D, false>, smem, smem_set[0])) != cudaSuccess)
-      return static_cast<int>(err);
-    attn_fwd_f32_kernel<D, false><<<grid, FT, smem, s>>>(q, k, v, sb, sn, sh, nullptr, out, lse,
-                                                         n, H, scale_log2, 0u, 1.0f);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The forward on `s` at head dim d in [1, 128] (else cudaErrorInvalidValue),
-// the tensors at D = pad_head_dim(d); the arguments of
-// mb_dropout_attention_fwd_f32.
-int attention_forward_f32(const float* q, const float* k, const float* v, long long sb,
-                          long long sn, long long sh, const int* seeds, float* out, float* lse,
-                          int B, int n, int H, int d, unsigned int threshold, float keep_scale,
-                          bool dropout, cudaStream_t s) {
-  switch (d < 1 ? 0 : pad_head_dim(d)) {
-#define MB_F32_FWD_CASE(W)                                                                   \
-  case W:                                                                                   \
-    return attention_forward_f32_at<W>(q, k, v, sb, sn, sh, seeds, out, lse, B, n, H, d,    \
-                                       threshold, keep_scale, dropout, s);
-    MB_HEAD_DIMS(MB_F32_FWD_CASE)
-#undef MB_F32_FWD_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // ------------------------------------------------------------------ tf32 ----
 
 // a = hi + lo in TF32: hi = rna(a), lo = rna(a - hi) (a - hi is exact in f32).
@@ -430,12 +203,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
 }
+// The same split by integer operations, equal to cvt.rna for finite x
+// (round the magnitude at bit 13, ties away from zero), at the integer
+// pipe's rate: the forward's splitters and weights.
+__device__ __forceinline__ uint32_t to_tf32_int(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32_int(x);
+  lo = to_tf32_int(x - __uint_as_float(hi));
+}
+// hi and lo halves of 4 floats (INT: by split_tf32_int).
+template <bool INT = false>
 __device__ __forceinline__ float4 hi4(float4 v, float4& lo) {
   uint32_t h[4], l[4];
-  split_tf32(v.x, h[0], l[0]);
-  split_tf32(v.y, h[1], l[1]);
-  split_tf32(v.z, h[2], l[2]);
-  split_tf32(v.w, h[3], l[3]);
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (INT)
+      split_tf32_int(x[i], h[i], l[i]);
+    else
+      split_tf32(x[i], h[i], l[i]);
+  }
   lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
                    __uint_as_float(l[3]));
   return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
@@ -568,12 +357,13 @@ __device__ __forceinline__ void afrag_t(uint32_t (&hi)[4], uint32_t (&lo)[4], co
 
 // hi (in place) and lo halves of `bytes` bytes of f32 at `tile`, the lo
 // half at tile + lo_off, by `nthreads` threads of which this is `t`.
+template <bool INT = false>
 __device__ __forceinline__ void split_tile(uint8_t* tile, int lo_off, int bytes, int t,
                                            int nthreads) {
   for (int i = t * 16; i < bytes; i += nthreads * 16) {
     float4* p = reinterpret_cast<float4*>(tile + i);
     float4 lo;
-    *p = hi4(*p, lo);
+    *p = hi4<INT>(*p, lo);
     *reinterpret_cast<float4*>(tile + lo_off + i) = lo;
   }
 }
@@ -587,6 +377,386 @@ split_tf32_kernel(const float4* __restrict__ src, float4* __restrict__ hi, float
     float4 l;
     hi[i] = hi4(src[i], l);
     lo[i] = l;
+  }
+}
+
+constexpr int F32_SMEM_LIMIT = 232448;  // a block's shared memory, at most
+
+// A (b, n, h, D) f32 tensor with element strides (sb, sn, sh) as rank-4 (d,
+// n, h, b) maps of (W x rows) boxes, one per panel width W of D (F32Panels):
+// [0] 32 wide (128-byte swizzle), [1] 16 wide (64-byte swizzle); rows past
+// n read 0 and are not written.
+template <int D>
+bool tile_maps_f32(TileMaps* maps, const void* base, int B, int n, int H, long long sb,
+                   long long sn, long long sh, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 4, static_cast<cuuint64_t>(sh) * 4,
+                                 static_cast<cuuint64_t>(sb) * 4};
+  const cuuint32_t box32[4] = {32, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box16[4] = {16, static_cast<cuuint32_t>(rows), 1, 1};
+  memset(maps, 0, sizeof(*maps));
+  return (F32Panels<D>::WIDE == 0 ||
+          encode_tiled(&maps->box[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides,
+                       box32, CU_TENSOR_MAP_SWIZZLE_128B)) &&
+         (!F32Panels<D>::HAS16 ||
+          encode_tiled(&maps->box[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides,
+                       box16, CU_TENSOR_MAP_SWIZZLE_64B));
+}
+
+// All panels of the `rows`-row tile at (row, h, b) into the tile at shared
+// address `tile`, on barrier `bar`.
+template <int D>
+__device__ __forceinline__ void tma_load_tile_f32(uint32_t tile, const TileMaps& maps,
+                                                  uint32_t bar, int rows, int row, int h, int b) {
+  using P = F32Panels<D>;
+#pragma unroll
+  for (int p = 0; p < P::COUNT; ++p)
+    tma_load_box(tile + rows * P::col(p) * 4, &maps.box[p < P::WIDE ? 0 : 1], bar, P::col(p), row,
+                 h, b);
+}
+
+// ------------------------------------------------------------- forward ----
+
+// The forward's plan by head dim D (see the header): WGS consumer
+// warpgroups of 64 queries each a block and KT keys a tile, the first of
+// (2, 64), (2, 32), (1, 64), (1, 32) whose shared memory fits: for each
+// consumer warpgroup its Q tile's hi and lo halves, and three rings of
+// F32F_STAGES tiles each: K (raw, split in place into its hi half) and its
+// lo half, raw V, and V^T's hi and lo halves.
+constexpr int F32F_STAGES = 2;
+constexpr int F32F_SPLITTERS = 96;  // the producer warpgroup's warps 1..3
+constexpr int f32fwd_bytes(int D, int wgs, int kt) {
+  return wgs * 2 * 64 * D * 4 + F32F_STAGES * 5 * kt * D * 4 + 128 + 1024;
+}
+
+template <int D>
+struct F32Fwd {
+  static constexpr int PICK = f32fwd_bytes(D, 2, 64) <= F32_SMEM_LIMIT   ? 264
+                              : f32fwd_bytes(D, 2, 32) <= F32_SMEM_LIMIT ? 232
+                              : f32fwd_bytes(D, 1, 64) <= F32_SMEM_LIMIT ? 164
+                                                                         : 132;
+  static constexpr int WGS = PICK / 100, KT = PICK % 100;
+  static constexpr int THREADS = 128 * (1 + WGS);
+  static constexpr int QT = 64 * D * 4;   // a 64-query tile; Q's lo half follows it
+  static constexpr int KVT = KT * D * 4;  // a K, V or V^T tile; a lo half follows hi
+  // {Q_hi Q_lo}[WGS] | {K_hi K_lo}[STAGES] | V[STAGES] | {V^T_hi V^T_lo}[STAGES]
+  // | barriers
+  static constexpr int KS = WGS * 2 * QT, VS = KS + F32F_STAGES * 2 * KVT;
+  static constexpr int VTS = VS + F32F_STAGES * KVT, BARS = VTS + F32F_STAGES * 2 * KVT;
+  static constexpr int SMEM = f32fwd_bytes(D, WGS, KT);
+  static_assert(SMEM <= F32_SMEM_LIMIT, "shared memory");
+  // setmaxnreg with two consumer warpgroups: 65536 / 384 = 168 registers a
+  // thread at launch, the producer warpgroup's to the consumers; one
+  // consumer warpgroup runs at 255
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+};
+
+// The m64nW wgmmas that cover D output columns: W runs over D's binary
+// digits from 128 down to 16 (each a width with a wgmma form), piece p
+// starting at column first(p).
+template <int D>
+struct Pieces {
+  static constexpr int COUNT = ((D >> 7) & 1) + ((D >> 6) & 1) + ((D >> 5) & 1) + ((D >> 4) & 1);
+  __host__ __device__ static constexpr int width(int p) {
+    for (int w = 128; w >= 16; w >>= 1)
+      if ((D & w) && p-- == 0) return w;
+    return 0;
+  }
+  __host__ __device__ static constexpr int first(int p) {
+    int c = 0;
+    for (int i = 0; i < p; ++i) c += width(i);
+    return c;
+  }
+};
+
+// V^T's hi and lo halves (at vt and vt + lo_off; F32Panels<KT> of D rows)
+// from the raw (KT keys x D) tile v, by the splitter t of F32F_SPLITTERS.
+// Row d of V^T holds the tile's keys with each group of 8 in the order 0,
+// 2, 4, 6, 1, 3, 5, 7: column c of a k8 slab of the value product's A
+// fragment is then key 2c, column c + 4 key 2c + 1, which is where the
+// score accumulator holds them (see the forward). A warp takes 16 keys by
+// 8 columns of d, lane l key l % 16's 4 values at column 4 (l / 16) of the
+// 8, and writes them to 4 rows of V^T: its 16-byte loads and its 4-byte
+// stores each hit every bank once.
+template <int D, int KT>
+__device__ __forceinline__ void split_vt(const uint8_t* v, uint8_t* vt, int lo_off, int t) {
+  const int warp = t >> 5, lane = t & 31;
+  constexpr int UNITS = (KT / 16) * (D / 8);
+#pragma unroll 4
+  for (int u = warp; u < UNITS; u += F32F_SPLITTERS / 32) {
+    const int key = 16 * (u / (D / 8)) + (lane & 15);
+    const int d = 8 * (u % (D / 8)) + 4 * (lane >> 4);
+    const int col = (key & ~7) + 4 * (key & 1) + ((key & 7) >> 1);  // of V^T
+    const float4 x = *reinterpret_cast<const float4*>(v + F32Panels<D>::offset(KT, key, d));
+    float4 lo;
+    const float4 hi = hi4<true>(x, lo);
+    const float h[4] = {hi.x, hi.y, hi.z, hi.w}, l[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = F32Panels<KT>::offset(D, d + i, col);
+      *reinterpret_cast<float*>(vt + o) = h[i];
+      *reinterpret_cast<float*>(vt + lo_off + o) = l[i];
+    }
+  }
+}
+
+// tq: Q's maps of 64-row boxes; tk, tv: K's and V's of KT-row boxes.
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(F32Fwd<D>::THREADS, 1)
+attn_fwd_tf32_kernel(const __grid_constant__ TileMaps tq, const __grid_constant__ TileMaps tk,
+                     const __grid_constant__ TileMaps tv, const int* __restrict__ seeds,
+                     float* __restrict__ out, float* __restrict__ lse, int n, int H,
+                     float scale_log2, uint32_t threshold, float keep_scale) {
+  using C = F32Fwd<D>;
+  constexpr int WGS = C::WGS, KT = C::KT, STG = F32F_STAGES, QT = C::QT, KVT = C::KVT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t base = smem_u32(smem), bar0 = base + C::BARS;
+  // barriers, STG each but the first two: q_full | q_ready | k_full | k_ready
+  // | k_empty | v_full | v_free | vt_ready | vt_empty; the K and V^T tiles
+  // are freed as soon as their product is done, raw V once it is split, so
+  // that the loads and the splits run a tile or more ahead of the products
+  const uint32_t q_full = bar0, q_ready = bar0 + 8;
+  auto bar = [&](int kind, int i) { return bar0 + 8 * (2 + kind * STG + i % STG); };
+  enum { K_FULL, K_READY, K_EMPTY, V_FULL, V_FREE, VT_READY, VT_EMPTY, KINDS };
+  // byte offsets of tile i's K (hi, then lo), raw V and V^T (hi, then lo)
+  auto k_tile = [&](int i) { return C::KS + (i % STG) * 2 * KVT; };
+  auto v_tile = [&](int i) { return C::VS + (i % STG) * KVT; };
+  auto vt_tile = [&](int i) { return C::VTS + (i % STG) * 2 * KVT; };
+  // the phase parity of tile i's use of its ring slot, and of the release
+  // before it
+  auto use = [&](int i) { return (i / STG) & 1; };
+  auto freed = [&](int i) { return ((i / STG) & 1) ^ 1; };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * 64 * WGS;
+  const int nq = min(WGS, (n - q0 + 63) / 64);  // warpgroups with a query below n
+  const int ntiles = (n + KT - 1) / KT;
+
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BARS);
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], F32F_SPLITTERS);
+    const int counts[KINDS] = {1, F32F_SPLITTERS, 128 * nq, 1, F32F_SPLITTERS, F32F_SPLITTERS,
+                               128 * nq};
+    for (int kind = 0; kind < KINDS; ++kind)
+      for (int s = 0; s < STG; ++s) mbar_init(&bars[2 + kind * STG + s], counts[kind]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if constexpr (WGS > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0) {  // loader: the Q tiles, then K and V a tile at a time
+      mbar_expect_tx(q_full, nq * QT);
+      for (int w = 0; w < nq; ++w)
+        tma_load_tile_f32<D>(base + w * 2 * QT, tq, q_full, 64, q0 + 64 * w, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        mbar_wait(bar(K_EMPTY, i), freed(i));
+        mbar_expect_tx(bar(K_FULL, i), KVT);
+        tma_load_tile_f32<D>(base + k_tile(i), *opaque(&tk), bar(K_FULL, i), KT, i * KT, h, b);
+        mbar_wait(bar(V_FREE, i), freed(i));
+        mbar_expect_tx(bar(V_FULL, i), KVT);
+        tma_load_tile_f32<D>(base + v_tile(i), *opaque(&tv), bar(V_FULL, i), KT, i * KT, h, b);
+      }
+    } else if (threadIdx.x >= 32) {
+      // splitters: Q, K into hi (in place) and lo halves, V into V^T's
+      const int t = threadIdx.x - 32;
+      mbar_wait(q_full, 0);
+      for (int w = 0; w < nq; ++w)
+        split_tile<true>(smem + w * 2 * QT, QT, QT, t, F32F_SPLITTERS);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(q_ready);
+      for (int i = 0; i < ntiles; ++i) {
+        mbar_wait(bar(K_FULL, i), use(i));
+        split_tile<true>(smem + k_tile(i), KVT, KVT, t, F32F_SPLITTERS);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(bar(K_READY, i));
+        mbar_wait(bar(V_FULL, i), use(i));
+        mbar_wait(bar(VT_EMPTY, i), freed(i));
+        split_vt<D, KT>(smem + v_tile(i), smem + vt_tile(i), KVT, t);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(bar(V_FREE, i));
+        mbar_arrive(bar(VT_READY, i));
+      }
+    }
+    return;
+  }
+  if constexpr (WGS > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS) : "memory");
+
+  const int cw = (threadIdx.x >> 7) - 1;  // consumer warpgroup: queries q0 + 64 cw ..
+  if (cw >= nq) return;                   // all of them past n
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const uint32_t row0 = q0 + 64 * cw + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t seed_mix = DROPOUT ? static_cast<uint32_t>(seeds[bh]) * 0xC2B2AE3Du : 0u;
+  const uint32_t rmix[2] = {row0 * 0x9E3779B1u, (row0 + 8) * 0x9E3779B1u};
+
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  float o[D / 2];  // element 4j + 2r + e: row row0 + 8r, column 8j + 2c + e
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+
+  // the products of tile t, each issued as a wgmma group of its own:
+  //   * S = Q K^T, 64 queries by the tile's keys, A and B from shared memory
+  //     (Q's descriptors recomputed each time, not held in registers): the
+  //     large products (hi hi) into sc, the two small ones into sc2, added
+  //     on the CUDA cores, so that the accumulator, which does not round to
+  //     nearest, truncates D / 8 times at the scores' magnitude, not 3 D / 8
+  //     (the forward's error against float64 at (1, 257, 4, 64) from 2.7x
+  //     plain float32's to 1.2x, for 1.3% more time);
+  //   * P V into the fresh accumulator pv, P's hi and lo halves in phi, plo
+  //     (A from registers) and V^T from shared memory, a wgmma a k8 slab and
+  //     binary digit of D
+  const uint32_t qh = opaque(base + cw * 2 * QT);
+  float sc[KT / 2], sc2[KT / 2], pv[D / 2];
+  uint32_t phi[KT / 8][4], plo[KT / 8][4];
+  auto scores = [&](int t) {
+    const uint32_t q = opaque(qh), kh = opaque(base + k_tile(t));
+    mbar_wait(bar(K_READY, t), use(t));
+    fence_regs(sc);
+    fence_regs(sc2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_tf32_ss(sc2, slab_f32<D>(q + QT, 64, kk), slab_f32<D>(kh, KT, kk), kk == 0 ? 0 : 1);
+      wgmma_tf32_ss(sc2, slab_f32<D>(q, 64, kk), slab_f32<D>(kh + KVT, KT, kk), 1);
+      wgmma_tf32_ss(sc, slab_f32<D>(q, 64, kk), slab_f32<D>(kh, KT, kk), kk == 0 ? 0 : 1);
+    }
+    wgmma_commit();
+  };
+  auto values = [&](int t) {
+    const uint32_t vh = opaque(base + vt_tile(t));
+    mbar_wait(bar(VT_READY, t), use(t));
+    fence_regs(pv);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+      static_for<Pieces<D>::COUNT>([&](auto pc) {
+        constexpr int p = decltype(pc)::value;
+        constexpr int W = Pieces<D>::width(p), C0 = Pieces<D>::first(p);
+        float(&acc)[W / 2] = *reinterpret_cast<float(*)[W / 2]>(pv + C0 / 2);
+        mma3_rs(acc, phi[j], plo[j], slab_f32<KT>(vh + C0 * 128, D, j),
+                slab_f32<KT>(vh + KVT + C0 * 128, D, j), j == 0);
+      });
+    wgmma_commit();
+  };
+  // the weights in sc as the value product's A fragments, hi and lo: slab
+  // j's column c is key 8j + 2c, column c + 4 key 8j + 2c + 1 (V^T's order)
+  auto fragments = [&]() {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      split_tf32_int(sc[4 * j], phi[j][0], plo[j][0]);
+      split_tf32_int(sc[4 * j + 2], phi[j][1], plo[j][1]);
+      split_tf32_int(sc[4 * j + 1], phi[j][2], plo[j][2]);
+      split_tf32_int(sc[4 * j + 3], phi[j][3], plo[j][3]);
+    }
+  };
+  // tile t's scores, once their products are done: summed, K's tile
+  // released, and the online softmax over them
+  float alpha[2], alpha_next[2];
+  auto softmax = [&](int t, float(&a)[2]) {
+    fence_regs(sc);
+    fence_regs(sc2);
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sc[i] += sc2[i];
+    mbar_arrive(bar(K_EMPTY, t));
+    softmax_tile<DROPOUT>(sc, m_run, l_run, a, t * KT, n, c, scale_log2, rmix, seed_mix,
+                          threshold, keep_scale);
+  };
+  // tile t's P V, once done, added to O (the rows rescaled by alpha) on the
+  // CUDA cores, which round to nearest, and V^T's tile released
+  auto accumulate = [&](int t) {
+    fence_regs(pv);
+    mbar_arrive(bar(VT_EMPTY, t));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+  };
+
+  // tile t + 1's scores run on the tensor cores while tile t's value
+  // product does, and its softmax while tile t's value product still runs
+  mbar_wait(q_ready, 0);
+  scores(0);
+  wgmma_wait_all();
+  softmax(0, alpha);
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    fragments();
+    scores(t + 1);
+    values(t);
+    wgmma_wait<1>();  // the scores
+    softmax(t + 1, alpha_next);
+    wgmma_wait_all();  // the value product
+    accumulate(t);
+    alpha[0] = alpha_next[0];
+    alpha[1] = alpha_next[1];
+  }
+  fragments();
+  values(ntiles - 1);
+  wgmma_wait_all();
+  accumulate(ntiles - 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < n) {
+      const float inv = 1.0f / l_run[r];
+      float* dst = out + (((long long)b * n + row) * H + h) * D + 2 * c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (lse != nullptr && c == 0)
+        lse[(long long)bh * n + row] = (m_run[r] + log2f(l_run[r])) * LN2;
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+int attention_forward_f32_at(const float* q, const float* k, const float* v, long long sb,
+                             long long sn, long long sh, const int* seeds, float* out, float* lse,
+                             int B, int n, int H, int d, unsigned int threshold, float keep_scale,
+                             cudaStream_t s) {
+  using C = F32Fwd<D>;
+  static unsigned long long smem_set;
+  TileMaps tq, tk, tv;
+  if (!current_context() || !tile_maps_f32<D>(&tq, q, B, n, H, sb, sn, sh, 64) ||
+      !tile_maps_f32<D>(&tk, k, B, n, H, sb, sn, sh, C::KT) ||
+      !tile_maps_f32<D>(&tv, v, B, n, H, sb, sn, sh, C::KT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = ensure_smem(attn_fwd_tf32_kernel<D, DROPOUT>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + 64 * C::WGS - 1) / (64 * C::WGS), B * H);
+  attn_fwd_tf32_kernel<D, DROPOUT><<<grid, C::THREADS, C::SMEM, s>>>(
+      tq, tk, tv, seeds, out, lse, n, H, LOG2E / sqrtf(static_cast<float>(d)), threshold,
+      keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward on `s` at head dim d in [1, 128] (else cudaErrorInvalidValue),
+// the tensors at D = pad_head_dim(d); the arguments of
+// mb_dropout_attention_fwd_f32.
+int attention_forward_f32(const float* q, const float* k, const float* v, long long sb,
+                          long long sn, long long sh, const int* seeds, float* out, float* lse,
+                          int B, int n, int H, int d, unsigned int threshold, float keep_scale,
+                          bool dropout, cudaStream_t s) {
+  switch (d < 1 ? 0 : pad_head_dim(d)) {
+#define MB_F32_FWD_CASE(W)                                                                  \
+  case W:                                                                                  \
+    return dropout ? attention_forward_f32_at<W, true>(q, k, v, sb, sn, sh, seeds, out, lse, \
+                                                       B, n, H, d, threshold, keep_scale, s) \
+                   : attention_forward_f32_at<W, false>(q, k, v, sb, sn, sh, nullptr, out,   \
+                                                        lse, B, n, H, d, 0u, 1.0f, s);
+    MB_HEAD_DIMS(MB_F32_FWD_CASE)
+#undef MB_F32_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -805,40 +975,6 @@ __device__ __forceinline__ void tma_store_box4(const CUtensorMap* map, const voi
         : "memory");
 }
 
-// A (b, n, h, D) f32 tensor with element strides (sb, sn, sh) as rank-4 (d,
-// n, h, b) maps of (W x rows) boxes, one per panel width W of D (F32Panels):
-// [0] 32 wide (128-byte swizzle), [1] 16 wide (64-byte swizzle); rows past
-// n read 0 and are not written.
-template <int D>
-bool tile_maps_f32(TileMaps* maps, const void* base, int B, int n, int H, long long sb,
-                   long long sn, long long sh, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 4, static_cast<cuuint64_t>(sh) * 4,
-                                 static_cast<cuuint64_t>(sb) * 4};
-  const cuuint32_t box32[4] = {32, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t box16[4] = {16, static_cast<cuuint32_t>(rows), 1, 1};
-  memset(maps, 0, sizeof(*maps));
-  return (F32Panels<D>::WIDE == 0 ||
-          encode_tiled(&maps->box[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides,
-                       box32, CU_TENSOR_MAP_SWIZZLE_128B)) &&
-         (!F32Panels<D>::HAS16 ||
-          encode_tiled(&maps->box[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides,
-                       box16, CU_TENSOR_MAP_SWIZZLE_64B));
-}
-
-// All panels of the `rows`-row tile at (row, h, b) into the tile at shared
-// address `tile`, on barrier `bar`.
-template <int D>
-__device__ __forceinline__ void tma_load_tile_f32(uint32_t tile, const TileMaps& maps,
-                                                  uint32_t bar, int rows, int row, int h, int b) {
-  using P = F32Panels<D>;
-#pragma unroll
-  for (int p = 0; p < P::COUNT; ++p)
-    tma_load_box(tile + rows * P::col(p) * 4, &maps.box[p < P::WIDE ? 0 : 1], bar, P::col(p), row,
-                 h, b);
-}
-
 // The backward's plan by head dim D (see the header): queries a step, m64
 // blocks over d, tile sizes, the ring's stages STG and dQ-part buffers NB,
 // blocks an SM, and the shared-memory layout.
@@ -852,7 +988,6 @@ constexpr int f32bwd_bytes(int D, int NQ, int stg, int nb) {
 constexpr bool f32bwd_two(int D, int NQ, int stg, int nb) {
   return 2 * (f32bwd_bytes(D, NQ, stg, nb) + 1024) <= 228 * 1024;
 }
-constexpr int F32BWD_LIMIT = 232448;  // a block's shared memory, at most
 
 // The backward's tuning, by head dim, each the fastest of the variants
 // compared on the card (copies of this file with other values, timed side by
@@ -884,16 +1019,16 @@ struct F32Bwd {
   static constexpr int DSQ = NQ * 64 * 4;       // the [query][key] tile
   // two blocks an SM where some ring allows it (most stages and buffers
   // first), else one block with the largest ring that fits
-  static constexpr int PICK = f32bwd_two(D, NQ, 2, 2)                 ? 22
-                              : f32bwd_two(D, NQ, 2, 1)               ? 21
-                              : f32bwd_two(D, NQ, 1, 1)               ? 11
-                              : f32bwd_bytes(D, NQ, 2, 2) <= F32BWD_LIMIT ? 22
-                              : f32bwd_bytes(D, NQ, 2, 1) <= F32BWD_LIMIT ? 21
-                                                                      : 11;
+  static constexpr int PICK = f32bwd_two(D, NQ, 2, 2)                         ? 22
+                              : f32bwd_two(D, NQ, 2, 1)                       ? 21
+                              : f32bwd_two(D, NQ, 1, 1)                       ? 11
+                              : f32bwd_bytes(D, NQ, 2, 2) <= F32_SMEM_LIMIT ? 22
+                              : f32bwd_bytes(D, NQ, 2, 1) <= F32_SMEM_LIMIT ? 21
+                                                                            : 11;
   static constexpr int STG = PICK / 10, NB = PICK % 10;
   static constexpr int BLOCKS = f32bwd_two(D, NQ, STG, NB) ? 2 : 1;
   static constexpr int SMEM = f32bwd_bytes(D, NQ, STG, NB);
-  static_assert(SMEM <= F32BWD_LIMIT, "shared memory");
+  static_assert(SMEM <= F32_SMEM_LIMIT, "shared memory");
   // K_hi K_lo V_hi V_lo | {Q_hi Q_lo G_hi G_lo}[STG] | dropped^T hi, lo | dS^T
   // hi, lo | dS hi, lo | dQ part[NB] | stats[STG] | barriers
   static constexpr int K = 0, V = 2 * KV, RING = 4 * KV;
@@ -1326,6 +1461,25 @@ extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const 
         n, H, d, rotate, threshold, keep_scale, s);
     MB_HEAD_DIMS(MB_F32_BWD_CASE)
 #undef MB_F32_BWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 forward's plan at head dim d (a multiple of 16 in [16, 128]),
+// for the build's report: plan[0..2] = shared memory, consumer warpgroups
+// (64 queries each) a block, keys a tile. Returns cudaErrorInvalidValue for
+// another d.
+extern "C" int mb_attention_fwd_f32_plan(int d, int* plan) {
+  switch (d) {
+#define MB_F32_FWD_PLAN_CASE(W) \
+  case W:                       \
+    plan[0] = F32Fwd<W>::SMEM;  \
+    plan[1] = F32Fwd<W>::WGS;   \
+    plan[2] = F32Fwd<W>::KT;    \
+    return 0;
+    MB_HEAD_DIMS(MB_F32_FWD_PLAN_CASE)
+#undef MB_F32_FWD_PLAN_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

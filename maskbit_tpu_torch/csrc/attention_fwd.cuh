@@ -144,22 +144,23 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-// One 64-key tile of the online softmax, in log2 units, over the scores sc
-// of this thread's two rows in the accumulator layout (element i: row
-// 8 * ((i >> 1) & 1) of the thread's pair, key kv0 + 8 * (i >> 2) + 2c +
-// (i & 1); the 4 lanes of a group share a row): scales them, masks keys past
-// n, updates the running max m_run and sum l_run (the sum runs before
-// dropout), leaves the weights in sc (with DROPOUT the kept ones times
-// keep_scale, the dropped ones 0) and the output rows' rescale in alpha.
-template <bool DROPOUT>
-__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2],
+// One key tile of the online softmax (2N keys: 64 in the bf16 kernels), in
+// log2 units, over the scores sc of this thread's two rows in the
+// accumulator layout (element i: row 8 * ((i >> 1) & 1) of the thread's
+// pair, key kv0 + 8 * (i >> 2) + 2c + (i & 1); the 4 lanes of a group share
+// a row): scales them, masks keys past n, updates the running max m_run and
+// sum l_run (the sum runs before dropout), leaves the weights in sc (with
+// DROPOUT the kept ones times keep_scale, the dropped ones 0) and the output
+// rows' rescale in alpha.
+template <bool DROPOUT, int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m_run)[2],
                                              float (&l_run)[2], float (&alpha)[2], int kv0, int n,
                                              int c, float scale_log2, const uint32_t (&rmix)[2],
                                              uint32_t seed_mix, uint32_t threshold,
                                              float keep_scale) {
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const bool valid = kv0 + 8 * (i >> 2) + 2 * c + (i & 1) < n;
     sc[i] = valid ? sc[i] * scale_log2 : -INFINITY;
     tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
@@ -174,7 +175,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2],
     m_run[r] = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     const float p = exp2f(sc[i] - m_run[r]);  // 0 past n
     tsum[r] += p;  // the row sum runs before dropout

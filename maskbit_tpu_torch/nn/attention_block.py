@@ -8,10 +8,10 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   version with the kernel's rounding points.
 * A CUDA tensor launches a hand-written chain or raises: x, wqkv and wo
   of one dtype in `dropout_attention.DTYPES`, bf16 (`csrc/attention_block.cu`)
-  or float32 (`csrc/attention_f32.cu`: the projections in 3xTF32 on the
-  tensor cores, each stage's sum added in float32 on the CUDA cores, within
-  the plain float32 block's error of a float64 one up to E = 8192; the
-  attention and LayerNorm in float32, as JAX's block computes under
+  or float32 (`csrc/attention_f32.cu`: the projections and the attention
+  in 3xTF32 on the tensor cores, long sums added in float32 on the CUDA
+  cores, within the plain float32 block's error of a float64 one up to E =
+  8192; the LayerNorm in float32, as JAX's block computes under
   `training.mixed_precision: no`); the biases and LayerNorm parameters
   each f32 or bf16 (the kernels widen bf16 exactly); a head dim d = E /
   heads in [1, `dropout_attention.MAX_HEAD_DIM`], any E. The weights must

@@ -26,8 +26,8 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   d^-0.5, passed apart from the padded width), exact in either dtype, for
   a copy of the inputs per call. bf16 takes `csrc/dropout_attention.cu`
   (one TMA + wgmma kernel template on the head dim), float32 (the compute
-  dtype of `training.mixed_precision: no`) `csrc/attention_f32.cu` (its
-  backward in 3xTF32 on the tensor cores); outputs and gradients take the
+  dtype of `training.mixed_precision: no`) `csrc/attention_f32.cu` (both
+  passes in 3xTF32 on the tensor cores); outputs and gradients take the
   inputs' dtype. The JAX kernels take any head dim; past 128 no
   instantiation holds the tiles, and the wrappers raise.
 
@@ -296,8 +296,9 @@ def _lib_f32():
         lib.mb_dropout_attention_bwd_f32.argtypes = (
             [ptr] * 3 + [i64] * 3 + [ptr] * 9 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
         lib.mb_dropout_attention_bwd_f32.restype = i32
-        lib.mb_attention_bwd_f32_plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
-        lib.mb_attention_bwd_f32_plan.restype = i32
+        for plan in (lib.mb_attention_fwd_f32_plan, lib.mb_attention_bwd_f32_plan):
+            plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+            plan.restype = i32
     return lib
 
 
@@ -316,15 +317,18 @@ def kernel_plan(d: int) -> dict:
 
 
 def kernel_plan_f32(d: int) -> dict:
-    """The float32 backward's plan at head dim `d` (one of `HEAD_DIMS`), as
-    built: its shared memory, blocks an SM, queries a step, Q and G stages
-    and dQ-part buffers."""
+    """The float32 kernels' plan at head dim `d` (one of `HEAD_DIMS`), as
+    built: the backward's shared memory, blocks an SM, queries a step, Q and
+    G stages and dQ-part buffers; the forward's shared memory, consumer
+    warpgroups (64 queries each) a block and keys a tile."""
     if d not in HEAD_DIMS:
         raise ValueError(f"no instantiation at head dim {d}")
-    plan = (ctypes.c_int * 5)()
-    if _lib_f32().mb_attention_bwd_f32_plan(d, plan) != 0:
-        raise RuntimeError(f"no float32 backward plan at head dim {d}")
-    return dict(zip(("smem", "blocks", "queries_a_step", "qg_stages", "dq_buffers"), plan))
+    lib = _lib_f32()
+    bwd, fwd = (ctypes.c_int * 5)(), (ctypes.c_int * 3)()
+    if lib.mb_attention_bwd_f32_plan(d, bwd) != 0 or lib.mb_attention_fwd_f32_plan(d, fwd) != 0:
+        raise RuntimeError(f"no float32 plan at head dim {d}")
+    return {**dict(zip(("smem", "blocks", "queries_a_step", "qg_stages", "dq_buffers"), bwd)),
+            **dict(zip(("fwd_smem", "fwd_warpgroups", "fwd_keys_a_tile"), fwd))}
 
 
 def launch_forward(q, k, v, seeds_i32, rate: float):

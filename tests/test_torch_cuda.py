@@ -455,7 +455,7 @@ def test_float32_dropout_attention_kernels_match_plain_versions(b, n, h, layout,
         assert torch.equal(got, second)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,n,h", [(2, 200, 2), (1, 257, 4)])
 def test_float32_dropout_kernel_mask_is_the_hash_mask(b, n, h, d):
     """The float32 forward kernel's keep mask, read out at zero logits, equals
@@ -518,6 +518,40 @@ def test_float32_attention_runs_only_the_ports_float32_kernels():
 # the head dims the kernels take zero-padded (not multiples of 16): 8, 72
 # (hidden 1152 over 16 heads) and 125
 PADDED_HEAD_DIMS = [8, 72, 125]
+
+
+def _qkv_f32(b, n, h, d, seed):
+    """float32 q, k, v as the QKV projection's views of one (b, n, 3, h, d)
+    tensor, strided as the float32 block's attention core reads its qkv
+    buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(b, n, 3, h, d, generator=g, device="cuda").unbind(2)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS + PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("n", [17, 64, 65, 257, 1025])
+def test_float32_forward_at_every_width(n, d):
+    """The 3xTF32 forward (attn_fwd_tf32_kernel) at every native width and
+    at the padded ones, on strided views of one float32 qkv buffer: the
+    dropout forward's out and lse and fused_attention's out within F32_TOL
+    of the plain versions in float32 (TF32 off), and each bit for bit the
+    same on a second call."""
+    _card()
+    import chip_smoke
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    b, h = 2, 3
+    q, k, v = _qkv_f32(b, n, h, d, seed=131 * n + d)
+    seeds = _seeds(b, h, seed=n + d)
+    seeds32 = da.seeds_as_int32(seeds, (b, h))
+    out, lse = da.launch_forward(q, k, v, seeds32, 0.1)
+    out2, lse2 = da.launch_forward(q, k, v, seeds32, 0.1)
+    fused, fused2 = da.fused_attention(q, k, v), da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    _f32_close(out, da.dropout_attention_reference(q, k, v, seeds, 0.1))
+    _f32_close(lse, chip_smoke._lse(torch, q, k))  # the rows' log-sum-exp, (b * h, n)
+    _f32_close(fused, da.fused_attention_reference(q, k, v))
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(fused, fused2)
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS + PADDED_HEAD_DIMS)

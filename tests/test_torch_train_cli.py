@@ -189,7 +189,7 @@ def test_profile_train_reports_phases_on_cpu(tmp_path):
 
 def test_profile_train_categorises_the_float32_kernels():
     """float32 runs name their cuBLAS GEMMs `sm80_xmma_gemm_*` and their
-    attention kernels `attn_*_f32_kernel`; cuDNN's convolutions carry
+    attention kernels `attn_*_tf32_kernel`; cuDNN's convolutions carry
     `xmma` too."""
     from maskbit_tpu_torch.cli.profile_train import category_of
 
@@ -199,7 +199,7 @@ def test_profile_train_categorises_the_float32_kernels():
         "cuBLAS")
     assert category_of("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc").startswith(
         "tokenizer convolutions")
-    assert category_of("void (anonymous namespace)::attn_fwd_f32_kernel<64, true>(float const*)"
+    assert category_of("void (anonymous namespace)::attn_fwd_tf32_kernel<64, true>(TileMaps const)"
                        ).startswith("dropout attention forward")
     assert category_of("void (anonymous namespace)::attn_bwd_tf32_kernel<64>(TileMaps const)"
                        ).startswith("dropout attention backward")

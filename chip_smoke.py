@@ -85,7 +85,8 @@ Phases, each of which fails the run if it fails:
         for bit, the recompute's second dropout-forward launch per layer;
         peak memory and device time of a step for both.
   8. eval, the flagship (hidden 1024, 64 steps, guidance 7.1 cosine, bf16;
-     depth cut from 24 to `EVAL_DEPTH` = 12 to make room for phase 17) and
+     depth cut from 24 to `EVAL_DEPTH` = 6 to make room for phases 17 and
+     18) and
      the 14-bit and VQ 12-bit tokenizers, random weights:
      a. random pt-fid-layout Inception weights from a seed, saved as a
         `.pth` under build/chip_smoke_data/ and named by
@@ -163,7 +164,7 @@ Phases, each of which fails the run if it fails:
      (NCCL refuses two ranks on one device), each logging to
      chiprun_out/chip_smoke/distributed_<tag>_rank<r>.log:
      a. `cli.train_maskbit` on 2 ranks, the 14-bit flagship at full width
-        (depth cut to 12) from 512 random token shards' tokens, per-rank batch 16
+        (depth cut to 6) from 512 random token shards' tokens, per-rank batch 16
         (global 32), `save_every=3`; SIGTERM to rank 1 once step 4 is
         logged: both ranks stop on the same step, a multiple of 8 (the
         cross-process check), with the final save the newest committed
@@ -174,7 +175,7 @@ Phases, each of which fails the run if it fails:
         (`MASKBIT_DISTRIBUTED=1`, world size 1, depth 2, 3 steps): the
         backend is NCCL;
      b. in a second pair of ranks: one step of the flagship-width LFQBert
-        (depth cut to 12, hidden dropout off, attention dropout 0.1, bf16) with
+        (depth cut to 6, hidden dropout off, attention dropout 0.1, bf16) with
         injected global draws, 2 ranks x batch 16 against one process x
         batch 32 (this process, meanwhile): the reduced gradients' relative
         L2 gap and the updates' sign agreement, with `DP_GRAD_TOL`; each
@@ -184,7 +185,7 @@ Phases, each of which fails the run if it fails:
         `discriminator_start=2`: every rank's parameters, EMA and LeCam
         state equal bit for bit after every step;
      e. the same ranks: `cli.eval_maskbit` on 300 samples at batch 100,
-        the generator's depth cut to 12 (each rank's second batch half
+        the generator's depth cut to 6 (each rank's second batch half
         padding): 300 scored, the merged
         float64 moments within 1e-12 of the concatenated per-rank Inception
         features', and the block's and `fused_attention`'s launches per
@@ -194,7 +195,7 @@ Phases, each of which fails the run if it fails:
  12. sharded (`--phases sharded`): the fsdp and tensor axes
      (`parallel/zero.py`), two ranks sharing the card over gloo, first at
      parallel.fsdp=2, then at tensor=2, each logging as phase 11's ranks:
-     the flagship-width LFQBert at depth 12 (hidden dropout off, attention
+     the flagship-width LFQBert at depth 6 (hidden dropout off, attention
      dropout 0.1, bf16), per-device batch 16 (global 32; under tensor=2
      both ranks hold the 32 rows, 8 heads each), 4 steps with injected
      global draws: the first update against one process x batch 32 on the
@@ -232,7 +233,7 @@ Phases, each of which fails the run if it fails:
         worker left after the server's shutdown;
      c. `cli.eval_maskbit` in this process over the two entries
         (`eval.shard_local_devices=true`), 200 samples at batch 100, the
-        generator's depth cut to 12 (random Inception weights): 200 scored, and
+        generator's depth cut to 6 (random Inception weights): 200 scored, and
         depth x steps x 2 batches block launches in each worker;
      d. when g++ finds `jpeglib.h`: the native decoder built, 256 synthetic
         500 x 375 JPEGs written with `data/shard_writer`, img/s of the
@@ -286,7 +287,7 @@ Phases, each of which fails the run if it fails:
      quadrant colours must match their classes (MSE below 0.35x chance):
      `tool` at the tool's widths (head dim 32: the kernels' d = 32
      instantiations) and `flagship` at the flagship generator's width (head dim 64), its depth
-     cut to 12 (`SYSTEM_CHECK_FLAGSHIP_DEPTH`; the CLI's own run is at 24).
+     cut to 6 (`SYSTEM_CHECK_FLAGSHIP_DEPTH`; the CLI's own run is at 24).
      One line a run: recon first and last, mlm loss, masked accuracy,
      matched and chance MSE, seconds a stage, and the dropout forward,
      backward and block launches of the run by head dim. The kernels line
@@ -383,9 +384,10 @@ SAVE_EVERY, RESUME_STEPS = 3, 8
 # the 512 px config's per-device batch (maskbit_generator_14bit_512.yaml)
 LONG_BATCH = 8
 # eval_maskbit's default batch; 1000 samples = 10 batches; the generator's
-# depth in phase 8 (cut from 24 to make room for phase 17)
+# depth in phase 8 (cut from 24 to make room for phase 17, then to 6 for
+# phase 18)
 EVAL_BATCH, EVAL_SAMPLES, STATS_IMAGES, EVAL_TOKENIZER_BATCHES = 100, 1000, 512, 4
-EVAL_DEPTH = 12
+EVAL_DEPTH = 6
 TOKENIZER_CONFIGS = tuple(os.path.join(ROOT, "configs", "tokenizer", name)
                           for name in ("maskbit_tokenizer_14bit.yaml", "vqgan_plus_12bit.yaml"))
 TOKENIZER_18 = os.path.join(ROOT, "configs", "tokenizer", "maskbit_tokenizer_18bit.yaml")
@@ -401,11 +403,11 @@ TAMING_BATCHES = 4
 # 12 compares its train state with these ranks'), the NCCL rank's depth and
 # steps, Stage I's per-rank batch, steps and gate, the sharded eval (its
 # generator's depth cut from 24 to make room for phase 17), each launch's
-# limit (s)
-DP_SIZES = {"batch": 16, "stop_depth": 12, "grad_depth": 12, "nccl_depth": 2, "nccl_steps": 3,
+# limit (s); the three depths cut from 12 to 6 to make room for phase 18
+DP_SIZES = {"batch": 16, "stop_depth": 6, "grad_depth": 6, "nccl_depth": 2, "nccl_steps": 3,
             "tok_batch": 8,
             "tok_steps": 4, "tok_gate": 2, "eval_samples": 300, "eval_batch": 100,
-            "eval_depth": 12, "timeout": 600}
+            "eval_depth": 6, "timeout": 600}
 DP_CHECK_EVERY = 8  # GracefulShutdown's cross-process check, as the train CLIs use it
 # b: two ranks' reduced gradients against one process's, relative L2 over
 # every gradient. In bf16 the ranks' linears see 16 rows where one process
@@ -418,8 +420,9 @@ DP_GRAD_TOL = {"grad_rel_l2": 1e-2, "update_same_sign": 0.99}
 DP_GRAD_TOL_CPU = {"grad_rel_l2": 1e-5, "update_same_sign": 0.999}
 # phase 13: the serve batch split in two, the eval samples and batch, the
 # synthetic 500 x 375 JPEGs, the reader's batch and output size
-# (the eval's generator depth cut from 24 to make room for phase 17)
-SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "eval_depth": 12,
+# (the eval's generator depth cut from 24 to make room for phase 17, then to
+# 6 for phase 18)
+SPLIT_SIZES = {"batch": SERVE_BATCH, "eval_samples": 200, "eval_batch": 100, "eval_depth": 6,
                "photos": 256, "decode_batch": 32,
                "decode_res": None}  # None: the config's resolution
 # phase 14: the serve and the eval batch split over the visible cards, and
@@ -881,24 +884,53 @@ def phase_dropout_kernels(torch) -> dict:
 # 32 is the system check's generator (its CFG batch of 60 samples), 16 the
 # JAX package's tests (E = 64 over 4 heads), 128 the flagship's width over 8
 # heads; 48, 80, 96 and 112, where d / 16 is odd, are checked, not timed.
+# Past the widest template (csrc/attention_wide.cuh's panelled kernels):
+# 192 (hidden 1536 over 8 heads) and 256 (the flagship's hidden 1024 over
+# 4 heads, phase 18's), both timed.
 HEAD_DIM_SHAPES = {16: (4, TRAIN_BATCH, 60, 64), 32: (4, TRAIN_BATCH, 60, 128),
                    48: (4, TRAIN_BATCH, 60, 192), 80: (4, TRAIN_BATCH, 60, 320),
                    96: (4, TRAIN_BATCH, 60, 384), 112: (8, TRAIN_BATCH, 60, 896),
-                   128: (8, TRAIN_BATCH, 2 * SERVE_BATCH, 1024)}
-TIMED_HEAD_DIMS = (16, 32, 128)
+                   128: (8, TRAIN_BATCH, 2 * SERVE_BATCH, 1024),
+                   192: (8, TRAIN_BATCH, 2 * SERVE_BATCH, 1536),
+                   256: (4, TRAIN_BATCH, 2 * SERVE_BATCH, 1024)}
+WIDE_TIMED_HEAD_DIMS = (192, 256)
+TIMED_HEAD_DIMS = (16, 32, 128, *WIDE_TIMED_HEAD_DIMS)
+# the lengths each width is held at, up to 128 and past it (where
+# `WIDE_SHAPES` holds n = 17)
+WIDTH_LENGTHS = {False: (257, 17), True: (257,)}
+# head dims past 128 held against the plain versions at small shapes in both
+# dtypes (phases 3 and 17), as `PADDED_SHAPES`: 144 and 200 pad to widths
+# that are not multiples of the 64-wide panels, 1024 is one head of E = 1024
+WIDE_SHAPES = {144: (2, 4, 2, 288), 200: (2, 4, 2, 400), 256: (4, 4, 2, 1024),
+               1024: (1, 4, 2, 1024)}
+# the panelled kernels' instantiations (csrc/attention_wide.cuh), by row of
+# the final record and dtype; the backward's MODE 0 sums dK and dV, 1 dV, 2
+# dK, 3 dQ
+WIDE_CUDA_KERNELS = {
+    "fused_attention_block": {dt: [f"attn_fwd_wide_kernel<{dt}, false>"]
+                              for dt in ("bf16", "float")},
+    "dropout_attention_fwd": {dt: [f"attn_fwd_wide_kernel<{dt}, true>"]
+                              for dt in ("bf16", "float")},
+    "dropout_attention_bwd": {dt: [f"attn_bwd_wide_prep_kernel<{dt}>"] + [
+        f"attn_bwd_wide_kernel<{dt}, {m}>" for m in ((0, 3) if dt == "bf16" else (1, 2, 3))]
+        for dt in ("bf16", "float")},
+    "fused_attention": {dt: [f"attn_fwd_wide_kernel<{dt}, false>"] for dt in ("bf16", "float")}}
 
 
 def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
     """The four kernels at every head dim but 64 against their plain
-    versions at n = 257 and n = 17, timed at n = 257 at `timed_dims`, and
-    the CUDA kernels one call of each launches at n = 257 (`kernels`);
-    head dims 8 and 144 refused."""
+    versions at n = 257 and n = 17 (past 128 at 257: `WIDTH_LENGTHS`),
+    timed at n = 257 at `timed_dims`, and
+    the CUDA kernels one call of each launches at n = 257 (`kernels`); the
+    padded head dims and `WIDE_SHAPES` checked; the serving and training
+    layers run at head dim 144; the panelled kernels' ptxas report (0
+    spilled bytes)."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     rows = []
     for d, (h, b, bb, e) in HEAD_DIM_SHAPES.items():
-        for n in (257, 17):
+        for n in WIDTH_LENGTHS[d > 128]:
             q, k, v = _qkv_packed(torch, b, n, h, seed=d * n, d=d)
             seeds = torch.randint(0, 2**32, (b, h), device="cuda", dtype=torch.int64,
                                   generator=torch.Generator(device="cuda").manual_seed(d + n))
@@ -997,36 +1029,66 @@ def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
               for d, shapes in PADDED_SHAPES.items() for n in (257, 17)]
     padded += [_padded_block_check(torch, b, n, e, heads, torch.bfloat16)
                for b, n, e, heads in PADDED_BLOCKS]
-    # past head dim 128 the kernels' wrappers raise, and the layers that call
-    # them (the serving block, the fused dropout attention)
+    wide = [_padded_check(torch, d, n, shapes, torch.bfloat16)
+            for d, shapes in WIDE_SHAPES.items() for n in (257, 17)]
+    return {"rows": rows, "padded": padded, "wide": wide, "layers": _wide_layers(torch),
+            "ptxas": _wide_ptxas()}
+
+
+def _wide_layers(torch) -> dict:
+    """The layers that call the kernels, in bf16 at head dim 144 (E = 288
+    over 2 heads): BertAttention's serving block and MultiHeadSelfAttention's
+    fused dropout attention, forward and backward, each on its kernels
+    (launches counted at 144) with finite values."""
+    from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn.transformer import (BertAttention, DropoutRng,
                                                   MultiHeadSelfAttention)
 
-    refused = []
     d = 144
-    q, k, v = _qkv_packed(torch, 1, 17, 2, seed=d, d=d)
-    inp = _block_inputs(torch, 1, 17, 8 * d, seed=d, vectors=torch.bfloat16)
     serving = BertAttention(2 * d, 2, attention_impl="fused").to("cuda", torch.bfloat16).eval()
     training = MultiHeadSelfAttention(2 * d, 2, attention_dropout=RATE, fused_dropout=True).to(
         "cuda", torch.bfloat16).train()
-    x = torch.zeros(1, 17, 2 * d, device="cuda", dtype=torch.bfloat16)
-    table = [[[0, 0]]]  # one (1, 2) seed table
-    for name, fn in (("dropout_attention", lambda: da.dropout_attention(
-                         q, k, v, torch.zeros(1, 2, dtype=torch.int64), RATE)),
-                     ("fused_attention", lambda: da.fused_attention(q, k, v)),
-                     ("fused_attention_block", lambda: ab.fused_attention_block(
-                         **inp, num_heads=8)),
-                     ("BertAttention (serving)", lambda: serving(x)),
-                     ("MultiHeadSelfAttention (training)",
-                      lambda: training(x, DropoutRng(attention_seeds=table)))):
-        try:
-            fn()
-        except ValueError as err:
-            refused.append(f"{name} d={d}: {err}")
-        else:
-            raise AssertionError(f"{name} ran at head dim {d}")
-    log("[kernel] refused: " + "; ".join(refused))
-    return {"rows": rows, "padded": padded, "refused": refused}
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    with torch.no_grad():  # the layers' weights start uninitialised
+        for p in (*serving.parameters(), *training.parameters()):
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.05)
+    x = torch.randn(1, 17, 2 * d, device="cuda", generator=gen).to(
+        torch.bfloat16).requires_grad_(True)
+    ab.reset_launch_counts()
+    with torch.no_grad():
+        served = serving(x)
+    trained = training(x, DropoutRng(attention_seeds=[[[1, 2]]]))
+    trained.float().sum().backward()
+    torch.cuda.synchronize()
+    launched = ab.launch_counts()["by_dtype"]
+    want = {f"{key}@{d}/bfloat16": 1 for key in ("attention_block", "fused_attention",
+                                                  "dropout_attention_fwd", "dropout_attention_bwd")}
+    finite = all(bool(torch.isfinite(t).all()) for t in (served, trained, x.grad))
+    log(f"[kernel] head dim {d} layers: BertAttention (serving) and MultiHeadSelfAttention "
+        f"(training, forward and backward) on the card, finite {finite}, launches {launched}")
+    if not finite or launched != want:
+        raise AssertionError(f"the layers at head dim {d}: finite {finite}, launches {launched}")
+    ab.reset_launch_counts()
+    return {"d": d, "launches": launched}
+
+
+def _wide_ptxas() -> list:
+    """ptxas's registers and spill bytes of the panelled kernels
+    (attention_wide.cuh) in every library that builds them, logged; raises
+    on a spill."""
+    from maskbit_tpu_torch.nn import cuda_build
+
+    rows = [dict(k, library=name) for name in cuda_build.sources()
+            for k in ptxas_kernels(cuda_build.build_log[name]["ptxas"]) if "_wide" in k["kernel"]]
+    for k in rows:
+        log(f"[kernel] ptxas {k['library']}: {k['kernel']}: {k['registers']} registers, spill "
+            f"stores {k['spill_stores']} B, spill loads {k['spill_loads']} B")
+    if not rows:  # a library loaded from an earlier build has no report
+        log("[kernel] ptxas: no report of the panelled kernels (libraries built before)")
+    spilled = [k for k in rows if k["spill_stores"] or k["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the panelled kernels spill: {spilled}")
+    return rows
 
 
 # The shapes outside the kernels' native set that phases 3 and 17 hold
@@ -1042,9 +1104,9 @@ PADDED_BLOCKS = ((2, 257, 80, 5), (2, 257, 4608, 36))
 
 def _padded_check(torch, d, n, shapes, dtype) -> dict:
     """The dropout pair, `fused_attention` and the block at head dim d (not
-    a multiple of 16) and length n against their plain versions, in
-    `dtype` (bf16 at phase 3's tolerances, float32 at `F32_TOL`), the keep
-    mask bit for bit; the launches counted at d."""
+    a multiple of 16, or past 128) and length n against their plain
+    versions, in `dtype` (bf16 at phase 3's tolerances, float32 at
+    `F32_TOL`), the keep mask bit for bit; the launches counted at d."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
@@ -1092,8 +1154,8 @@ def _padded_check(torch, d, n, shapes, dtype) -> dict:
     row = dict(d=d, padded_to=da.padded_head_dim(d), n=n, dtype=dt, dropout_shape=[b, n, h, d],
                fused_shape=[bb, n, h, d], block_shape=[bb, n, e], errs=errs, tols=tols,
                mask_flips=mask_flips, launches=counted)
-    log(f"[{'float32' if f32 else 'kernel'}] padded head dim {d} (instantiation "
-        f"{row['padded_to']}), n {n}: dropout ({b}, {n}, {h}, {d}), fused_attention ({bb}, {n}, "
+    log(f"[{'float32' if f32 else 'kernel'}] head dim {d} (run at {row['padded_to']}), n {n}: "
+        f"dropout ({b}, {n}, {h}, {d}), fused_attention ({bb}, {n}, "
         f"{h}, {d}), block ({bb}, {n}, {e}): max_abs_err " + ", ".join(
             f"{key} {errs[key]:.3e} (tol {tols[key]:.1e})" for key in errs)
         + f"; keep mask {mask_flips} of {b * h * n * n} bits differ; launches {counted}")
@@ -3269,8 +3331,9 @@ def phase_distributed(torch, device_info, device="cuda", gen_config=CONFIG,
 # same 32 rows), steps per run (the first checked against one process, the
 # second with the collectives timed, the rest timed as steps), sampler
 # labels per rank under tensor=2, Stage I's per-rank batch and steps, each
-# launch's limit (s); the depth cut from 24 to make room for phase 16
-SH_SIZES = {"batch": 16, "depth": 12, "steps": 4, "sample": 2, "tok_batch": 8, "tok_steps": 3,
+# launch's limit (s); the depth cut from 24 to make room for phase 16, then
+# to 6 (phase 11's gradient check's) for phase 18
+SH_SIZES = {"batch": 16, "depth": 6, "steps": 4, "sample": 2, "tok_batch": 8, "tok_steps": 3,
             "timeout": 600}
 SH_MESHES = (("fsdp2", {"fsdp": 2, "tensor": 1}), ("tensor2", {"fsdp": 1, "tensor": 2}))
 # the state a rank keeps under fsdp=2 against data=2's (replicated): half,
@@ -4234,8 +4297,8 @@ def phase_multicard(torch, device_info, device="cuda", gen_config=CONFIG,
 
 
 # phase 16's run `flagship` at the flagship's width, its depth cut from 24 to
-# make room for phase 17
-SYSTEM_CHECK_FLAGSHIP_DEPTH = 12
+# make room for phase 17, then to 6 for phase 18
+SYSTEM_CHECK_FLAGSHIP_DEPTH = 6
 
 
 def phase_system_check(torch) -> dict:
@@ -4282,8 +4345,8 @@ F32_STEP_TOL = {"mlm_loss": 1e-4, "grad_norm": 1e-3}
 # the float32 train CLI's steps and its in-training generations
 F32_TRAIN_STEPS, F32_GENERATE_EVERY = 4, 3
 # the head dims whose float32 kernels are timed: the flagship's and the
-# other widths' timed ones
-F32_TIMED_HEAD_DIMS = (32, 64, 128)
+# other widths' timed ones, past 128 too
+F32_TIMED_HEAD_DIMS = (32, 64, 128, *WIDE_TIMED_HEAD_DIMS)
 # the CUDA kernels of each float32 row (csrc/attention_f32.cu, layernorm.cuh)
 F32_CUDA_KERNELS = {
     "fused_attention_block": ["split_tf32_kernel", "proj_tf32_kernel<0>",
@@ -4312,18 +4375,20 @@ def _f32_shapes(d: int) -> tuple:
 
 def phase_float32_kernels(torch) -> dict:
     """The four kernels' float32 forms against their plain versions in
-    float32 (TF32 off) at every head dim and n = 257 and 17, the keep mask
-    bit for bit; timed at n = 257 at `F32_TIMED_HEAD_DIMS` beside SDPA (the
-    block beside the library chain) and the float32 bound; float16 and
-    float64 refused."""
+    float32 (TF32 off) at every head dim of the templates and at the timed
+    ones past 128, n = 257 and 17 (`WIDTH_LENGTHS`), the keep mask bit for
+    bit; timed at n =
+    257 at `F32_TIMED_HEAD_DIMS` beside SDPA (the block beside the library
+    chain) and the float32 bound; the padded head dims and `WIDE_SHAPES`
+    checked; float16 and float64 refused."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
     f32 = torch.float32
     rows, timed = [], {}
-    for d in da.HEAD_DIMS:
+    for d in (*da.HEAD_DIMS, *WIDE_TIMED_HEAD_DIMS):
         h, b, bb, e = _f32_shapes(d)
-        for n in (257, 17):
+        for n in WIDTH_LENGTHS[d > 128]:
             q, k, v = _qkv_packed(torch, b, n, h, seed=d * n + 3, d=d, dtype=f32)
             seeds = torch.randint(0, 2**32, (b, h), device="cuda", dtype=torch.int64,
                                   generator=torch.Generator(device="cuda").manual_seed(d + n + 1))
@@ -4413,6 +4478,8 @@ def phase_float32_kernels(torch) -> dict:
               for d, shapes in PADDED_SHAPES.items() for n in (257, 17)]
     padded += [_padded_block_check(torch, b, n, e, heads, f32)
                for b, n, e, heads in PADDED_BLOCKS]
+    wide = [_padded_check(torch, d, n, shapes, f32)
+            for d, shapes in WIDE_SHAPES.items() for n in (257, 17)]
     # dtypes JAX's resolve_compute_dtype never yields raise, on the card
     refused = []
     for dt in (torch.float16, torch.float64):
@@ -4431,7 +4498,7 @@ def phase_float32_kernels(torch) -> dict:
             else:
                 raise AssertionError(f"{name} ran on {dt}")
     log("[float32] refused: " + "; ".join(refused))
-    return {"rows": rows, "timed": timed, "padded": padded, "refused": refused,
+    return {"rows": rows, "timed": timed, "padded": padded, "wide": wide, "refused": refused,
             "ptxas": _tf32_ptxas()}
 
 
@@ -4449,10 +4516,11 @@ def _tf32_ptxas() -> list:
     return rows
 
 
-def _only_f32(launched: dict, want: dict, what: str) -> None:
-    """Raises unless `launched` holds exactly `want` (float32 kernels only)."""
+def _only(launched: dict, want: dict, what: str) -> None:
+    """Raises unless `launched` holds exactly `want` (one dtype's kernels at
+    one head dim)."""
     if launched != want:
-        raise AssertionError(f"{what}: launches {launched}, expected {want} (float32 only)")
+        raise AssertionError(f"{what}: launches {launched}, expected {want} (nothing else)")
 
 
 def _f32_profile_check(torch) -> dict:
@@ -4519,12 +4587,14 @@ def _f32_profile_check(torch) -> dict:
     return seen
 
 
-def _f32_train_cli(torch, device_info) -> dict:
+def _cli_train(torch, device_info, precision: str = "no", heads: int = HEADS,
+               generate_every: int = F32_GENERATE_EVERY, tag: str = "float32") -> dict:
     """`cli.train_maskbit.main` on the flagship config at
-    `training.mixed_precision=no`, batch 32, `F32_TRAIN_STEPS` steps with
-    in-training generation every `F32_GENERATE_EVERY` (the EMA sample grid
-    through the float32 block): finite losses, the grids, and the float32
-    kernels only, on every layer of every step and sampling step."""
+    `training.mixed_precision=<precision>` and `model.mlm_model.heads=<heads>`,
+    batch 32, `F32_TRAIN_STEPS` steps with in-training generation every
+    `generate_every` (the EMA sample grid through the block): finite
+    losses, the grids, and that dtype's kernels at d = hidden / heads only,
+    on every layer of every step and sampling step."""
     import numpy as np
 
     from maskbit_tpu_torch.cli.train_maskbit import main
@@ -4532,12 +4602,14 @@ def _f32_train_cli(torch, device_info) -> dict:
 
     mlm = _flagship()["mlm_model"]
     depth, sampling_steps = int(mlm["depth"]), int(mlm["num_steps"])
+    at = f"@{int(mlm['hidden_dim']) // heads}/{'float32' if precision == 'no' else 'bfloat16'}"
     out_dir = os.path.join(ROOT, "build", "chip_smoke_f32_train")  # git-ignored
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = [f"config={CONFIG}", f"training.per_device_batch_size={TRAIN_BATCH}",
             f"training.max_train_steps={F32_TRAIN_STEPS}", "training.device=cuda",
-            "training.mixed_precision=no", "experiment.vqgan_checkpoint=",
-            "experiment.log_every=1", f"experiment.generate_every={F32_GENERATE_EVERY}",
+            f"training.mixed_precision={precision}", f"model.mlm_model.heads={heads}",
+            "experiment.vqgan_checkpoint=", "experiment.log_every=1",
+            f"experiment.generate_every={generate_every}",
             "experiment.save_every=100000", "experiment.eval_every=100000",
             f"experiment.output_dir={out_dir}"]
     ab.reset_launch_counts()
@@ -4550,41 +4622,47 @@ def _f32_train_cli(torch, device_info) -> dict:
     hist = result["history"]
     losses = [h["mlm_loss"] for h in hist]
     step_s = [h["perf/step_seconds"] for h in hist]
-    grids = sorted(os.listdir(os.path.join(out_dir, "images")))
-    n_gen = F32_TRAIN_STEPS // F32_GENERATE_EVERY
+    image_dir = os.path.join(out_dir, "images")
+    grids = sorted(os.listdir(image_dir)) if os.path.isdir(image_dir) else []
+    n_gen = F32_TRAIN_STEPS // generate_every
     sampled = depth * sampling_steps * n_gen
-    want = {"attention_block@64/float32": sampled, "fused_attention@64/float32": sampled,
-            "dropout_attention_fwd@64/float32": depth * F32_TRAIN_STEPS,
-            "dropout_attention_bwd@64/float32": depth * F32_TRAIN_STEPS}
+    want = {f"dropout_attention_fwd{at}": depth * F32_TRAIN_STEPS,
+            f"dropout_attention_bwd{at}": depth * F32_TRAIN_STEPS}
+    if sampled:
+        want.update({f"attention_block{at}": sampled, f"fused_attention{at}": sampled})
     median_s = statistics.median(step_s[1:])
-    log(f"[float32] train_maskbit mixed_precision=no, batch {TRAIN_BATCH}, depth {depth}: losses "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+    log(f"[{tag}] train_maskbit mixed_precision={precision}, heads {heads}, batch {TRAIN_BATCH}, "
+        f"depth {depth}: losses {', '.join(f'{x:.4f}' for x in losses)}; step seconds "
         f"{', '.join(f'{x:.4f}' for x in step_s)} (median of steps 2..{len(hist)} "
         f"{median_s * 1e3:.1f} ms = {TRAIN_BATCH / median_s:.1f} samples/s, generation steps "
         f"included); peak memory {peak_gib:.2f} GiB; wall {wall:.1f} s; grids {grids}; "
         f"launches {launched} [{device_info['card']}]")
     want_grids = [f"train_{kind}-{s:09d}.png" for kind in ("decoded", "generated")
-                  for s in range(F32_GENERATE_EVERY, F32_TRAIN_STEPS + 1, F32_GENERATE_EVERY)]
+                  for s in range(generate_every, F32_TRAIN_STEPS + 1, generate_every)]
     if len(losses) != F32_TRAIN_STEPS or not all(np.isfinite(losses)) or grids != want_grids:
-        raise AssertionError(f"float32 train CLI: losses {losses}, grids {grids}")
-    _only_f32(launched, want, "float32 train CLI")
+        raise AssertionError(f"{tag} train CLI: losses {losses}, grids {grids}")
+    _only(launched, want, f"{tag} train CLI")
     shutil.rmtree(out_dir, ignore_errors=True)
     return {"launches": launched, "losses": losses, "step_seconds": step_s,
             "median_step_s": median_s, "peak_gib": peak_gib, "wall_s": wall}
 
 
-def _f32_serve(torch, device_info) -> dict:
-    """`cli.serve` on the flagship at `training.mixed_precision=no`: one
-    seeded /generate of `SERVE_BATCH` labels (64 steps, CFG), the block in
-    float32 on every layer of every step of both device calls (the warm-up
-    and the request)."""
+def _cli_serve(torch, device_info, precision: str = "no", heads: int = HEADS,
+               tag: str = "float32") -> dict:
+    """`cli.serve` on the flagship at `training.mixed_precision=<precision>`
+    and `model.mlm_model.heads=<heads>`: one seeded /generate of
+    `SERVE_BATCH` labels (64 steps, CFG), the block in that dtype at d =
+    hidden / heads on every layer of every step of both device calls (the
+    warm-up and the request)."""
     from maskbit_tpu_torch.cli.serve import main
     from maskbit_tpu_torch.nn import attention_block as ab
 
     mlm = _flagship()["mlm_model"]
     depth, steps = int(mlm["depth"]), int(mlm["num_steps"])
+    at = f"@{int(mlm['hidden_dim']) // heads}/{'float32' if precision == 'no' else 'bfloat16'}"
     argv = [f"config={CONFIG}", f"serve.batch_size={SERVE_BATCH}", "serve.port=0",
-            "serve.device=cuda", "serve.shard_local_devices=false", "training.mixed_precision=no",
+            "serve.device=cuda", "serve.shard_local_devices=false",
+            f"training.mixed_precision={precision}", f"model.mlm_model.heads={heads}",
             "experiment.vqgan_checkpoint=", "experiment.generator_checkpoint="]
     ab.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4605,13 +4683,13 @@ def _f32_serve(torch, device_info) -> dict:
         service.close()
     torch.cuda.synchronize()
     launched = ab.launch_counts()["by_dtype"]
-    want = {"attention_block@64/float32": depth * steps * calls,
-            "fused_attention@64/float32": depth * steps * calls}
-    log(f"[float32] serve mixed_precision=no: startup (random init + warm-up call) "
-        f"{startup:.2f} s; a seeded {SERVE_BATCH}-label /generate {request_s:.3f} s = "
-        f"{SERVE_BATCH / request_s:.3f} img/s; device calls {calls}; launches {launched} "
+    want = {f"attention_block{at}": depth * steps * calls,
+            f"fused_attention{at}": depth * steps * calls}
+    log(f"[{tag}] serve mixed_precision={precision}, heads {heads}: startup (random init + "
+        f"warm-up call) {startup:.2f} s; a seeded {SERVE_BATCH}-label /generate {request_s:.3f} "
+        f"s = {SERVE_BATCH / request_s:.3f} img/s; device calls {calls}; launches {launched} "
         f"[{device_info['card']}]")
-    _only_f32(launched, want, "float32 serve")
+    _only(launched, want, f"{tag} serve")
     return {"launches": launched, "request_s": request_s, "img_per_s": SERVE_BATCH / request_s,
             "startup_s": startup}
 
@@ -4624,10 +4702,31 @@ def phase_float32(torch, device_info) -> dict:
     kernels = phase_float32_kernels(torch)
     profiled = _f32_profile_check(torch)
     check = phase_train_check(torch, torch.float32, F32_STEP_TOL)
-    train = _f32_train_cli(torch, device_info)
-    serve = _f32_serve(torch, device_info)
+    train = _cli_train(torch, device_info)
+    serve = _cli_serve(torch, device_info)
     return {"kernels": kernels, "profile": profiled, "train_check": check, "train": train,
             "serve": serve}
+
+
+# Phase 18: the flagship at model.mlm_model.heads=4 (hidden 1024 over 4
+# heads of 256, past the widest kernel template: csrc/attention_wide.cuh's
+# panelled kernels), no in-training generation
+WIDE_HEADS = 4
+
+
+def phase_wide_heads(torch, device_info) -> dict:
+    """Phase 18: one seeded sampler call (`cli.serve`, batch 8, as phase 17)
+    and `F32_TRAIN_STEPS` Stage-II steps (`cli.train_maskbit`, batch 32) of
+    the flagship at `model.mlm_model.heads=4` (d = 256), in bf16 and in
+    float32, each with its launch counts zeroed just before it and read
+    just after: only the four kernels at d = 256 of its dtype."""
+    out = {}
+    for precision, dt in (("bf16", "bfloat16"), ("no", "float32")):
+        out[dt] = {"serve": _cli_serve(torch, device_info, precision, WIDE_HEADS,
+                                       tag=f"wide {dt}"),
+                   "train": _cli_train(torch, device_info, precision, WIDE_HEADS,
+                                       generate_every=10**6, tag=f"wide {dt}")}
+    return out
 
 
 # the float32 error probe's contraction lengths: the block's E (its
@@ -4635,6 +4734,8 @@ def phase_float32(torch, device_info) -> dict:
 # the queries, dQ over the keys; (1, n, 4, 64))
 F32_ERROR_E = (1024, 2048, 4096, 4608, 8192)
 F32_ERROR_N = (257, 1025, 4097)
+# and past head dim 128: the panelled kernels at d = 256, n = 257
+F32_ERROR_WIDE_D = 256
 
 
 def _block_f64(torch, inp, heads):
@@ -4665,8 +4766,8 @@ def phase_f32_error(torch) -> dict:
     error is max |got - ref| / max(1, max |ref|), ref the float64 result:
     the block at (1, 257, E) over E / 64 heads for E in `F32_ERROR_E`; the
     dropout forward's out and lse, and the backward's dq, dk, dv, at (1, n,
-    4, 64) for n in `F32_ERROR_N`. A shape the tree's kernels refuse is
-    recorded as refused. Also the device ms of the block at (16, 257,
+    4, 64) for n in `F32_ERROR_N`, and at (1, 257, 4, 256). A shape the
+    tree's kernels refuse is recorded as refused. Also the device ms of the block at (16, 257,
     1024), and of the forward and the backward at (32, 257, 16, 64)."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
@@ -4720,6 +4821,33 @@ def phase_f32_error(torch) -> dict:
         log(f"[f32_error] backward n={n}: {row}")
         out["backward"].append(row)
         del refs, plain
+    # past head dim 128 (the panelled kernels; each 64-wide chunk of d has
+    # its own accumulator): the forward and the backward at (1, 257, 4, 256)
+    gw = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, w = (torch.randn(1, 257, 4, F32_ERROR_WIDE_D, generator=gw, device="cuda")
+                  for _ in range(4))
+    seeds = torch.randint(0, 2**31, (1, 4), generator=gw, device="cuda")
+    wide = [t.to(f64) for t in (q, k, v, w)]
+    ref, lse_ref = da.dropout_attention_reference(*wide[:3], seeds, RATE), _lse(torch, *wide[:2])
+    refs = da.dropout_attention_backward_reference(*wide, seeds, RATE)
+    plain = da.dropout_attention_backward_reference(q, k, v, w, seeds, RATE)
+    row = {"d": F32_ERROR_WIDE_D, "n": 257,
+           "out_plain_err": rel(da.dropout_attention_reference(q, k, v, seeds, RATE), ref),
+           "lse_plain_err": rel(_lse(torch, q, k), lse_ref),
+           **{f"{name}_plain_err": rel(p, r) for name, p, r in zip(("dq", "dk", "dv"), plain,
+                                                                    refs)}}
+    try:
+        got, lse = da.launch_forward(q, k, v, da.seeds_as_int32(seeds, (1, 4)), RATE)
+        row.update(out_err=rel(got, ref), lse_err=rel(lse, lse_ref))
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        da.dropout_attention(qg, kg, vg, seeds, RATE).backward(w)
+        for name, got, r in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), refs):
+            row[f"{name}_err"] = rel(got, r)
+    except ValueError as err:  # a tree from before the panelled kernels
+        row["refused"] = str(err)
+    log(f"[f32_error] head dim {F32_ERROR_WIDE_D}, forward and backward: {row}")
+    out["wide"] = row
+    del refs, plain, wide
     inp = _block_inputs(torch, 2 * SERVE_BATCH, 257, 1024, seed=1, vectors=f32, dtype=f32)
     out["block_ms"] = sum(_device_breakdown(
         torch, lambda: ab.fused_attention_block(**inp, num_heads=HEADS)).values())
@@ -4742,7 +4870,7 @@ def phase_f32_error(torch) -> dict:
 
 PHASES = ("kernels", "dropout", "generator", "slice", "train_check", "train", "train_data",
           "eval", "tokenizer_train", "variants", "distributed", "sharded", "split",
-          "split_scale", "multicard", "system_check", "float32")
+          "split_scale", "multicard", "system_check", "float32", "wide_heads")
 
 
 def _args(argv):
@@ -4766,6 +4894,62 @@ def _args(argv):
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
     return args
+
+
+def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list:
+    """The final record's rows of the panelled kernels (csrc/attention_wide.cuh),
+    bf16 and float32, from phases 3 (`widths`), 17 (`f32`) and 18 (`wide`):
+    launched by phase 18 (the flagship at heads=4, d = 256: its sampler call
+    the block and its core, its Stage-II steps the dropout pair), timed at d
+    = 256 (and 192: "widths") in phases 3 and 17, held against the plain
+    versions there at 192 and 256 and at `WIDE_SHAPES` (144, 200, 256,
+    1024)."""
+    pa = "maskbit_tpu/nn/pallas_attention.py"
+    replaces = {"fused_attention_block": (f"{pa}:532", "attention_block"),
+                "dropout_attention_fwd": (f"{pa}:232", "dropout_attention_fwd"),
+                "dropout_attention_bwd": (f"{pa}:274", "dropout_attention_bwd"),
+                "fused_attention": (f"{pa}:94", "fused_attention")}
+    wide_src = "maskbit_tpu_torch/csrc/attention_wide.cuh"
+    wide_errs = {"fused_attention_block": ("block",), "dropout_attention_fwd": ("fwd",),
+                 "dropout_attention_bwd": ("dq", "dk", "dv"), "fused_attention": ("fused",)}
+    phase3_errs = {"fused_attention_block": lambda r: r["block_err"],
+                   "dropout_attention_fwd": lambda r: r["fwd_err"],
+                   "dropout_attention_bwd": lambda r: max(r["bwd_errs"]),
+                   "fused_attention": lambda r: r["fused_err"]}
+    shape_key = {"fused_attention_block": "block_shape", "fused_attention": "fused_shape"}
+    bf16_past = [r for r in widths["rows"] if r["d"] > 128]  # n = 257 (timed) and 17
+    rows = []
+    for dt, tag in (("bfloat16", "bf16"), ("float32", "float")):
+        f32_dt = dt == "float32"
+        for name, (source_line, key) in replaces.items():
+            if f32_dt:
+                timed = f32["kernels"]["timed"]
+                checked = [max(r["errs"][x] for x in wide_errs[name])
+                           for r in f32["kernels"]["rows"] if r["d"] > 128]
+                shape = timed[256][name]["shape"]
+            else:
+                timed = {r["d"]: r for r in bf16_past if name in r}
+                checked = [phase3_errs[name](r) for r in bf16_past]
+                shape = timed[256][shape_key.get(name, "dropout_shape")]
+            checked += [max(r["errs"][x] for x in wide_errs[name])
+                        for r in (f32["kernels"]["wide"] if f32_dt else widths["wide"])]
+            at = timed[256][name]
+            path = wide[dt]["train" if name.startswith("dropout") else "serve"]
+            rows.append({
+                "name": f"{name}_wide_{'f32' if f32_dt else 'bf16'}", "route": "cuda",
+                "source": wide_src, "replaces": source_line, "dtype": dt,
+                "head_dims": "past 128 (multiples of 16 native, others padded)",
+                "cuda_kernels": WIDE_CUDA_KERNELS[name][tag],
+                "launches": path["launches"].get(f"{key}@256/{dt}", 0),
+                "launches_head_dim": 256, "max_abs_err": max(checked), "shape": shape,
+                **{k: at[k] for k in time_keys}, "library_ms": at.get("library_ms"),
+                **({"library_chain_ms": at["library_chain_ms"]} if "library_chain_ms" in at
+                   else {}),
+                "widths": [{"d": d, **{k: timed[d][name][k] for k in time_keys}}
+                           for d in WIDE_TIMED_HEAD_DIMS],
+                "ptxas": [k for k in widths["ptxas"] if k["kernel"].replace(
+                    "__nv_bfloat16", "bf16") in WIDE_CUDA_KERNELS[name][tag]]})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -4806,6 +4990,7 @@ def main(argv=None) -> int:
     # phase 17 right after the other kernels: late in a long process CUPTI
     # loses most of a profile's events
     f32 = phase("float32", phase_float32, torch, device_info)
+    wide = phase("wide_heads", phase_wide_heads, torch, device_info)
     f32_error = phase("f32_error", phase_f32_error, torch)
     phase("generator", phase_generator, torch)
     sl = phase("slice", phase_slice, torch, device_info)
@@ -4829,7 +5014,7 @@ def main(argv=None) -> int:
                "train_data": data, "eval": ev, "tokenizer_train": tok, "variants": var,
                "distributed": dp, "sharded": sh, "split": sp, "split_scale": sc,
                "multicard": mc, "system_check": syscheck, "float32": f32,
-               "f32_error": f32_error}
+               "wide_heads": wide, "f32_error": f32_error}
     if run != set(PHASES):
         with open(os.path.join(OUT_DIR, f"result_{os.path.basename(tree)}.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -4933,7 +5118,8 @@ def main(argv=None) -> int:
     # with the CUDA kernels each width launched ("kernels_by_width")
     tool = syscheck["runs"]["tool"]
     tool_d = tool["head_dim"]
-    width_rows = {r["d"]: r for r in widths["rows"] if "dropout_attention_fwd" in r}
+    narrow_rows = [r for r in widths["rows"] if r["d"] <= 128]  # the templates' widths
+    width_rows = {r["d"]: r for r in narrow_rows if "dropout_attention_fwd" in r}
     generic = {"fused_attention_block": (f"{pa}:532", "maskbit_tpu_torch/csrc/attention_block.cu",
                                          tool["launches_sample"]["attention_block"]),
                "dropout_attention_fwd": (f"{pa}:232", "maskbit_tpu_torch/csrc/attention_fwd.cuh",
@@ -4945,8 +5131,10 @@ def main(argv=None) -> int:
                                    tool["launches_sample"]["by_head_dim"].get(
                                        f"fused_attention@{tool_d}", 0))}
     time_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
-    # every width runs the Hopper templates, no mma.sync kernel
-    kernels_by_width = {r["d"]: r["kernels"] for r in widths["rows"] if "kernels" in r}
+    # every width up to 128 runs the wgmma templates, none of the mma.sync
+    # kernels they replaced (past 128 the panelled mma.sync kernels run:
+    # their own rows below)
+    kernels_by_width = {r["d"]: r["kernels"] for r in narrow_rows if "kernels" in r}
     mma = sorted({k for by_name in kernels_by_width.values() for ks in by_name.values()
                   for k in ks if "_mma" in k})
     if mma:
@@ -4962,7 +5150,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "head_dims": "multiples of 16 in [16, 128] but 64",
             "launches": launches,
             "launches_head_dim": tool_d,
-            "max_abs_err": max(errs[name](r) for r in widths["rows"]),
+            "max_abs_err": max(errs[name](r) for r in narrow_rows),
             # the shapes the wrappers zero-pad (head dims 8, 72, 125; the
             # block also at E = 80 and 4608)
             "padded_max_abs_err": max(
@@ -4996,7 +5184,7 @@ def main(argv=None) -> int:
     for name, (replaces, key, err_key) in f32_rows.items():
         at = f32["kernels"]["timed"][64][name]
         errs = [max(r["errs"][x] for x in ("dq", "dk", "dv")) if err_key is None
-                else r["errs"][err_key] for r in f32["kernels"]["rows"]]
+                else r["errs"][err_key] for r in f32["kernels"]["rows"] if r["d"] <= 128]
         serve_path = not name.startswith("dropout")
         # the padded shapes' errors (head dims 8, 72, 125; the block also at
         # E = 80 and 4608)
@@ -5026,7 +5214,9 @@ def main(argv=None) -> int:
                if name in tf32 else {}),
             "widths": [{"d": d, "shape": t[name]["shape"], **{k: t[name][k] for k in f32_keys},
                         "library_ms": t[name].get("library_ms", t[name].get("library_chain_ms"))}
-                       for d, t in sorted(f32["kernels"]["timed"].items())]})
+                       for d, t in sorted(f32["kernels"]["timed"].items()) if d <= 128]})
+    # past head dim 128, the panelled kernels: their own rows
+    record["kernels"] += _wide_records(widths, f32, wide, time_keys)
     bert_path = {"fused_attention_block": "launches_bert_serve",
                  "fused_attention": "launches_bert_serve",
                  "dropout_attention_fwd": "launches_bert_train",

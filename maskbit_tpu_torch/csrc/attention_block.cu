@@ -24,10 +24,12 @@
 //      training kernels): softmax(q k^T / sqrt(d)) v per (batch * head,
 //      64-query tile), over the qkv buffer's strided (b, n, 3, h, D) view,
 //      into a contiguous (b, n, h, D) = (b * n, h D) bf16 buffer, at every
-//      head dim d in [1, 128]: D = d rounded up to 16 (the wrapper pads
-//      W_qkv's rows and W_o's columns per head, so that the QKV projection
-//      writes the padded head layout and the out-projection reads it); this
-//      library builds only the dropout-free instantiations.
+//      head dim d (past 128 attn_fwd_wide_kernel<bf16, false>, the
+//      panelled form in attention_wide.cuh): D = d rounded up to 16 (the
+//      wrapper pads W_qkv's rows and W_o's columns per head, so that the
+//      QKV projection writes the padded head layout and the out-projection
+//      reads it); this library builds only the dropout-free
+//      instantiations.
 //   3. proj_kernel<BM, EPI_RESID>: y = attn Wo^T + bo + x, f32 (b * n, E).
 //   4. layernorm_kernel<bf16> (layernorm.cuh): out = bf16(LN(y)), one block a
 //      row, two passes, over the true E of rows E_pad long (E rounded up to
@@ -300,8 +302,9 @@ cudaError_t launch_proj_bm(int bm, const void* a, const void* b, void* c_out, co
 
 }  // namespace
 
-// Runs the chain on `stream` at width E over H heads of d = E / H in [1,
-// 128], every tensor at its padded widths: D = d rounded up to 16, E_pad =
+// Runs the chain on `stream` at width E over H heads of d = E / H (any
+// d >= 1; past 128 the attention core is attention_wide.cuh's), every
+// tensor at its padded widths: D = d rounded up to 16, E_pad =
 // E rounded up to 8, Eq = H D. x, out: (B*n, E_pad) bf16; w_qkv: (3 Eq,
 // E_pad) bf16, each head's rows zero past d; w_o: (E_pad, Eq) bf16, each
 // head's columns zero past d; b_qkv (3 Eq), b_o (E_pad), ln_g, ln_b (E) f32,
@@ -318,7 +321,7 @@ extern "C" int mb_attention_block(const void* x, const void* w_qkv, const void* 
                                   int bm_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * n;
-  if (H <= 0 || E <= 0 || E % H || E / H > 128 || !current_context())
+  if (H <= 0 || E <= 0 || E % H || !current_context())
     return static_cast<int>(cudaErrorInvalidValue);
   const int d = E / H, D = pad_head_dim(d), Eq = H * D, E_pad = (E + 7) / 8 * 8;
   cudaError_t err = launch_proj_bm<EPI_BIAS>(bm_qkv, x, w_qkv, qkv, b_qkv, nullptr, nullptr,

@@ -17,7 +17,9 @@
 // Each is a template on the head dim D, instantiated at the multiples of 16
 // in [16, 128]; another d in [1, 128] runs the instantiation at d rounded up
 // to 16 on inputs the wrapper zero-pads per head, with d's softmax scale,
-// as the bf16 kernels do. In float32 each rounding point of the bf16 form
+// as the bf16 kernels do. A d past 128 runs the panelled kernels of
+// attention_wide.cuh at T = float (attn_fwd_wide_kernel, for the block's
+// core too, and attn_bwd_wide_prep_kernel with attn_bwd_wide_kernel). In float32 each rounding point of the bf16 form
 // (qkv, the softmax weights, the head outputs, the score gradient) is a
 // no-op, so these compute what the TPU kernels compute in float32.
 //
@@ -739,13 +741,19 @@ int attention_forward_f32_at(const float* q, const float* k, const float* v, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward on `s` at head dim d in [1, 128] (else cudaErrorInvalidValue),
-// the tensors at D = pad_head_dim(d); the arguments of
-// mb_dropout_attention_fwd_f32.
+// The forward on `s` at head dim d >= 1 (else cudaErrorInvalidValue), the
+// tensors at D = pad_head_dim(d); the arguments of
+// mb_dropout_attention_fwd_f32. Past d = 128, attention_wide.cuh's
+// attn_fwd_wide_kernel<float, dropout>.
 int attention_forward_f32(const float* q, const float* k, const float* v, long long sb,
                           long long sn, long long sh, const int* seeds, float* out, float* lse,
                           int B, int n, int H, int d, unsigned int threshold, float keep_scale,
                           bool dropout, cudaStream_t s) {
+  if (d >= WIDE_MIN_D)
+    return dropout ? attention_forward_wide_at<float, true>(q, k, v, sb, sn, sh, seeds, out, lse,
+                                                            B, n, H, d, threshold, keep_scale, s)
+                   : attention_forward_wide_at<float, false>(q, k, v, sb, sn, sh, nullptr, out,
+                                                             lse, B, n, H, d, 0u, 1.0f, s);
   switch (d < 1 ? 0 : pad_head_dim(d)) {
 #define MB_F32_FWD_CASE(W)                                                                  \
   case W:                                                                                  \
@@ -1431,16 +1439,18 @@ extern "C" int mb_dropout_attention_fwd_f32(const void* q, const void* k, const 
                                dropout != 0, static_cast<cudaStream_t>(stream));
 }
 
-// Backward on `stream`, float32, at head dim d in [1, 128]: dq, dk, dv
+// Backward on `stream`, float32, at head dim d >= 1: dq, dk, dv
 // (contiguous (B, n, H, D) f32, D = d rounded up to 16) from q, k, v
 // (strided as in the forward), the forward's out and lse, the incoming
 // gradient grad (contiguous f32; q, k, v, out and grad zero past d) and the
 // seeds. Scratch: stats, (B*H, n_pad) float2 with n_pad = 64 * ceil(n /
-// 64); tickets, (B*H, n_pad / 64) int32. rotate: 1 for the rotated dq
-// order, 0 for key-tile order (the header). Two launches: the row stats
-// (and the tickets zeroed), then the main kernel, which sums dq into dq
-// itself. Returns the first launch error (cudaSuccess == 0), or
-// cudaErrorInvalidValue if d is outside [1, 128] or a tensor map is refused.
+// 64); up to d = 128 tickets, (B*H, n_pad / 64) int32 (past 128 not read,
+// may be null). rotate: 1 for the rotated dq order, 0 for key-tile order
+// (the header). Two launches: the row stats (and the tickets zeroed), then
+// the main kernel, which sums dq into dq itself; past d = 128 three, the
+// row stats, dK and dV, and dQ (attention_wide.cuh). Returns the first
+// launch error (cudaSuccess == 0), or cudaErrorInvalidValue if d < 1 or a
+// tensor map is refused.
 extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const void* v,
                                             long long sb, long long sn, long long sh,
                                             const void* out, const void* grad, const void* lse,
@@ -1449,6 +1459,13 @@ extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const 
                                             int d, int rotate, unsigned int threshold,
                                             float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d >= WIDE_MIN_D)
+    return attention_backward_wide<float>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        sb, sn, sh, static_cast<const float*>(out), static_cast<const float*>(grad),
+        static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float2*>(stats), B, n, H, d,
+        threshold, keep_scale, s);
   switch (d < 1 ? 0 : pad_head_dim(d)) {
 #define MB_F32_BWD_CASE(W)                                                                     \
   case W:                                                                                     \
@@ -1507,7 +1524,7 @@ extern "C" int mb_attention_bwd_f32_plan(int d, int* plan) {
 }
 
 // The attention block on `stream`, float32, at width E over H heads of d =
-// E / H in [1, 128], every tensor at the padded widths of the bf16 block
+// E / H (any d >= 1), every tensor at the padded widths of the bf16 block
 // (mb_attention_block in csrc/attention_block.cu: D = d rounded up to 16,
 // E_pad = E rounded up to 8, Eq = H D): x, out (B*n, E_pad) f32; w_qkv (3
 // Eq, E_pad) and w_o (E_pad, Eq) f32, PyTorch's (out, in) layout; b_qkv (3
@@ -1524,7 +1541,7 @@ extern "C" int mb_attention_block_f32(const void* x, const void* w_qkv, const vo
                                       int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * n;
-  if (H <= 0 || E <= 0 || E % H || E / H > 128 || !current_context())
+  if (H <= 0 || E <= 0 || E % H || !current_context())
     return static_cast<int>(cudaErrorInvalidValue);
   const int d = E / H, D = pad_head_dim(d), Eq = H * D, E_pad = (E + 7) / 8 * 8;
   const float* xf = static_cast<const float*>(x);

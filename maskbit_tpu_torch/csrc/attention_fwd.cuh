@@ -11,7 +11,9 @@
 // the instantiation by D, and takes every other d in [1, 128] at d rounded
 // up to 16 (pad_head_dim) on inputs the caller zero-pads per head, with the
 // softmax scale of the unpadded d. See dropout_attention.cu for the design,
-// what bounds it, and the backward.
+// what bounds it, and the backward. A d past 128 takes the panelled kernels
+// of attention_wide.cuh (included below, and by every library that includes
+// this header), at d rounded up to 16 in the same way.
 //
 // Head dims and the shared-memory layout. A tile is 64 rows of D bf16
 // values. wgmma reads its shared-memory operands through descriptors of
@@ -371,14 +373,22 @@ int attention_forward_at(const void* q, const void* k, const void* v, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward on `stream` at head dim d in [1, 128]. q, k, v: (B, n, H,
-// D) bf16 with D = pad_head_dim(d), zero past d, element strides (sb, sn,
-// sh), each a multiple of 8; out: contiguous (B, n, H, D) bf16; lse: (B*H,
-// n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored
-// without dropout, which compiles the mask out. WITH_DROPOUT false builds
-// only the dropout-free kernels (the attention block needs no other) and
-// refuses `dropout`. Returns the launch error (cudaSuccess == 0), or
-// cudaErrorInvalidValue if d is outside [1, 128] or a tensor map is
+}  // namespace
+
+// Head dims past 128: the panelled kernels, bf16 and float32.
+#include "attention_wide.cuh"
+
+namespace {
+
+// The forward on `stream` at head dim d >= 1. q, k, v: (B, n, H, D) bf16
+// with D = pad_head_dim(d), zero past d, element strides (sb, sn, sh), each
+// a multiple of 8; out: contiguous (B, n, H, D) bf16; lse: (B*H, n) f32 or
+// null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored without
+// dropout, which compiles the mask out. d <= 128 takes attn_fwd_kernel<D,
+// dropout>, a wider d attn_fwd_wide_kernel (attention_wide.cuh).
+// WITH_DROPOUT false builds only the dropout-free kernels (the attention
+// block needs no other) and refuses `dropout`. Returns the launch error
+// (cudaSuccess == 0), or cudaErrorInvalidValue if d < 1 or a tensor map is
 // refused.
 template <bool WITH_DROPOUT>
 int attention_forward(const void* q, const void* k, const void* v, long long sb, long long sn,
@@ -386,6 +396,19 @@ int attention_forward(const void* q, const void* k, const void* v, long long sb,
                       int d, unsigned int threshold, float keep_scale, bool dropout,
                       cudaStream_t s) {
   if ((!WITH_DROPOUT && dropout) || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d >= WIDE_MIN_D) {
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v);
+    if constexpr (WITH_DROPOUT)
+      if (dropout)
+        return attention_forward_wide_at<bf16, true>(
+            qb, kb, vb, sb, sn, sh, static_cast<const int*>(seeds), static_cast<bf16*>(out),
+            static_cast<float*>(lse), B, n, H, d, threshold, keep_scale, s);
+    return attention_forward_wide_at<bf16, false>(qb, kb, vb, sb, sn, sh, nullptr,
+                                                  static_cast<bf16*>(out),
+                                                  static_cast<float*>(lse), B, n, H, d, 0u, 1.0f,
+                                                  s);
+  }
   switch (pad_head_dim(d)) {
 #define MB_FWD_CASE(W)                                                                       \
   case W:                                                                                   \

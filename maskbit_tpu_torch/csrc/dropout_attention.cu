@@ -6,7 +6,8 @@
 // head dim d in [1, 128] (the TPU kernels read d from their inputs; each
 // kernel here is a template on d, instantiated at the eight multiples of 16,
 // and another d runs the instantiation at d rounded up to 16 on inputs the
-// wrapper zero-pads per head, with d's softmax scale):
+// wrapper zero-pads per head, with d's softmax scale; a d past 128 runs the
+// panelled kernels of attention_wide.cuh, described there):
 //   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
 //     attn_fwd_kernel<d, true> (attention_fwd.cuh);
 //   * _attention_kernel (fused_attention), by attn_fwd_kernel<d, false>: the
@@ -606,13 +607,12 @@ int attention_backward_at(const void* q, const void* k, const void* v, long long
 }  // namespace
 
 // Forward on `stream` (attention_fwd.cuh's attention_forward) at head dim
-// d in [1, 128]. q, k, v: (B, n, H, D) bf16 with D = d rounded up to a
-// multiple of 16, zero past d (the wrapper pads a d that is not one),
-// element strides (sb, sn, sh); out: contiguous (B, n, H, D) bf16; lse:
-// (B*H, n) f32 or null; seeds: (B*H,) int32 (the uint32 seeds' bits),
-// ignored when dropout == 0, which compiles the mask out. Returns the
-// launch error (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside
-// that range or a tensor map is refused.
+// d >= 1. q, k, v: (B, n, H, D) bf16 with D = d rounded up to a multiple of
+// 16, zero past d (the wrapper pads a d that is not one), element strides
+// (sb, sn, sh); out: contiguous (B, n, H, D) bf16; lse: (B*H, n) f32 or
+// null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored when dropout
+// == 0, which compiles the mask out. Returns the launch error (cudaSuccess
+// == 0), or cudaErrorInvalidValue if d < 1 or a tensor map is refused.
 extern "C" int mb_dropout_attention_fwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* seeds, void* out, void* lse, int B, int n,
@@ -644,16 +644,17 @@ extern "C" int mb_dropout_attention_plan(int d, int* plan) {
   }
 }
 
-// Backward on `stream` at head dim d in [1, 128]: dq, dk, dv (contiguous
-// (B, n, H, D) bf16, D as in the forward) from q, k, v (strided as in the
-// forward), the forward's out and lse, the incoming gradient grad
-// (contiguous bf16; out and grad zero past d too) and the seeds. Scratch:
-// stats, (B*H, n_pad) float2 with n_pad = 64 * ceil(n / 64); dq_acc, (B*H,
-// n, D) f32; tickets, (B*H, n_pad / 64) int32. rotate: 1 for the rotated dq
-// order, 0 for key-tile order (see the header). Three launches: the row
-// stats, the main kernel, and dq_acc to bf16 dq. Returns the first launch
-// error (cudaSuccess == 0), or cudaErrorInvalidValue if d is outside [1,
-// 128] or a tensor map is refused.
+// Backward on `stream` at head dim d >= 1: dq, dk, dv (contiguous (B, n, H,
+// D) bf16, D as in the forward) from q, k, v (strided as in the forward),
+// the forward's out and lse, the incoming gradient grad (contiguous bf16;
+// out and grad zero past d too) and the seeds. Scratch: stats, (B*H, n_pad)
+// float2 with n_pad = 64 * ceil(n / 64); up to d = 128, dq_acc, (B*H, n, D)
+// f32, and tickets, (B*H, n_pad / 64) int32 (past 128 neither is read and
+// either may be null). rotate: 1 for the rotated dq order, 0 for key-tile
+// order (see the header). Three launches: the row stats, the main kernel,
+// and dq_acc to bf16 dq; past d = 128 the row stats, dK and dV, and dQ
+// (attention_wide.cuh). Returns the first launch error (cudaSuccess == 0),
+// or cudaErrorInvalidValue if d < 1 or a tensor map is refused.
 extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
                                         const void* out, const void* grad, const void* lse,
@@ -661,6 +662,13 @@ extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void
                                         void* stats, void* dq_acc, void* tickets, int B, int n,
                                         int H, int d, int rotate, unsigned int threshold,
                                         float keep_scale, void* stream) {
+  if (d >= WIDE_MIN_D)
+    return attention_backward_wide<bf16>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), sb,
+        sn, sh, static_cast<const bf16*>(out), static_cast<const bf16*>(grad),
+        static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float2*>(stats), B, n, H, d,
+        threshold, keep_scale, static_cast<cudaStream_t>(stream));
   switch (d < 1 ? 0 : pad_head_dim(d)) {
 #define MB_BWD_CASE(W)                                                                         \
   case W:                                                                                     \

@@ -13,8 +13,9 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   cores, within the plain float32 block's error of a float64 one up to E =
   8192; the LayerNorm in float32, as JAX's block computes under
   `training.mixed_precision: no`); the biases and LayerNorm parameters
-  each f32 or bf16 (the kernels widen bf16 exactly); a head dim d = E /
-  heads in [1, `dropout_attention.MAX_HEAD_DIM`], any E. The weights must
+  each f32 or bf16 (the kernels widen bf16 exactly); any head dim d = E /
+  heads and any E (past d = 128 the attention core is the panelled kernel
+  of `csrc/attention_wide.cuh`, as `dropout_attention`'s). The weights must
   be the transposed views of contiguous PyTorch weights
   (`in_proj_weight.t()`, `out_proj.weight.t()`), which is how
   `BertAttention` passes them: the kernels read the (out, in) layout.
@@ -29,8 +30,9 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   and x per call, paid only by such shapes.
 
 The chain is the QKV projection, the attention forward of
-`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<d, false>`, or its
-float32 form, whose count in `dropout_attention.launches["fused_attention"]`
+`nn/dropout_attention.fused_attention` (`attn_fwd_kernel<d, false>` or,
+past d = 128, `attn_fwd_wide_kernel<bf16, false>`, or their float32 forms,
+whose count in `dropout_attention.launches["fused_attention"]`
 it adds to), the out-projection with the residual (f32) and the LayerNorm.
 `launches` counts the chain's launches in this process (one per call on a
 CUDA tensor, also in `dropout_attention.launches_by_dtype` under

@@ -17,19 +17,22 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   score gradient rounded before dq and dk.
 * A CUDA tensor launches the hand-written kernels or raises: q, k, v of
   one dtype in `DTYPES` with the same strides and a contiguous last
-  dimension (the QKV projection's view qualifies), a head dim d in [1,
-  `MAX_HEAD_DIM`], 0 <= rate < 1. The kernels are instantiated at the
-  multiples of 16 (`HEAD_DIMS`); another d runs the instantiation at d
-  rounded up to 16 (`padded_head_dim`) on inputs the wrapper zero-pads per
-  head (zero columns of q and k add nothing to the scores, zero columns of
-  v give output columns that are sliced away; the softmax scale stays
-  d^-0.5, passed apart from the padded width), exact in either dtype, for
-  a copy of the inputs per call. bf16 takes `csrc/dropout_attention.cu`
-  (one TMA + wgmma kernel template on the head dim), float32 (the compute
-  dtype of `training.mixed_precision: no`) `csrc/attention_f32.cu` (both
-  passes in 3xTF32 on the tensor cores); outputs and gradients take the
-  inputs' dtype. The JAX kernels take any head dim; past 128 no
-  instantiation holds the tiles, and the wrappers raise.
+  dimension (the QKV projection's view qualifies), any head dim d >= 1 (as
+  the JAX kernels), 0 <= rate < 1. Up to d = 128 the kernels are
+  templates instantiated at the multiples of 16 (`HEAD_DIMS`); a wider d
+  runs the panelled kernels of `csrc/attention_wide.cuh`, which cut d into
+  column panels of `PANEL` (`head_panels`): the scores summed over every
+  panel, each output panel by blocks of its own. Every d runs at d
+  rounded up to 16 (`padded_head_dim`) on inputs the wrapper zero-pads
+  per head where d is not a multiple of 16 (zero columns of q and k add
+  nothing to the scores, zero columns of v give output columns that are
+  sliced away; the softmax scale stays d^-0.5, passed apart from the
+  padded width), exact in either dtype, for a copy of the inputs per call.
+  bf16 takes `csrc/dropout_attention.cu` (up to 128 one TMA + wgmma
+  kernel template on the head dim), float32 (the compute dtype of
+  `training.mixed_precision: no`) `csrc/attention_f32.cu` (both passes in
+  3xTF32 on the tensor cores); outputs and gradients take the inputs'
+  dtype.
 
 `launches` counts kernel launches on CUDA tensors, by kernel:
 "dropout_attention_fwd", "dropout_attention_bwd" (one per backward, three
@@ -47,11 +50,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# the head dims the kernels are instantiated at: sm90.cuh's MB_HEAD_DIMS; the
-# kernels take every d in [1, MAX_HEAD_DIM], the others zero-padded to the
+# the head dims the narrow kernel templates are instantiated at: sm90.cuh's
+# MB_HEAD_DIMS; they take every d in [1, 128], the others zero-padded to the
 # next of these
 HEAD_DIMS = range(16, 129, 16)
-MAX_HEAD_DIM = 128
+# past 128 (from WIDE_MIN_HEAD_DIM) the panelled kernels take d, padded to a
+# multiple of 16, in column panels of PANEL (csrc/attention_wide.cuh's
+# WIDE_MIN_D and PANEL)
+WIDE_MIN_HEAD_DIM = 129
+PANEL = 64
 # the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
 DTYPES = (torch.bfloat16, torch.float32)
 TILE = 64  # queries or keys per kernel tile
@@ -89,14 +96,27 @@ def reset_counts() -> None:
 
 
 def check_head_dim(d: int) -> None:
-    """Raises unless the kernels take head dim `d`."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the kernels need a head dim in [1, {MAX_HEAD_DIM}], got {d}")
+    """Raises unless the kernels take head dim `d`: any d >= 1."""
+    if d < 1:
+        raise ValueError(f"the kernels need a head dim of at least 1, got {d}")
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiation that runs head dim `d`: d rounded up to 16."""
+    """The width the kernels run head dim `d` at: d rounded up to 16 (up to
+    128 the instantiation at that width)."""
     return -(-d // 16) * 16
+
+
+def head_panels(d: int) -> list:
+    """The output column panels, (first column, width), that the kernels'
+    blocks write at head dim `d`, over its padded width: one panel up to
+    128 (a block holds the whole row), else `PANEL`-wide ones, the last
+    narrower where the padded width is not a multiple of `PANEL`; each
+    panel's blocks sum the scores over all of d."""
+    dp = padded_head_dim(d)
+    if d < WIDE_MIN_HEAD_DIM:
+        return [(0, dp)]
+    return [(c, min(PANEL, dp - c)) for c in range(0, dp, PANEL)]
 
 
 def keep_threshold(rate: float) -> int:
@@ -200,6 +220,31 @@ def dropout_attention_backward_reference(q, k, v, g, seeds, rate: float, scale=N
     dq = torch.einsum("bhqk,bkhd->bqhd", dlog, _wide(k))
     dk = torch.einsum("bhqk,bqhd->bkhd", dlog, _wide(q))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def panel_reference(q, k, v, g, seeds, rate: float, panel, scale=None):
+    """What one output panel's blocks compute, plainly: the weights from
+    scores over the whole of d, then only the columns `panel` = (first
+    column, width) of out and, where `g` is given, of dq, dk and dv (the
+    incoming gradient's full width enters dP = g v^T). `seeds` None: no
+    dropout. Rounding points and `scale` as the whole-width versions'."""
+    c0, w = panel
+    cols = slice(c0, c0 + w)
+    rate = _check_rate(rate)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = _softmax_f32(q, k, scale)
+    keep = (torch.ones_like(p, dtype=torch.bool) if seeds is None
+            else hash_keep_mask(seeds.to(p.device), q.shape[1], rate))
+    dropped = _wide(_dropped(p, keep, rate).to(v.dtype))
+    out = torch.einsum("bhqk,bkhd->bqhd", dropped, _wide(v[..., cols])).to(q.dtype)
+    if g is None:
+        return out
+    dv = torch.einsum("bhqk,bqhd->bkhd", dropped, _wide(g[..., cols]))
+    dw = _dropped(torch.einsum("bqhd,bkhd->bhqk", _wide(g), _wide(v)), keep, rate)
+    dlog = _wide((p * (dw - (dw * p).sum(-1, keepdim=True)) * scale).to(q.dtype))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlog, _wide(k[..., cols]))
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlog, _wide(q[..., cols]))
+    return out, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fused_attention_reference(q, k, v, scale=None) -> torch.Tensor:
@@ -417,11 +462,13 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float, d=None):
                   for _ in range(3))
     tiles = -(-n // TILE)
     # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
-    # the f32 sum of dq over key tiles (b*h*n*d*4 bytes, 33.7 MB at (32, 257,
-    # 16, 64)) and one ticket per (batch*head, query tile)
+    # up to d = 128 the f32 sum of dq over key tiles (b*h*n*d*4 bytes, 33.7
+    # MB at (32, 257, 16, 64)) and one ticket per (batch*head, query tile);
+    # the panelled kernels past 128 write dq once and need neither
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
-    dq_acc = torch.empty((b * h, n, dp), dtype=torch.float32, device=dev)
-    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
+    narrow = d < WIDE_MIN_HEAD_DIM
+    dq_acc = torch.empty((b * h, n, dp), dtype=torch.float32, device=dev) if narrow else None
+    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev) if narrow else None
     with torch.cuda.device(dev):
         err = lib.mb_dropout_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
@@ -438,20 +485,21 @@ def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
     """The float32 backward's launches on checked inputs (at the padded
     width of head dim `d`) with a contiguous `g`; not counted. dq is summed
     over key tiles in place, in a fixed order, as the bf16 backward's
-    f32 sum is."""
+    f32 sum is (past d = 128 the dQ pass writes it once)."""
     b, n, h, dp = q.shape
     dev = q.device
     dq, dk, dv = (torch.empty((b, n, h, dp), dtype=torch.float32, device=dev) for _ in range(3))
     tiles = -(-n // TILE)
     # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
-    # one ticket per (batch*head, query tile)
+    # up to d = 128 one ticket per (batch*head, query tile)
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
-    tickets = torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
+    tickets = (torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
+               if d < WIDE_MIN_HEAD_DIM else None)
     with torch.cuda.device(dev):
         err = _lib_f32().mb_dropout_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), tickets.data_ptr(), b, n, h, d,
+            dv.data_ptr(), stats.data_ptr(), _ptr(tickets), b, n, h, d,
             int(tiles <= ROTATE_MAX_TILES), keep_threshold(rate), 1.0 / (1.0 - rate),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -4,7 +4,8 @@ The plain PyTorch version (which the wrapper runs for CPU tensors) is held
 against the JAX block `maskbit_tpu.nn.pallas_attention.fused_attention_block`,
 run in Pallas interpret mode, at atol 3e-5 / rtol 1e-4 in float32 — the
 tolerance `tests/test_pallas_attention.py` holds the JAX block to — at head
-dims 16 (E = 64 over 4 heads, the JAX tests' own block), 32 and 64. The
+dims 16 (E = 64 over 4 heads, the JAX tests' own block), 32 and 64, and
+past 128 at 200 and 256. The
 CUDA kernel is held against the plain version on the card in
 `tests/test_torch_cuda.py`.
 """
@@ -42,6 +43,20 @@ def test_plain_version_matches_jax_block(n, d):
                      interpret=True)
     got = ab.fused_attention_block_reference(
         **{k: torch.from_numpy(v) for k, v in inp.items()}, num_heads=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
+
+
+# head dims past 128, where the port's block takes the panelled attention
+# core: 256 (E = 512 over 2 heads) and 200 (E = 400 over 2), whose padded
+# width is not a multiple of the 64-wide panels
+@pytest.mark.parametrize("e,heads", [(512, 2), (400, 2)])
+def test_plain_version_matches_jax_block_past_head_dim_128(e, heads):
+    rng = np.random.default_rng(e)
+    inp = _inputs(rng, 1, 17, e)
+    want = jax_block(**{k: jnp.asarray(v) for k, v in inp.items()}, num_heads=heads,
+                     interpret=True)
+    got = ab.fused_attention_block_reference(
+        **{k: torch.from_numpy(v) for k, v in inp.items()}, num_heads=heads)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
 
 
@@ -167,16 +182,16 @@ def test_plain_version_matches_jax_block_at_other_widths(b, n, e, heads):
 
 
 def test_serving_layer_takes_the_plain_route_past_the_widest_kernel():
-    """Head dim 192: no kernel instantiation holds it, so the block's
-    launch refuses it before it looks at the device (on the card the
-    serving layer raises), while on the CPU the serving layer runs the plain
-    block, as at every d, with its values and no kernel counted."""
+    """Head dim 192, past the widest kernel template: on the card the block
+    takes it (its attention core cut into three 64-wide column panels, no
+    padding), while on the CPU the serving layer runs the plain block, as
+    at every d, with its values and no kernel counted."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
     from maskbit_tpu_torch.nn import transformer
 
-    meta = {k: torch.zeros(v.shape, device="meta")
-            for k, v in _inputs(np.random.default_rng(0), 1, 3, 384).items()}
-    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 192"):
-        ab._launch(**meta, num_heads=2, eps=1e-12)
+    assert ab.block_widths(384, 2) == (192, 192, 384)
+    da.check_head_dim(192)
+    assert da.head_panels(192) == [(0, 64), (64, 64), (128, 64)]
     ab.reset_launch_counts()
     layer = transformer.BertAttention(384, 2, attention_impl="fused").eval()
     with torch.no_grad():

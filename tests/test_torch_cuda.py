@@ -152,8 +152,9 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, x=inp["x"].float()), num_heads=16)
     with pytest.raises(ValueError, match="contiguous"):
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
-    # head dim 8 runs zero-padded to 16; past 128 the kernels' wrapper raises
-    # (the serving layer takes the plain version by shape instead)
+    # head dim 8 runs zero-padded to 16; past 128 the panelled attention
+    # core runs (BertAttention's serving layer calls the block at every
+    # shape)
     got = ab.fused_attention_block(**inp, num_heads=128)
     want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
                                               num_heads=128)
@@ -161,8 +162,10 @@ def test_attention_block_kernel_rejects_bad_inputs():
     with pytest.raises(ValueError, match="multiple of the 7 heads"):
         ab.fused_attention_block(**inp, num_heads=7)
     wide = _block_inputs(1, 17, 1152, seed=0)
-    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
-        ab.fused_attention_block(**wide, num_heads=8)
+    got = ab.fused_attention_block(**wide, num_heads=8)
+    want = ab.fused_attention_block_reference(**{k: v.float() for k, v in wide.items()},
+                                              num_heads=8)
+    assert torch.isfinite(got).all() and (got.float() - want).abs().max().item() <= 3e-2
     # the vectors: f32 or bf16, on x's device, of their length, contiguous
     with pytest.raises(TypeError, match="bqkv"):
         ab.fused_attention_block(**dict(inp, bqkv=inp["bqkv"].half()), num_heads=16)
@@ -394,7 +397,7 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
     with pytest.raises(TypeError):
         da.dropout_attention(q.float(), k, v, s, 0.1)
     # head dim 8 runs zero-padded to 16 (views of the first 8 columns: the
-    # wrapper copies them padded); past 128 the kernels' wrappers raise
+    # wrapper copies them padded); past 128 the panelled kernels run
     narrow = [t[..., :8] for t in (q, k, v)]
     got = da.dropout_attention(*narrow, s, 0.1)
     want = da.dropout_attention_reference(*(t.float() for t in narrow), s, 0.1)
@@ -403,10 +406,12 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
     want = da.fused_attention_reference(*(t.float() for t in narrow))
     assert (got.float() - want).abs().max().item() <= DROPOUT_ATOL
     wide = _qkv(1, 17, 2, seed=0, d=144)
-    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
-        da.dropout_attention(*wide, s, 0.1)
-    with pytest.raises(ValueError, match=r"head dim in \[1, 128\], got 144"):
-        da.fused_attention(*wide)
+    got = da.dropout_attention(*wide, s, 0.1)
+    want = da.dropout_attention_reference(*(t.float() for t in wide), s, 0.1)
+    assert got.shape == (1, 17, 2, 144) and (got.float() - want).abs().max().item() <= DROPOUT_ATOL
+    got = da.fused_attention(*wide)
+    want = da.fused_attention_reference(*(t.float() for t in wide))
+    assert (got.float() - want).abs().max().item() <= DROPOUT_ATOL
     with pytest.raises(ValueError, match="strides"):
         da.dropout_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, s, 0.1)
 
@@ -640,6 +645,65 @@ def test_bf16_attention_block_at_padded_widths(b, n, e, heads):
                                               num_heads=heads)
     assert got.shape == (b, n, e) and torch.isfinite(got).all()
     assert (got.float() - want).abs().max().item() <= 3e-2
+
+
+# Past head dim 128 the panelled kernels (csrc/attention_wide.cuh): 144 and
+# 200 (padded widths that are not multiples of the 64-wide panels), 256
+# (the flagship's hidden 1024 over 4 heads) and 1024 (one head of E = 1024),
+# in bf16 at the native widths' tolerances and in float32 within F32_TOL.
+WIDE_HEAD_DIMS = [144, 200, 256, 1024]
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h", [(2, 257, 2), (1, 17, 1)])
+def test_kernels_past_head_dim_128(b, n, h, dtype, d):
+    """The dropout forward and backward and fused_attention on strided
+    views of one qkv buffer against their plain versions, each launch
+    counted at d; the backward bit for bit again on a second call; and the
+    block at E = h d."""
+    from maskbit_tpu_torch.nn import dropout_attention as da
+
+    _card()
+    f32 = dtype is torch.float32
+    q, k, v = (t.to(dtype) for t in _qkv(b, n, h, seed=n + d, layout="packed", d=d))
+    seeds = _seeds(b, h, seed=d + 2)
+    gout = torch.randn(b, n, h, d, generator=torch.Generator(device="cuda").manual_seed(d),
+                       device="cuda").to(dtype)
+    dt = str(dtype).removeprefix("torch.")
+    before = dict(da.launches_by_dtype)
+    out, grads = _launch_both(da, q, k, v, seeds, 0.1, gout)
+    _, again = _launch_both(da, q, k, v, seeds, 0.1, gout)
+    fused = da.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    for key, times in (("dropout_attention_fwd", 2), ("dropout_attention_bwd", 2),
+                       ("fused_attention", 1)):
+        assert da.launches_by_dtype[(key, d, dt)] == before.get((key, d, dt), 0) + times
+    assert out.shape == fused.shape == (b, n, h, d) and out.dtype == dtype
+    for got, second in zip(grads, again):
+        assert got.shape == (b, n, h, d) and torch.equal(got, second)
+    if f32:
+        _f32_close(out, da.dropout_attention_reference(q, k, v, seeds, 0.1))
+        for got, ref in zip(grads, da.dropout_attention_backward_reference(q, k, v, gout, seeds,
+                                                                           0.1)):
+            _f32_close(got, ref)
+        _f32_close(fused, da.fused_attention_reference(q, k, v))
+    else:
+        _check_against_plain(da, q, k, v, seeds, 0.1, out, grads, gout)
+        want = da.fused_attention_reference(q.float(), k.float(), v.float())
+        assert (fused.float() - want).abs().max().item() <= DROPOUT_ATOL
+    inp = _block_inputs(b, n, h * d, seed=d)
+    if f32:
+        inp = {key: t.float() for key, t in inp.items()}
+    got = ab.fused_attention_block(**inp, num_heads=h)
+    want = ab.fused_attention_block_reference(**{key: t.float() for key, t in inp.items()},
+                                              num_heads=h)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, h * d) and got.dtype == dtype
+    if f32:
+        _f32_close(got, want)
+    else:
+        assert torch.isfinite(got).all() and (got.float() - want).abs().max().item() <= 3e-2
 
 
 def _train_state_on_card(remat, seed=0):

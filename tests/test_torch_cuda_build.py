@@ -41,10 +41,11 @@ def test_digest_finds_headers_in_the_include_directory(tmp_path):
 
 
 def test_port_sources_hash_their_headers():
-    """Both libraries include the shared headers, and their names change
-    with them."""
+    """Both libraries include the shared headers (the forward's, which
+    includes the Hopper helpers and the panelled kernels past head dim
+    128), and their names change with them."""
     for name in ("attention_block", "dropout_attention"):
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert '#include "attention_fwd.cuh"' in text
     headers = cuda_build._INCLUDE.findall((cuda_build.CSRC / "attention_fwd.cuh").read_text())
-    assert headers == ["sm90.cuh"]
+    assert headers == ["sm90.cuh", "attention_wide.cuh"]

@@ -203,6 +203,11 @@ def test_profile_train_categorises_the_float32_kernels():
                        ).startswith("dropout attention forward")
     assert category_of("void (anonymous namespace)::attn_bwd_tf32_kernel<64>(TileMaps const)"
                        ).startswith("dropout attention backward")
+    # past head dim 128, the panelled kernels
+    assert category_of("void (anonymous namespace)::attn_fwd_wide_kernel<__nv_bfloat16, true>("
+                       "__nv_bfloat16 const*)").startswith("dropout attention forward")
+    assert category_of("void (anonymous namespace)::attn_bwd_wide_kernel<float, false>("
+                       "float const*)").startswith("dropout attention backward")
 
 
 def test_train_cli_trains_from_tar_shards(tmp_path):

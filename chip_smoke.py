@@ -884,9 +884,10 @@ def phase_dropout_kernels(torch) -> dict:
 # 32 is the system check's generator (its CFG batch of 60 samples), 16 the
 # JAX package's tests (E = 64 over 4 heads), 128 the flagship's width over 8
 # heads; 48, 80, 96 and 112, where d / 16 is odd, are checked, not timed.
-# Past the widest template (csrc/attention_wide.cuh's panelled kernels):
-# 192 (hidden 1536 over 8 heads) and 256 (the flagship's hidden 1024 over
-# 4 heads, phase 18's), both timed.
+# Past the narrow templates (bf16: csrc/attention_wide_bf16.cuh's TMA and
+# wgmma kernels; float32: csrc/attention_wide.cuh's panelled ones): 192
+# (hidden 1536 over 8 heads) and 256 (the flagship's hidden 1024 over 4
+# heads, phase 18's), both timed.
 HEAD_DIM_SHAPES = {16: (4, TRAIN_BATCH, 60, 64), 32: (4, TRAIN_BATCH, 60, 128),
                    48: (4, TRAIN_BATCH, 60, 192), 80: (4, TRAIN_BATCH, 60, 320),
                    96: (4, TRAIN_BATCH, 60, 384), 112: (8, TRAIN_BATCH, 60, 896),
@@ -900,21 +901,45 @@ TIMED_HEAD_DIMS = (16, 32, 128, *WIDE_TIMED_HEAD_DIMS)
 WIDTH_LENGTHS = {False: (257, 17), True: (257,)}
 # head dims past 128 held against the plain versions at small shapes in both
 # dtypes (phases 3 and 17), as `PADDED_SHAPES`: 144 and 200 pad to widths
-# that are not multiples of the 64-wide panels, 1024 is one head of E = 1024
+# below bf16's instantiations (192, 256) and not multiples of float32's
+# 64-wide panels, 320 takes two of bf16's 256-wide output panels, 1024 is
+# one head of E = 1024
 WIDE_SHAPES = {144: (2, 4, 2, 288), 200: (2, 4, 2, 400), 256: (4, 4, 2, 1024),
-               1024: (1, 4, 2, 1024)}
-# the panelled kernels' instantiations (csrc/attention_wide.cuh), by row of
-# the final record and dtype; the backward's MODE 0 sums dK and dV, 1 dV, 2
-# dK, 3 dQ
+               320: (2, 4, 2, 640), 1024: (1, 4, 2, 1024)}
+
+
+def _wide_bf16_forms(kernel: str, flag: str) -> list:
+    """attention_wide_bf16.cuh's instantiations of `kernel` with `flag`
+    (dropout, or the dQ pass): widths 192 and 256, and 256 streamed past
+    d = 256. The forward's last template argument is its warpgroups (its
+    `wide_fwd_warpgroups`): one when streamed and at 256 without dropout,
+    else two."""
+    def forward_wgs(w, stream):
+        return f", {1 if stream or (w == 256 and flag == 'false') else 2}"
+
+    extra = forward_wgs if "fwd" in kernel else (lambda *_: "")
+    return [f"{kernel}<{w}, {flag}, {str(stream).lower()}{extra(w, stream)}>"
+            for w, stream in ((192, False), (256, False), (256, True))]
+
+
+# the kernels past 128 by row of the final record and dtype: bf16's TMA and
+# wgmma kernels (csrc/attention_wide_bf16.cuh: the forward with one or two
+# warpgroups, the backward's dK/dV and dQ kernels after the row stats),
+# float32's panelled ones (csrc/attention_wide.cuh: the backward's MODE 1
+# sums dV, 2 dK, 3 dQ)
 WIDE_CUDA_KERNELS = {
-    "fused_attention_block": {dt: [f"attn_fwd_wide_kernel<{dt}, false>"]
-                              for dt in ("bf16", "float")},
-    "dropout_attention_fwd": {dt: [f"attn_fwd_wide_kernel<{dt}, true>"]
-                              for dt in ("bf16", "float")},
-    "dropout_attention_bwd": {dt: [f"attn_bwd_wide_prep_kernel<{dt}>"] + [
-        f"attn_bwd_wide_kernel<{dt}, {m}>" for m in ((0, 3) if dt == "bf16" else (1, 2, 3))]
-        for dt in ("bf16", "float")},
-    "fused_attention": {dt: [f"attn_fwd_wide_kernel<{dt}, false>"] for dt in ("bf16", "float")}}
+    "fused_attention_block": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "false"),
+                              "float": ["attn_fwd_wide_kernel<float, false>"]},
+    "dropout_attention_fwd": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "true"),
+                              "float": ["attn_fwd_wide_kernel<float, true>"]},
+    "dropout_attention_bwd": {
+        "bf16": ["attn_bwd_wide_prep_kernel<bf16>"]
+        + _wide_bf16_forms("attn_bwd_wide_bf16_kernel", "false")
+        + _wide_bf16_forms("attn_bwd_wide_bf16_kernel", "true"),
+        "float": ["attn_bwd_wide_prep_kernel<float>"]
+        + [f"attn_bwd_wide_kernel<float, {m}>" for m in (1, 2, 3)]},
+    "fused_attention": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "false"),
+                        "float": ["attn_fwd_wide_kernel<float, false>"]}}
 
 
 def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
@@ -923,7 +948,7 @@ def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
     timed at n = 257 at `timed_dims`, and
     the CUDA kernels one call of each launches at n = 257 (`kernels`); the
     padded head dims and `WIDE_SHAPES` checked; the serving and training
-    layers run at head dim 144; the panelled kernels' ptxas report (0
+    layers run at head dim 144; the ptxas report of the kernels past 128 (0
     spilled bytes)."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
@@ -1073,9 +1098,9 @@ def _wide_layers(torch) -> dict:
 
 
 def _wide_ptxas() -> list:
-    """ptxas's registers and spill bytes of the panelled kernels
-    (attention_wide.cuh) in every library that builds them, logged; raises
-    on a spill."""
+    """ptxas's registers and spill bytes of the kernels past head dim 128
+    (attention_wide_bf16.cuh, attention_wide.cuh) in every library that
+    builds them, logged; raises on a spill."""
     from maskbit_tpu_torch.nn import cuda_build
 
     rows = [dict(k, library=name) for name in cuda_build.sources()
@@ -1084,10 +1109,10 @@ def _wide_ptxas() -> list:
         log(f"[kernel] ptxas {k['library']}: {k['kernel']}: {k['registers']} registers, spill "
             f"stores {k['spill_stores']} B, spill loads {k['spill_loads']} B")
     if not rows:  # a library loaded from an earlier build has no report
-        log("[kernel] ptxas: no report of the panelled kernels (libraries built before)")
+        log("[kernel] ptxas: no report of the kernels past 128 (libraries built before)")
     spilled = [k for k in rows if k["spill_stores"] or k["spill_loads"]]
     if spilled:
-        raise AssertionError(f"the panelled kernels spill: {spilled}")
+        raise AssertionError(f"the kernels past 128 spill: {spilled}")
     return rows
 
 
@@ -1121,6 +1146,7 @@ def _padded_check(torch, d, n, shapes, dtype) -> dict:
     before = dict(da.launches_by_dtype)
     out, lse = da.launch_forward(q, k, v, seeds32, RATE)
     grads = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
+    again = da.launch_backward(q, k, v, out, lse, g, seeds32, RATE)
     fq, fk, fv = _qkv_packed(torch, bb, n, h, seed=d * n + 8, d=d, dtype=dtype)
     fused = da.fused_attention(fq, fk, fv)
     inp = _block_inputs(torch, bb, n, e, seed=d * n + 9, vectors=torch.float32 if f32 else
@@ -1151,15 +1177,19 @@ def _padded_check(torch, d, n, shapes, dtype) -> dict:
                      DROPOUT_ATOL * (big if key in ("dq", "dk", "dv") else 1.0))
     mask_flips = int((kernel_keep_mask(torch, da, seeds, b, n, h, d, dtype=dtype)
                       != da.hash_keep_mask(seeds, n, RATE)).sum().item())
+    repeat = all(torch.equal(x, y) for x, y in zip(grads, again))
+    counted["dropout_attention_bwd"] -= 1  # the repeat
     row = dict(d=d, padded_to=da.padded_head_dim(d), n=n, dtype=dt, dropout_shape=[b, n, h, d],
                fused_shape=[bb, n, h, d], block_shape=[bb, n, e], errs=errs, tols=tols,
-               mask_flips=mask_flips, launches=counted)
+               mask_flips=mask_flips, bwd_repeat_identical=repeat, launches=counted)
     log(f"[{'float32' if f32 else 'kernel'}] head dim {d} (run at {row['padded_to']}), n {n}: "
         f"dropout ({b}, {n}, {h}, {d}), fused_attention ({bb}, {n}, "
         f"{h}, {d}), block ({bb}, {n}, {e}): max_abs_err " + ", ".join(
             f"{key} {errs[key]:.3e} (tol {tols[key]:.1e})" for key in errs)
-        + f"; keep mask {mask_flips} of {b * h * n * n} bits differ; launches {counted}")
-    if mask_flips or any(errs[key] > tols[key] for key in errs) or min(counted.values()) < 1:
+        + f"; keep mask {mask_flips} of {b * h * n * n} bits differ; backward bit-identical on "
+        f"a second call {repeat}; launches {counted}")
+    if (mask_flips or not repeat or any(errs[key] > tols[key] for key in errs)
+            or min(counted.values()) < 1):
         raise AssertionError(f"the {dt} kernels disagree at padded head dim {d}, n {n}: {row}")
     return row
 
@@ -4709,8 +4739,9 @@ def phase_float32(torch, device_info) -> dict:
 
 
 # Phase 18: the flagship at model.mlm_model.heads=4 (hidden 1024 over 4
-# heads of 256, past the widest kernel template: csrc/attention_wide.cuh's
-# panelled kernels), no in-training generation
+# heads of 256, past the narrow kernel templates: csrc/attention_wide_bf16.cuh's
+# kernels in bf16, csrc/attention_wide.cuh's in float32), no in-training
+# generation
 WIDE_HEADS = 4
 
 
@@ -4897,19 +4928,24 @@ def _args(argv):
 
 
 def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list:
-    """The final record's rows of the panelled kernels (csrc/attention_wide.cuh),
-    bf16 and float32, from phases 3 (`widths`), 17 (`f32`) and 18 (`wide`):
+    """The final record's rows of the kernels past head dim 128 (bf16:
+    csrc/attention_wide_bf16.cuh, float32: csrc/attention_wide.cuh), from
+    phases 3 (`widths`), 17 (`f32`) and 18 (`wide`):
     launched by phase 18 (the flagship at heads=4, d = 256: its sampler call
     the block and its core, its Stage-II steps the dropout pair), timed at d
     = 256 (and 192: "widths") in phases 3 and 17, held against the plain
     versions there at 192 and 256 and at `WIDE_SHAPES` (144, 200, 256,
-    1024)."""
+    320, 1024)."""
     pa = "maskbit_tpu/nn/pallas_attention.py"
     replaces = {"fused_attention_block": (f"{pa}:532", "attention_block"),
                 "dropout_attention_fwd": (f"{pa}:232", "dropout_attention_fwd"),
                 "dropout_attention_bwd": (f"{pa}:274", "dropout_attention_bwd"),
                 "fused_attention": (f"{pa}:94", "fused_attention")}
-    wide_src = "maskbit_tpu_torch/csrc/attention_wide.cuh"
+    wide_src = {"bfloat16": "maskbit_tpu_torch/csrc/attention_wide_bf16.cuh",
+                "float32": "maskbit_tpu_torch/csrc/attention_wide.cuh"}
+    head_dims = {"bfloat16": "past 128 (instantiated at 192 and 256, streamed in 256-wide "
+                             "output panels past 256; others padded)",
+                 "float32": "past 128 (multiples of 16 native, others padded)"}
     wide_errs = {"fused_attention_block": ("block",), "dropout_attention_fwd": ("fwd",),
                  "dropout_attention_bwd": ("dq", "dk", "dv"), "fused_attention": ("fused",)}
     phase3_errs = {"fused_attention_block": lambda r: r["block_err"],
@@ -4937,8 +4973,8 @@ def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list
             path = wide[dt]["train" if name.startswith("dropout") else "serve"]
             rows.append({
                 "name": f"{name}_wide_{'f32' if f32_dt else 'bf16'}", "route": "cuda",
-                "source": wide_src, "replaces": source_line, "dtype": dt,
-                "head_dims": "past 128 (multiples of 16 native, others padded)",
+                "source": wide_src[dt], "replaces": source_line, "dtype": dt,
+                "head_dims": head_dims[dt],
                 "cuda_kernels": WIDE_CUDA_KERNELS[name][tag],
                 "launches": path["launches"].get(f"{key}@256/{dt}", 0),
                 "launches_head_dim": 256, "max_abs_err": max(checked), "shape": shape,
@@ -5132,11 +5168,12 @@ def main(argv=None) -> int:
                                        f"fused_attention@{tool_d}", 0))}
     time_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     # every width up to 128 runs the wgmma templates, none of the mma.sync
-    # kernels they replaced (past 128 the panelled mma.sync kernels run:
-    # their own rows below)
-    kernels_by_width = {r["d"]: r["kernels"] for r in narrow_rows if "kernels" in r}
+    # kernels they replaced, and in bf16 every width past 128 too (the
+    # float32 panelled mma.sync kernels past 128: their own rows below)
+    kernels_by_width = {r["d"]: r["kernels"] for r in widths["rows"] if "kernels" in r}
     mma = sorted({k for by_name in kernels_by_width.values() for ks in by_name.values()
-                  for k in ks if "_mma" in k})
+                  for k in ks if "_mma" in k or k.startswith(("attn_fwd_wide_kernel",
+                                                                "attn_bwd_wide_kernel"))})
     if mma:
         raise AssertionError(f"mma.sync kernels ran: {mma}")
     errs = {"fused_attention_block": lambda r: r["block_err"],
@@ -5215,7 +5252,7 @@ def main(argv=None) -> int:
             "widths": [{"d": d, "shape": t[name]["shape"], **{k: t[name][k] for k in f32_keys},
                         "library_ms": t[name].get("library_ms", t[name].get("library_chain_ms"))}
                        for d, t in sorted(f32["kernels"]["timed"].items()) if d <= 128]})
-    # past head dim 128, the panelled kernels: their own rows
+    # past head dim 128: their own rows
     record["kernels"] += _wide_records(widths, f32, wide, time_keys)
     bert_path = {"fused_attention_block": "launches_bert_serve",
                  "fused_attention": "launches_bert_serve",

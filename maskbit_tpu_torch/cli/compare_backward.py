@@ -3,6 +3,8 @@
     python -m maskbit_tpu_torch.cli.compare_backward OLD.cu NEW.cu [MORE.cu ...]
     python -m maskbit_tpu_torch.cli.compare_backward --tree smoke_parent --tree . \\
         --head-dims 16,32,48,64,80,96,112,128
+    python -m maskbit_tpu_torch.cli.compare_backward --tree smoke_parent --tree . \\
+        --head-dims 192,256 --forward
 
 (from the checkout's root: it times with `chip_smoke._device_ms`).
 
@@ -28,7 +30,11 @@ checkout's kernel:
     the training shapes, (32, 257, 16, 64) and (8, 1025, 16, 64) at d = 64
     and `chip_smoke.HEAD_DIM_SHAPES`' dropout shape at n = 257 at the
     others, the sources taken in turn and then in reverse, so drift of the
-    card's clock shows.
+    card's clock shows;
+  * with `--forward`, each source's forward, with dropout and without (the
+    kernel of `fused_attention`), is checked against the plain version
+    (phase 3's tolerance) and timed the same way, at the dropout shape and
+    at `chip_smoke.HEAD_DIM_SHAPES`' fused_attention shape.
 """
 
 from __future__ import annotations
@@ -89,6 +95,46 @@ def inputs(b, n, h, d=64):
     return q, k, v, out, lse, grad, seeds32, seeds
 
 
+def forward_with(lib, q, k, v, seeds32, rate=RATE):
+    """The forward of `lib` on q, k, v at their head dim; seeds32 None for
+    the dropout-free kernel. Returns out."""
+    b, n, h, d = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device) if seeds32 is not None \
+        else None
+    err = lib.mb_dropout_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+        None if seeds32 is None else seeds32.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, n, h, d, da.keep_threshold(rate),
+        1.0 / (1.0 - rate), int(seeds32 is not None), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"forward launch failed: CUDA error {err}")
+    return out
+
+
+def compare_forward(sources, libs, d):
+    """--forward at head dim d: each source's forward with and without
+    dropout against the plain version, then timed in turn and in reverse."""
+    import chip_smoke
+
+    h, b, bb, _ = chip_smoke.HEAD_DIM_SHAPES[d]
+    for label, (bs, drop) in (("dropout forward", (b, True)), ("fused_attention", (bb, False))):
+        q, k, v, _, _, _, seeds32, seeds = inputs(bs, 257, h, d)
+        s32 = seeds32 if drop else None
+        want = (da.dropout_attention_reference(q.float(), k.float(), v.float(), seeds, RATE)
+                if drop else da.fused_attention_reference(q.float(), k.float(), v.float()))
+        for src, lib in zip(sources, libs):
+            err = (forward_with(lib, q, k, v, s32).float() - want).abs().max().item()
+            if err > chip_smoke.DROPOUT_ATOL:
+                raise AssertionError(f"{src} {label} at ({bs}, 257, {h}, {d}): max |error| {err}")
+        times = {src: [] for src in sources}
+        for src, lib in [*zip(sources, libs), *reversed(list(zip(sources, libs)))]:
+            times[src].append(chip_smoke._device_ms(torch, lambda: forward_with(lib, q, k, v, s32)))
+        print(f"({bs}, 257, {h}, {d}) {label} device ms: "
+              + "; ".join(f"{src} {', '.join(f'{t:.4f}' for t in ts)}"
+                          for src, ts in times.items()))
+
+
 def _args(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("sources", nargs="*", help="versions of csrc/dropout_attention.cu")
@@ -97,6 +143,8 @@ def _args(argv):
                         "positional sources; repeatable)")
     p.add_argument("--head-dims", default="64",
                    help="comma-separated head dims to check and time (default %(default)s)")
+    p.add_argument("--forward", action="store_true",
+                   help="also check and time the forward, with dropout and without")
     args = p.parse_args(argv)
     args.sources = [os.path.join(t, "maskbit_tpu_torch", "csrc", "dropout_attention.cu")
                     for t in args.tree] + args.sources
@@ -149,6 +197,8 @@ def main(argv=None) -> int:
             print(f"({b}, {n}, {h}, {d}) backward device ms: "
                   + "; ".join(f"{src} {', '.join(f'{t:.4f}' for t in ts)}"
                               for src, ts in times.items()))
+        if args.forward:
+            compare_forward(sources, libs, d)
     return 0
 
 

@@ -9,8 +9,11 @@ library, the SASS of every kernel the first tree has with the second
 tree's kernel of the same name: identical, differing, or missing, and the
 second tree's kernels the first lacks. Kernel names are compared without
 the per-file hash nvcc puts in anonymous namespaces (`_GLOBAL__N__<hash>_`),
-which changes with any edit of a file. It shows that a change left the
-kernels it did not mean to touch as they were, bit for bit. Needs nvcc and
+which changes with any edit of a file, and code without the listing's
+column padding (cuobjdump pads every line of a library to its longest
+instruction, so a kernel added to a library moves its neighbours'
+columns). It shows that a change left the kernels it did not mean to
+touch as they were, bit for bit. Needs nvcc and
 cuobjdump (the card's machine), not a card. Exits 1 if a kernel of the
 first tree differs or is missing, else 0.
 """
@@ -34,10 +37,16 @@ _NAMESPACE = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 
 def kernels(sass: str) -> dict:
     """`cuobjdump -sass` output -> {kernel name without the anonymous
-    namespace's hash: digest of its code, the hash taken out likewise}."""
+    namespace's hash: digest of its code, the hash taken out likewise and
+    each run of blanks read as one space}."""
     parts = _FUNCTION.split(sass)
+
+    def code(text):
+        return "\n".join(" ".join(line.split())
+                         for line in _NAMESPACE.sub("_GLOBAL__N__", text).splitlines())
+
     return {_NAMESPACE.sub("_GLOBAL__N__", parts[i]):
-            hashlib.sha256(_NAMESPACE.sub("_GLOBAL__N__", parts[i + 1]).encode()).hexdigest()
+            hashlib.sha256(code(parts[i + 1]).encode()).hexdigest()
             for i in range(1, len(parts) - 1, 2)}
 
 

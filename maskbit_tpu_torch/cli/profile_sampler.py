@@ -26,7 +26,9 @@ _LAYERS = (
     ("proj_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
     ("split_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
     ("attn_fwd_tf32_kernel", "attention block: attention (hand wgmma, 3xTF32 float32)"),
-    ("attn_fwd_wide_kernel", "attention block: attention past head dim 128 (hand mma.sync)"),
+    ("attn_fwd_wide_bf16_kernel", "attention block: attention past head dim 128 (hand wgmma)"),
+    ("attn_fwd_wide_kernel",
+     "attention block: attention past head dim 128 (hand mma.sync, 3xTF32 float32)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),
     ("fprop", "decoder convolutions (cuDNN)"),

@@ -32,7 +32,7 @@ from maskbit_tpu_torch.train import generator_trainer
 _CATEGORIES = (
     ("attn_fwd_kernel", "dropout attention forward (hand)"),
     ("attn_fwd_tf32_kernel", "dropout attention forward (hand)"),
-    ("attn_fwd_wide_kernel", "dropout attention forward (hand)"),
+    ("attn_fwd_wide", "dropout attention forward (hand)"),
     ("attn_bwd", "dropout attention backward (hand)"),
     ("multi_tensor_apply", "optimizer, EMA, grad norm (foreach)"),
     ("conv", "tokenizer convolutions (cuDNN)"),

@@ -24,8 +24,9 @@
 //      training kernels): softmax(q k^T / sqrt(d)) v per (batch * head,
 //      64-query tile), over the qkv buffer's strided (b, n, 3, h, D) view,
 //      into a contiguous (b, n, h, D) = (b * n, h D) bf16 buffer, at every
-//      head dim d (past 128 attn_fwd_wide_kernel<bf16, false>, the
-//      panelled form in attention_wide.cuh): D = d rounded up to 16 (the
+//      head dim d (past 128 attn_fwd_wide_bf16_kernel<W, false, ...> of
+//      attention_wide_bf16.cuh, TMA and wgmma at widths 192 and 256, each
+//      score tile computed once up to d = 256): D = d rounded up to 16 (the
 //      wrapper pads W_qkv's rows and W_o's columns per head, so that the
 //      QKV projection writes the padded head layout and the out-projection
 //      reads it); this library builds only the dropout-free
@@ -303,7 +304,7 @@ cudaError_t launch_proj_bm(int bm, const void* a, const void* b, void* c_out, co
 }  // namespace
 
 // Runs the chain on `stream` at width E over H heads of d = E / H (any
-// d >= 1; past 128 the attention core is attention_wide.cuh's), every
+// d >= 1; past 128 the attention core is attention_wide_bf16.cuh's), every
 // tensor at its padded widths: D = d rounded up to 16, E_pad =
 // E rounded up to 8, Eq = H D. x, out: (B*n, E_pad) bf16; w_qkv: (3 Eq,
 // E_pad) bf16, each head's rows zero past d; w_o: (E_pad, Eq) bf16, each

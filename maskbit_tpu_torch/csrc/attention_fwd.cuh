@@ -11,9 +11,12 @@
 // the instantiation by D, and takes every other d in [1, 128] at d rounded
 // up to 16 (pad_head_dim) on inputs the caller zero-pads per head, with the
 // softmax scale of the unpadded d. See dropout_attention.cu for the design,
-// what bounds it, and the backward. A d past 128 takes the panelled kernels
-// of attention_wide.cuh (included below, and by every library that includes
-// this header), at d rounded up to 16 in the same way.
+// what bounds it, and the backward. A d past 128 takes the TMA + wgmma
+// kernels of attention_wide_bf16.cuh (included below, and by every library
+// that includes this header: instantiated at widths 192 and 256, each score
+// tile computed once up to d = 256, ceil(d / 256) times past it), at d
+// rounded up to 16 in the same way; Panels<D> takes widths up to 256 for
+// them.
 //
 // Head dims and the shared-memory layout. A tile is 64 rows of D bf16
 // values. wgmma reads its shared-memory operands through descriptors of
@@ -65,10 +68,11 @@ constexpr int CONSUMERS = 128;              // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
 constexpr int STAGES = 2;
 
-// The column panels of a D-wide bf16 tile row (see the header).
+// The column panels of a D-wide bf16 tile row (see the header); past 128
+// (attention_wide_bf16.cuh) D is 192 or 256, all 64-wide panels.
 template <int D>
 struct Panels {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head dim");
   static constexpr int WIDE = D / 64;  // 64-column panels
   static constexpr bool HAS32 = (D & 32) != 0, HAS16 = (D & 16) != 0;
   static constexpr int COUNT = WIDE + HAS32 + HAS16;
@@ -375,8 +379,10 @@ int attention_forward_at(const void* q, const void* k, const void* v, long long 
 
 }  // namespace
 
-// Head dims past 128: the panelled kernels, bf16 and float32.
+// Head dims past 128: the panelled float32 kernels (and the backward's row
+// stats), and the bf16 kernels.
 #include "attention_wide.cuh"
+#include "attention_wide_bf16.cuh"
 
 namespace {
 
@@ -385,7 +391,7 @@ namespace {
 // a multiple of 8; out: contiguous (B, n, H, D) bf16; lse: (B*H, n) f32 or
 // null; seeds: (B*H,) int32 (the uint32 seeds' bits), ignored without
 // dropout, which compiles the mask out. d <= 128 takes attn_fwd_kernel<D,
-// dropout>, a wider d attn_fwd_wide_kernel (attention_wide.cuh).
+// dropout>, a wider d attn_fwd_wide_bf16_kernel (attention_wide_bf16.cuh).
 // WITH_DROPOUT false builds only the dropout-free kernels (the attention
 // block needs no other) and refuses `dropout`. Returns the launch error
 // (cudaSuccess == 0), or cudaErrorInvalidValue if d < 1 or a tensor map is
@@ -397,17 +403,14 @@ int attention_forward(const void* q, const void* k, const void* v, long long sb,
                       cudaStream_t s) {
   if ((!WITH_DROPOUT && dropout) || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (d >= WIDE_MIN_D) {
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v);
     if constexpr (WITH_DROPOUT)
       if (dropout)
-        return attention_forward_wide_at<bf16, true>(
-            qb, kb, vb, sb, sn, sh, static_cast<const int*>(seeds), static_cast<bf16*>(out),
+        return attention_forward_wide_bf16<true>(
+            q, k, v, sb, sn, sh, static_cast<const int*>(seeds), static_cast<bf16*>(out),
             static_cast<float*>(lse), B, n, H, d, threshold, keep_scale, s);
-    return attention_forward_wide_at<bf16, false>(qb, kb, vb, sb, sn, sh, nullptr,
-                                                  static_cast<bf16*>(out),
-                                                  static_cast<float*>(lse), B, n, H, d, 0u, 1.0f,
-                                                  s);
+    return attention_forward_wide_bf16<false>(q, k, v, sb, sn, sh, nullptr,
+                                              static_cast<bf16*>(out), static_cast<float*>(lse),
+                                              B, n, H, d, 0u, 1.0f, s);
   }
   switch (pad_head_dim(d)) {
 #define MB_FWD_CASE(W)                                                                       \

@@ -1,29 +1,31 @@
-// The attention kernels at head dims past 128, bf16 and float32, on Hopper
-// (sm_90a). Included by attention_fwd.cuh after softmax_tile, so every
-// library that builds the forward (dropout_attention.cu, attention_block.cu,
-// attention_f32.cu) has them. They replace, at those widths, the same TPU
-// kernels of maskbit_tpu/nn/pallas_attention.py as the templates for d <=
-// 128 (whose instantiations are unchanged):
+// The float32 attention kernels at head dims past 128 on Hopper (sm_90a),
+// and the backward's row-stats kernel, which the bf16 backward past 128
+// (attention_wide_bf16.cuh) launches too. Included by attention_fwd.cuh
+// after softmax_tile; attention_f32.cu launches the float32 kernels. They
+// replace, at those widths, the same TPU kernels of
+// maskbit_tpu/nn/pallas_attention.py as the templates for d <= 128:
 //   * _dropattn_fwd_kernel and _attention_kernel (dropout_attention,
 //     fused_attention, and the attention core of _attention_block_kernel),
-//     by attn_fwd_wide_kernel<T, DROPOUT>;
-//   * _dropattn_bwd_kernel, by attn_bwd_wide_prep_kernel<T> and
-//     attn_bwd_wide_kernel<T, MODE> (dK and dV, or each apart, then dQ).
-// T is bf16 or float; d is any width (the wrappers pad it to a multiple of
-// 16 per head, as below 128, and pass the unpadded d for the scale).
+//     by attn_fwd_wide_kernel<float, DROPOUT>;
+//   * _dropattn_bwd_kernel, by attn_bwd_wide_prep_kernel<float> and
+//     attn_bwd_wide_kernel<float, MODE> (dV, dK, then dQ).
+// The templates keep their type parameter T, which only float takes now
+// (bf16 past 128 runs attention_wide_bf16.cuh's TMA and wgmma kernels),
+// so that these kernels keep their names and code; the prep kernel also
+// takes bf16. d is any width (the wrappers pad it to a multiple of 16 per
+// head, as below 128, and pass the unpadded d for the scale).
 //
-// Why another design past 128. The templates for d <= 128 hold a 64-row Q
-// tile, or K and V tiles, whole in shared memory and the d-wide f32 output
-// (or dK and dV) in one warpgroup's registers: at d = 256 the bf16
-// backward's dK and dV alone are 256 registers a thread, and the float32
-// forms' hi and lo halves leave no plan under 227 KB from d = 144 (float32
-// forward) or 160 (float32 backward). Here the work is cut along d in
-// panels of PANEL = 64 columns, the widths the narrow templates already
-// take, so that no block holds more than one panel of anything:
+// Why another design past 128. The float32 templates for d <= 128 hold a
+// 64-row Q tile, or K and V tiles, whole in shared memory and the d-wide
+// f32 output (or dK and dV) in registers, and their operands' TF32 hi and
+// lo halves leave no plan under 227 KB from d = 144 (forward) or 160
+// (backward). Here the work is cut along d in panels of PANEL = 64
+// columns, the widths the narrow templates already take, so that no block
+// holds more than one panel of anything:
 //   * products that sum over d (S = Q K^T, dP = G V^T, and their transposes
-//     in the dK/dV pass) take d a 64-wide chunk at a time, both operands'
-//     chunks streamed through a two-stage ring of shared memory (cp.async,
-//     zero-filled past n and past d); in float32 each chunk's 3xTF32 sum
+//     in the dK and dV passes) take d a 64-wide chunk at a time, both
+//     operands' chunks streamed through a two-stage ring of shared memory
+//     (cp.async, zero-filled past n and past d); each chunk's 3xTF32 sum
 //     goes to a fresh accumulator that is added to the scores on the CUDA
 //     cores, as the narrow float32 forward adds its long sums, so that no
 //     truncating tensor-core accumulator runs over all of d;
@@ -32,36 +34,31 @@
 //     axis runs over the panels, and each block recomputes the scores over
 //     the whole of d for its panel. At d = 256 that is 2.5 times the
 //     forward's products of one pass, the price of holding 32 output f32 a
-//     thread at every width (in float32 each tile's products over the
-//     sequence go to a fresh accumulator first, added to the running sum on
-//     the CUDA cores);
+//     thread at every width (each tile's products over the sequence go to
+//     a fresh accumulator first, added to the running sum on the CUDA
+//     cores);
 //   * the backward takes passes over the same recomputation: blocks per
-//     (key tile, panel) sum dK and dV over the query tiles, blocks per
-//     (query tile, panel) sum dQ over the key tiles. bf16 sums dK and dV in
-//     one pass; float32, whose operands' TF32 halves leave no registers for
-//     two sums beside S^T and dP^T (one pass spilled 52 bytes), in two, the
-//     dV pass without dP. Each output is written once, by one block, in a
-//     fixed order: no atomics, no tickets, and the result is the same bit
-//     for bit on every call.
-// Products are warp-level mma.sync (bf16 m16n8k16, or three tf32 m16n8k8,
-// f32 accumulate): four warps of 16 rows each, operands loaded from padded
-// shared-memory rows (8 bf16 or 4 floats past 64, so that a warp's
-// fragment loads and ldmatrix hit 32 banks). mma.sync reaches about half of
-// wgmma's rate on this card; it keeps the design simple, with any operand
-// readable transposed from shared memory, which float32's K-major-only
-// wgmma would need splitter warps and transposed copies for (PERF.md and
-// ROADMAP.md hold the times and the redesign).
+//     (key tile, panel) sum dV, then dK, over the query tiles (the operands'
+//     TF32 halves leave no registers for two sums beside S^T and dP^T: one
+//     pass spilled 52 bytes; the dV pass needs no dP), blocks per (query
+//     tile, panel) sum dQ over the key tiles. Each output is written once,
+//     by one block, in a fixed order: no atomics, no tickets, and the
+//     result is the same bit for bit on every call.
+// Products are warp-level mma.sync (three tf32 m16n8k8, f32 accumulate):
+// four warps of 16 rows each, operands loaded from padded shared-memory
+// rows (4 floats past 64, so that a warp's fragment loads hit 32 banks).
+// mma.sync reaches about half of wgmma's rate on this card; it keeps the
+// design simple, with any operand readable transposed from shared memory,
+// which float32's K-major-only wgmma would need splitter warps and
+// transposed copies for (PERF.md and ROADMAP.md hold the times and the
+// redesign).
 //
 // What bounds them on the H100, at b = 32, n = 257, 4 heads of d = 256 (the
-// flagship's hidden 1024 at 4 heads): the forward's products are 8.7 GFLOP
-// (9 us at 989 TFLOP/s bf16; 3xTF32 26 GFLOP, 53 us at 495) for 67 MB in
-// bf16 (20 us at 3.35 TB/s, 135 MB and 40 us in float32); the backward
-// 21.6 GFLOP (22 us; 3xTF32 131 us) for 135 MB (40 us; 270 MB, 81 us). The
-// recomputed scores are not in these counts.
-//
-// Rounding points as the narrow kernels': bf16 rounds the unnormalised
-// weights before the value product, the dropped weights before dV and the
-// score gradient before dQ and dK; float32 rounds none.
+// flagship's hidden 1024 at 4 heads): the forward's 3xTF32 products are 26
+// GFLOP (53 us at 495 TFLOP/s) for 135 MB (40 us at 3.35 TB/s); the
+// backward's 65 GFLOP (131 us) for 270 MB (81 us). The recomputed scores
+// are not in these counts. Float32 rounds at none of the bf16 kernels'
+// rounding points.
 
 #pragma once
 
@@ -84,7 +81,7 @@ template <typename T>
 __host__ __device__ constexpr int wide_tile_elems() {
   return TILE * wide_pitch<T>();
 }
-// Two stages of two tiles: 36 KB in bf16, 68 KB in float32.
+// Two stages of two tiles: 68 KB in float32.
 template <typename T>
 __host__ __device__ constexpr int wide_smem() {
   return 4 * wide_tile_elems<T>() * static_cast<int>(sizeof(T));
@@ -106,17 +103,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// mma.sync m16n8k16 bf16 and m16n8k8 tf32, f32 accumulate: c += a b. Lane
-// l (g = l / 4, c = l % 4) holds C (g, 2c), (g, 2c+1), (g+8, 2c), (g+8,
-// 2c+1): per warp the accumulator layout of sm90.cuh's wgmma.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// mma.sync m16n8k8 tf32, f32 accumulate: c += a b. Lane l (g = l / 4, c =
+// l % 4) holds C (g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1): per warp the
+// accumulator layout of sm90.cuh's wgmma.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -124,18 +113,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows k0..k0+15 of an (8-column) bf16 block of a [k][n] tile, as the B
-// fragment of m16n8k16 (lanes 0-15 address the rows).
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_u32(row)));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // x = hi + lo in TF32, each rounded to nearest (ties away) by integer
@@ -199,21 +176,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* base, long long sn, i
 
 // s (16 rows of this warp x 64 columns, as 8 m16n8 accumulators) += A B^T
 // over one PANEL-wide chunk: A's rows r0..r0+15 and B's 64 rows, both
-// [row][chunk column] tiles. In float32 the chunk's sum is taken apart and
-// then added.
-__device__ __forceinline__ void chunk_product(float (&s)[8][4], const bf16* a, const bf16* b,
-                                              int r0, int g, int c) {
-  constexpr int P = wide_pitch<bf16>();
-#pragma unroll
-  for (int ks = 0; ks < PANEL / 16; ++ks) {
-    const int k = 16 * ks + 2 * c;
-    const uint32_t af[4] = {lds32(a + (r0 + g) * P + k), lds32(a + (r0 + g + 8) * P + k),
-                            lds32(a + (r0 + g) * P + k + 8), lds32(a + (r0 + g + 8) * P + k + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      mma_bf16(s[nt], af, lds32(b + (8 * nt + g) * P + k), lds32(b + (8 * nt + g) * P + k + 8));
-  }
-}
+// [row][chunk column] tiles. The chunk's sum is taken apart and then added.
 __device__ __forceinline__ void chunk_product(float (&s)[8][4], const float* a, const float* b,
                                               int r0, int g, int c) {
   constexpr int P = wide_pitch<float>();
@@ -236,25 +199,8 @@ __device__ __forceinline__ void chunk_product(float (&s)[8][4], const float* a, 
 
 // o (16 rows x PANEL columns) += W V, W this warp's 16 x 64 weights in the
 // accumulator layout (w, the product's A operand from registers) and V a
-// [64 rows (the sum's index)][PANEL] tile. bf16 rounds the weights and
-// accumulates in o; float32 takes the tile's sum apart and then adds it.
-__device__ __forceinline__ void panel_product(float (&o)[8][4], const float (&w)[8][4],
-                                              const bf16* v, int lane) {
-  constexpr int P = wide_pitch<bf16>();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {  // keys 16ks..16ks+15: the weights' n-tiles 2ks, 2ks+1
-    const uint32_t af[4] = {pack_bf16(w[2 * ks][0], w[2 * ks][1]),
-                            pack_bf16(w[2 * ks][2], w[2 * ks][3]),
-                            pack_bf16(w[2 * ks + 1][0], w[2 * ks + 1][1]),
-                            pack_bf16(w[2 * ks + 1][2], w[2 * ks + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < PANEL / 8; ++nt) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, v + (16 * ks + (lane & 15)) * P + 8 * nt);
-      mma_bf16(o[nt], af, b0, b1);
-    }
-  }
-}
+// [64 rows (the sum's index)][PANEL] tile: the tile's sum is taken apart
+// and then added.
 __device__ __forceinline__ void panel_product(float (&o)[8][4], const float (&w)[8][4],
                                               const float* v, int lane) {
   constexpr int P = wide_pitch<float>();
@@ -278,10 +224,7 @@ __device__ __forceinline__ void panel_product(float (&o)[8][4], const float (&w)
     for (int j = 0; j < 4; ++j) o[nt][j] += t[nt][j];
 }
 
-// Columns col..col+1 of an output row: a bf16 pair or a float pair.
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
+// Columns col..col+1 of an output row.
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -422,24 +365,23 @@ attn_bwd_wide_prep_kernel(const T* __restrict__ out, const T* __restrict__ grad,
 
 // The backward passes (attn_bwd_wide_kernel's MODE): which gradients a
 // block sums, over which side's tiles.
-enum { BWD_KV = 0, BWD_DV = 1, BWD_DK = 2, BWD_DQ = 3 };
+enum { BWD_DV = 1, BWD_DK = 2, BWD_DQ = 3 };
 
 // One block per (64-row tile of its own, batch*head, output panel), looping
 // over the other side's tiles:
-//   BWD_KV: own rows are keys, the loop runs over query tiles; S^T = K Q^T
-//     and dP^T = V G^T chunk by chunk, then dV_panel += dropped^T G_panel
-//     and dK_panel += dS^T Q_panel;
-//   BWD_DV, BWD_DK: the same rows and loop, one of the two sums each (DV
-//     needs no dP): float32's passes, whose operand halves leave no
-//     registers for two sums beside S^T and dP^T (the combined pass
-//     spilled);
+//   BWD_DV, BWD_DK: own rows are keys, the loop runs over query tiles;
+//     S^T = K Q^T (and for DK dP^T = V G^T) chunk by chunk, then dV_panel
+//     += dropped^T G_panel or dK_panel += dS^T Q_panel: two passes, as the
+//     operand halves leave no registers for two sums beside S^T and dP^T
+//     (a combined pass spilled);
 //   BWD_DQ: own rows are queries, the loop runs over key tiles; S = Q K^T
 //     and dP = G V^T, then dQ_panel += dS K_panel.
 // P = exp2(S scale log2e - lse log2e), dropped = keep P / (1 - p), dS = P
 // (keep dP / (1 - p) - delta) scale, keys and queries past n weighing 0.
 // q, k, v strided as in the forward; grad contiguous (B, n, H, D); da: dk
-// for BWD_KV and BWD_DK, dv for BWD_DV, dq for BWD_DQ; db: dv for BWD_KV;
-// contiguous (B, n, H, D).
+// for BWD_DK, dv for BWD_DV, dq for BWD_DQ, contiguous (B, n, H, D); db is
+// not read (the parameter list is the one the kernels were built with
+// when a bf16 pass wrote dk and dv together).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(WIDE_THREADS)
 attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -447,7 +389,7 @@ attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float2* __restrict__ stats, const int* __restrict__ seeds,
                      T* __restrict__ da, T* __restrict__ db, int n, int H, int D, int n_pad,
                      float scale, float scale_log2, uint32_t threshold, float keep_scale) {
-  constexpr bool DQ = MODE == BWD_DQ, KV = MODE == BWD_KV, WITH_DP = MODE != BWD_DV;
+  constexpr bool DQ = MODE == BWD_DQ, WITH_DP = MODE != BWD_DV;
   extern __shared__ uint8_t smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   constexpr int TE = wide_tile_elems<T>();
@@ -480,9 +422,8 @@ attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       load_tile(st, k + at, sn, t0, n, col0, D);
     } else if (MODE == BWD_DK) {
       load_tile(st, q + at, sn, t0, n, col0, D);
-    } else {  // G's panel, and for BWD_KV Q's
+    } else {  // G's panel
       load_tile(st, gb, gsn, t0, n, col0, D);
-      if (KV) load_tile(st + TE, q + at, sn, t0, n, col0, D);
     }
     cp_async_commit();
   };
@@ -495,9 +436,8 @@ attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float2 own_stats[2] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
   if (DQ) own_stats[0] = st_bh[own_row], own_stats[1] = st_bh[own_row + 8];
 
-  float acc_a[8][4], acc_b[8][4], s[8][4], dp[8][4];
+  float acc_a[8][4], s[8][4], dp[8][4];
   zero_acc(acc_a);
-  if (KV) zero_acc(acc_b);
 
   load_item(0);
   for (int i = 0; i < total; ++i) {
@@ -535,10 +475,7 @@ attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
             dp[nt][e] = p * (dw - ld.y) * scale;  // score gradient
           }
         }
-      if (KV) {
-        panel_product(acc_b, s, st, lane);        // dV += dropped^T G
-        panel_product(acc_a, dp, st + TE, lane);  // dK += dS^T Q
-      } else if (MODE == BWD_DV) {
+      if (MODE == BWD_DV) {
         panel_product(acc_a, s, st, lane);  // dV += dropped^T G
       } else {
         panel_product(acc_a, dp, st, lane);  // dK += dS^T Q, or dQ += dS K
@@ -556,15 +493,14 @@ attn_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int nt = 0; nt < 8; ++nt) {
       if (col0 + 8 * nt >= D) continue;
       store_pair(da + o + 8 * nt, acc_a[nt][2 * r], acc_a[nt][2 * r + 1]);
-      if (KV) store_pair(db + o + 8 * nt, acc_b[nt][2 * r], acc_b[nt][2 * r + 1]);
     }
   }
 }
 
-// The backward at head dim d >= WIDE_MIN_D: the row stats, then the passes
-// (bf16: dK and dV in one, then dQ; float32: dV, dK, dQ). The arguments of
-// mb_dropout_attention_bwd (stats (B*H, n_pad) float2 scratch; no dq sum
-// and no tickets), the tensors T at D = pad_head_dim(d).
+// The float32 backward at head dim d >= WIDE_MIN_D: the row stats, then
+// the passes dV, dK, dQ. The arguments of mb_dropout_attention_bwd_f32
+// (stats (B*H, n_pad) float2 scratch; no tickets), the tensors T = float
+// at D = pad_head_dim(d).
 template <typename T>
 int attention_backward_wide(const T* q, const T* k, const T* v, long long sb, long long sn,
                             long long sh, const T* out, const T* grad, const float* lse,
@@ -589,13 +525,10 @@ int attention_backward_wide(const T* q, const T* k, const T* v, long long sb, lo
         threshold, keep_scale);
     err = cudaGetLastError();
   };
-  static unsigned long long smem_kv, smem_dv, smem_dk, smem_dq;
-  if constexpr (std::is_same<T, float>::value) {
-    pass(std::integral_constant<int, BWD_DV>{}, dv, nullptr, smem_dv);
-    pass(std::integral_constant<int, BWD_DK>{}, dk, nullptr, smem_dk);
-  } else {
-    pass(std::integral_constant<int, BWD_KV>{}, dk, dv, smem_kv);
-  }
+  static_assert(std::is_same<T, float>::value, "bf16 runs attention_wide_bf16.cuh");
+  static unsigned long long smem_dv, smem_dk, smem_dq;
+  pass(std::integral_constant<int, BWD_DV>{}, dv, nullptr, smem_dv);
+  pass(std::integral_constant<int, BWD_DK>{}, dk, nullptr, smem_dk);
   pass(std::integral_constant<int, BWD_DQ>{}, dq, nullptr, smem_dq);
   return static_cast<int>(err);
 }

@@ -7,7 +7,9 @@
 // kernel here is a template on d, instantiated at the eight multiples of 16,
 // and another d runs the instantiation at d rounded up to 16 on inputs the
 // wrapper zero-pads per head, with d's softmax scale; a d past 128 runs the
-// panelled kernels of attention_wide.cuh, described there):
+// TMA + wgmma kernels of attention_wide_bf16.cuh, described there, whose
+// backward is launched below: S^T and dP^T computed twice per tile pair up
+// to d = 256, in a dK/dV kernel and a dQ kernel):
 //   * _dropattn_fwd_kernel (dropout_attention -> _dropout_attention_fwd), by
 //     attn_fwd_kernel<d, true> (attention_fwd.cuh);
 //   * _attention_kernel (fused_attention), by attn_fwd_kernel<d, false>: the
@@ -604,6 +606,48 @@ int attention_backward_at(const void* q, const void* k, const void* v, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 backward at head dim d >= WIDE_MIN_D: the row stats, then dK
+// and dV, then dQ. The arguments of mb_dropout_attention_bwd (stats (B*H,
+// n_pad) float2 scratch; no dq sum and no tickets), the tensors at D =
+// pad_head_dim(d).
+int attention_backward_wide_bf16(const void* q, const void* k, const void* v, long long sb,
+                                 long long sn, long long sh, const bf16* out, const bf16* grad,
+                                 const float* lse, const int* seeds, bf16* dq, bf16* dk, bf16* dv,
+                                 float2* stats, int B, int n, int H, int d,
+                                 unsigned int threshold, float keep_scale, cudaStream_t s) {
+  const int D = pad_head_dim(d);
+  const int n_pad = (n + TILE - 1) / TILE * TILE;
+  const long long gsn = static_cast<long long>(H) * D;
+  CUtensorMap maps[4];  // q, k, v, g
+  if (!current_context() || !wide_map(&maps[0], q, B, n, H, D, sb, sn, sh) ||
+      !wide_map(&maps[1], k, B, n, H, D, sb, sn, sh) ||
+      !wide_map(&maps[2], v, B, n, H, D, sb, sn, sh) ||
+      !wide_map(&maps[3], grad, B, n, H, D, gsn * n, gsn, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * n_pad * H;
+  attn_bwd_wide_prep_kernel<bf16><<<static_cast<unsigned>((rows * 32 + 127) / 128), 128, 0, s>>>(
+      out, grad, lse, stats, n, n_pad, H, D, rows);
+  cudaError_t err = cudaGetLastError();
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  auto both = [&](auto w, auto stream) {
+    constexpr int Wc = decltype(w)::value;
+    constexpr bool S = decltype(stream)::value;
+    if (err == cudaSuccess)
+      err = launch_backward_wide_bf16<Wc, false, S>(maps, stats, seeds, dk, dv, B, n, H, D, n_pad,
+                                                    scale, threshold, keep_scale, s);
+    if (err == cudaSuccess)
+      err = launch_backward_wide_bf16<Wc, true, S>(maps, stats, seeds, dq, nullptr, B, n, H, D,
+                                                   n_pad, scale, threshold, keep_scale, s);
+  };
+  if (D > 256)
+    both(std::integral_constant<int, 256>{}, std::true_type{});
+  else if (wide_width(D) == 256)
+    both(std::integral_constant<int, 256>{}, std::false_type{});
+  else
+    both(std::integral_constant<int, 192>{}, std::false_type{});
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Forward on `stream` (attention_fwd.cuh's attention_forward) at head dim
@@ -653,7 +697,7 @@ extern "C" int mb_dropout_attention_plan(int d, int* plan) {
 // either may be null). rotate: 1 for the rotated dq order, 0 for key-tile
 // order (see the header). Three launches: the row stats, the main kernel,
 // and dq_acc to bf16 dq; past d = 128 the row stats, dK and dV, and dQ
-// (attention_wide.cuh). Returns the first launch error (cudaSuccess == 0),
+// (attention_wide_bf16.cuh). Returns the first launch error (cudaSuccess == 0),
 // or cudaErrorInvalidValue if d < 1 or a tensor map is refused.
 extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void* v,
                                         long long sb, long long sn, long long sh,
@@ -663,9 +707,8 @@ extern "C" int mb_dropout_attention_bwd(const void* q, const void* k, const void
                                         int H, int d, int rotate, unsigned int threshold,
                                         float keep_scale, void* stream) {
   if (d >= WIDE_MIN_D)
-    return attention_backward_wide<bf16>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), sb,
-        sn, sh, static_cast<const bf16*>(out), static_cast<const bf16*>(grad),
+    return attention_backward_wide_bf16(
+        q, k, v, sb, sn, sh, static_cast<const bf16*>(out), static_cast<const bf16*>(grad),
         static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<bf16*>(dq),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float2*>(stats), B, n, H, d,
         threshold, keep_scale, static_cast<cudaStream_t>(stream));

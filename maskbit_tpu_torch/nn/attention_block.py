@@ -14,8 +14,10 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
   8192; the LayerNorm in float32, as JAX's block computes under
   `training.mixed_precision: no`); the biases and LayerNorm parameters
   each f32 or bf16 (the kernels widen bf16 exactly); any head dim d = E /
-  heads and any E (past d = 128 the attention core is the panelled kernel
-  of `csrc/attention_wide.cuh`, as `dropout_attention`'s). The weights must
+  heads and any E (past d = 128 the attention core is, as
+  `dropout_attention`'s, the TMA and wgmma kernel of
+  `csrc/attention_wide_bf16.cuh` in bf16 and the panelled kernel of
+  `csrc/attention_wide.cuh` in float32). The weights must
   be the transposed views of contiguous PyTorch weights
   (`in_proj_weight.t()`, `out_proj.weight.t()`), which is how
   `BertAttention` passes them: the kernels read the (out, in) layout.
@@ -31,7 +33,8 @@ wo (E, E); bo, ln_scale, ln_bias (E,).
 
 The chain is the QKV projection, the attention forward of
 `nn/dropout_attention.fused_attention` (`attn_fwd_kernel<d, false>` or,
-past d = 128, `attn_fwd_wide_kernel<bf16, false>`, or their float32 forms,
+past d = 128, `attn_fwd_wide_bf16_kernel<W, false, ...>`, or their float32
+forms (`attn_fwd_wide_kernel<float, false>` past 128),
 whose count in `dropout_attention.launches["fused_attention"]`
 it adds to), the out-projection with the residual (f32) and the LayerNorm.
 `launches` counts the chain's launches in this process (one per call on a

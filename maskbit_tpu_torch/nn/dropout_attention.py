@@ -19,10 +19,13 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   one dtype in `DTYPES` with the same strides and a contiguous last
   dimension (the QKV projection's view qualifies), any head dim d >= 1 (as
   the JAX kernels), 0 <= rate < 1. Up to d = 128 the kernels are
-  templates instantiated at the multiples of 16 (`HEAD_DIMS`); a wider d
-  runs the panelled kernels of `csrc/attention_wide.cuh`, which cut d into
-  column panels of `PANEL` (`head_panels`): the scores summed over every
-  panel, each output panel by blocks of its own. Every d runs at d
+  templates instantiated at the multiples of 16 (`HEAD_DIMS`). Past 128,
+  bf16 runs the TMA and wgmma kernels of `csrc/attention_wide_bf16.cuh`
+  (instantiated at widths 192 and 256, whose blocks hold the whole output
+  row up to d = 256 and output panels of `WIDE_PANEL` columns past it),
+  float32 the panelled kernels of `csrc/attention_wide.cuh` (output panels
+  of `PANEL` columns); `head_panels` gives the panels, each panel's blocks
+  summing the scores over all of d. Every d runs at d
   rounded up to 16 (`padded_head_dim`) on inputs the wrapper zero-pads
   per head where d is not a multiple of 16 (zero columns of q and k add
   nothing to the scores, zero columns of v give output columns that are
@@ -54,11 +57,13 @@ import torch.nn.functional as F
 # MB_HEAD_DIMS; they take every d in [1, 128], the others zero-padded to the
 # next of these
 HEAD_DIMS = range(16, 129, 16)
-# past 128 (from WIDE_MIN_HEAD_DIM) the panelled kernels take d, padded to a
-# multiple of 16, in column panels of PANEL (csrc/attention_wide.cuh's
-# WIDE_MIN_D and PANEL)
+# past 128 (from WIDE_MIN_HEAD_DIM) d is padded to a multiple of 16 and
+# written in column panels (`head_panels`): bf16 whole up to 256 and in
+# panels of WIDE_PANEL past it (csrc/attention_wide_bf16.cuh's WB_PANEL),
+# float32 in panels of PANEL (csrc/attention_wide.cuh's WIDE_MIN_D and PANEL)
 WIDE_MIN_HEAD_DIM = 129
 PANEL = 64
+WIDE_PANEL = 256
 # the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
 DTYPES = (torch.bfloat16, torch.float32)
 TILE = 64  # queries or keys per kernel tile
@@ -107,16 +112,18 @@ def padded_head_dim(d: int) -> int:
     return -(-d // 16) * 16
 
 
-def head_panels(d: int) -> list:
+def head_panels(d: int, dtype: torch.dtype = torch.bfloat16) -> list:
     """The output column panels, (first column, width), that the kernels'
-    blocks write at head dim `d`, over its padded width: one panel up to
-    128 (a block holds the whole row), else `PANEL`-wide ones, the last
-    narrower where the padded width is not a multiple of `PANEL`; each
-    panel's blocks sum the scores over all of d."""
+    blocks write at head dim `d` in `dtype`, over its padded width: one
+    panel where a block holds the whole row (up to 256 in bf16, up to 128
+    in float32), else `WIDE_PANEL`-wide (bf16) or `PANEL`-wide (float32)
+    ones, the last narrower where the padded width is not a multiple of
+    the panel; each panel's blocks sum the scores over all of d."""
     dp = padded_head_dim(d)
-    if d < WIDE_MIN_HEAD_DIM:
+    whole, panel = (128, PANEL) if dtype is torch.float32 else (WIDE_PANEL, WIDE_PANEL)
+    if d <= whole:
         return [(0, dp)]
-    return [(c, min(PANEL, dp - c)) for c in range(0, dp, PANEL)]
+    return [(c, min(panel, dp - c)) for c in range(0, dp, panel)]
 
 
 def keep_threshold(rate: float) -> int:
@@ -464,7 +471,7 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float, d=None):
     # scratch: per query row (lse * log2 e, delta), padded to whole tiles;
     # up to d = 128 the f32 sum of dq over key tiles (b*h*n*d*4 bytes, 33.7
     # MB at (32, 257, 16, 64)) and one ticket per (batch*head, query tile);
-    # the panelled kernels past 128 write dq once and need neither
+    # past 128 the dQ kernel writes dq once and needs neither
     stats = torch.empty((b * h, tiles * TILE, 2), dtype=torch.float32, device=dev)
     narrow = d < WIDE_MIN_HEAD_DIM
     dq_acc = torch.empty((b * h, n, dp), dtype=torch.float32, device=dev) if narrow else None

@@ -46,9 +46,10 @@ def test_plain_version_matches_jax_block(n, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
 
 
-# head dims past 128, where the port's block takes the panelled attention
-# core: 256 (E = 512 over 2 heads) and 200 (E = 400 over 2), whose padded
-# width is not a multiple of the 64-wide panels
+# head dims past 128, where the port's block takes the wide attention core
+# (bf16 at widths 192 and 256, float32 in 64-wide panels): 256 (E = 512
+# over 2 heads) and 200 (E = 400 over 2), whose padded width 208 is
+# neither an instantiation's width nor a multiple of the 64-wide panels
 @pytest.mark.parametrize("e,heads", [(512, 2), (400, 2)])
 def test_plain_version_matches_jax_block_past_head_dim_128(e, heads):
     rng = np.random.default_rng(e)
@@ -182,16 +183,18 @@ def test_plain_version_matches_jax_block_at_other_widths(b, n, e, heads):
 
 
 def test_serving_layer_takes_the_plain_route_past_the_widest_kernel():
-    """Head dim 192, past the widest kernel template: on the card the block
-    takes it (its attention core cut into three 64-wide column panels, no
-    padding), while on the CPU the serving layer runs the plain block, as
-    at every d, with its values and no kernel counted."""
+    """Head dim 192, past the narrow kernel templates: on the card the block
+    takes it (in bf16 its attention core holds the whole row, no padding;
+    in float32 it is cut into three 64-wide column panels), while on the
+    CPU the serving layer runs the plain block, as at every d, with its
+    values and no kernel counted."""
     from maskbit_tpu_torch.nn import dropout_attention as da
     from maskbit_tpu_torch.nn import transformer
 
     assert ab.block_widths(384, 2) == (192, 192, 384)
     da.check_head_dim(192)
-    assert da.head_panels(192) == [(0, 64), (64, 64), (128, 64)]
+    assert da.head_panels(192) == [(0, 192)]
+    assert da.head_panels(192, torch.float32) == [(0, 64), (64, 64), (128, 64)]
     ab.reset_launch_counts()
     layer = transformer.BertAttention(384, 2, attention_impl="fused").eval()
     with torch.no_grad():

@@ -24,6 +24,10 @@ def test_names_and_code_are_compared_without_the_namespace_hash():
     assert len(got["differ"]) == 1 and got["differ"][0].endswith("other_kernelEv")
     assert got["missing"] == [] and got["new"] == ["new_kernel"]
     assert compare_sass.compare(first, {})["missing"] == sorted(first)
+    # the listing's column padding follows the library's longest instruction
+    padded = compare_sass.kernels(LISTING.format(h="16731950", op="EXIT").replace(
+        "LDC R1, c[0x0][0x28] ;", "LDC R1, c[0x0][0x28] ;   "))
+    assert padded == first
 
 
 def test_it_needs_two_trees(capsys):

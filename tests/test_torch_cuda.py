@@ -647,11 +647,14 @@ def test_bf16_attention_block_at_padded_widths(b, n, e, heads):
     assert (got.float() - want).abs().max().item() <= 3e-2
 
 
-# Past head dim 128 the panelled kernels (csrc/attention_wide.cuh): 144 and
-# 200 (padded widths that are not multiples of the 64-wide panels), 256
-# (the flagship's hidden 1024 over 4 heads) and 1024 (one head of E = 1024),
-# in bf16 at the native widths' tolerances and in float32 within F32_TOL.
-WIDE_HEAD_DIMS = [144, 200, 256, 1024]
+# Past head dim 128 (bf16: csrc/attention_wide_bf16.cuh, instantiated at
+# widths 192 and 256 and streamed past 256; float32: the panelled kernels
+# of csrc/attention_wide.cuh): 144 and 200 (padded widths below the
+# instantiation's, and not multiples of the 64-wide panels), 256 (the
+# flagship's hidden 1024 over 4 heads), 320 (two 256-wide output panels)
+# and 1024 (one head of E = 1024), in bf16 at the native widths'
+# tolerances and in float32 within F32_TOL.
+WIDE_HEAD_DIMS = [144, 200, 256, 320, 1024]
 
 
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)

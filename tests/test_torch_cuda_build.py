@@ -42,10 +42,10 @@ def test_digest_finds_headers_in_the_include_directory(tmp_path):
 
 def test_port_sources_hash_their_headers():
     """Both libraries include the shared headers (the forward's, which
-    includes the Hopper helpers and the panelled kernels past head dim
-    128), and their names change with them."""
+    includes the Hopper helpers and the kernels past head dim 128, float32
+    and bf16), and their names change with them."""
     for name in ("attention_block", "dropout_attention"):
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert '#include "attention_fwd.cuh"' in text
     headers = cuda_build._INCLUDE.findall((cuda_build.CSRC / "attention_fwd.cuh").read_text())
-    assert headers == ["sm90.cuh", "attention_wide.cuh"]
+    assert headers == ["sm90.cuh", "attention_wide.cuh", "attention_wide_bf16.cuh"]

@@ -8,9 +8,10 @@ rtol 1e-4, the tolerances of the JAX package's own replica test
 (`test_dropout_attention_fwd_and_grads_match_replica`): both compute the
 same f32 softmax and products, in other summation orders. Each parity test
 runs at head dims 16 (the JAX package's own tests), 32 (the system check's
-generator) and 64 (the flagship's), and at 144 and 256 (n = 33), where the
-port's kernels cut d into column panels: they take every d, as the JAX
-kernels do.
+generator) and 64 (the flagship's), and at 144, 256 and 320 (n = 33), past
+the narrow kernel templates: the port's kernels take every d, as the JAX
+kernels do (in bf16 a block holds the whole row up to 256 and 320 takes
+two 256-wide output panels).
 """
 
 import jax
@@ -60,7 +61,7 @@ def test_hash_keep_mask_bit_identical(rate):
 
 # head dims past 128 at n = 33 only: the interpret-mode kernels grow with d
 @pytest.mark.parametrize("n,d", [(n, d) for n in (33, 257) for d in (16, 32, 64)]
-                         + [(33, 144), (33, 256)])
+                         + [(33, 144), (33, 256), (33, 320)])
 def test_dropout_attention_fwd_and_grads_match_jax(n, d):
     b, h = 2, 2
     q, k, v = _qkv(b, n, h, d, seed=n)
@@ -101,7 +102,7 @@ def test_plain_backward_matches_autograd_of_plain_forward():
 
 
 @pytest.mark.parametrize("d,n", [pytest.param(d, 57, id=str(d)) for d in (16, 32, 64)]
-                         + [pytest.param(d, 33, id=str(d)) for d in (144, 256)])
+                         + [pytest.param(d, 33, id=str(d)) for d in (144, 256, 320)])
 def test_fused_attention_matches_jax(d, n):
     b, h = 2, 2
     q, k, v = _qkv(b, n, h, d, seed=9)
@@ -182,37 +183,45 @@ def test_dropout_attention_matches_jax_at_unpadded_head_dims(d):
 
 
 # The panels past head dim 128 (`head_panels`): the kernels' blocks each
-# write one output panel of at most `PANEL` columns, from scores over the
-# whole of d, on inputs zero-padded per head to a multiple of 16. The plain
-# per-panel version over every panel, at the padded width and sliced to d,
-# equals the plain whole-width version at d (float64; 1e-12 covers the
-# summation orders that the padding's contraction length can move).
-@pytest.mark.parametrize("d", [129, 200, 256, 1024])
+# write one output panel, from scores over the whole of d, on inputs
+# zero-padded per head to a multiple of 16: in bf16 the whole row up to d =
+# 256 and panels of at most `WIDE_PANEL` columns past it, in float32 panels
+# of at most `PANEL` columns, the last narrower where the padded width is
+# not a multiple of the panel. In each dtype the plain per-panel version
+# over every panel, at the padded width and sliced to d, equals the plain
+# whole-width version at d (float64; 1e-12 covers the summation orders that
+# the padding's contraction length can move).
+@pytest.mark.parametrize("d", [129, 200, 256, 320, 1024])
 def test_head_panels_assemble_the_whole_width(d):
     b, n, h = 1, 9, 2
     dp = da.padded_head_dim(d)
-    panels = da.head_panels(d)
     assert dp % 16 == 0 and d <= dp < d + 16
-    assert panels[0][0] == 0 and sum(w for _, w in panels) == dp
-    assert all(c1 == c0 + w0 for (c0, w0), (c1, _) in zip(panels, panels[1:]))
-    assert all(0 < w <= da.PANEL for _, w in panels)
+    assert da.head_panels(d) == ([(0, dp)] if d <= 256 else
+                                 [(c, min(256, dp - c)) for c in range(0, dp, 256)])
     q, k, v, g = (torch.tensor(x, dtype=torch.float64) for x in _qkv(b, n, h, d, seed=d) + [
         np.random.default_rng(d + 1).normal(size=(b, n, h, d))])
     seeds = torch.from_numpy(_seeds(b, h, seed=d + 2).astype(np.int64))
     qp, kp, vp, gp = da._padded(d, q, k, v, g)
     assert qp.shape == (b, n, h, dp) and not qp[..., d:].any()
-    parts = [da.panel_reference(qp, kp, vp, gp, seeds, RATE, panel, d**-0.5) for panel in panels]
-    got = [torch.cat([p[i] for p in parts], dim=-1) for i in range(4)]
     close = dict(atol=1e-12, rtol=1e-12)
-    torch.testing.assert_close(got[0][..., :d], da.dropout_attention_reference(
-        q, k, v, seeds, RATE), **close)
-    for grad, want in zip(got[1:], da.dropout_attention_backward_reference(q, k, v, g, seeds,
-                                                                           RATE)):
-        assert not grad[..., d:].any()
-        torch.testing.assert_close(grad[..., :d], want, **close)
-    fused = torch.cat([da.panel_reference(qp, kp, vp, None, None, 0.0, panel, d**-0.5)
-                       for panel in panels], dim=-1)
-    torch.testing.assert_close(fused[..., :d], da.fused_attention_reference(q, k, v), **close)
+    want_out = da.dropout_attention_reference(q, k, v, seeds, RATE)
+    want_grads = da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE)
+    want_fused = da.fused_attention_reference(q, k, v)
+    for dtype, most in ((torch.bfloat16, da.WIDE_PANEL), (torch.float32, da.PANEL)):
+        panels = da.head_panels(d, dtype)
+        assert panels[0][0] == 0 and sum(w for _, w in panels) == dp
+        assert all(c1 == c0 + w0 for (c0, w0), (c1, _) in zip(panels, panels[1:]))
+        assert all(0 < w <= most for _, w in panels)
+        parts = [da.panel_reference(qp, kp, vp, gp, seeds, RATE, panel, d**-0.5)
+                 for panel in panels]
+        got = [torch.cat([p[i] for p in parts], dim=-1) for i in range(4)]
+        torch.testing.assert_close(got[0][..., :d], want_out, **close)
+        for grad, want in zip(got[1:], want_grads):
+            assert not grad[..., d:].any()
+            torch.testing.assert_close(grad[..., :d], want, **close)
+        fused = torch.cat([da.panel_reference(qp, kp, vp, None, None, 0.0, panel, d**-0.5)
+                           for panel in panels], dim=-1)
+        torch.testing.assert_close(fused[..., :d], want_fused, **close)
 
 
 @pytest.mark.parametrize("d", [129, 192])
@@ -229,7 +238,8 @@ def test_plain_route_past_the_widest_kernel(d):
     da.check_head_dim(128)
     with pytest.raises(ValueError, match="head dim of at least 1, got 0"):
         da.check_head_dim(0)
-    assert da.head_panels(d)[-1][0] >= 128 and da.head_panels(128) == [(0, 128)]
+    assert da.head_panels(d) == [(0, da.padded_head_dim(d))]
+    assert da.head_panels(d, torch.float32)[-1][0] >= 128 and da.head_panels(128) == [(0, 128)]
     ab.reset_launch_counts()
     b, n, h = 2, 9, 2
     mha = MultiHeadSelfAttention(h * d, h, attention_dropout=RATE, fused_dropout=True).train()

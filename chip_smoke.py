@@ -885,7 +885,7 @@ def phase_dropout_kernels(torch) -> dict:
 # JAX package's tests (E = 64 over 4 heads), 128 the flagship's width over 8
 # heads; 48, 80, 96 and 112, where d / 16 is odd, are checked, not timed.
 # Past the narrow templates (bf16: csrc/attention_wide_bf16.cuh's TMA and
-# wgmma kernels; float32: csrc/attention_wide.cuh's panelled ones): 192
+# wgmma kernels; float32: csrc/attention_wide_f32.cuh's 3xTF32 ones): 192
 # (hidden 1536 over 8 heads) and 256 (the flagship's hidden 1024 over 4
 # heads, phase 18's), both timed.
 HEAD_DIM_SHAPES = {16: (4, TRAIN_BATCH, 60, 64), 32: (4, TRAIN_BATCH, 60, 128),
@@ -901,9 +901,9 @@ TIMED_HEAD_DIMS = (16, 32, 128, *WIDE_TIMED_HEAD_DIMS)
 WIDTH_LENGTHS = {False: (257, 17), True: (257,)}
 # head dims past 128 held against the plain versions at small shapes in both
 # dtypes (phases 3 and 17), as `PADDED_SHAPES`: 144 and 200 pad to widths
-# below bf16's instantiations (192, 256) and not multiples of float32's
-# 64-wide panels, 320 takes two of bf16's 256-wide output panels, 1024 is
-# one head of E = 1024
+# below the instantiations (192, 256) and not multiples of the 64-wide
+# chunks, 320 takes two 256-wide output panels (and three of float32's
+# 128-wide dK and dV panels), 1024 is one head of E = 1024
 WIDE_SHAPES = {144: (2, 4, 2, 288), 200: (2, 4, 2, 400), 256: (4, 4, 2, 1024),
                320: (2, 4, 2, 640), 1024: (1, 4, 2, 1024)}
 
@@ -922,24 +922,36 @@ def _wide_bf16_forms(kernel: str, flag: str) -> list:
             for w, stream in ((192, False), (256, False), (256, True))]
 
 
+def _wide_f32_forward(dropout: str) -> list:
+    """attention_wide_f32.cuh's forward instantiations with `dropout`:
+    widths 192 and 256, and 256 streamed past d = 256."""
+    return [f"attn_fwd_wide_tf32_kernel<{w}, {dropout}, {stream}>"
+            for w, stream in ((192, "false"), (256, "false"), (256, "true"))]
+
+
 # the kernels past 128 by row of the final record and dtype: bf16's TMA and
 # wgmma kernels (csrc/attention_wide_bf16.cuh: the forward with one or two
 # warpgroups, the backward's dK/dV and dQ kernels after the row stats),
-# float32's panelled ones (csrc/attention_wide.cuh: the backward's MODE 1
-# sums dV, 2 dK, 3 dQ)
+# float32's 3xTF32 ones (csrc/attention_wide_f32.cuh: the forward at widths
+# 192 and 256 and streamed, the backward's dK/dV (false) and dQ (true)
+# kernels after the row stats, each resident or streamed)
 WIDE_CUDA_KERNELS = {
     "fused_attention_block": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "false"),
-                              "float": ["attn_fwd_wide_kernel<float, false>"]},
+                              "float": _wide_f32_forward("false")},
     "dropout_attention_fwd": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "true"),
-                              "float": ["attn_fwd_wide_kernel<float, true>"]},
+                              "float": _wide_f32_forward("true")},
     "dropout_attention_bwd": {
         "bf16": ["attn_bwd_wide_prep_kernel<bf16>"]
         + _wide_bf16_forms("attn_bwd_wide_bf16_kernel", "false")
         + _wide_bf16_forms("attn_bwd_wide_bf16_kernel", "true"),
         "float": ["attn_bwd_wide_prep_kernel<float>"]
-        + [f"attn_bwd_wide_kernel<float, {m}>" for m in (1, 2, 3)]},
+        + [f"attn_bwd_wide_tf32_kernel<{dq}, {stream}>" for stream in ("false", "true")
+           for dq in ("false", "true")]},
     "fused_attention": {"bf16": _wide_bf16_forms("attn_fwd_wide_bf16_kernel", "false"),
-                        "float": ["attn_fwd_wide_kernel<float, false>"]}}
+                        "float": _wide_f32_forward("false")}}
+# the panelled mma.sync kernels that ran past head dim 128 before the TMA and
+# wgmma ones (bf16) and the 3xTF32 wgmma ones (float32): none may run
+WIDE_MMA_SYNC_KERNELS = ("attn_fwd_wide_kernel", "attn_bwd_wide_kernel")
 
 
 def phase_head_dims(torch, timed_dims=TIMED_HEAD_DIMS) -> dict:
@@ -1099,8 +1111,9 @@ def _wide_layers(torch) -> dict:
 
 def _wide_ptxas() -> list:
     """ptxas's registers and spill bytes of the kernels past head dim 128
-    (attention_wide_bf16.cuh, attention_wide.cuh) in every library that
-    builds them, logged; raises on a spill."""
+    (attention_wide_bf16.cuh, attention_wide_f32.cuh, attention_wide.cuh's
+    row stats) in every library that builds them, logged; raises on a
+    spill."""
     from maskbit_tpu_torch.nn import cuda_build
 
     rows = [dict(k, library=name) for name in cuda_build.sources()
@@ -4409,8 +4422,10 @@ def phase_float32_kernels(torch) -> dict:
     ones past 128, n = 257 and 17 (`WIDTH_LENGTHS`), the keep mask bit for
     bit; timed at n =
     257 at `F32_TIMED_HEAD_DIMS` beside SDPA (the block beside the library
-    chain) and the float32 bound; the padded head dims and `WIDE_SHAPES`
-    checked; float16 and float64 refused."""
+    chain) and the float32 bound; past 128 the CUDA kernels one call of each
+    launches at n = 257 (`kernels`, which the final record holds to
+    `WIDE_CUDA_KERNELS`); the padded head dims and `WIDE_SHAPES` checked;
+    float16 and float64 refused."""
     from maskbit_tpu_torch.nn import attention_block as ab
     from maskbit_tpu_torch.nn import dropout_attention as da
 
@@ -4454,6 +4469,17 @@ def phase_float32_kernels(torch) -> dict:
                 + f"; keep mask {mask_flips} of {b * h * n * n} bits differ")
             if mask_flips or any(errs[key] > tols[key] for key in errs):
                 raise AssertionError(f"the float32 kernels disagree at head dim {d}, n {n}: {row}")
+            if n == 257 and d > 128:  # the CUDA kernels one call of each launches
+                calls = {"dropout_attention_fwd": lambda: da.launch_forward(q, k, v, seeds32, RATE),
+                         "dropout_attention_bwd": lambda: da.launch_backward(
+                             q, k, v, out, lse, g, seeds32, RATE),
+                         "fused_attention": lambda: da.fused_attention(fq, fk, fv),
+                         "fused_attention_block": lambda: ab.fused_attention_block(
+                             **inp, num_heads=e // d)}
+                row["kernels"] = {name: sorted({_kernel_name(x) for x in _device_breakdown(
+                    torch, fn, iters=5, warmup=1)}) for name, fn in calls.items()}
+                log(f"[float32]   head dim {d} CUDA kernels: " + "; ".join(
+                    f"{name} {', '.join(ks)}" for name, ks in row["kernels"].items()))
             if n == 257 and d in F32_TIMED_HEAD_DIMS:
                 elems = b * n * h * d
                 lib_g = g.transpose(1, 2)
@@ -4740,7 +4766,7 @@ def phase_float32(torch, device_info) -> dict:
 
 # Phase 18: the flagship at model.mlm_model.heads=4 (hidden 1024 over 4
 # heads of 256, past the narrow kernel templates: csrc/attention_wide_bf16.cuh's
-# kernels in bf16, csrc/attention_wide.cuh's in float32), no in-training
+# kernels in bf16, csrc/attention_wide_f32.cuh's in float32), no in-training
 # generation
 WIDE_HEADS = 4
 
@@ -4852,8 +4878,9 @@ def phase_f32_error(torch) -> dict:
         log(f"[f32_error] backward n={n}: {row}")
         out["backward"].append(row)
         del refs, plain
-    # past head dim 128 (the panelled kernels; each 64-wide chunk of d has
-    # its own accumulator): the forward and the backward at (1, 257, 4, 256)
+    # past head dim 128 (each 64-wide chunk of d, each key tile of the
+    # forward and each 16-row step of the backward has fresh accumulators):
+    # the forward and the backward at (1, 257, 4, 256)
     gw = torch.Generator(device="cuda").manual_seed(2)
     q, k, v, w = (torch.randn(1, 257, 4, F32_ERROR_WIDE_D, generator=gw, device="cuda")
                   for _ in range(4))
@@ -4874,7 +4901,7 @@ def phase_f32_error(torch) -> dict:
         da.dropout_attention(qg, kg, vg, seeds, RATE).backward(w)
         for name, got, r in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), refs):
             row[f"{name}_err"] = rel(got, r)
-    except ValueError as err:  # a tree from before the panelled kernels
+    except ValueError as err:  # a tree from before the kernels past 128
         row["refused"] = str(err)
     log(f"[f32_error] head dim {F32_ERROR_WIDE_D}, forward and backward: {row}")
     out["wide"] = row
@@ -4929,7 +4956,7 @@ def _args(argv):
 
 def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list:
     """The final record's rows of the kernels past head dim 128 (bf16:
-    csrc/attention_wide_bf16.cuh, float32: csrc/attention_wide.cuh), from
+    csrc/attention_wide_bf16.cuh, float32: csrc/attention_wide_f32.cuh), from
     phases 3 (`widths`), 17 (`f32`) and 18 (`wide`):
     launched by phase 18 (the flagship at heads=4, d = 256: its sampler call
     the block and its core, its Stage-II steps the dropout pair), timed at d
@@ -4942,10 +4969,12 @@ def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list
                 "dropout_attention_bwd": (f"{pa}:274", "dropout_attention_bwd"),
                 "fused_attention": (f"{pa}:94", "fused_attention")}
     wide_src = {"bfloat16": "maskbit_tpu_torch/csrc/attention_wide_bf16.cuh",
-                "float32": "maskbit_tpu_torch/csrc/attention_wide.cuh"}
+                "float32": "maskbit_tpu_torch/csrc/attention_wide_f32.cuh"}
     head_dims = {"bfloat16": "past 128 (instantiated at 192 and 256, streamed in 256-wide "
                              "output panels past 256; others padded)",
-                 "float32": "past 128 (multiples of 16 native, others padded)"}
+                 "float32": "past 128 (instantiated at 192 and 256, streamed in 256-wide "
+                            "output panels past 256, dK and dV in 128-wide ones; others "
+                            "padded)"}
     wide_errs = {"fused_attention_block": ("block",), "dropout_attention_fwd": ("fwd",),
                  "dropout_attention_bwd": ("dq", "dk", "dv"), "fused_attention": ("fused",)}
     phase3_errs = {"fused_attention_block": lambda r: r["block_err"],
@@ -4986,6 +5015,25 @@ def _wide_records(widths: dict, f32: dict, wide: dict, time_keys: tuple) -> list
                 "ptxas": [k for k in widths["ptxas"] if k["kernel"].replace(
                     "__nv_bfloat16", "bf16") in WIDE_CUDA_KERNELS[name][tag]]})
     return rows
+
+
+def _check_wgmma_kernels(bf16_rows: list, f32_rows: list) -> None:
+    """Raises unless every width ran the wgmma kernels and none of the
+    mma.sync kernels they replaced: in bf16 at every width (phase 3's rows)
+    and in float32 past 128 (phase 17's), whose attention kernels must
+    also be exactly the 3xTF32 ones of `WIDE_CUDA_KERNELS`. Each row's
+    `kernels`: the CUDA kernels one call of each function launched."""
+    bf16 = [r["kernels"] for r in bf16_rows if "kernels" in r]
+    f32 = [r["kernels"] for r in f32_rows if "kernels" in r]
+    mma = sorted({k for by_name in bf16 + f32 for ks in by_name.values() for k in ks
+                  if "_mma" in k or k.startswith(WIDE_MMA_SYNC_KERNELS)})
+    if mma:
+        raise AssertionError(f"mma.sync kernels ran: {mma}")
+    stray = sorted({k for by_name in f32 for name, ks in by_name.items() for k in ks
+                    if "attn" in k and k not in WIDE_CUDA_KERNELS[name]["float"]})
+    if not f32 or stray:
+        raise AssertionError(f"float32 past head dim 128: kernels {f32}, not the 3xTF32 ones "
+                             f"{stray}")
 
 
 def main(argv=None) -> int:
@@ -5167,15 +5215,8 @@ def main(argv=None) -> int:
                                    tool["launches_sample"]["by_head_dim"].get(
                                        f"fused_attention@{tool_d}", 0))}
     time_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
-    # every width up to 128 runs the wgmma templates, none of the mma.sync
-    # kernels they replaced, and in bf16 every width past 128 too (the
-    # float32 panelled mma.sync kernels past 128: their own rows below)
+    _check_wgmma_kernels(widths["rows"], f32["kernels"]["rows"])
     kernels_by_width = {r["d"]: r["kernels"] for r in widths["rows"] if "kernels" in r}
-    mma = sorted({k for by_name in kernels_by_width.values() for ks in by_name.values()
-                  for k in ks if "_mma" in k or k.startswith(("attn_fwd_wide_kernel",
-                                                                "attn_bwd_wide_kernel"))})
-    if mma:
-        raise AssertionError(f"mma.sync kernels ran: {mma}")
     errs = {"fused_attention_block": lambda r: r["block_err"],
             "dropout_attention_fwd": lambda r: r["fwd_err"],
             "dropout_attention_bwd": lambda r: max(r["bwd_errs"]),

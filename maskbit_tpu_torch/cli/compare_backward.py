@@ -5,23 +5,28 @@
         --head-dims 16,32,48,64,80,96,112,128
     python -m maskbit_tpu_torch.cli.compare_backward --tree smoke_parent --tree . \\
         --head-dims 192,256 --forward
+    python -m maskbit_tpu_torch.cli.compare_backward --dtype float32 --tree smoke_parent \\
+        --tree . --head-dims 192,256 --forward
 
 (from the checkout's root: it times with `chip_smoke._device_ms`).
 
 Each source is a version of `maskbit_tpu_torch/csrc/dropout_attention.cu`
-with the same C interface, e.g. one taken from another commit with `git show
+(with `--dtype float32`, of `maskbit_tpu_torch/csrc/attention_f32.cu`, on
+float32 inputs within phase 17's `F32_TOL`) with the same C interface, e.g.
+one taken from another commit with `git show
 <commit>:maskbit_tpu_torch/csrc/dropout_attention.cu`, or a whole tree's
-(`--tree DIR` takes DIR/maskbit_tpu_torch/csrc/dropout_attention.cu, whose
-headers then come from DIR too: a source's own directory is searched
-first). Sources from before `mb_dropout_attention_bwd` took the head dim
-(`int d`) have another interface, which the binding would misread: they are
-refused before the build. Every source is built with the package's nvcc
-flags (all at once, into the git-ignored `build/compare_backward/`), and
+(`--tree DIR` takes DIR/maskbit_tpu_torch/csrc/dropout_attention.cu or
+attention_f32.cu, whose headers then come from DIR too: a source's own
+directory is searched first). Sources from before the backward took the
+head dim (`int d`) have another interface, which the binding would
+misread: they are refused before the build. Every source is built with
+the package's nvcc flags (all at once, into the git-ignored
+`build/compare_backward/`), and
 its ptxas lines on registers, spills and serialised wgmma are printed.
 Then, at each head dim of `--head-dims` (default 64), on the forward of this
 checkout's kernel:
   * dq, dk and dv of every source are bit-identical to a repeated call of
-    their own and agree with the plain version (phase 3's tolerance), at
+    their own and agree with the plain version (the dtype's tolerance), at
     ragged lengths and in both dq orders (the wrapper's order and key-tile
     order); whether they are bit-identical to the first source's is
     printed (two designs may sum in other orders);
@@ -33,7 +38,8 @@ checkout's kernel:
     card's clock shows;
   * with `--forward`, each source's forward, with dropout and without (the
     kernel of `fused_attention`), is checked against the plain version
-    (phase 3's tolerance) and timed the same way, at the dropout shape and
+    (the dtype's tolerance) and bit for bit on a repeat, and timed the same
+    way, at the dropout shape and
     at `chip_smoke.HEAD_DIM_SHAPES`' fused_attention shape.
 """
 
@@ -56,14 +62,22 @@ CHECK_SHAPES = ((2, 1, 3), (2, 17, 3), (2, 65, 3), (2, 129, 3), (4, 257, 16), (2
 TIME_SHAPES_64 = ((32, 257, 16), (8, 1025, 16))
 
 
-def build(sources):
+# per dtype: the source's name, its backward's C function, the binding, the
+# backward through a bound library (both `backward_with`'s arguments)
+DTYPES = {"bf16": ("dropout_attention.cu", "mb_dropout_attention_bwd", da.bind, da.backward_with),
+          "float32": ("attention_f32.cu", "mb_dropout_attention_bwd_f32", da.bind_f32,
+                      da.backward_f32_with)}
+
+
+def build(sources, dtype="bf16"):
     import chip_smoke
 
+    _, fn, bind, _ = DTYPES[dtype]
     for src in sources:
         with open(src) as f:
-            if not re.search(r"mb_dropout_attention_bwd\([^)]*\bint d\b", f.read()):
-                raise ValueError(f"{src}: its mb_dropout_attention_bwd takes no head dim d, so "
-                                 "its interface is not this checkout's")
+            if not re.search(fn + r"\([^)]*\bint d\b", f.read()):
+                raise ValueError(f"{src}: its {fn} takes no head dim d, so its interface is not "
+                                 "this checkout's")
     out_dir = cuda_build.BUILD_DIR.parent / "compare_backward"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = [subprocess.Popen(cuda_build.nvcc_command(src, out_dir / f"lib{i}.so"),
@@ -81,28 +95,30 @@ def build(sources):
         for k in chip_smoke.ptxas_kernels(err):
             print(f"{k['kernel']}: {k['registers']} registers, spill stores {k['spill_stores']} "
                   f"B, spill loads {k['spill_loads']} B")
-        libs.append(da.bind(ctypes.CDLL(str(out_dir / f"lib{i}.so"))))
+        libs.append(bind(ctypes.CDLL(str(out_dir / f"lib{i}.so"))))
     return libs
 
 
-def inputs(b, n, h, d=64):
+def inputs(b, n, h, d=64, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(n)
-    q, k, v = torch.randn(b, n, 3, h, d, generator=g, device="cuda").bfloat16().unbind(2)
+    q, k, v = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(dtype).unbind(2)
     seeds = torch.randint(0, 2**32, (b, h), generator=g, device="cuda", dtype=torch.int64)
     seeds32 = da.seeds_as_int32(seeds, (b, h))
-    grad = torch.randn(b, n, h, d, generator=g, device="cuda").bfloat16()
+    grad = torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
     out, lse = da.launch_forward(q, k, v, seeds32, RATE)
     return q, k, v, out, lse, grad, seeds32, seeds
 
 
 def forward_with(lib, q, k, v, seeds32, rate=RATE):
-    """The forward of `lib` on q, k, v at their head dim; seeds32 None for
-    the dropout-free kernel. Returns out."""
+    """The forward of `lib` on q, k, v at their head dim, in their dtype;
+    seeds32 None for the dropout-free kernel. Returns out."""
     b, n, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device) if seeds32 is not None \
         else None
-    err = lib.mb_dropout_attention_fwd(
+    fwd = lib.mb_dropout_attention_fwd_f32 if q.dtype is torch.float32 else \
+        lib.mb_dropout_attention_fwd
+    err = fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
         None if seeds32 is None else seeds32.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, n, h, d, da.keep_threshold(rate),
@@ -112,21 +128,36 @@ def forward_with(lib, q, k, v, seeds32, rate=RATE):
     return out
 
 
-def compare_forward(sources, libs, d):
+def _tol(dtype, refs):
+    """The agreement a backward or forward must reach: phase 3's tolerance
+    in bf16, phase 17's `F32_TOL` in float32, each times the largest
+    reference value where that exceeds 1."""
+    import chip_smoke
+
+    atol = chip_smoke.F32_TOL if dtype is torch.float32 else chip_smoke.DROPOUT_ATOL
+    return atol * max(1.0, max(r.abs().max().item() for r in refs))
+
+
+def compare_forward(sources, libs, d, dtype=torch.bfloat16):
     """--forward at head dim d: each source's forward with and without
-    dropout against the plain version, then timed in turn and in reverse."""
+    dropout against the plain version and bit for bit on a repeat, then
+    timed in turn and in reverse."""
     import chip_smoke
 
     h, b, bb, _ = chip_smoke.HEAD_DIM_SHAPES[d]
     for label, (bs, drop) in (("dropout forward", (b, True)), ("fused_attention", (bb, False))):
-        q, k, v, _, _, _, seeds32, seeds = inputs(bs, 257, h, d)
+        q, k, v, _, _, _, seeds32, seeds = inputs(bs, 257, h, d, dtype)
         s32 = seeds32 if drop else None
         want = (da.dropout_attention_reference(q.float(), k.float(), v.float(), seeds, RATE)
                 if drop else da.fused_attention_reference(q.float(), k.float(), v.float()))
+        tol = _tol(dtype, [want])
         for src, lib in zip(sources, libs):
-            err = (forward_with(lib, q, k, v, s32).float() - want).abs().max().item()
-            if err > chip_smoke.DROPOUT_ATOL:
-                raise AssertionError(f"{src} {label} at ({bs}, 257, {h}, {d}): max |error| {err}")
+            got = forward_with(lib, q, k, v, s32)
+            err = (got.float() - want).abs().max().item()
+            repeat = torch.equal(got, forward_with(lib, q, k, v, s32))
+            if err > tol or not repeat:
+                raise AssertionError(f"{src} {label} at ({bs}, 257, {h}, {d}): max |error| {err} "
+                                     f"(tol {tol}), repeat bit-identical {repeat}")
         times = {src: [] for src in sources}
         for src, lib in [*zip(sources, libs), *reversed(list(zip(sources, libs)))]:
             times[src].append(chip_smoke._device_ms(torch, lambda: forward_with(lib, q, k, v, s32)))
@@ -137,16 +168,20 @@ def compare_forward(sources, libs, d):
 
 def _args(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("sources", nargs="*", help="versions of csrc/dropout_attention.cu")
+    p.add_argument("sources", nargs="*",
+                   help="versions of csrc/dropout_attention.cu (or attention_f32.cu)")
     p.add_argument("--tree", action="append", default=[],
-                   help="a checkout whose csrc/dropout_attention.cu to take (before the "
-                        "positional sources; repeatable)")
+                   help="a checkout whose csrc/dropout_attention.cu (or attention_f32.cu) to "
+                        "take (before the positional sources; repeatable)")
+    p.add_argument("--dtype", choices=tuple(DTYPES), default="bf16",
+                   help="bf16 (csrc/dropout_attention.cu) or float32 (csrc/attention_f32.cu) "
+                        "(default %(default)s)")
     p.add_argument("--head-dims", default="64",
                    help="comma-separated head dims to check and time (default %(default)s)")
     p.add_argument("--forward", action="store_true",
                    help="also check and time the forward, with dropout and without")
     args = p.parse_args(argv)
-    args.sources = [os.path.join(t, "maskbit_tpu_torch", "csrc", "dropout_attention.cu")
+    args.sources = [os.path.join(t, "maskbit_tpu_torch", "csrc", DTYPES[args.dtype][0])
                     for t in args.tree] + args.sources
     args.head_dims = [int(x) for x in args.head_dims.split(",") if x]
     return args
@@ -160,20 +195,21 @@ def main(argv=None) -> int:
     if len(sources) < 2 or not torch.cuda.is_available():
         print(__doc__)
         return 2
-    libs = build(sources)
+    libs = build(sources, args.dtype)
+    backward = DTYPES[args.dtype][3]
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     rotate_max = da.ROTATE_MAX_TILES
     for d in args.head_dims:
         for b, n, h in CHECK_SHAPES:
-            x = inputs(b, n, h, d)
+            x = inputs(b, n, h, d, dtype)
             qf, kf, vf = (t.float() for t in x[:3])
             refs = da.dropout_attention_backward_reference(qf, kf, vf, x[5].float(), x[7], RATE)
-            tol = chip_smoke.DROPOUT_ATOL * max(1.0, max(r.abs().max().item() for r in refs))
+            tol = _tol(dtype, refs)
             for order, max_tiles in (("wrapper", rotate_max), ("key tile", 0)):
                 da.ROTATE_MAX_TILES = max_tiles
-                first = da.backward_with(libs[0], *x[:7], RATE)
+                first = backward(libs[0], *x[:7], RATE)
                 for src, lib in zip(sources, libs):
-                    got, again = (da.backward_with(lib, *x[:7], RATE),
-                                  da.backward_with(lib, *x[:7], RATE))
+                    got, again = (backward(lib, *x[:7], RATE), backward(lib, *x[:7], RATE))
                     err = max((a.float() - r).abs().max().item() for a, r in zip(got, refs))
                     repeat = all(torch.equal(a, c) for a, c in zip(got, again))
                     if not repeat or err > tol:
@@ -189,16 +225,16 @@ def main(argv=None) -> int:
         shapes = TIME_SHAPES_64 if d == 64 else (
             (chip_smoke.HEAD_DIM_SHAPES[d][1], 257, chip_smoke.HEAD_DIM_SHAPES[d][0]),)
         for b, n, h in shapes:
-            x = inputs(b, n, h, d)[:7]
+            x = inputs(b, n, h, d, dtype)[:7]
             times = {src: [] for src in sources}
             for src, lib in [*zip(sources, libs), *reversed(list(zip(sources, libs)))]:
                 times[src].append(chip_smoke._device_ms(
-                    torch, lambda: da.backward_with(lib, *x, RATE)))
+                    torch, lambda: backward(lib, *x, RATE)))
             print(f"({b}, {n}, {h}, {d}) backward device ms: "
                   + "; ".join(f"{src} {', '.join(f'{t:.4f}' for t in ts)}"
                               for src, ts in times.items()))
         if args.forward:
-            compare_forward(sources, libs, d)
+            compare_forward(sources, libs, d, dtype)
     return 0
 
 

@@ -27,8 +27,8 @@ _LAYERS = (
     ("split_tf32_kernel", "attention block: projections (hand wgmma, 3xTF32 float32)"),
     ("attn_fwd_tf32_kernel", "attention block: attention (hand wgmma, 3xTF32 float32)"),
     ("attn_fwd_wide_bf16_kernel", "attention block: attention past head dim 128 (hand wgmma)"),
-    ("attn_fwd_wide_kernel",
-     "attention block: attention past head dim 128 (hand mma.sync, 3xTF32 float32)"),
+    ("attn_fwd_wide_tf32_kernel",
+     "attention block: attention past head dim 128 (hand wgmma, 3xTF32 float32)"),
     ("layernorm_kernel", "attention block: LayerNorm (hand)"),
     ("conv", "decoder convolutions (cuDNN)"),
     ("fprop", "decoder convolutions (cuDNN)"),

@@ -17,11 +17,14 @@
 // Each is a template on the head dim D, instantiated at the multiples of 16
 // in [16, 128]; another d in [1, 128] runs the instantiation at d rounded up
 // to 16 on inputs the wrapper zero-pads per head, with d's softmax scale,
-// as the bf16 kernels do. A d past 128 runs the panelled kernels of
-// attention_wide.cuh at T = float (attn_fwd_wide_kernel, for the block's
-// core too, and attn_bwd_wide_prep_kernel with attn_bwd_wide_kernel). In float32 each rounding point of the bf16 form
-// (qkv, the softmax weights, the head outputs, the score gradient) is a
-// no-op, so these compute what the TPU kernels compute in float32.
+// as the bf16 kernels do. A d past 128 runs the 3xTF32 kernels of
+// attention_wide_f32.cuh (included below: attn_fwd_wide_tf32_kernel<W,
+// dropout, stream>, for the block's core too, and attention_wide.cuh's
+// attn_bwd_wide_prep_kernel<float> with attn_bwd_wide_tf32_kernel<dq,
+// stream>; that header describes their tiles, rings, warpgroups and
+// bounds). In float32 each rounding point of the bf16 form (qkv, the softmax
+// weights, the head outputs, the score gradient) is a no-op, so these
+// compute what the TPU kernels compute in float32.
 //
 // How they multiply in float32: 3xTF32 on the tensor cores, wgmma m64nNk8
 // .tf32 (495 TFLOP/s dense, against 67 for FFMA on the CUDA cores). Each
@@ -741,19 +744,26 @@ int attention_forward_f32_at(const float* q, const float* k, const float* v, lon
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Head dims past 128: the 3xTF32 forward and backward kernels.
+#include "attention_wide_f32.cuh"
+
+namespace {
+
 // The forward on `s` at head dim d >= 1 (else cudaErrorInvalidValue), the
 // tensors at D = pad_head_dim(d); the arguments of
-// mb_dropout_attention_fwd_f32. Past d = 128, attention_wide.cuh's
-// attn_fwd_wide_kernel<float, dropout>.
+// mb_dropout_attention_fwd_f32. Past d = 128, attention_wide_f32.cuh's
+// attn_fwd_wide_tf32_kernel.
 int attention_forward_f32(const float* q, const float* k, const float* v, long long sb,
                           long long sn, long long sh, const int* seeds, float* out, float* lse,
                           int B, int n, int H, int d, unsigned int threshold, float keep_scale,
                           bool dropout, cudaStream_t s) {
   if (d >= WIDE_MIN_D)
-    return dropout ? attention_forward_wide_at<float, true>(q, k, v, sb, sn, sh, seeds, out, lse,
-                                                            B, n, H, d, threshold, keep_scale, s)
-                   : attention_forward_wide_at<float, false>(q, k, v, sb, sn, sh, nullptr, out,
-                                                             lse, B, n, H, d, 0u, 1.0f, s);
+    return dropout ? attention_forward_wide_f32<true>(q, k, v, sb, sn, sh, seeds, out, lse, B, n,
+                                                      H, d, threshold, keep_scale, s)
+                   : attention_forward_wide_f32<false>(q, k, v, sb, sn, sh, nullptr, out, lse, B,
+                                                       n, H, d, 0u, 1.0f, s);
   switch (d < 1 ? 0 : pad_head_dim(d)) {
 #define MB_F32_FWD_CASE(W)                                                                  \
   case W:                                                                                  \
@@ -1448,7 +1458,7 @@ extern "C" int mb_dropout_attention_fwd_f32(const void* q, const void* k, const 
 // may be null). rotate: 1 for the rotated dq order, 0 for key-tile order
 // (the header). Two launches: the row stats (and the tickets zeroed), then
 // the main kernel, which sums dq into dq itself; past d = 128 three, the
-// row stats, dK and dV, and dQ (attention_wide.cuh). Returns the first
+// row stats, dK and dV, and dQ (attention_wide_f32.cuh). Returns the first
 // launch error (cudaSuccess == 0), or cudaErrorInvalidValue if d < 1 or a
 // tensor map is refused.
 extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const void* v,
@@ -1460,7 +1470,7 @@ extern "C" int mb_dropout_attention_bwd_f32(const void* q, const void* k, const 
                                             float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d >= WIDE_MIN_D)
-    return attention_backward_wide<float>(
+    return attention_backward_wide_f32(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         sb, sn, sh, static_cast<const float*>(out), static_cast<const float*>(grad),
         static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<float*>(dq),

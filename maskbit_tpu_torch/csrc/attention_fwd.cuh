@@ -379,8 +379,8 @@ int attention_forward_at(const void* q, const void* k, const void* v, long long 
 
 }  // namespace
 
-// Head dims past 128: the panelled float32 kernels (and the backward's row
-// stats), and the bf16 kernels.
+// Head dims past 128: the backward's row stats (and WIDE_MIN_D), and the
+// bf16 kernels (attention_f32.cu includes the float32 ones).
 #include "attention_wide.cuh"
 #include "attention_wide_bf16.cuh"
 

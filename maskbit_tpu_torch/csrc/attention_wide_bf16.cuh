@@ -2,8 +2,8 @@
 // TMA into mbarrier-guarded shared memory, products by wgmma. Included by
 // attention_fwd.cuh after softmax_tile, so every library that builds the
 // forward has them (dropout_attention.cu and attention_block.cu launch
-// them; attention_f32.cu, whose float32 kernels past 128 are the panelled
-// ones of attention_wide.cuh, instantiates none). They replace, past d =
+// them; attention_f32.cu, whose float32 kernels past 128 are the 3xTF32
+// ones of attention_wide_f32.cuh, instantiates none). They replace, past d =
 // 128, the same TPU kernels of maskbit_tpu/nn/pallas_attention.py as the
 // templates for d <= 128:
 //   * _dropattn_fwd_kernel and _attention_kernel (dropout_attention,

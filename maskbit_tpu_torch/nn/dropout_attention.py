@@ -20,11 +20,12 @@ weights are scaled by 1/(1 - rate), dropped ones are 0.
   dimension (the QKV projection's view qualifies), any head dim d >= 1 (as
   the JAX kernels), 0 <= rate < 1. Up to d = 128 the kernels are
   templates instantiated at the multiples of 16 (`HEAD_DIMS`). Past 128,
-  bf16 runs the TMA and wgmma kernels of `csrc/attention_wide_bf16.cuh`
-  (instantiated at widths 192 and 256, whose blocks hold the whole output
-  row up to d = 256 and output panels of `WIDE_PANEL` columns past it),
-  float32 the panelled kernels of `csrc/attention_wide.cuh` (output panels
-  of `PANEL` columns); `head_panels` gives the panels, each panel's blocks
+  bf16 runs the TMA and wgmma kernels of `csrc/attention_wide_bf16.cuh`,
+  float32 the 3xTF32 ones of `csrc/attention_wide_f32.cuh` (both
+  instantiated at widths 192 and 256, their forward blocks holding the
+  whole output row up to d = 256 and output panels of `WIDE_PANEL`
+  columns past it; the float32 backward writes dk and dv in panels of
+  `PANEL` columns); `head_panels` gives the panels, each panel's blocks
   summing the scores over all of d. Every d runs at d
   rounded up to 16 (`padded_head_dim`) on inputs the wrapper zero-pads
   per head where d is not a multiple of 16 (zero columns of q and k add
@@ -57,12 +58,15 @@ import torch.nn.functional as F
 # MB_HEAD_DIMS; they take every d in [1, 128], the others zero-padded to the
 # next of these
 HEAD_DIMS = range(16, 129, 16)
-# past 128 (from WIDE_MIN_HEAD_DIM) d is padded to a multiple of 16 and
-# written in column panels (`head_panels`): bf16 whole up to 256 and in
-# panels of WIDE_PANEL past it (csrc/attention_wide_bf16.cuh's WB_PANEL),
-# float32 in panels of PANEL (csrc/attention_wide.cuh's WIDE_MIN_D and PANEL)
+# past 128 (from WIDE_MIN_HEAD_DIM, csrc/attention_wide.cuh's WIDE_MIN_D) d
+# is padded to a multiple of 16 and written in column panels
+# (`head_panels`): whole up to 256 and in panels of WIDE_PANEL past it
+# (csrc/attention_wide_bf16.cuh's WB_PANEL, csrc/attention_wide_f32.cuh's
+# WF_PANEL), but float32's dk and dv in panels of PANEL
+# (attention_wide_f32.cuh's WB_GRAD_PANEL: a block's two warpgroups each sum
+# PANEL columns of one of them)
 WIDE_MIN_HEAD_DIM = 129
-PANEL = 64
+PANEL = 128
 WIDE_PANEL = 256
 # the input dtypes the kernels take: JAX's compute dtypes (resolve_compute_dtype)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -112,16 +116,17 @@ def padded_head_dim(d: int) -> int:
     return -(-d // 16) * 16
 
 
-def head_panels(d: int, dtype: torch.dtype = torch.bfloat16) -> list:
+def head_panels(d: int, dtype: torch.dtype = torch.bfloat16, dkdv: bool = False) -> list:
     """The output column panels, (first column, width), that the kernels'
-    blocks write at head dim `d` in `dtype`, over its padded width: one
-    panel where a block holds the whole row (up to 256 in bf16, up to 128
-    in float32), else `WIDE_PANEL`-wide (bf16) or `PANEL`-wide (float32)
-    ones, the last narrower where the padded width is not a multiple of
-    the panel; each panel's blocks sum the scores over all of d."""
+    blocks write at head dim `d` in `dtype`, over its padded width: of out
+    and dq, or with `dkdv` of dk and dv. One panel where a block holds the
+    whole row (up to 256, but up to 128 for float32's dk and dv), else
+    `WIDE_PANEL`-wide ones (`PANEL`-wide for float32's dk and dv), the last
+    narrower where the padded width is not a multiple of the panel; each
+    panel's blocks sum the scores over all of d."""
     dp = padded_head_dim(d)
-    whole, panel = (128, PANEL) if dtype is torch.float32 else (WIDE_PANEL, WIDE_PANEL)
-    if d <= whole:
+    panel = PANEL if dkdv and dtype is torch.float32 else WIDE_PANEL
+    if d <= panel:
         return [(0, dp)]
     return [(c, min(panel, dp - c)) for c in range(0, dp, panel)]
 
@@ -333,24 +338,29 @@ def _lib():
     return lib
 
 
+def bind_f32(lib):
+    """Declare the attention functions of a built `csrc/attention_f32.cu`:
+    the forward's arguments are the bf16 one's; the backward's lack dq_acc."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.mb_dropout_attention_fwd_f32.argtypes = (
+        [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, i32, ptr])
+    lib.mb_dropout_attention_fwd_f32.restype = i32
+    lib.mb_dropout_attention_bwd_f32.argtypes = (
+        [ptr] * 3 + [i64] * 3 + [ptr] * 9 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
+    lib.mb_dropout_attention_bwd_f32.restype = i32
+    for plan in (lib.mb_attention_fwd_f32_plan, lib.mb_attention_bwd_f32_plan):
+        plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        plan.restype = i32
+    return lib
+
+
 def _lib_f32():
-    """`csrc/attention_f32.cu`, its attention functions declared: the
-    forward's arguments are the bf16 one's; the backward's lack dq_acc."""
+    """`csrc/attention_f32.cu`, its attention functions declared (`bind_f32`)."""
     from maskbit_tpu_torch.nn.cuda_build import load_library
 
     lib = load_library("attention_f32")
     if lib.mb_dropout_attention_bwd_f32.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mb_dropout_attention_fwd_f32.argtypes = (
-            [ptr] * 3 + [i64] * 3 + [ptr] * 3 + [i32] * 4 + [ctypes.c_uint32, ctypes.c_float, i32,
-                                                             ptr])
-        lib.mb_dropout_attention_fwd_f32.restype = i32
-        lib.mb_dropout_attention_bwd_f32.argtypes = (
-            [ptr] * 3 + [i64] * 3 + [ptr] * 9 + [i32] * 5 + [ctypes.c_uint32, ctypes.c_float, ptr])
-        lib.mb_dropout_attention_bwd_f32.restype = i32
-        for plan in (lib.mb_attention_fwd_f32_plan, lib.mb_attention_bwd_f32_plan):
-            plan.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
-            plan.restype = i32
+        bind_f32(lib)
     return lib
 
 
@@ -446,7 +456,7 @@ def _backward_padded(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
     returns dq, dk, dv at that width."""
     _check_layout(q, k, v)
     if q.dtype is torch.float32:
-        grads = _backward_f32(q, k, v, out, lse, g, seeds_i32, rate, d)
+        grads = backward_f32_with(_lib_f32(), q, k, v, out, lse, g, seeds_i32, rate, d)
     else:
         grads = backward_with(_lib(), q, k, v, out, lse, g, seeds_i32, rate, d)
     count("dropout_attention_bwd", d, q.dtype)
@@ -488,12 +498,15 @@ def backward_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float, d=None):
     return dq, dk, dv
 
 
-def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
-    """The float32 backward's launches on checked inputs (at the padded
-    width of head dim `d`) with a contiguous `g`; not counted. dq is summed
-    over key tiles in place, in a fixed order, as the bf16 backward's
-    f32 sum is (past d = 128 the dQ pass writes it once)."""
+def backward_f32_with(lib, q, k, v, out, lse, g, seeds_i32, rate: float, d=None):
+    """The float32 backward's launches through `lib` (a `bind_f32`-declared
+    build of `csrc/attention_f32.cu`) on checked inputs with a contiguous
+    `g`, at head dim `d` (default: q's; the inputs then hold it zero-padded
+    to their width); not counted. Up to d = 128 dq is summed over key tiles
+    in place, in a fixed order, as the bf16 backward's f32 sum is; past it
+    the dQ kernel writes it once."""
     b, n, h, dp = q.shape
+    d = dp if d is None else d
     dev = q.device
     dq, dk, dv = (torch.empty((b, n, h, dp), dtype=torch.float32, device=dev) for _ in range(3))
     tiles = -(-n // TILE)
@@ -503,7 +516,7 @@ def _backward_f32(q, k, v, out, lse, g, seeds_i32, rate: float, d: int):
     tickets = (torch.empty((b * h, tiles), dtype=torch.int32, device=dev)
                if d < WIDE_MIN_HEAD_DIM else None)
     with torch.cuda.device(dev):
-        err = _lib_f32().mb_dropout_attention_bwd_f32(
+        err = lib.mb_dropout_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), seeds_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), _ptr(tickets), b, n, h, d,

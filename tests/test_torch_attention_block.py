@@ -47,9 +47,9 @@ def test_plain_version_matches_jax_block(n, d):
 
 
 # head dims past 128, where the port's block takes the wide attention core
-# (bf16 at widths 192 and 256, float32 in 64-wide panels): 256 (E = 512
+# (instantiated at widths 192 and 256 in bf16 and float32): 256 (E = 512
 # over 2 heads) and 200 (E = 400 over 2), whose padded width 208 is
-# neither an instantiation's width nor a multiple of the 64-wide panels
+# neither an instantiation's width nor a multiple of 64-wide chunks
 @pytest.mark.parametrize("e,heads", [(512, 2), (400, 2)])
 def test_plain_version_matches_jax_block_past_head_dim_128(e, heads):
     rng = np.random.default_rng(e)
@@ -184,8 +184,8 @@ def test_plain_version_matches_jax_block_at_other_widths(b, n, e, heads):
 
 def test_serving_layer_takes_the_plain_route_past_the_widest_kernel():
     """Head dim 192, past the narrow kernel templates: on the card the block
-    takes it (in bf16 its attention core holds the whole row, no padding;
-    in float32 it is cut into three 64-wide column panels), while on the
+    takes it (its attention core holds the whole row, no padding, in bf16
+    and in float32), while on the
     CPU the serving layer runs the plain block, as at every d, with its
     values and no kernel counted."""
     from maskbit_tpu_torch.nn import dropout_attention as da
@@ -194,7 +194,7 @@ def test_serving_layer_takes_the_plain_route_past_the_widest_kernel():
     assert ab.block_widths(384, 2) == (192, 192, 384)
     da.check_head_dim(192)
     assert da.head_panels(192) == [(0, 192)]
-    assert da.head_panels(192, torch.float32) == [(0, 64), (64, 64), (128, 64)]
+    assert da.head_panels(192, torch.float32) == [(0, 192)]
     ab.reset_launch_counts()
     layer = transformer.BertAttention(384, 2, attention_impl="fused").eval()
     with torch.no_grad():

@@ -152,8 +152,8 @@ def test_attention_block_kernel_rejects_bad_inputs():
         ab.fused_attention_block(**dict(inp, x=inp["x"].float()), num_heads=16)
     with pytest.raises(ValueError, match="contiguous"):
         ab.fused_attention_block(**dict(inp, wqkv=inp["wqkv"].contiguous()), num_heads=16)
-    # head dim 8 runs zero-padded to 16; past 128 the panelled attention
-    # core runs (BertAttention's serving layer calls the block at every
+    # head dim 8 runs zero-padded to 16; past 128 the wide attention core
+    # runs (BertAttention's serving layer calls the block at every
     # shape)
     got = ab.fused_attention_block(**inp, num_heads=128)
     want = ab.fused_attention_block_reference(**{k: v.float() for k, v in inp.items()},
@@ -397,7 +397,7 @@ def test_dropout_attention_kernel_rejects_bad_inputs():
     with pytest.raises(TypeError):
         da.dropout_attention(q.float(), k, v, s, 0.1)
     # head dim 8 runs zero-padded to 16 (views of the first 8 columns: the
-    # wrapper copies them padded); past 128 the panelled kernels run
+    # wrapper copies them padded); past 128 the wide kernels run
     narrow = [t[..., :8] for t in (q, k, v)]
     got = da.dropout_attention(*narrow, s, 0.1)
     want = da.dropout_attention_reference(*(t.float() for t in narrow), s, 0.1)
@@ -647,11 +647,11 @@ def test_bf16_attention_block_at_padded_widths(b, n, e, heads):
     assert (got.float() - want).abs().max().item() <= 3e-2
 
 
-# Past head dim 128 (bf16: csrc/attention_wide_bf16.cuh, instantiated at
-# widths 192 and 256 and streamed past 256; float32: the panelled kernels
-# of csrc/attention_wide.cuh): 144 and 200 (padded widths below the
-# instantiation's, and not multiples of the 64-wide panels), 256 (the
-# flagship's hidden 1024 over 4 heads), 320 (two 256-wide output panels)
+# Past head dim 128 (bf16: csrc/attention_wide_bf16.cuh, float32:
+# csrc/attention_wide_f32.cuh, each instantiated at widths 192 and 256 and
+# streamed past 256): 144 and 200 (padded widths below the instantiation's,
+# and not multiples of 64-wide chunks), 256 (the flagship's hidden 1024
+# over 4 heads), 320 (two 256-wide output panels)
 # and 1024 (one head of E = 1024), in bf16 at the native widths'
 # tolerances and in float32 within F32_TOL.
 WIDE_HEAD_DIMS = [144, 200, 256, 320, 1024]

@@ -49,3 +49,23 @@ def test_port_sources_hash_their_headers():
         assert '#include "attention_fwd.cuh"' in text
     headers = cuda_build._INCLUDE.findall((cuda_build.CSRC / "attention_fwd.cuh").read_text())
     assert headers == ["sm90.cuh", "attention_wide.cuh", "attention_wide_bf16.cuh"]
+
+
+def test_float32_source_hashes_its_kernels_past_head_dim_128(tmp_path):
+    """The float32 library alone includes the float32 kernels past 128
+    (attention_wide_f32.cuh), after the shared headers, and its name changes
+    with that header."""
+    text = (cuda_build.CSRC / "attention_f32.cu").read_text()
+    assert cuda_build._INCLUDE.findall(text) == ["attention_fwd.cuh", "layernorm.cuh",
+                                                 "attention_wide_f32.cuh"]
+    for name in ("attention_block", "dropout_attention"):
+        assert "attention_wide_f32.cuh" not in (cuda_build.CSRC / f"{name}.cu").read_text()
+    inc = tmp_path / "csrc"
+    inc.mkdir()
+    for f in cuda_build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (inc / f.name).write_text(f.read_text())
+    first = cuda_build.source_digest(inc / "attention_f32.cu", inc)
+    header = inc / "attention_wide_f32.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert cuda_build.source_digest(inc / "attention_f32.cu", inc) != first

@@ -14,6 +14,8 @@ kernels do (in bf16 a block holds the whole row up to 256 and 320 takes
 two 256-wide output panels).
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,13 +186,14 @@ def test_dropout_attention_matches_jax_at_unpadded_head_dims(d):
 
 # The panels past head dim 128 (`head_panels`): the kernels' blocks each
 # write one output panel, from scores over the whole of d, on inputs
-# zero-padded per head to a multiple of 16: in bf16 the whole row up to d =
-# 256 and panels of at most `WIDE_PANEL` columns past it, in float32 panels
-# of at most `PANEL` columns, the last narrower where the padded width is
-# not a multiple of the panel. In each dtype the plain per-panel version
-# over every panel, at the padded width and sliced to d, equals the plain
-# whole-width version at d (float64; 1e-12 covers the summation orders that
-# the padding's contraction length can move).
+# zero-padded per head to a multiple of 16: the whole row up to d = 256 and
+# panels of at most `WIDE_PANEL` columns past it, but float32's dk and dv
+# (`dkdv`) in panels of at most `PANEL` columns past 128, the last narrower
+# where the padded width is not a multiple of the panel. In each dtype the
+# plain per-panel version over every panel of either kind, at the padded
+# width and sliced to d, equals the plain whole-width version at d
+# (float64; 1e-12 covers the summation orders that the padding's
+# contraction length can move).
 @pytest.mark.parametrize("d", [129, 200, 256, 320, 1024])
 def test_head_panels_assemble_the_whole_width(d):
     b, n, h = 1, 9, 2
@@ -207,8 +210,12 @@ def test_head_panels_assemble_the_whole_width(d):
     want_out = da.dropout_attention_reference(q, k, v, seeds, RATE)
     want_grads = da.dropout_attention_backward_reference(q, k, v, g, seeds, RATE)
     want_fused = da.fused_attention_reference(q, k, v)
-    for dtype, most in ((torch.bfloat16, da.WIDE_PANEL), (torch.float32, da.PANEL)):
-        panels = da.head_panels(d, dtype)
+    assert da.head_panels(d, torch.float32) == da.head_panels(d)
+    assert da.head_panels(d, torch.float32, dkdv=True) == (
+        [(0, dp)] if d <= 128 else [(c, min(128, dp - c)) for c in range(0, dp, 128)])
+    for dtype, dkdv in itertools.product((torch.bfloat16, torch.float32), (False, True)):
+        panels = da.head_panels(d, dtype, dkdv)
+        most = da.PANEL if dkdv and dtype is torch.float32 else da.WIDE_PANEL
         assert panels[0][0] == 0 and sum(w for _, w in panels) == dp
         assert all(c1 == c0 + w0 for (c0, w0), (c1, _) in zip(panels, panels[1:]))
         assert all(0 < w <= most for _, w in panels)
@@ -239,7 +246,9 @@ def test_plain_route_past_the_widest_kernel(d):
     with pytest.raises(ValueError, match="head dim of at least 1, got 0"):
         da.check_head_dim(0)
     assert da.head_panels(d) == [(0, da.padded_head_dim(d))]
-    assert da.head_panels(d, torch.float32)[-1][0] >= 128 and da.head_panels(128) == [(0, 128)]
+    assert da.head_panels(d, torch.float32) == [(0, da.padded_head_dim(d))]
+    assert da.head_panels(d, torch.float32, dkdv=True)[-1][0] == 128
+    assert da.head_panels(128) == da.head_panels(128, torch.float32, dkdv=True) == [(0, 128)]
     ab.reset_launch_counts()
     b, n, h = 2, 9, 2
     mha = MultiHeadSelfAttention(h * d, h, attention_dropout=RATE, fused_dropout=True).train()

@@ -116,7 +116,8 @@ def test_profile_sampler_reports_layers(tmp_path, capsys):
                    "void (anonymous namespace)::proj_tf32_kernel<0>(CUtensorMap_st, ...)",
                    "void (anonymous namespace)::split_tf32_kernel(float4 const*, ...)",
                    "void (anonymous namespace)::attn_fwd_tf32_kernel<64, false>(TileMaps, ...)",
-                   "void (anonymous namespace)::attn_fwd_wide_kernel<float, false>(float const*)",
+                   "void (anonymous namespace)::attn_fwd_wide_tf32_kernel<256, false, false>"
+                   "(CUtensorMap_st, ...)",
                    "void (anonymous namespace)::attn_fwd_wide_bf16_kernel<256, false, false, 2>"
                    "(CUtensorMap_st, ...)",
                    "void (anonymous namespace)::layernorm_kernel<float>(float const*, ...)"):

@@ -203,13 +203,15 @@ def test_profile_train_categorises_the_float32_kernels():
                        ).startswith("dropout attention forward")
     assert category_of("void (anonymous namespace)::attn_bwd_tf32_kernel<64>(TileMaps const)"
                        ).startswith("dropout attention backward")
-    # past head dim 128, bf16's TMA and wgmma kernels and float32's panelled ones
+    # past head dim 128, bf16's TMA and wgmma kernels and float32's 3xTF32 ones
     assert category_of("void (anonymous namespace)::attn_fwd_wide_bf16_kernel<256, true, false, "
                        "2>(CUtensorMap_st)").startswith("dropout attention forward")
     assert category_of("void (anonymous namespace)::attn_bwd_wide_bf16_kernel<192, true, false>("
                        "CUtensorMap_st)").startswith("dropout attention backward")
-    assert category_of("void (anonymous namespace)::attn_bwd_wide_kernel<float, false>("
-                       "float const*)").startswith("dropout attention backward")
+    assert category_of("void (anonymous namespace)::attn_fwd_wide_tf32_kernel<256, true, false>("
+                       "CUtensorMap_st)").startswith("dropout attention forward")
+    assert category_of("void (anonymous namespace)::attn_bwd_wide_tf32_kernel<false, false>("
+                       "CUtensorMap_st)").startswith("dropout attention backward")
 
 
 def test_train_cli_trains_from_tar_shards(tmp_path):
